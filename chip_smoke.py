@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py              # every phase; needs one CUDA card
 
-Phases, each printing one line; any failure ends the run with a non-zero
+Phases, each printing its lines; any failure ends the run with a non-zero
 exit code and no result line:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — nvcc compiles every kernel from e2_tts_tpu_torch/csrc (sm_90a).
-3. kernels — K1 (packed flash attention), K3 / K5 (hyper-connection width
-   connection, depth-fused and plain), K6 (GEGLU): each kernel against its
-   plain PyTorch version on the card, at the flagship shapes (speech and text
-   widths, B=1), a ragged case, a dropout-on case and, for K1, a case whose
-   scores reach well into the tanh softclamp; then, at the main path's shape,
-   each kernel's device time per call (100 calls captured in one CUDA graph,
-   timed with CUDA events, so host dispatch is left out), its plain version's
-   device time (the same way), the wall time of one eager call of the
-   wrapper, and the bound.
+3. kernels — the eight kernels, each against its plain PyTorch version on the
+   card: K1 (packed flash attention) and its backward K2, K3 / K5
+   (hyper-connection width connection, depth-fused and plain) and their
+   adjoints K4 / K5b, K6 (GEGLU) and its backward K7. Forward kernels at the
+   sampler's shapes (B=1) and at the trainer's (B=16); backward kernels at
+   the trainer's; each with ragged, dropout, softclamp (K1, K2) and f32
+   cases. The first case of each kernel is timed: device time per call (100
+   calls captured in one CUDA graph, timed with CUDA events, so host
+   dispatch is left out), its plain version's device time (the same way),
+   the wall time of one eager call of the wrapper, and the bound. The
+   forward kernels are timed at the training shapes as well.
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -25,6 +27,14 @@ exit code and no result line:
    model's structure gives; then one CFG evaluation under torch.profiler
    (device-busy share, device time by kernel; the trace goes to
    build/profile/cfg_eval_trace.json).
+5. train   — one train step's loss and full grad vector at the flagship
+   widths (depth 2, B=2, dropout 0, the same weights and draws): the card in
+   f32 and in bf16 against the CPU in f32. Then the flagship with dropout 0.1
+   in bf16 under `E2Trainer` (ADOPT, clip 1.0, EMA): `train` over an
+   in-memory dataset of 32 random (100, 1024) mels, B=16 (two steps, also
+   the warm-up), then timed `train_step`s with and without text, with the
+   launch counters checked against the model's structure; then one step
+   under torch.profiler (trace: build/profile/train_step_trace.json).
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -45,6 +55,11 @@ PROMPT_FRAMES = 256
 STEPS = 32
 TEXT = 'the quick brown fox jumps over the lazy dog ' * 3
 FRAMES_PER_SECOND = 24_000 / 256      # mel hop 256 at 24 kHz
+# the JAX package's training bench (bench.py bench_train): B=16 x 1024
+# frames, dropout 0.1, the 0.75 / 0.25 mix of the text-kept / dropped steps
+TRAIN_BATCH = 16
+TRAIN_STEPS_TIMED = 10
+TEXT_DROP_PROB = 0.25
 
 # H100 SXM peaks, dense (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -101,6 +116,8 @@ def graph_ms(fn, iters: int) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
     return start.elapsed_time(end) / iters
 
 
@@ -110,19 +127,26 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def compare(out, ref, atol, rtol):
-    """(max abs error, worst |err| / (atol + rtol |ref|)) over a tuple."""
+def compare(out, ref, atol, rtol, scaled=False):
+    """(max abs error, worst |err| / (atol + rtol |ref|)) over a tuple; with
+    ``scaled`` the absolute term is ``atol`` times each tensor's max |ref|
+    (grads are sums over many rows, far from unit scale)."""
     import torch
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
+    if len(outs) != len(refs):
+        raise AssertionError(f'{len(outs)} outputs against {len(refs)} references')
     max_err, worst = 0.0, 0.0
     for o, r in zip(outs, refs):
         o, r = o.float(), r.float()
+        if o.shape != r.shape:
+            raise AssertionError(f'shape {tuple(o.shape)} against {tuple(r.shape)}')
         if not torch.isfinite(o).all():
             raise AssertionError('kernel output is not finite')
         err = (o - r).abs()
+        a = atol * float(r.abs().max()) if scaled else atol
         max_err = max(max_err, float(err.max()))
-        worst = max(worst, float((err / (atol + rtol * r.abs())).max()))
+        worst = max(worst, float((err / (a + rtol * r.abs() + 1e-30)).max()))
     return max_err, worst
 
 
@@ -131,9 +155,10 @@ def compare(out, ref, atol, rtol):
 def kernel_cases(torch, dev):
     """One dict per check: the kernel's wrapper (``run``), its plain version
     (``plain``), the tolerance, and the bytes and operations of the work for
-    the bound. K1 cases with the softclamp in play also carry ``unclamped``,
-    the plain version without the softclamp, which the kernel must not match.
-    Inputs come from a seeded generator on the card."""
+    the bound. K1 / K2 cases with the softclamp in play also carry
+    ``unclamped``, the plain version without the softclamp, which the kernel
+    must not match. ``train`` marks a forward case at the trainer's shape,
+    timed on its own row. Inputs come from a seeded generator on the card."""
     from e2_tts_tpu_torch.ops import flash_attention as fa
     from e2_tts_tpu_torch.ops import geglu_kernel as gk
     from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
@@ -142,6 +167,7 @@ def kernel_cases(torch, dev):
     randn = lambda *shape, dtype=torch.bfloat16, scale=1.0: (
         torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
     bf16, f32 = torch.bfloat16, torch.float32
+    esize = lambda dtype: torch.tensor([], dtype=dtype).element_size()
     # bf16: the kernels and the plain versions round at the same points but
     # sum in other orders, so outputs differ by about one bf16 ulp (2**-8 of
     # |ref|); f32: summation order only
@@ -150,9 +176,9 @@ def kernel_cases(torch, dev):
     # absolute term is ten times smaller than the other kernels'
     attn_tol = {bf16: (1e-3, 1e-2), f32: (1e-4, 1e-4)}
     cases = []
+    drop_none = lambda outs: tuple(t for t in outs if t is not None)
 
-    def attn_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                  softclamp=50.0, qk_scale=1.0):
+    def attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale):
         D = heads * dh
         # q/k/v as strided views of one (b, n, 3D) projection, as the model has them
         qkv = torch.randn(b, n, 3 * D, generator=g, device=dev)
@@ -163,11 +189,16 @@ def kernel_cases(torch, dev):
         if lens is not None:
             mask = torch.arange(n, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
         gate = randn(b, n, heads, dtype=dtype, scale=2.0) if gated else None
+        return q, k, v, mask, gate
+
+    def attn_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
+                  softclamp=50.0, qk_scale=1.0, train=False):
+        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
+        D, es = heads * dh, esize(dtype)
         kw = dict(heads=heads, dropout_rate=rate, dropout_seed=1234, gate_logits=gate)
         scale = dh ** -0.5
-        es = torch.tensor([], dtype=dtype).element_size()
         case = dict(
-            kernel='K1', label=label,
+            kernel='K1', label=label, train=train,
             run=lambda: fa.flash_attention_packed(q, k, v, mask, return_lse=True,
                                                   softclamp_value=softclamp, **kw),
             plain=lambda: fa.flash_attention_packed_plain(q, k, v, mask, scale=scale,
@@ -181,14 +212,44 @@ def kernel_cases(torch, dev):
                 q, k, v, mask, scale=scale, softclamp_value=None, **kw)
         cases.append(case)
 
-    def hc_case(label, s, m, d, dtype, fused):
-        params = (torch.eye(s, s + 1, device=dev).roll(1, dims=1) + randn(s, s + 1, dtype=f32, scale=0.1),
-                  1.0 + randn(s, dtype=f32, scale=0.1),
-                  randn(d, s + 1, dtype=f32, scale=0.05),
-                  torch.tensor(0.5, device=dev),
-                  randn(d, dtype=f32, scale=0.05),
-                  torch.tensor(0.5, device=dev))
-        es = torch.tensor([], dtype=dtype).element_size()
+    def attn_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
+                      softclamp=50.0, qk_scale=1.0):
+        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
+        D, es = heads * dh, esize(dtype)
+        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=4321, gate_logits=gate)
+        scale = dh ** -0.5
+        out, lse = fa.flash_attention_packed(q, k, v, mask, return_lse=True,
+                                             softclamp_value=softclamp, **kw)
+        dout = randn(b, n, D, dtype=dtype)
+        bwd = lambda sc: drop_none(fa.flash_attention_packed_backward_plain(
+            q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=sc, **kw))
+        case = dict(
+            kernel='K2', label=label, scaled=True,
+            run=lambda: drop_none(fa.flash_attention_packed_backward(
+                q, k, v, mask, out, lse, dout, softclamp_value=softclamp, **kw)),
+            plain=lambda: bwd(softclamp),
+            tol=tol[dtype],
+            # reads q, k, v, do, o, lse, gate (+ mask); writes dq, dk, dv, d gate
+            nbytes=8 * b * n * D * es + b * heads * n * 4 + 2 * b * n * heads * es
+            + (b * n if lens else 0),
+            flops=10 * b * heads * n * n * dh,     # five n x n x dh products
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+        if qk_scale != 1.0 or softclamp != 50.0:
+            case['unclamped'] = lambda: bwd(None)
+        cases.append(case)
+
+    def hc_params(s, d):
+        return (torch.eye(s, s + 1, device=dev).roll(1, dims=1)
+                + randn(s, s + 1, dtype=f32, scale=0.1),
+                1.0 + randn(s, dtype=f32, scale=0.1),
+                randn(d, s + 1, dtype=f32, scale=0.05),
+                torch.tensor(0.5, device=dev),
+                randn(d, dtype=f32, scale=0.05),
+                torch.tensor(0.5, device=dev))
+
+    def hc_case(label, s, m, d, dtype, fused, train=False):
+        params = hc_params(s, d)
+        es = esize(dtype)
         out_bytes = ((s + 1) * m * d + s * m) * es
         if fused:
             carried, branch, beta = randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype), \
@@ -202,20 +263,57 @@ def kernel_cases(torch, dev):
             plain = lambda: hck.width_connection_plain(res, *params)
             in_bytes = s * m * d * es
         cases.append(dict(
-            kernel='K3' if fused else 'K5', label=label, run=run, plain=plain,
+            kernel='K3' if fused else 'K5', label=label, run=run, plain=plain, train=train,
             tol=tol[dtype], nbytes=in_bytes + out_bytes,
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
             peak=PEAK_F32_FLOPS))        # the kernel's arithmetic is f32 FMA
 
-    def geglu_case(label, b, n, inner, dtype, rate=0.0):
-        h2 = randn(b, n, 2 * inner, dtype=dtype)
-        es = torch.tensor([], dtype=dtype).element_size()
+    def hc_bwd_case(label, s, m, d, dtype, fused):
+        params = hc_params(s, d)
+        es = esize(dtype)
+        grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
+        param_bytes = ((s + 2) * d + s * (s + 2) + 2) * 4 * 2      # read and written
+        grad_in_bytes = ((s + 1) * m * d + s * m) * es
+        # per row and stream: rms stat, projection, mix adjoint, back-projection,
+        # weight grad, rms adjoint, residual grad
+        flops = m * s * d * (4 + 6 * (s + 2) + 4 * (s + 1) + 6)
+        if fused:
+            carried, branch, beta = randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype), \
+                randn(s, m, dtype=dtype, scale=0.5)
+            args = (carried, branch, beta)
+            run = lambda: hck.width_connection_fused_backward(*args, *params, *grads)
+            plain = lambda: hck.width_connection_fused_backward_plain(*args, *params, *grads)
+            io_bytes = 2 * ((s + 1) * m * d + s * m) * es      # inputs, and their grads
+            flops += 6 * m * s * d
+        else:
+            res = randn(s, m, d, dtype=dtype)
+            run = lambda: hck.width_connection_backward(res, *params, *grads)
+            plain = lambda: hck.width_connection_backward_plain(res, *params, *grads)
+            io_bytes = 2 * s * m * d * es
         cases.append(dict(
-            kernel='K6', label=label, run=lambda: gk.geglu_dropout(h2, 77, rate),
+            kernel='K4' if fused else 'K5b', label=label, run=run, plain=plain, scaled=True,
+            tol=tol[dtype], nbytes=io_bytes + grad_in_bytes + param_bytes, flops=flops,
+            peak=PEAK_F32_FLOPS))
+
+    def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False):
+        h2 = randn(b, n, 2 * inner, dtype=dtype)
+        cases.append(dict(
+            kernel='K6', label=label, run=lambda: gk.geglu_dropout(h2, 77, rate), train=train,
             plain=lambda: gk.geglu_dropout_plain(h2, 77, rate), tol=tol[dtype],
-            nbytes=3 * b * n * inner * es, flops=20 * b * n * inner, peak=PEAK_F32_FLOPS))
+            nbytes=3 * b * n * inner * esize(dtype), flops=20 * b * n * inner,
+            peak=PEAK_F32_FLOPS))
+
+    def geglu_bwd_case(label, b, n, inner, dtype, rate=0.0):
+        h2 = randn(b, n, 2 * inner, dtype=dtype)
+        gout = randn(b, n, inner, dtype=dtype)
+        cases.append(dict(
+            kernel='K7', label=label, run=lambda: gk.geglu_dropout_backward(h2, gout, 77, rate),
+            plain=lambda: gk.geglu_dropout_backward_plain(h2, gout, 77, rate), tol=tol[dtype],
+            nbytes=5 * b * n * inner * esize(dtype), flops=30 * b * n * inner,
+            peak=PEAK_F32_FLOPS))
 
     n = FRAMES + 32          # 1024 frames + 32 registers
+    B = TRAIN_BATCH
     # the first case of each kernel is the main path's shape: it is the one timed
     attn_case('speech+text (1,1056,8x64) bf16 gated', 1, n, 8, 64, bf16)
     attn_case('ragged B=2 lens 1056/700 bf16', 2, n, 8, 64, bf16, lens=[n, 700])
@@ -224,18 +322,38 @@ def kernel_cases(torch, dev):
     attn_case('softclamp 2 (1,1056,8x64) bf16 gated', 1, n, 8, 64, bf16, softclamp=2.0)
     attn_case('f32 n=300 4x32 ungated, q/k x4 (scores ~N(0, 16^2), softclamp 50)',
               1, 300, 4, 32, f32, lens=[250], gated=False, qk_scale=4.0)
+    attn_case(f'train ({B},1056,8x64) bf16 gated dropout 0.1', B, n, 8, 64, bf16, rate=0.1,
+              train=True)
+    attn_bwd_case(f'train ({B},1056,8x64) bf16 gated dropout 0.1', B, n, 8, 64, bf16, rate=0.1)
+    attn_bwd_case('ragged B=2 lens 1056/700 bf16 gated dropout 0.1', 2, n, 8, 64, bf16,
+                  lens=[n, 700], rate=0.1)
+    attn_bwd_case('softclamp 2 (2,1056,8x64) bf16 gated', 2, n, 8, 64, bf16, softclamp=2.0)
+    attn_bwd_case('f32 n=300 4x32 ragged, q/k x4, dropout 0.1', 2, 300, 4, 32, f32,
+                  lens=[300, 250], rate=0.1, qk_scale=4.0)
+    M = B * n                # 16,896 rows at the training shape
     for fused in (True, False):
         tag = 'fused' if fused else 'plain'
         hc_case(f'{tag} speech (4,1056,512) bf16', 4, n, 512, bf16, fused)
         hc_case(f'{tag} text (4,1056,256) bf16', 4, n, 256, bf16, fused)
         hc_case(f'{tag} ragged M=1756 d=512 bf16', 4, n + 700, 512, bf16, fused)
         hc_case(f'{tag} f32 M=333 d=256', 4, 333, 256, f32, fused)
+        hc_case(f'{tag} train (4,{M},512) bf16', 4, M, 512, bf16, fused, train=True)
+        hc_bwd_case(f'{tag} train speech (4,{M},512) bf16', 4, M, 512, bf16, fused)
+        hc_bwd_case(f'{tag} train text (4,{M},256) bf16', 4, M, 256, bf16, fused)
+        hc_bwd_case(f'{tag} ragged M={M - 77} d=512 bf16', 4, M - 77, 512, bf16, fused)
+        hc_bwd_case(f'{tag} f32 M=333 d=256', 4, 333, 256, f32, fused)
     geglu_case('speech (1,1056,2x1408) bf16', 1, n, 1408, bf16)
     geglu_case('text (1,1056,2x704) bf16', 1, n, 704, bf16)
     geglu_case('ragged B=2 (2,1056,2x1408) bf16', 2, n, 1408, bf16)
     geglu_case('dropout 0.1 speech bf16', 1, n, 1408, bf16, rate=0.1)
     geglu_case('dropout 0.1 text bf16', 1, n, 704, bf16, rate=0.1)
     geglu_case('f32 (1,77,2x96)', 1, 77, 96, f32, rate=0.1)
+    geglu_case(f'train ({B},1056,2x1408) bf16 dropout 0.1', B, n, 1408, bf16, rate=0.1,
+               train=True)
+    geglu_bwd_case(f'train speech ({B},1056,2x1408) bf16 dropout 0.1', B, n, 1408, bf16,
+                   rate=0.1)
+    geglu_bwd_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1)
+    geglu_bwd_case('f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1)
     return cases
 
 
@@ -252,42 +370,87 @@ KERNEL_INFO = {
     'K6': dict(name='geglu_fwd', route='cuda',
                source='e2_tts_tpu_torch/csrc/geglu.cu',
                replaces='e2_tts_tpu/ops/geglu_kernel.py:78'),
+    'K2': dict(name='flash_bwd', route='cuda',
+               source='e2_tts_tpu_torch/csrc/flash_attention_bwd.cu',
+               replaces='e2_tts_tpu/ops/flash_attention.py:1041'),
+    'K4': dict(name='hc_width_fused_bwd', route='cuda',
+               source='e2_tts_tpu_torch/csrc/hyper_conn_bwd.cu',
+               replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:603'),
+    'K5b': dict(name='hc_width_bwd', route='cuda',
+                source='e2_tts_tpu_torch/csrc/hyper_conn_bwd.cu',
+                replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:562'),
+    'K7': dict(name='geglu_bwd', route='cuda',
+               source='e2_tts_tpu_torch/csrc/geglu.cu',
+               replaces='e2_tts_tpu/ops/geglu_kernel.py:90'),
 }
+FORWARD = ('K1', 'K3', 'K5', 'K6')
+
+
+def time_case(case):
+    bms, by = bound_ms(case['nbytes'], case['flops'], case['peak'])
+    return dict(ms=graph_ms(case['run'], 100), plain_ms=graph_ms(case['plain'], 50),
+                eager_ms=eager_ms(case['run'], 100), bound_ms=bms, bound_by=by)
 
 
 def phase_kernels(torch, dev):
-    records = {}
+    """Returns ``{kernel: record}`` (the first case's times, the worst error)
+    and ``{kernel: record}`` of the forward kernels at the training shape."""
+    records, train_records = {}, {}
     for case in kernel_cases(torch, dev):
         kname, label, (atol, rtol) = case['kernel'], case['label'], case['tol']
+        scaled = case.get('scaled', False)
         out = case['run']()
         torch.cuda.synchronize()
-        err, worst = compare(out, case['plain'](), atol, rtol)
+        err, worst = compare(out, case['plain'](), atol, rtol, scaled)
         rec = records.setdefault(kname, dict(max_abs_err=0.0))
         rec['max_abs_err'] = max(rec['max_abs_err'], err)
+        abs_term = f'{atol:g} max|ref|' if scaled else f'{atol:g}'
         line = (f'kernel {kname} {label}: max_abs_err={err:.3e} '
-                f'(tolerance |err| <= {atol:g} + {rtol:g}|ref|, worst ratio {worst:.3f})')
+                f'(tolerance |err| <= {abs_term} + {rtol:g}|ref|, worst ratio {worst:.3f})')
         separated = True
         if 'unclamped' in case:
-            err_nc, worst_nc = compare(out[0], case['unclamped']()[0], atol, rtol)
+            first = lambda t: t[0] if isinstance(t, tuple) and kname == 'K1' else t
+            err_nc, worst_nc = compare(first(out), first(case['unclamped']()), atol, rtol,
+                                       scaled)
             separated = worst_nc > 1.0
             line += (f'; against the plain version without softclamp: '
                      f'max_abs_err={err_nc:.3e}, worst ratio {worst_nc:.3f} (must be > 1)')
-        if 'ms' not in rec:
-            bms, by = bound_ms(case['nbytes'], case['flops'], case['peak'])
-            rec.update(ms=graph_ms(case['run'], 100), plain_ms=graph_ms(case['plain'], 50),
-                       eager_ms=eager_ms(case['run'], 100), bound_ms=bms, bound_by=by)
-            line += (f' ms={rec["ms"]:.5f} plain_ms={rec["plain_ms"]:.5f} '
-                     f'eager_call_ms={rec["eager_ms"]:.5f} bound_ms={bms:.5f} ({by})')
+        timed = None
+        if case.get('train'):
+            timed = train_records[kname] = time_case(case)
+        elif 'ms' not in rec:
+            timed = time_case(case)
+            rec.update(timed)
+        if timed:
+            line += (f' ms={timed["ms"]:.5f} plain_ms={timed["plain_ms"]:.5f} '
+                     f'eager_call_ms={timed["eager_ms"]:.5f} bound_ms={timed["bound_ms"]:.5f} '
+                     f'({timed["bound_by"]})')
         log(line)
+        del out
         if worst > 1.0:
             raise AssertionError(f'{kname} {label}: kernel disagrees with its plain version')
         if not separated:
             raise AssertionError(f'{kname} {label}: the check cannot tell the softclamp '
                                  f'from its absence')
-    return records
+    torch.cuda.empty_cache()
+    return records, train_records
 
 
-# -- phase 4: main path ---------------------------------------------------------
+# -- phase 4: main path (sample) --------------------------------------------------
+
+def build_e2tts(torch, device, dtype, **transformer):
+    """The flagship E2TTS with weights from seed 0, each perturbed by 0.02 *
+    randn (so zero-initialised branches are live), built on the CPU and
+    moved: equal seeds give equal weights on every device."""
+    from e2_tts_tpu_torch import E2TTS
+    gen = torch.Generator().manual_seed(0)
+    model = E2TTS(transformer=dict(FLAGSHIP, **transformer), dtype=dtype, generator=gen,
+                  device='cpu')
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model.to(device)
+
 
 def expected_launches(model, steps: int) -> dict:
     """Launches of one `sample` with sequential CFG, from the model's
@@ -305,19 +468,10 @@ def expected_launches(model, steps: int) -> dict:
 
 
 def phase_main(torch, dev, smi):
-    from e2_tts_tpu_torch import E2TTS
     from e2_tts_tpu_torch.ops import _cuda
 
-    def build(device, dtype):
-        gen = torch.Generator().manual_seed(0)
-        model = E2TTS(transformer=dict(FLAGSHIP), dtype=dtype, generator=gen, device='cpu')
-        with torch.no_grad():
-            for p in model.parameters():
-                p.add_(0.02 * torch.randn(p.shape, generator=gen))
-        return model.to(device).eval()
-
-    model = build(dev, torch.bfloat16)
-    cpu_model = build('cpu', None)     # same weights, f32 compute
+    model = build_e2tts(torch, dev, torch.bfloat16).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None).eval()     # same weights, f32 compute
     n_params = sum(p.numel() for p in model.parameters())
 
     g = torch.Generator().manual_seed(1)
@@ -358,7 +512,8 @@ def phase_main(torch, dev, smi):
 
     if tuple(mel.shape) != (1, FRAMES, 100) or not torch.isfinite(mel).all():
         raise AssertionError(f'sample output bad: shape {tuple(mel.shape)}')
-    expected = expected_launches(model, STEPS)
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS))
     audio_s = FRAMES / FRAMES_PER_SECOND
     log(f'main sample B=1 frames={FRAMES} NFE={2 * (STEPS - 1)} midpoint cfg=1.0 sequential: '
         f'seconds={seconds:.4f} rtf={seconds / audio_s:.5f} params={n_params} '
@@ -368,36 +523,36 @@ def phase_main(torch, dev, smi):
     return counts, model
 
 
-def phase_profile(torch, model):
-    """Trace one sequential-CFG evaluation; print the device-busy share,
-    device time by kernel and host time by operator (inclusive)."""
+def profile_run(torch, run, trace_name):
+    """Trace one call of ``run``; print the device-busy share, device time
+    by kernel and host time by operator (inclusive)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    dev = model.device
-    x = torch.randn(1, FRAMES, 100, device=dev, dtype=torch.bfloat16)
-    text = torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long, device=dev)
-    times = torch.full((1,), 0.5, device=dev)
-    run = lambda: model.cfg_transformer_with_pred_head(x, x, times, text=text, batched_cfg=False)
-    with torch.no_grad():
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, 'cfg_eval_trace.json'))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
     averages = prof.key_averages()
     # device activity (kernels, copies, sets) only: an operator's own entry
-    # repeats the device time of the kernels it launched
-    events = [e for e in averages if e.device_type == DeviceType.CUDA]
+    # repeats the device time of the kernels it launched, and a user range
+    # (the optimizer's step) spans its kernels and the gaps between them
+    on_device = [e for e in averages if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in on_device if getattr(e, 'is_user_annotation', False)]
+    events = [e for e in on_device if e not in ranges]
     device_us = sum(e.self_device_time_total for e in events)
     host_ops = sum(e.count for e in averages if e.key.startswith('aten::'))
     launches = sum(e.count for e in averages if e.key == 'cudaLaunchKernel')
-    log(f'profile one cfg eval: wall_ms={wall * 1e3:.3f} device_busy_ms={device_us / 1e3:.3f} '
+    log(f'  wall_ms={wall * 1e3:.3f} device_busy_ms={device_us / 1e3:.3f} '
         f'busy_share={device_us / 1e3 / (wall * 1e3):.3f} device_activities='
         f'{sum(e.count for e in events)} aten_ops={host_ops} cudaLaunchKernel={launches}')
+    for e in ranges:
+        log(f'  range  {e.key[:60]:60s} calls={e.count:5d} '
+            f'device_span_ms={e.self_device_time_total / 1e3:.3f}')
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f'  device {e.key[:60]:60s} calls={e.count:5d} '
             f'device_ms={e.self_device_time_total / 1e3:.3f}')
@@ -405,6 +560,159 @@ def phase_profile(torch, model):
     for e in sorted(aten, key=lambda e: -e.cpu_time_total)[:8]:
         log(f'  host   {e.key[:60]:60s} calls={e.count:5d} '
             f'cpu_ms_inclusive={e.cpu_time_total / 1e3:.3f}')
+
+
+def phase_profile(torch, model):
+    """One sequential-CFG evaluation under the profiler."""
+    dev = model.device
+    x = torch.randn(1, FRAMES, 100, device=dev, dtype=torch.bfloat16)
+    text = torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long, device=dev)
+    times = torch.full((1,), 0.5, device=dev)
+    log('profile one cfg eval:')
+    with torch.no_grad():
+        profile_run(torch, lambda: model.cfg_transformer_with_pred_head(
+            x, x, times, text=text, batched_cfg=False), 'cfg_eval_trace.json')
+
+
+# -- phase 5: train ---------------------------------------------------------------
+
+def step_loss_and_grads(torch, model, batch):
+    """One loss + backward on ``batch`` (with its draws); returns the loss
+    and every parameter's grad as one f32 vector on the CPU."""
+    model.zero_grad(set_to_none=True)
+    dev = model.device
+    out = model(batch['mel'].to(dev), text=batch['text'].to(dev), lens=batch['lens'].to(dev),
+                drop_text_cond=False, times=batch['times'], noise=batch['noise'],
+                rand_span_mask=batch['span'])
+    out.loss.backward()
+    grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten().cpu()
+             for p in model.parameters()]
+    return float(out.loss.detach()), torch.cat(grads)
+
+
+def train_check_batch(torch, model, frames=512):
+    """B=2 mels with ragged lengths, texts, and the loss's draws."""
+    g = torch.Generator().manual_seed(3)
+    lens = torch.tensor([frames, frames - 112])
+    span = torch.zeros(2, frames, dtype=torch.bool)
+    span[0, 100:400] = True
+    span[1, 50:350] = True
+    return dict(mel=torch.randn(2, frames, 100, generator=g),
+                text=torch.as_tensor(model.tokenizer([TEXT, TEXT[:60]]), dtype=torch.long),
+                lens=lens, span=span, times=torch.rand(2, generator=g),
+                noise=torch.randn(2, frames, 100, generator=g))
+
+
+# the card against the CPU's f32 step at depth 2, B=2, 512 frames. A CPU
+# rehearsal of the same comparison (tests/test_torch_training.py) gives, for
+# bf16 against f32, loss 9.4e-5 and grads 9.5e-3 (limits ~10x and ~3x that);
+# for f32 summed in another order (1 thread against 8), 7.4e-8 and 1.5e-7:
+# f32 on the card sums in other orders and tiles again, within 1e-5 and 1e-4
+TRAIN_CHECK_TOL = {'f32': dict(loss=1e-5, grad=1e-4), 'bf16': dict(loss=1e-3, grad=3e-2)}
+
+
+def phase_train_check(torch, dev):
+    """One step's loss and grads on the card, in f32 and in bf16, against
+    the CPU's f32 step on the same weights and draws."""
+    small = dict(depth=2, dropout=0.0)
+    cpu_model = build_e2tts(torch, 'cpu', None, **small).train()
+    batch = train_check_batch(torch, cpu_model)
+    ref_loss, ref_grad = step_loss_and_grads(torch, cpu_model, batch)
+    del cpu_model
+    for label, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        model = build_e2tts(torch, dev, None if label == 'f32' else dtype, **small).train()
+        loss, grad = step_loss_and_grads(torch, model, batch)
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        grad_rel = float((grad - ref_grad).norm() / ref_grad.norm())
+        lim = TRAIN_CHECK_TOL[label]
+        log(f'train check card {label} vs cpu f32 (depth 2, B=2, 512 frames, dropout 0, '
+            f'same weights and draws): loss={loss:.6f} cpu_loss={ref_loss:.6f} '
+            f'loss_rel={loss_rel:.3e} (<= {lim["loss"]:g}) grad_rel_l2={grad_rel:.3e} '
+            f'(<= {lim["grad"]:g}) over {grad.numel()} grads')
+        if not (torch.isfinite(grad).all() and loss_rel <= lim['loss']
+                and grad_rel <= lim['grad']):
+            raise AssertionError(f'train step on the card ({label}) disagrees with the CPU')
+        del model
+    torch.cuda.empty_cache()
+
+
+def expected_train_launches(model, with_text: bool) -> dict:
+    """Launches of one train step, from the model's structure: per layer of
+    a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 and K6 / K7
+    once. Without text the text stream does not run."""
+    tf = model.transformer
+    layers = tf.depth + (tf.text_depth if with_text else 0)
+    counts = dict(flash_fwd=layers, hc_width=layers, hc_width_fused=2 * layers,
+                  geglu_fwd=layers)
+    counts.update(flash_bwd=layers, hc_width_bwd=layers, hc_width_fused_bwd=2 * layers,
+                  geglu_bwd=layers)
+    return counts
+
+
+def phase_train(torch, dev, smi):
+    import numpy as np
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    model = build_e2tts(torch, dev, torch.bfloat16, dropout=0.1)
+    # the JAX training bench's optimizer: ADOPT at a constant 7.5e-5, clip 1.0
+    trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                        seed=0)
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    dataset = ArrayDataset(
+        [rng.standard_normal((100, FRAMES)).astype(np.float32) for _ in range(32)],
+        [' '.join(rng.choice(words, size=12)) for _ in range(32)])
+
+    before = [p.detach().clone() for p in model.parameters()]
+    history = trainer.train(dataset, epochs=1, batch_size=TRAIN_BATCH, save_step=10 ** 9)
+    torch.cuda.synchronize()
+    moved = sum(bool((a != p.detach()).any()) for a, p in zip(before, model.parameters()))
+    log(f'train E2Trainer.train 1 epoch over 32 x (100, {FRAMES}) mels, B={TRAIN_BATCH}: '
+        f'losses={[round(loss, 5) for _, loss in history]} '
+        f'parameter tensors moved={moved}/{len(before)}')
+    if (len(history) != len(dataset) // TRAIN_BATCH
+            or not all(np.isfinite(loss) for _, loss in history)):
+        raise AssertionError(f'train() history bad: {history}')
+    if moved < len(before):
+        raise AssertionError('not every parameter moved after two steps')
+    del before
+
+    batch = trainer.prepare_batch(next(iter_batches(dataset, TRAIN_BATCH, seed=1)))
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    ms, losses = {}, []
+    for drop in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            loss, _, _ = trainer.train_step(*batch, drop_text_cond=drop)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms[drop] = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS_TIMED
+    counts = dict(_cuda.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(torch.stack(losses)).all())
+    mix_ms = (1 - TEXT_DROP_PROB) * ms[False] + TEXT_DROP_PROB * ms[True]
+    frames_s = TRAIN_BATCH * FRAMES / (mix_ms / 1e3)
+    log(f'train steps B={TRAIN_BATCH} frames={FRAMES} dropout 0.1 bf16, {TRAIN_STEPS_TIMED} each: '
+        f'ms_per_step_with_text={ms[False]:.3f} ms_per_step_text_dropped={ms[True]:.3f} '
+        f'ms_per_step_mix_0.75_0.25={mix_ms:.3f} mel_frames_per_s={frames_s:.1f} '
+        f'max_memory_allocated_gib={peak_gib:.3f} loss_finite={finite} '
+        f'last_loss={float(losses[-1]):.5f} launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+    with_text, dropped = (expected_train_launches(model, t) for t in (True, False))
+    expected = {k: TRAIN_STEPS_TIMED * (with_text[k] + dropped[k]) for k in _cuda.KERNELS}
+    if counts != expected:
+        raise AssertionError(f'train launch counts {counts} != expected {expected}')
+    if not finite:
+        raise AssertionError('train loss is not finite')
+
+    log('profile one train step (with text):')
+    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                'train_step_trace.json')
+    return counts
 
 
 def main() -> int:
@@ -430,13 +738,24 @@ def main() -> int:
         f'seconds={_cuda.build_seconds:.2f}')
     _cuda.lib()
 
-    records = phase_kernels(torch, dev)
-    counts, model = phase_main(torch, dev, smi)
+    records, train_records = phase_kernels(torch, dev)
+    for kid in FORWARD:
+        r, t = records[kid], train_records[kid]
+        log(f'kernel {kid} at the training shape vs the sampling shape: ms={t["ms"]:.5f} '
+            f'(sampling {r["ms"]:.5f}) plain_ms={t["plain_ms"]:.5f} '
+            f'eager_call_ms={t["eager_ms"]:.5f} bound_ms={t["bound_ms"]:.5f} ({t["bound_by"]})')
+    sample_counts, model = phase_main(torch, dev, smi)
     phase_profile(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_train_check(torch, dev)
+    train_counts = phase_train(torch, dev, smi)
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
         rec = records[kid]
+        # forward kernels: their launches on the sampling path; backward: training
+        counts = sample_counts if kid in FORWARD else train_counts
         kernels.append(dict(
             name=info['name'], route=info['route'], source=info['source'],
             replaces=info['replaces'], launches=counts[info['name']],

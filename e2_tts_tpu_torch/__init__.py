@@ -3,10 +3,12 @@ the NVIDIA H100 (sm_90a).
 
 A port of the JAX package `e2_tts_tpu`, which stays beside it as the
 reference. The layout mirrors the JAX package (`models/`, `ops/`, `text/`,
-`utils/`) so each module has an obvious counterpart. This slice covers the
-flagship sampler: `E2TTS.sample` with a mel prompt, the dual-stream
-`Transformer`, and the four forward kernels on that path (packed flash
-attention, the two hyper-connection width connections, GEGLU).
+`utils/`, `training/`) so each module has an obvious counterpart. The port
+covers the flagship sampler (`E2TTS.sample` with a mel prompt) and trainer
+(`E2TTS.forward`'s flow-matching loss, `E2Trainer` with ADOPT, clip and
+EMA), the dual-stream `Transformer`, and the eight kernels on those paths:
+packed flash attention, the two hyper-connection width connections and
+GEGLU, each forward and backward.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.
@@ -17,6 +19,9 @@ Imports are lazy so that importing the package pulls in nothing heavy.
 _EXPORTS = {
     'Transformer': 'e2_tts_tpu_torch.models.transformer',
     'E2TTS': 'e2_tts_tpu_torch.models.e2tts',
+    'E2Trainer': 'e2_tts_tpu_torch.training.trainer',
+    'EMA': 'e2_tts_tpu_torch.training.ema',
+    'Adopt': 'e2_tts_tpu_torch.training.adopt',
 }
 
 __all__ = list(_EXPORTS)

@@ -3,8 +3,10 @@
 `load_jax_params(model, flat)` takes the JAX model's state — ``nnx.state
 (model)`` flattened to a dict of dotted path -> numpy array, e.g.
 ``'transformer.speech_layers.0.attn.to_qkv.kernel'`` — and copies it into
-the port's module of the same structure. The port never imports JAX: the
-caller builds the dict.
+the port's module of the same structure. `map_jax_tree(flat, targets)`
+does the renaming and relayout for any tree with the parameters' paths
+(weights, grads, ADOPT moments, EMA weights) and returns port name ->
+array. The port never imports JAX: the caller builds the dict.
 
 Layout rules:
 - a linear ``kernel (in, out)`` becomes ``weight (out, in)``;
@@ -16,9 +18,9 @@ Layout rules:
 - RMSNorm ``gamma``, the registers, the hyper-connection parameters and the
   RandomFourierEmbed ``weights`` buffer keep their names and layouts.
 
-The bridge is strict: a JAX array the port does not use, or a port
-parameter or buffer the JAX state does not set, raises. RNG state (any path
-through ``rngs``) is ignored.
+The bridge is strict: a JAX array the port does not use, a port tensor the
+JAX tree does not set, or a shape that does not match raises. RNG state
+(any path through ``rngs``) is ignored.
 """
 
 from __future__ import annotations
@@ -49,11 +51,12 @@ def _port_name_and_value(key: str, value: np.ndarray):
     raise ValueError(f'no layout rule for JAX kernel {key} of shape {value.shape}')
 
 
-def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
-    """Copy the JAX state ``flat`` into ``model`` in place (strict)."""
-    targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
-    unused, filled = [], set()
+def map_jax_tree(flat: dict[str, np.ndarray], targets: dict[str, tuple]) -> dict[str, np.ndarray]:
+    """A flat JAX tree with the parameters' paths -> ``{port name: array in
+    the port's layout}``, strict against ``targets`` (port name -> shape):
+    every non-RNG JAX path must map to a target of the same shape, and
+    every target must be set."""
+    out, unused = {}, []
     for key, value in flat.items():
         if _is_rng_path(key):
             continue
@@ -61,14 +64,24 @@ def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None
         if name not in targets:
             unused.append(key)
             continue
-        dst = targets[name]
-        if tuple(dst.shape) != tuple(arr.shape):
+        if tuple(targets[name]) != tuple(arr.shape):
             raise ValueError(f'{key} -> {name}: shape {arr.shape} does not match '
-                             f'the port\'s {tuple(dst.shape)}')
-        with torch.no_grad():
-            dst.copy_(torch.from_numpy(np.array(arr, copy=True)).to(dst.dtype))
-        filled.add(name)
-    missing = sorted(set(targets) - filled)
+                             f'the port\'s {tuple(targets[name])}')
+        out[name] = arr
+    missing = sorted(set(targets) - set(out))
     if unused or missing:
-        raise ValueError(f'load_jax_params: unused JAX arrays {sorted(unused)}; '
+        raise ValueError(f'map_jax_tree: unused JAX arrays {sorted(unused)}; '
                          f'port tensors not set {missing}')
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
+    """Copy the JAX state ``flat`` into ``model``'s parameters and buffers
+    in place (strict)."""
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    mapped = map_jax_tree(flat, {name: t.shape for name, t in targets.items()})
+    with torch.no_grad():
+        for name, arr in mapped.items():
+            dst = targets[name]
+            dst.copy_(torch.from_numpy(np.array(arr, copy=True)).to(dst.dtype))

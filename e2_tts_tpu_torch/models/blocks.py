@@ -7,6 +7,10 @@ Conventions, as in the JAX package:
 - initialisation follows the JAX package's (lecun-normal linear and conv
   kernels, zero-init AdaLNZero / cross-condition weights, value-gate bias
   10), drawn from an explicit ``torch.Generator``.
+- dropout seeds, too, come from the caller's ``torch.Generator`` (the
+  ``generator`` argument of `Attention` / `FeedForward.forward`, handed
+  down from the transformer), never from torch's global generator, so a
+  training run repeats from its own generator.
 - `load_jax_params` (convert.py) maps a JAX model's parameters onto these
   modules one to one; the names below mirror the JAX attribute paths.
 """
@@ -42,9 +46,14 @@ def cast(t: torch.Tensor, dtype) -> torch.Tensor:
     return t if t.dtype == dtype else t.to(dtype)
 
 
-def draw_seed() -> int:
-    """A dropout seed from torch's default generator."""
-    return int(torch.randint(0, 2 ** 31 - 1, (1,)))
+def draw_seed(generator: torch.Generator | None) -> int:
+    """A dropout seed drawn from ``generator``; dropout in training mode
+    needs one (torch's global generator is never used)."""
+    if generator is None:
+        raise ValueError('dropout in training mode draws its seeds from an explicit '
+                         'torch.Generator: pass generator=')
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device))
 
 
 class Linear(nn.Module):
@@ -233,10 +242,10 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(inner, dim, dtype=dtype, generator=generator)
         self.dropout_rate = dropout
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.proj_in(x)
         rate = self.dropout_rate if self.training else 0.0
-        seed = draw_seed() if rate > 0.0 else 0
+        seed = draw_seed(generator) if rate > 0.0 else 0
         return self.proj_out(geglu_dropout(h, seed, rate))
 
 
@@ -283,7 +292,8 @@ class Attention(nn.Module):
             Linear(dim, heads, dtype=dtype, generator=generator)
             if learned_value_residual_mix else None)
 
-    def forward(self, x, rotary_pos_emb=None, mask=None, value_residual=None):
+    def forward(self, x, rotary_pos_emb=None, mask=None, value_residual=None,
+                generator=None):
         b, n, _ = x.shape
         h, inner = self.heads, self.inner
 
@@ -306,6 +316,6 @@ class Attention(nn.Module):
         out = attention_packed(
             q, k, v, mask, heads=h, softclamp_value=self.softclamp_value,
             dropout_rate=self.dropout_rate if training else 0.0,
-            dropout_seed=draw_seed() if training else None,
+            dropout_seed=draw_seed(generator) if training else None,
             gate_logits=gate_logits)
         return self.to_out(out), orig_values

@@ -1,5 +1,14 @@
-"""E2TTS — conditional flow-matching TTS, the sampling side (counterpart of
+"""E2TTS — conditional flow-matching TTS (counterpart of
 e2_tts_tpu/models/e2tts.py).
+
+Training (`forward`): mask-infilling flow matching. Noise x0, a time t ~
+U(0, 1) and a random span of the mel to infill are drawn; the transformer
+sees w = (1 - t) x0 + t x1 with the span zeroed in the condition and
+predicts the flow x1 - x0; the MSE is restricted to the span. An optional
+velocity-consistency term holds the prediction to an EMA teacher's at
+t + delta. The draws come from a ``torch.Generator`` or are passed in
+(``times``, ``noise``, ``rand_span_mask``); the same generator draws the
+dropout seeds.
 
 Inference integrates the learned velocity field from noise over a fixed
 time grid (ops/ode.py) with classifier-free guidance, APG parallel-component
@@ -8,15 +17,15 @@ pair runs as two sequential passes (the null pass runs no text stream at
 all) or as one 2x-batched pass whose null half gates the text->audio adds
 to zero.
 
-This slice ports the flagship form (``concat_cond=False``) with a mel
-prompt and a given ``duration``. Not ported yet (each raises): a raw-wave
-prompt (needs ops/mel.py), the duration predictor, the vocoder,
-``concat_cond``, interpolated text, the frequency axis, and the training
-loss.
+The port covers the flagship form (``concat_cond=False``) with mel inputs
+and, for sampling, a given ``duration``. Not ported yet (each raises): a
+raw-wave input or prompt (needs ops/mel.py), the duration predictor, the
+vocoder, ``concat_cond``, interpolated text and the frequency axis.
 """
 
 from __future__ import annotations
 
+from collections import namedtuple
 from random import random as py_random
 
 import numpy as np
@@ -29,10 +38,22 @@ from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.ode import odeint
 from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer
 from e2_tts_tpu_torch.utils.helpers import default, exists, resolve_device, round_up_to_multiple
-from e2_tts_tpu_torch.utils.masking import lens_to_mask
+from e2_tts_tpu_torch.utils.masking import lens_to_mask, mask_from_frac_lengths
 from e2_tts_tpu_torch.utils.tensor import project
 
 MEL_CHANNELS = 100       # the JAX package's MelSpec default (n_mel_channels)
+
+LossBreakdown = namedtuple('LossBreakdown', ['flow', 'velocity_consistency'])
+
+E2TTSReturn = namedtuple('E2TTS', ['loss', 'cond', 'pred_flow', 'pred_data', 'loss_breakdown'])
+
+
+def masked_mse(pred, target, span_mask):
+    """Mean squared error over the span's frames and all channels (f32)."""
+    err = (pred.float() - target.float()) ** 2
+    err = torch.where(span_mask[..., None], err, 0.0)
+    denom = torch.clamp(span_mask.float().sum() * pred.shape[-1], min=1.0)
+    return err.sum() / denom
 
 
 def _not_ported(what: str):
@@ -50,15 +71,19 @@ class E2TTS(nn.Module):
         num_channels: int | None = None,
         mel_spec_module=None,
         num_freq_tokens: int = 1,
+        frac_lengths_mask: tuple[float, float] = (0.7, 1.0),
         concat_cond: bool = False,
         interpolated_text: bool = False,
         text_num_embeds: int | None = None,
         tokenizer='char_utf8',
         use_vocos: bool = False,
+        velocity_consistency_weight: float = 0.0,
         dtype=None,
         generator: torch.Generator | None = None,
         device=None,
     ):
+        """``generator`` draws the initial weights and stays the default
+        source of `forward`'s draws (as the JAX model's ``rngs``)."""
         super().__init__()
         for flag, what in ((exists(duration_predictor), 'the duration predictor'),
                            (exists(mel_spec_module), 'the mel frontend (mel_spec_module)'),
@@ -89,14 +114,93 @@ class E2TTS(nn.Module):
         self.cond_drop_prob = cond_drop_prob
         self.embed_text = CharacterEmbed(self.dim_text, num_embeds=text_num_embeds,
                                          dtype=dtype, generator=generator)
+        self.frac_lengths_mask = tuple(frac_lengths_mask)
+        self.velocity_consistency_weight = velocity_consistency_weight
+        self.generator = generator
         self.to(device)
 
     @property
     def device(self) -> torch.device:
         return self.proj_in.weight.device
 
-    def forward(self, *args, **kwargs):
-        _not_ported('the flow-matching training loss (E2TTS.forward)')
+    def forward(self, inp: torch.Tensor, *, text=None, times=None, lens=None,
+                noise=None, rand_span_mask=None, velocity_consistency_model=None,
+                velocity_consistency_delta: float = 1e-5,
+                drop_text_cond: bool | None = None,
+                generator: torch.Generator | None = None) -> E2TTSReturn:
+        """The flow-matching loss on mels ``inp (b, n, num_channels)``.
+
+        ``times (b,)``, ``noise`` (x0, the shape of ``inp``) and
+        ``rand_span_mask (b, n)`` replace the draws from ``generator``
+        (default: the model's), which are made in that order: the span's
+        length fractions and starts, x0, t. ``drop_text_cond`` defaults to a
+        host-side coin with probability ``cond_drop_prob`` in training mode.
+        ``velocity_consistency_model`` (an EMA teacher) adds the
+        velocity-consistency term when ``velocity_consistency_weight > 0``."""
+        if inp.ndim == 2:
+            _not_ported('a raw-wave input (it needs ops/mel.py)')
+        need_velocity_loss = (exists(velocity_consistency_model)
+                              and self.velocity_consistency_weight > 0.0)
+        device = self.device
+        generator = default(generator, self.generator)
+        gen_device = generator.device
+        inp = inp.to(device)
+        batch, seq_len = inp.shape[0], inp.shape[1]
+        dtype = inp.dtype
+
+        text = self._tokenize(text, batch)
+        if not exists(lens):
+            lens = torch.full((batch,), seq_len, dtype=torch.long, device=device)
+        lens = lens.to(device)
+        mask = lens_to_mask(lens, length=seq_len)
+
+        # random infill span
+        if not exists(rand_span_mask):
+            lo, hi = self.frac_lengths_mask
+            frac_lengths = (torch.rand((batch,), generator=generator, device=gen_device)
+                            * (hi - lo) + lo).to(device)
+            rand_span_mask = mask_from_frac_lengths(lens, frac_lengths, seq_len,
+                                                    generator=generator)
+        rand_span_mask = rand_span_mask.to(device) & mask
+
+        # flow matching: x0 noise, x1 data
+        x1 = inp
+        if exists(noise):
+            x0 = noise.to(device=device, dtype=dtype)
+        else:
+            x0 = torch.randn(x1.shape, generator=generator, device=gen_device,
+                             dtype=dtype).to(device)
+        if exists(times):
+            times = times.to(device=device, dtype=torch.float32)
+        else:
+            times = torch.rand((batch,), generator=generator, device=gen_device).to(device)
+        t = times[:, None, None].to(dtype)
+        if need_velocity_loss:
+            t = t * (1.0 - velocity_consistency_delta)
+
+        w = (1.0 - t) * x0 + t * x1
+        flow = x1 - x0
+
+        # infill target: zero the span, keep the rest as conditioning
+        cond = torch.where(rand_span_mask[..., None], torch.zeros_like(x1), x1)
+
+        pred, did_drop_text_cond = self.transformer_with_pred_head(
+            w, cond, times, text=text, mask=mask, drop_text_cond=drop_text_cond,
+            return_drop_text_cond=True, generator=generator)
+
+        velocity_loss = torch.zeros((), dtype=torch.float32, device=device)
+        if need_velocity_loss:
+            t_delta = t + velocity_consistency_delta
+            w_delta = (1.0 - t_delta) * x0 + t_delta * x1
+            with torch.no_grad():
+                ema_pred = velocity_consistency_model.transformer_with_pred_head(
+                    w_delta, cond, times + velocity_consistency_delta, text=text,
+                    mask=mask, drop_text_cond=did_drop_text_cond)
+            velocity_loss = masked_mse(pred, ema_pred, rand_span_mask)
+
+        loss = masked_mse(pred, flow, rand_span_mask)
+        total = loss + velocity_loss * self.velocity_consistency_weight
+        return E2TTSReturn(total, cond, pred, x0 + pred, LossBreakdown(loss, velocity_loss))
 
     def _tokenize(self, text, batch):
         if isinstance(text, list):
@@ -110,9 +214,11 @@ class E2TTS(nn.Module):
 
     def transformer_with_pred_head(self, x, cond, times, mask=None, text=None,
                                    drop_text_cond: bool | None = None,
-                                   return_drop_text_cond: bool = False):
+                                   return_drop_text_cond: bool = False,
+                                   generator: torch.Generator | None = None):
         """Core prediction pass; ``drop_text_cond`` defaults to a host-side
-        coin with probability ``cond_drop_prob`` while training."""
+        coin with probability ``cond_drop_prob`` while training; in training
+        mode ``generator`` (default: the model's) draws the dropout seeds."""
         seq_len = x.shape[-2]
         drop_text_cond = default(
             drop_text_cond, self.training and py_random() < self.cond_drop_prob)
@@ -122,7 +228,8 @@ class E2TTS(nn.Module):
         if exists(text) and not drop_text_cond:
             text_embed = self.embed_text(text, seq_len, mask=mask)
 
-        pred = self.to_pred(self.transformer(x, times=times, mask=mask, text_embed=text_embed))
+        pred = self.to_pred(self.transformer(x, times=times, mask=mask, text_embed=text_embed,
+                                             generator=default(generator, self.generator)))
         return (pred, drop_text_cond) if return_drop_text_cond else pred
 
     def _cfg_batched_preds(self, x, cond, times, *, text, mask):

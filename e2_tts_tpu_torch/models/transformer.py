@@ -182,7 +182,7 @@ class Transformer(nn.Module):
         self.to(device)
 
     def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, cond,
-               attn_v, text_v, text_gate, push_skip):
+               attn_v, text_v, text_gate, push_skip, generator):
         sl = self.speech_layers[ind]
 
         # text stream first, then cross-condition
@@ -195,12 +195,12 @@ class Transformer(nn.Module):
 
             t_in, add_residual = t_attn_hc(text_embed)
             t_out, t_values = tl.attn(tl.attn_norm(t_in), rotary_pos_emb=text_rotary,
-                                      mask=mask, value_residual=text_v)
+                                      mask=mask, value_residual=text_v, generator=generator)
             text_embed = add_residual(t_out)
             text_v = default(text_v, t_values)
 
             t_in, add_residual = t_ff_hc(text_embed)
-            text_embed = add_residual(tl.ff(tl.ff_norm(t_in)))
+            text_embed = add_residual(tl.ff(tl.ff_norm(t_in), generator=generator))
 
             x, text_embed = tl.cross_condition(
                 materialize(x), materialize(text_embed), gate=text_gate)
@@ -217,21 +217,22 @@ class Transformer(nn.Module):
 
         b_in, add_residual = attn_hc(x)
         attn_out, values = sl.attn(sl.attn_norm(b_in, condition=cond), rotary_pos_emb=rotary,
-                                   mask=mask, value_residual=attn_v)
+                                   mask=mask, value_residual=attn_v, generator=generator)
         x = add_residual(sl.attn_adaln_zero(attn_out, condition=cond))
         attn_v = default(attn_v, values)
 
         b_in, add_residual = ff_hc(x)
-        ff_out = sl.ff(sl.ff_norm(b_in, condition=cond))
+        ff_out = sl.ff(sl.ff_norm(b_in, condition=cond), generator=generator)
         x = add_residual(sl.ff_adaln_zero(ff_out, condition=cond))
 
         return materialize(x), text_embed, skip_out, attn_v, text_v
 
-    def forward(self, x, times, mask=None, text_embed=None, text_cond_gate=None):
+    def forward(self, x, times, mask=None, text_embed=None, text_cond_gate=None,
+                generator: torch.Generator | None = None):
         """``x (b, n, dim)``, ``times (b,)`` or scalar, ``mask (b, n)`` bool,
         ``text_embed (b, n, dim_text)``; ``text_cond_gate (b,)`` scales each
-        sample's text->audio adds (0 = a text-free pass). Returns
-        ``(b, n, dim)``."""
+        sample's text->audio adds (0 = a text-free pass). ``generator``
+        draws the dropout seeds in training mode. Returns ``(b, n, dim)``."""
         if x.ndim != 3:
             raise NotImplementedError('the frequency axis (4-dim input) is not ported yet')
         if exists(self.dtype):
@@ -276,7 +277,7 @@ class Transformer(nn.Module):
             skip_in = None if is_first_half else skips.pop()
             x, text_embed, skip_out, attn_v, text_v = self._layer(
                 ind, x, text_embed, skip_in, mask, rotary, text_rotary, cond,
-                attn_v, text_v, text_gate, push_skip=is_first_half)
+                attn_v, text_v, text_gate, push_skip=is_first_half, generator=generator)
             if is_first_half:
                 skips.append(skip_out)
         assert len(skips) == 0

@@ -35,7 +35,9 @@ NVCC_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo']
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-KERNELS = ('flash_fwd', 'hc_width', 'hc_width_fused', 'geglu_fwd')
+# forward kernels K1, K5, K3, K6, then their backward kernels K2, K5b, K4, K7
+KERNELS = ('flash_fwd', 'hc_width', 'hc_width_fused', 'geglu_fwd',
+           'flash_bwd', 'hc_width_bwd', 'hc_width_fused_bwd', 'geglu_bwd')
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -110,6 +112,11 @@ _SIGNATURES = {
     'e2_hc_width_fused': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _LL, _I, _I, _P],
     'e2_geglu_fwd': [_P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
+    'e2_flash_bwd': [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _P],
+    'e2_hc_width_bwd': [_P] * 13 + [_I, _I, _LL, _I, _I, _P],
+    'e2_hc_width_fused_bwd': [_P] * 17 + [_I, _I, _LL, _I, _I, _P],
+    'e2_geglu_bwd': [_P, _P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
 }
 
 

@@ -1,4 +1,7 @@
-"""Mask / length utilities (counterpart of e2_tts_tpu/utils/masking.py)."""
+"""Mask / length utilities (counterpart of e2_tts_tpu/utils/masking.py).
+
+Randomness comes in through an explicit ``torch.Generator`` (the JAX
+package threads PRNG keys), never torch's global generator."""
 
 from __future__ import annotations
 
@@ -23,3 +26,23 @@ def pad_to_length(t: torch.Tensor, length: int, value=None) -> torch.Tensor:
     if length > seq_len:
         t = F.pad(t, (0, length - seq_len), value=0 if value is None else value)
     return t[..., :length]
+
+
+def mask_from_start_end_indices(start: torch.Tensor, end: torch.Tensor,
+                                length: int) -> torch.Tensor:
+    """Bool mask ``(b, length)`` that is True on ``[start, end)``."""
+    seq = torch.arange(length, device=start.device, dtype=start.dtype)
+    return (seq[None, :] >= start[:, None]) & (seq[None, :] < end[:, None])
+
+
+def mask_from_frac_lengths(seq_len: torch.Tensor, frac_lengths: torch.Tensor,
+                           max_length: int, generator: torch.Generator) -> torch.Tensor:
+    """Random span mask covering ``int(frac * len)`` frames from a uniform
+    random start, per row: the JAX package's formula, with the start drawn
+    from ``generator`` (on its own device, then moved to ``seq_len``'s)."""
+    lengths = (frac_lengths * seq_len.to(frac_lengths.dtype)).to(seq_len.dtype)
+    max_start = seq_len - lengths
+    rand = torch.rand(frac_lengths.shape, generator=generator, device=generator.device,
+                      dtype=frac_lengths.dtype).to(seq_len.device)
+    start = (max_start.to(rand.dtype) * rand).to(seq_len.dtype).clamp(min=0)
+    return mask_from_start_end_indices(start, start + lengths, max_length)

@@ -10,12 +10,17 @@ the flagship shapes.
 
 Tolerances: bf16 outputs within 1e-2 + 1e-2 |ref| (two bf16 ulps; the
 kernels and the plain versions round at the same points but sum in other
-orders), f32 within 1e-4 + 1e-4 |ref|.
+orders), f32 within 1e-4 + 1e-4 |ref|. The backward kernels' grads are held
+to the same relative terms with the absolute term scaled by the largest
+|ref| of each grad (grads of sums over thousands of rows are far from
+unit scale); K2's dq also sums key tiles by atomicAdd in an order that
+changes from run to run, which stays within the f32 term.
 """
 
 import pytest
 import torch
 
+from e2_tts_tpu_torch.models.e2tts import E2TTS
 from e2_tts_tpu_torch.ops import _cuda
 from e2_tts_tpu_torch.ops import flash_attention as fa
 from e2_tts_tpu_torch.ops import geglu_kernel as gk
@@ -86,6 +91,114 @@ def test_geglu_kernel(dev, dtype, inner, rate):
     g = torch.Generator(device=dev).manual_seed(2)
     h2 = torch.randn(2, 100, 2 * inner, generator=g, device=dev).to(dtype)
     _close(gk.geglu_dropout(h2, 99, rate), gk.geglu_dropout_plain(h2, 99, rate), dtype)
+
+
+def _close_grads(out, ref, dtype):
+    rtol = TOL[dtype]['rtol']
+    for o, r in zip(out, ref):
+        o, r = o.float(), r.float()
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, r, rtol=rtol, atol=rtol * float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('gated', [False, True])
+def test_flash_bwd_kernel(dev, dtype, rate, gated):
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n, h, dh = 2, 200, 8, 64
+    qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.split(h * dh, dim=-1)
+    mask = torch.arange(n, device=dev)[None] < torch.tensor([n, 131], device=dev)[:, None]
+    gate = torch.randn(b, n, h, generator=g, device=dev).to(dtype) if gated else None
+    kw = dict(heads=h, softclamp_value=50.0, dropout_rate=rate, dropout_seed=7,
+              gate_logits=gate)
+    out, lse = fa.flash_attention_packed(q, k, v, mask, return_lse=True, **kw)
+    dout = torch.randn(b, n, h * dh, generator=g, device=dev).to(dtype)
+    before = _cuda.launch_counts['flash_bwd']
+    got = fa.flash_attention_packed_backward(q, k, v, mask, out, lse, dout, **kw)
+    assert _cuda.launch_counts['flash_bwd'] == before + 1
+    ref = fa.flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout,
+                                                   scale=dh ** -0.5, **kw)
+    assert (got[3] is None) == (not gated)
+    _close_grads([t for t in got if t is not None], [t for t in ref if t is not None], dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('d', [256, 512])
+def test_width_bwd_kernels(dev, dtype, fused, d):
+    g = torch.Generator(device=dev).manual_seed(4)
+    s, m = 4, 333
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+    params = (torch.eye(s, s + 1, device=dev) + rnd(s, s + 1, scale=0.1),
+              1.0 + rnd(s, scale=0.1), rnd(d, s + 1, scale=0.05),
+              torch.tensor(0.5, device=dev), rnd(d, scale=0.05), torch.tensor(0.5, device=dev))
+    grads = (rnd(m, d).to(dtype), rnd(s, m, d).to(dtype), rnd(s, m).to(dtype))
+    name = 'hc_width_fused_bwd' if fused else 'hc_width_bwd'
+    before = _cuda.launch_counts[name]
+    if fused:
+        args = (rnd(s, m, d).to(dtype), rnd(m, d).to(dtype), rnd(s, m, scale=0.5).to(dtype))
+        got = hck.width_connection_fused_backward(*args, *params, *grads)
+        ref = hck.width_connection_fused_backward_plain(*args, *params, *grads)
+    else:
+        res = rnd(s, m, d).to(dtype)
+        got = hck.width_connection_backward(res, *params, *grads)
+        ref = hck.width_connection_backward_plain(res, *params, *grads)
+    assert _cuda.launch_counts[name] == before + 1
+    _close_grads(got, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('inner', [1408, 704])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+def test_geglu_bwd_kernel(dev, dtype, inner, rate):
+    g = torch.Generator(device=dev).manual_seed(5)
+    h2 = torch.randn(2, 100, 2 * inner, generator=g, device=dev).to(dtype)
+    gout = torch.randn(2, 100, inner, generator=g, device=dev).to(dtype)
+    before = _cuda.launch_counts['geglu_bwd']
+    got = gk.geglu_dropout_backward(h2, gout, 99, rate)
+    assert _cuda.launch_counts['geglu_bwd'] == before + 1
+    _close(got, gk.geglu_dropout_backward_plain(h2, gout, 99, rate), dtype)
+
+
+def test_wrappers_keep_the_graph(dev):
+    """On CUDA tensors that require grad, every kernel wrapper's output has
+    a grad_fn (the autograd.Functions tie each forward kernel to its
+    backward kernel)."""
+    x = torch.randn(1, 64, 512, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    gate = torch.zeros(1, 64, 8, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    assert fa.flash_attention_packed(x, x, x, heads=8, gate_logits=gate).grad_fn is not None
+    assert gk.geglu_dropout(x, 1, 0.1).grad_fn is not None
+    params = [torch.zeros(4, 5, device=dev, requires_grad=True),
+              torch.ones(4, device=dev, requires_grad=True),
+              torch.zeros(256, 5, device=dev, requires_grad=True),
+              torch.tensor(0.01, device=dev, requires_grad=True),
+              torch.zeros(256, device=dev, requires_grad=True),
+              torch.tensor(0.01, device=dev, requires_grad=True)]
+    r = torch.randn(4, 64, 256, device=dev, dtype=torch.bfloat16)
+    assert all(t.grad_fn is not None for t in hck.width_connection(r, *params))
+    assert all(t.grad_fn is not None for t in hck.width_connection_fused(
+        r, r[0], torch.ones(4, 64, device=dev, dtype=torch.bfloat16), *params))
+
+
+def test_loss_backward_reaches_every_parameter(dev):
+    """`loss.backward()` on the card, through all eight kernels, gives every
+    parameter a finite grad."""
+    gen = torch.Generator().manual_seed(0)
+    model = E2TTS(transformer=dict(dim=512, depth=2, heads=8, dim_head=64, num_registers=4,
+                                   kernel_size=7, dropout=0.1),
+                  dtype=torch.bfloat16, generator=gen, device=dev).train()
+    mel = torch.randn(2, 120, 100, generator=gen).to(dev)
+    before = dict(_cuda.launch_counts)
+    out = model(mel, text=['hello there', 'a b c'], lens=torch.tensor([120, 90]),
+                drop_text_cond=False, generator=torch.Generator().manual_seed(1))
+    out.loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.loss)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert all(_cuda.launch_counts[k] > before[k] for k in _cuda.KERNELS)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -295,7 +295,7 @@ def test_unported_paths_raise(e2tts_pair):
     with pytest.raises(ValueError):
         p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration
     with pytest.raises(NotImplementedError):
-        p(torch.zeros(1, 8, 100), text=['hi'])                        # training loss
+        p(torch.zeros(1, 2400), text=['hi'])                          # raw-wave loss input
     for kw in (dict(concat_cond=True), dict(use_vocos=True), dict(num_freq_tokens=2),
                dict(interpolated_text=True), dict(tokenizer='phoneme_en')):
         with pytest.raises(NotImplementedError):
@@ -336,8 +336,10 @@ def test_port_imports_no_jax():
         'import e2_tts_tpu_torch as pkg\n'
         'for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):\n'
         '    importlib.import_module(m.name)\n'
-        'from e2_tts_tpu_torch import E2TTS, Transformer\n'
-        'bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "e2_tts_tpu")]\n'
+        'from e2_tts_tpu_torch import E2TTS, Transformer, E2Trainer, EMA, Adopt\n'
+        'import e2_tts_tpu_torch.training.trainer, e2_tts_tpu_torch.training.data\n'
+        'bad = [m for m in sys.modules if m.split(".")[0] in\n'
+        '       ("jax", "jaxlib", "flax", "optax", "orbax", "e2_tts_tpu")]\n'
         'assert not bad, bad\n'
         'print("ok")\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
