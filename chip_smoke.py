@@ -8,17 +8,25 @@ exit code and no result line:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — nvcc compiles every kernel from e2_tts_tpu_torch/csrc (sm_90a).
-3. kernels — the eight kernels, each against its plain PyTorch version on the
-   card: K1 (packed flash attention) and its backward K2, K3 / K5
-   (hyper-connection width connection, depth-fused and plain) and their
-   adjoints K4 / K5b, K6 (GEGLU) and its backward K7. Forward kernels at the
-   sampler's shapes (B=1) and at the trainer's (B=16); backward kernels at
-   the trainer's; each with ragged, dropout, softclamp (K1, K2) and f32
-   cases. The first case of each kernel is timed: device time per call (100
-   calls captured in one CUDA graph, timed with CUDA events, so host
-   dispatch is left out), its plain version's device time (the same way),
-   the wall time of one eager call of the wrapper, and the bound. The
-   forward kernels are timed at the training shapes as well.
+3. kernels — the ten kernels, each against its plain PyTorch version on the
+   card: K1 (packed flash attention) and its backward K2 with K2's delta
+   pre-pass K10, K3 / K5 (hyper-connection width connection, depth-fused and
+   plain) and their adjoints K4 / K5b, K6 (GEGLU) and its backward K7, K11
+   (the fused log-mel frontend). Forward kernels at the sampler's shapes
+   (B=1; K11 at a 3-s prompt), at the duration predictor's (B=1, the
+   prompt's 282 frames + 32 registers) and at the trainer's (B=16);
+   backward kernels at the trainer's; each with ragged, dropout, softclamp
+   (K1, K2), power / window (K11) and f32 cases. K11 at the prompt is also
+   run and timed unsplit (one block per 64 rows), the design its frequency
+   split replaced. A check whose plain version leaves out a
+   feature (K1 / K2 without the softclamp, K11 at power 1 against the power-2
+   kernel) must fail. The first case of each kernel is timed: device time
+   per call (100 calls captured in one CUDA graph, timed with CUDA events,
+   so host dispatch is left out), its plain version's device time (the same
+   way), the one PyTorch call that computes the same function where there
+   is one (K10: einsum), the wall time of one eager call of the wrapper, and
+   the bound. The forward kernels are timed at the training shapes as well;
+   K11 also beside `MelSpec(mode='dft')`.
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -27,9 +35,20 @@ exit code and no result line:
    model's structure gives; then one CFG evaluation under torch.profiler
    (device-busy share, device time by kernel; the trace goes to
    build/profile/cfg_eval_trace.json).
-5. train   — one train step's loss and full grad vector at the flagship
+5. serve   — zero-shot serving from a raw waveform: the flagship with the
+   duration predictor (dim 512, depth 8, HL-Gauss classification head),
+   the fused log-mel frontend (K11) and the Vocos vocoder, bf16. One
+   duration-predictor evaluation on the card against the f32 CPU model, one
+   Vocos decode on the card against the CPU (f32), the request's parts
+   timed alone (mel frontend, duration predictor, vocoder), then a timed
+   `sample` of a 3-s prompt wave with no duration (NFE 32 midpoint, CFG 1.0
+   sequential): predicted duration, waveform length, seconds, RTF with the
+   vocoder, and the launch counters against the model's structure.
+6. train   — one train step's loss and full grad vector at the flagship
    widths (depth 2, B=2, dropout 0, the same weights and draws): the card in
-   f32 and in bf16 against the CPU in f32. Then the flagship with dropout 0.1
+   f32 and in bf16 against the CPU in f32, and the f32 loss from a raw-wave
+   batch (K11 on the card) against the loss from the plain frontend's mels,
+   with K10 launched once per K2. Then the flagship with dropout 0.1
    in bf16 under `E2Trainer` (ADOPT, clip 1.0, EMA): `train` over an
    in-memory dataset of 32 random (100, 1024) mels, B=16 (two steps, also
    the warm-up), then timed `train_step`s with and without text, with the
@@ -60,6 +79,20 @@ FRAMES_PER_SECOND = 24_000 / 256      # mel hop 256 at 24 kHz
 TRAIN_BATCH = 16
 TRAIN_STEPS_TIMED = 10
 TEXT_DROP_PROB = 0.25
+HOP = 256
+PROMPT_SAMPLES = 72_000            # a 3-s voice prompt at 24 kHz: 282 frames
+TRAIN_WAVE_SAMPLES = (FRAMES - 1) * HOP   # 1024 frames per training wave
+# the serving configuration: the flagship with examples/sample_example.py's
+# duration predictor, but an HL-Gauss classification head over [0, 2048]
+# (with random weights the regression head predicts under one frame; the
+# expectation over near-uniform bins lands near 1024 frames)
+SERVE_E2TTS = dict(
+    duration_predictor=dict(transformer=dict(dim=512, depth=8, heads=8, dim_head=64),
+                            hl_gauss_loss=dict(min_value=0.0, max_value=2048.0, num_bins=128),
+                            use_regression=False, mel_spec_kwargs=dict(mode='pallas')),
+    mel_spec_kwargs=dict(mode='pallas'), use_vocos=True)
+# the predictor's sequence at the 3-s prompt: 282 frames + 32 registers
+PREDICTOR_N = 1 + PROMPT_SAMPLES // HOP + 32
 
 # H100 SXM peaks, dense (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -155,15 +188,21 @@ def compare(out, ref, atol, rtol, scaled=False):
 def kernel_cases(torch, dev):
     """One dict per check: the kernel's wrapper (``run``), its plain version
     (``plain``), the tolerance, and the bytes and operations of the work for
-    the bound. K1 / K2 cases with the softclamp in play also carry
-    ``unclamped``, the plain version without the softclamp, which the kernel
-    must not match. ``train`` marks a forward case at the trainer's shape,
-    timed on its own row. Inputs come from a seeded generator on the card."""
+    the bound. A case may carry ``against``: a description and a plain
+    version that leaves out a feature of the kernel (K1 / K2: the softclamp;
+    K11: power 2), which the kernel must not match. ``train`` marks a forward case at the trainer's shape,
+    timed on its own row. ``library`` is the one PyTorch call that computes
+    the same function, where there is one. Inputs come from a seeded
+    generator on the card."""
+    from e2_tts_tpu_torch.ops import _cuda
     from e2_tts_tpu_torch.ops import flash_attention as fa
     from e2_tts_tpu_torch.ops import geglu_kernel as gk
     from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
+    from e2_tts_tpu_torch.ops import mel_kernel as mk
+    from e2_tts_tpu_torch.ops.mel import MelSpec, frame_signal
 
     g = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     randn = lambda *shape, dtype=torch.bfloat16, scale=1.0: (
         torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -208,8 +247,8 @@ def kernel_cases(torch, dev):
             flops=4 * b * heads * n * n * dh,
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
         if qk_scale != 1.0 or softclamp != 50.0:
-            case['unclamped'] = lambda: fa.flash_attention_packed_plain(
-                q, k, v, mask, scale=scale, softclamp_value=None, **kw)
+            case['against'] = ('without softclamp', lambda: fa.flash_attention_packed_plain(
+                q, k, v, mask, scale=scale, softclamp_value=None, **kw)[0])
         cases.append(case)
 
     def attn_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
@@ -235,7 +274,7 @@ def kernel_cases(torch, dev):
             flops=10 * b * heads * n * n * dh,     # five n x n x dh products
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
         if qk_scale != 1.0 or softclamp != 50.0:
-            case['unclamped'] = lambda: bwd(None)
+            case['against'] = ('without softclamp', lambda: bwd(None))
         cases.append(case)
 
     def hc_params(s, d):
@@ -312,6 +351,71 @@ def kernel_cases(torch, dev):
             nbytes=5 * b * n * inner * esize(dtype), flops=30 * b * n * inner,
             peak=PEAK_F32_FLOPS))
 
+    def mel_unsplit(frames, dft_cos, dft_sin, fbanks, power):
+        """K11 through its C entry point with one split: each block runs
+        every frequency tile of its 64 rows, the design that the split
+        replaced for few rows. Not the wrapper, so it counts no launch."""
+        b, t, n_fft = frames.shape
+        n_freqs, n_mels = fbanks.shape
+        out = torch.empty((b, t, n_mels), dtype=f32, device=dev)
+        err = _cuda.lib().e2_mel_fwd(
+            frames.data_ptr(), frames.stride(0), frames.stride(1), t, b * t, n_fft,
+            dft_cos.data_ptr(), dft_sin.data_ptr(), n_freqs, fbanks.data_ptr(), n_mels,
+            out.data_ptr(), None, 1, float(power), _cuda.stream_ptr(dev))
+        _cuda.check(err, 'mel_fwd unsplit')
+        return out
+
+    def mel_case(label, b, nw, power=1.0, win=1024, train=False, against_power=None,
+                 unsplit=False):
+        spec = MelSpec(power=power, win_length=win, mode='pallas').to(dev)
+        dft_spec = MelSpec(power=power, win_length=win).to(dev)
+        wave = torch.randn(b, nw, generator=g, device=dev) * 0.1
+        frames = frame_signal(wave, 1024, HOP, center=True)      # a view of the padded wave
+        tables = (spec.dft_cos, spec.dft_sin, spec.fbanks)
+        rows, n_freqs, n_mels = b * frames.shape[1], spec.fbanks.shape[0], spec.fbanks.shape[1]
+        if unsplit and mk.frequency_splits(rows, n_freqs, sms) == 1:
+            raise AssertionError(f'{label}: the wrapper does not split at {rows} rows')
+        case = dict(
+            kernel='K11', label=label, train=train,
+            run=lambda: mk.fused_log_mel(frames, *tables, power),
+            plain=lambda: mk.fused_log_mel_plain(frames, *tables, power),
+            dft=lambda: dft_spec(wave),
+            tol=(2e-3, 1e-3),
+            # the padded wave, the two bases and the filterbank read once; log-mel written
+            nbytes=4 * (b * (nw + 1024) + 2 * 1024 * n_freqs + n_freqs * n_mels + rows * n_mels),
+            flops=rows * (4 * 1024 * n_freqs + 2 * n_freqs * n_mels),
+            peak=PEAK_F32_FLOPS)
+        if against_power is not None:
+            case['against'] = (f'at power {against_power:g}', lambda: mk.fused_log_mel_plain(
+                frames, *tables, against_power))
+        if unsplit:
+            case['unsplit'] = lambda: mel_unsplit(frames, *tables, power)
+        cases.append(case)
+
+    def delta_case(label, b, n, heads, dh, dtype):
+        o, do = randn(b, n, heads * dh, dtype=dtype), randn(b, n, heads * dh, dtype=dtype)
+        # K2's caller finds o and do in device memory, not in the 50 MB L2: each
+        # call takes the next of four equal copies (4 x 35 MB at the training shape)
+        pairs = [(o, do)] + [(o.clone(), do.clone()) for _ in range(3)]
+        calls = [0]
+
+        def rotating(fn):
+            def call():
+                calls[0] += 1
+                return fn(*pairs[calls[0] % len(pairs)])
+            return call
+
+        split = lambda t: t.view(b, n, heads, dh)
+        cases.append(dict(
+            kernel='K10', label=label, scaled=True,
+            run=rotating(lambda o, do: fa.flash_delta(o, do, heads=heads)),
+            plain=rotating(lambda o, do: fa.flash_delta_plain(o, do, heads)),
+            library=rotating(lambda o, do: torch.einsum('bnhd,bnhd->bnh', split(o), split(do))),
+            # f32 sums of dh products in other orders
+            tol=(1e-5, 1e-5),
+            nbytes=2 * b * n * heads * dh * esize(dtype) + 4 * b * n * heads,
+            flops=2 * b * n * heads * dh, peak=PEAK_F32_FLOPS))
+
     n = FRAMES + 32          # 1024 frames + 32 registers
     B = TRAIN_BATCH
     # the first case of each kernel is the main path's shape: it is the one timed
@@ -322,6 +426,8 @@ def kernel_cases(torch, dev):
     attn_case('softclamp 2 (1,1056,8x64) bf16 gated', 1, n, 8, 64, bf16, softclamp=2.0)
     attn_case('f32 n=300 4x32 ungated, q/k x4 (scores ~N(0, 16^2), softclamp 50)',
               1, 300, 4, 32, f32, lens=[250], gated=False, qk_scale=4.0)
+    attn_case(f'duration predictor (1,{PREDICTOR_N},8x64) bf16 gated', 1, PREDICTOR_N, 8, 64,
+              bf16)
     attn_case(f'train ({B},1056,8x64) bf16 gated dropout 0.1', B, n, 8, 64, bf16, rate=0.1,
               train=True)
     attn_bwd_case(f'train ({B},1056,8x64) bf16 gated dropout 0.1', B, n, 8, 64, bf16, rate=0.1)
@@ -337,6 +443,10 @@ def kernel_cases(torch, dev):
         hc_case(f'{tag} text (4,1056,256) bf16', 4, n, 256, bf16, fused)
         hc_case(f'{tag} ragged M=1756 d=512 bf16', 4, n + 700, 512, bf16, fused)
         hc_case(f'{tag} f32 M=333 d=256', 4, 333, 256, f32, fused)
+        hc_case(f'{tag} duration predictor speech (4,{PREDICTOR_N},512) bf16', 4, PREDICTOR_N,
+                512, bf16, fused)
+        hc_case(f'{tag} duration predictor text (4,{PREDICTOR_N},256) bf16', 4, PREDICTOR_N,
+                256, bf16, fused)
         hc_case(f'{tag} train (4,{M},512) bf16', 4, M, 512, bf16, fused, train=True)
         hc_bwd_case(f'{tag} train speech (4,{M},512) bf16', 4, M, 512, bf16, fused)
         hc_bwd_case(f'{tag} train text (4,{M},256) bf16', 4, M, 256, bf16, fused)
@@ -348,12 +458,27 @@ def kernel_cases(torch, dev):
     geglu_case('dropout 0.1 speech bf16', 1, n, 1408, bf16, rate=0.1)
     geglu_case('dropout 0.1 text bf16', 1, n, 704, bf16, rate=0.1)
     geglu_case('f32 (1,77,2x96)', 1, 77, 96, f32, rate=0.1)
+    geglu_case(f'duration predictor speech (1,{PREDICTOR_N},2x1408) bf16', 1, PREDICTOR_N,
+               1408, bf16)
+    geglu_case(f'duration predictor text (1,{PREDICTOR_N},2x704) bf16', 1, PREDICTOR_N, 704,
+               bf16)
     geglu_case(f'train ({B},1056,2x1408) bf16 dropout 0.1', B, n, 1408, bf16, rate=0.1,
                train=True)
     geglu_bwd_case(f'train speech ({B},1056,2x1408) bf16 dropout 0.1', B, n, 1408, bf16,
                    rate=0.1)
     geglu_bwd_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1)
     geglu_bwd_case('f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1)
+    mel_case(f'prompt (1,{PROMPT_SAMPLES}) = 282 frames power 1', 1, PROMPT_SAMPLES,
+             unsplit=True)
+    mel_case(f'train ({B},{TRAIN_WAVE_SAMPLES}) = {B}x1024 frames power 1', B,
+             TRAIN_WAVE_SAMPLES, train=True)
+    mel_case('power 2 prompt', 1, PROMPT_SAMPLES, power=2.0, against_power=1.0)
+    mel_case('power 0.7 prompt', 1, PROMPT_SAMPLES, power=0.7)
+    mel_case('win_length 800 prompt', 1, PROMPT_SAMPLES, win=800)
+    mel_case('ragged 300 rows (2,38144)', 2, 149 * HOP)
+    delta_case(f'train ({B},1056,8x64) bf16', B, n, 8, 64, bf16)
+    delta_case('ragged n (3,777,8x64) bf16', 3, 777, 8, 64, bf16)
+    delta_case('f32 (2,300,4x32)', 2, 300, 4, 32, f32)
     return cases
 
 
@@ -382,14 +507,29 @@ KERNEL_INFO = {
     'K7': dict(name='geglu_bwd', route='cuda',
                source='e2_tts_tpu_torch/csrc/geglu.cu',
                replaces='e2_tts_tpu/ops/geglu_kernel.py:90'),
+    'K11': dict(name='mel_fwd', route='cuda',
+                source='e2_tts_tpu_torch/csrc/mel.cu',
+                replaces='e2_tts_tpu/ops/mel_kernel.py:27'),
+    'K10': dict(name='flash_delta', route='cuda',
+                source='e2_tts_tpu_torch/csrc/flash_attention_bwd.cu',
+                replaces='e2_tts_tpu/ops/flash_attention.py:1198'),
 }
-FORWARD = ('K1', 'K3', 'K5', 'K6')
+# the kernels whose launches the JSON line takes from the sampling run, the
+# serving run and the train steps
+SAMPLE_KERNELS = ('K1', 'K3', 'K5', 'K6')
+SERVE_KERNELS = ('K11',)
 
 
 def time_case(case):
     bms, by = bound_ms(case['nbytes'], case['flops'], case['peak'])
-    return dict(ms=graph_ms(case['run'], 100), plain_ms=graph_ms(case['plain'], 50),
-                eager_ms=eager_ms(case['run'], 100), bound_ms=bms, bound_by=by)
+    timed = dict(ms=graph_ms(case['run'], 100), plain_ms=graph_ms(case['plain'], 50),
+                 library_ms=graph_ms(case['library'], 100) if 'library' in case else None,
+                 eager_ms=eager_ms(case['run'], 100), bound_ms=bms, bound_by=by)
+    if 'dft' in case:
+        timed['dft_ms'] = graph_ms(case['dft'], 50)
+    if 'unsplit' in case:
+        timed['unsplit_ms'] = graph_ms(case['unsplit'], 100)
+    return timed
 
 
 def phase_kernels(torch, dev):
@@ -408,13 +548,17 @@ def phase_kernels(torch, dev):
         line = (f'kernel {kname} {label}: max_abs_err={err:.3e} '
                 f'(tolerance |err| <= {abs_term} + {rtol:g}|ref|, worst ratio {worst:.3f})')
         separated = True
-        if 'unclamped' in case:
-            first = lambda t: t[0] if isinstance(t, tuple) and kname == 'K1' else t
-            err_nc, worst_nc = compare(first(out), first(case['unclamped']()), atol, rtol,
+        if 'against' in case:
+            what, against = case['against']
+            err_nc, worst_nc = compare(out[0] if kname == 'K1' else out, against(), atol, rtol,
                                        scaled)
             separated = worst_nc > 1.0
-            line += (f'; against the plain version without softclamp: '
+            line += (f'; against the plain version {what}: '
                      f'max_abs_err={err_nc:.3e}, worst ratio {worst_nc:.3f} (must be > 1)')
+        if 'unsplit' in case:
+            err_u, worst_u = compare(case['unsplit'](), case['plain'](), atol, rtol, scaled)
+            worst = max(worst, worst_u)
+            line += f'; unsplit: max_abs_err={err_u:.3e}, worst ratio {worst_u:.3f}'
         timed = None
         if case.get('train'):
             timed = train_records[kname] = time_case(case)
@@ -425,27 +569,35 @@ def phase_kernels(torch, dev):
             line += (f' ms={timed["ms"]:.5f} plain_ms={timed["plain_ms"]:.5f} '
                      f'eager_call_ms={timed["eager_ms"]:.5f} bound_ms={timed["bound_ms"]:.5f} '
                      f'({timed["bound_by"]})')
+            if timed['library_ms'] is not None:
+                line += f' library_ms={timed["library_ms"]:.5f}'
+            if 'dft_ms' in timed:
+                line += f' melspec_dft_ms={timed["dft_ms"]:.5f}'
+            if 'unsplit_ms' in timed:
+                line += f' unsplit_ms={timed["unsplit_ms"]:.5f}'
         log(line)
         del out
         if worst > 1.0:
             raise AssertionError(f'{kname} {label}: kernel disagrees with its plain version')
         if not separated:
-            raise AssertionError(f'{kname} {label}: the check cannot tell the softclamp '
-                                 f'from its absence')
+            raise AssertionError(f'{kname} {label}: the check cannot tell the kernel from '
+                                 f'the plain version {case["against"][0]}')
     torch.cuda.empty_cache()
     return records, train_records
 
 
 # -- phase 4: main path (sample) --------------------------------------------------
 
-def build_e2tts(torch, device, dtype, **transformer):
-    """The flagship E2TTS with weights from seed 0, each perturbed by 0.02 *
-    randn (so zero-initialised branches are live), built on the CPU and
-    moved: equal seeds give equal weights on every device."""
+def build_e2tts(torch, device, dtype, e2tts=None, **transformer):
+    """The flagship E2TTS (with the keyword arguments ``e2tts``) with weights
+    from seed 0, each perturbed by 0.02 * randn (so zero-initialised branches
+    are live), built on the CPU and moved: equal seeds give equal weights on
+    every device. A Vocos (outside the parameters) is seeded on its own and
+    follows the mels to their device when it decodes."""
     from e2_tts_tpu_torch import E2TTS
     gen = torch.Generator().manual_seed(0)
     model = E2TTS(transformer=dict(FLAGSHIP, **transformer), dtype=dtype, generator=gen,
-                  device='cpu')
+                  device='cpu', **(e2tts or {}))
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen))
@@ -523,6 +675,109 @@ def phase_main(torch, dev, smi):
     return counts, model
 
 
+# -- phase 5: serve from a raw waveform ---------------------------------------------
+
+def predictor_launches(predictor) -> dict:
+    """Launches of one duration-predictor evaluation with text: per speech
+    and per text layer K5 once, K3 twice, K1 and K6 once."""
+    tf = predictor.transformer
+    layers = tf.depth + tf.text_depth
+    return dict(flash_fwd=layers, hc_width=layers, hc_width_fused=2 * layers, geglu_fwd=layers)
+
+
+# duration: the predicted frame count is an expectation over 128 bins of a
+# softmax whose logits carry bf16 rounding through 16 layers; the card read
+# 1.3e-3 against the f32 CPU model in three runs, and 1e-2 is ~7x that. It
+# has to be tight: with random weights near-uniform bins put any answer near
+# 1024, only ~5% from the CPU's ~972, so a kernel fault that pushed the
+# logits towards uniform would pass a 5e-2 limit. The vocoder runs in f32 on
+# both sides (TF32 off), so only summation order separates them.
+SERVE_TOL = dict(duration=1e-2, vocos=1e-4)
+
+
+def phase_serve(torch, dev, smi):
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.ops.mel import db_to_amplitude
+
+    model = build_e2tts(torch, dev, torch.bfloat16, e2tts=SERVE_E2TTS).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None, e2tts=SERVE_E2TTS).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator().manual_seed(4)
+    wave = torch.randn(1, PROMPT_SAMPLES, generator=g) * 0.1
+    prompt = wave.to(dev)
+    with torch.no_grad():
+        # as `sample` runs it: the model's frontend (K11 on the card, its
+        # plain version on the CPU), then the predictor on the mel
+        prompt_mel = model._as_mel(prompt)
+        pred = float(model.duration_predictor(prompt_mel, text=[TEXT], return_loss=False)[0])
+        ref = float(cpu_model.duration_predictor(cpu_model._as_mel(wave), text=[TEXT],
+                                                 return_loss=False)[0])
+    rel = abs(pred - ref) / abs(ref)
+    log(f'serve duration predictor bf16 card vs f32 cpu (prompt {PROMPT_SAMPLES} samples '
+        f'through the model\'s frontend, text {len(TEXT)} chars): frames={pred:.4f} '
+        f'cpu_frames={ref:.4f} rel_err={rel:.3e} (<= {SERVE_TOL["duration"]:g})')
+    if not rel <= SERVE_TOL['duration']:
+        raise AssertionError('the duration predictor on the card disagrees with the CPU')
+
+    mel = torch.randn(1, FRAMES, 100, generator=g) * 2.0 - 4.0
+    amp = db_to_amplitude(mel, 1.0, 0.5)
+    with torch.no_grad():
+        wav = model.vocos.to(dev).decode(amp.to(dev)).cpu()
+        wav_ref = cpu_model.vocos.decode(amp)
+    rel_l2 = float((wav - wav_ref).norm() / wav_ref.norm())
+    log(f'serve vocos decode f32 card vs cpu ({FRAMES} frames -> {wav.shape[-1]} samples): '
+        f'rel_l2={rel_l2:.3e} (<= {SERVE_TOL["vocos"]:g})')
+    if not (wav.shape == wav_ref.shape and torch.isfinite(wav).all()
+            and rel_l2 <= SERVE_TOL['vocos']):
+        raise AssertionError('the vocoder on the card disagrees with the CPU')
+    del cpu_model
+
+    sample_kw = dict(text=[TEXT], cfg_strength=1.0,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    model.sample(prompt, steps=2, **sample_kw)            # warm-up
+    torch.cuda.synchronize()
+    # the parts of a request apart from the sampler's ODE loop, each alone
+    amp_card = amp[:, :int(pred)].to(dev)
+    with torch.no_grad():
+        parts_ms = dict(
+            mel_frontend=eager_ms(lambda: model.mel_spec(prompt), 20),
+            duration_predictor=eager_ms(lambda: model.duration_predictor(
+                prompt_mel, text=[TEXT], return_loss=False), 5),
+            vocoder=eager_ms(lambda: model.vocos.decode(amp_card), 5))
+    log(f'serve parts alone (wall ms per call, eager): '
+        f'{json.dumps({k: round(v, 4) for k, v in parts_ms.items()})} [{smi}]')
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    audio = model.sample(prompt, steps=STEPS, **sample_kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+
+    prompt_frames = 1 + PROMPT_SAMPLES // HOP
+    samples = audio[0].shape[-1]
+    duration = samples // HOP + 1
+    audio_s = samples / 24_000
+    log(f'serve sample B=1 prompt_samples={PROMPT_SAMPLES} ({prompt_frames} frames) no duration '
+        f'NFE={2 * (STEPS - 1)} midpoint cfg=1.0 sequential vocos: predicted_frames={duration} '
+        f'waveform_samples={samples} seconds={seconds:.4f} rtf_with_vocoder={seconds / audio_s:.5f} '
+        f'params={n_params} launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+    # `sample` sets the duration to max(max(prompt, text) + 1, int(prediction));
+    # the prediction it makes itself may round to the neighbouring integer
+    want = max(max(prompt_frames, len(TEXT.encode())) + 1, int(pred))
+    if (len(audio) != 1 or samples != (duration - 1) * HOP or abs(duration - want) > 1
+            or not torch.isfinite(audio[0]).all()):
+        raise AssertionError(f'serve output bad: {len(audio)} waveforms of {samples} samples, '
+                             f'expected about {(want - 1) * HOP}')
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS))
+    for name, n in predictor_launches(model.duration_predictor).items():
+        expected[name] += n
+    expected['mel_fwd'] = 1
+    if counts != expected:
+        raise AssertionError(f'serve launch counts {counts} != expected {expected}')
+    return counts
+
+
 def profile_run(torch, run, trace_name):
     """Trace one call of ``run``; print the device-busy share, device time
     by kernel and host time by operator (inclusive)."""
@@ -574,7 +829,7 @@ def phase_profile(torch, model):
             x, x, times, text=text, batched_cfg=False), 'cfg_eval_trace.json')
 
 
-# -- phase 5: train ---------------------------------------------------------------
+# -- phase 6: train ---------------------------------------------------------------
 
 def step_loss_and_grads(torch, model, batch):
     """One loss + backward on ``batch`` (with its draws); returns the loss
@@ -611,9 +866,20 @@ def train_check_batch(torch, model, frames=512):
 TRAIN_CHECK_TOL = {'f32': dict(loss=1e-5, grad=1e-4), 'bf16': dict(loss=1e-3, grad=3e-2)}
 
 
+# a raw-wave batch against its plain-frontend mels: K11 and the plain version
+# differ by ~1e-5 in log-mel (f32 sums in other orders), which moves the loss
+# by far less than this
+WAVE_LOSS_TOL = 1e-4
+
+
 def phase_train_check(torch, dev):
     """One step's loss and grads on the card, in f32 and in bf16, against
-    the CPU's f32 step on the same weights and draws."""
+    the CPU's f32 step on the same weights and draws; then one f32 step from
+    a raw-wave batch (K11 on the card) against the step from the mels of the
+    plain frontend, with the launch counts of K11, K2 and K10."""
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.ops.mel import MelSpec
+
     small = dict(depth=2, dropout=0.0)
     cpu_model = build_e2tts(torch, 'cpu', None, **small).train()
     batch = train_check_batch(torch, cpu_model)
@@ -633,19 +899,39 @@ def phase_train_check(torch, dev):
                 and grad_rel <= lim['grad']):
             raise AssertionError(f'train step on the card ({label}) disagrees with the CPU')
         del model
+
+    model = build_e2tts(torch, dev, None, e2tts=dict(mel_spec_kwargs=dict(mode='pallas')),
+                        **small).train()
+    g = torch.Generator().manual_seed(6)
+    wave = torch.randn(2, (512 - 1) * HOP, generator=g) * 0.1           # 512 frames each
+    mel = MelSpec()(wave).transpose(1, 2)                               # plain frontend, CPU
+    _cuda.reset_launch_counts()
+    wave_loss, _ = step_loss_and_grads(torch, model, dict(batch, mel=wave))
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    mel_loss, _ = step_loss_and_grads(torch, model, dict(batch, mel=mel))
+    rel = abs(wave_loss - mel_loss) / abs(mel_loss)
+    log(f'train check raw wave (2, {wave.shape[1]}) f32 card vs the plain frontend\'s mels: '
+        f'loss={wave_loss:.6f} mel_loss={mel_loss:.6f} rel={rel:.3e} (<= {WAVE_LOSS_TOL:g}) '
+        f'launches mel_fwd={counts["mel_fwd"]} flash_bwd={counts["flash_bwd"]} '
+        f'flash_delta={counts["flash_delta"]}')
+    if not (rel <= WAVE_LOSS_TOL and counts['mel_fwd'] == 1
+            and counts['flash_delta'] == counts['flash_bwd'] > 0):
+        raise AssertionError('raw-wave train step: loss or launch counts wrong')
+    del model
     torch.cuda.empty_cache()
 
 
 def expected_train_launches(model, with_text: bool) -> dict:
-    """Launches of one train step, from the model's structure: per layer of
-    a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 and K6 / K7
-    once. Without text the text stream does not run."""
+    """Launches of one train step on mels, from the model's structure: per
+    layer of a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 / K10
+    and K6 / K7 once. Without text the text stream does not run."""
     tf = model.transformer
     layers = tf.depth + (tf.text_depth if with_text else 0)
     counts = dict(flash_fwd=layers, hc_width=layers, hc_width_fused=2 * layers,
                   geglu_fwd=layers)
     counts.update(flash_bwd=layers, hc_width_bwd=layers, hc_width_fused_bwd=2 * layers,
-                  geglu_bwd=layers)
+                  geglu_bwd=layers, flash_delta=layers, mel_fwd=0)
     return counts
 
 
@@ -739,7 +1025,7 @@ def main() -> int:
     _cuda.lib()
 
     records, train_records = phase_kernels(torch, dev)
-    for kid in FORWARD:
+    for kid in train_records:
         r, t = records[kid], train_records[kid]
         log(f'kernel {kid} at the training shape vs the sampling shape: ms={t["ms"]:.5f} '
             f'(sampling {r["ms"]:.5f}) plain_ms={t["plain_ms"]:.5f} '
@@ -748,19 +1034,22 @@ def main() -> int:
     phase_profile(torch, model)
     del model
     torch.cuda.empty_cache()
+    serve_counts = phase_serve(torch, dev, smi)
+    torch.cuda.empty_cache()
     phase_train_check(torch, dev)
     train_counts = phase_train(torch, dev, smi)
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
         rec = records[kid]
-        # forward kernels: their launches on the sampling path; backward: training
-        counts = sample_counts if kid in FORWARD else train_counts
+        counts = (sample_counts if kid in SAMPLE_KERNELS else
+                  serve_counts if kid in SERVE_KERNELS else train_counts)
         kernels.append(dict(
             name=info['name'], route=info['route'], source=info['source'],
             replaces=info['replaces'], launches=counts[info['name']],
             max_abs_err=rec['max_abs_err'], ms=rec['ms'], plain_ms=rec['plain_ms'],
-            bound_ms=rec['bound_ms'], bound_by=rec['bound_by'], library_ms=None))
+            bound_ms=rec['bound_ms'], bound_by=rec['bound_by'],
+            library_ms=rec['library_ms']))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu',

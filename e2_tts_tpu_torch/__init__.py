@@ -3,12 +3,15 @@ the NVIDIA H100 (sm_90a).
 
 A port of the JAX package `e2_tts_tpu`, which stays beside it as the
 reference. The layout mirrors the JAX package (`models/`, `ops/`, `text/`,
-`utils/`, `training/`) so each module has an obvious counterpart. The port
-covers the flagship sampler (`E2TTS.sample` with a mel prompt) and trainer
-(`E2TTS.forward`'s flow-matching loss, `E2Trainer` with ADOPT, clip and
-EMA), the dual-stream `Transformer`, and the eight kernels on those paths:
-packed flash attention, the two hyper-connection width connections and
-GEGLU, each forward and backward.
+`utils/`, `training/`, `vocoder/`) so each module has an obvious
+counterpart. The port covers zero-shot serving from a raw waveform
+(`E2TTS.sample`: the mel frontend `MelSpec`, the `DurationPredictor` when no
+duration is given, the sampler, the `Vocos` vocoder), the trainer
+(`E2TTS.forward`'s flow-matching loss on mels or raw waves, `E2Trainer`
+with ADOPT, clip and EMA), the dual-stream `Transformer`, and the ten
+kernels on those paths: packed flash attention forward and backward with
+the backward's delta pre-pass, the two hyper-connection width connections
+and GEGLU, each forward and backward, and the fused log-mel frontend.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.
@@ -19,6 +22,9 @@ Imports are lazy so that importing the package pulls in nothing heavy.
 _EXPORTS = {
     'Transformer': 'e2_tts_tpu_torch.models.transformer',
     'E2TTS': 'e2_tts_tpu_torch.models.e2tts',
+    'DurationPredictor': 'e2_tts_tpu_torch.models.duration',
+    'MelSpec': 'e2_tts_tpu_torch.ops.mel',
+    'Vocos': 'e2_tts_tpu_torch.vocoder.vocos',
     'E2Trainer': 'e2_tts_tpu_torch.training.trainer',
     'EMA': 'e2_tts_tpu_torch.training.ema',
     'Adopt': 'e2_tts_tpu_torch.training.adopt',

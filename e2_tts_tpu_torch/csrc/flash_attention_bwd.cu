@@ -10,9 +10,9 @@
 //   ks = keep(seed, b*heads + h, row, key) / (1 - rate)  (K1's dropout bits)
 //   ds = p * (ks * dp - delta[b, row, h]) * jac * scale,  p_drop = p * ks
 //   dv += p_drop^T do_g,  dk += ds^T q,  dq += ds k
-// with delta = rowsum(do * o) per head (computed by the wrapper, as the JAX
-// package's XLA pre-pass does). p_drop and ds are rounded to the compute
-// dtype before the three products, as the TPU kernel rounds them.
+// with delta = rowsum(do * o) per head (K10 below, launched by the wrapper
+// just before K2 on the same stream). p_drop and ds are rounded to the
+// compute dtype before the three products, as the TPU kernel rounds them.
 //
 // Hopper layout: the TPU carried dk/dv/dq scratch across a sequential grid.
 // Here blocks run in no order, so one block owns a (b, h, key tile), loops
@@ -381,7 +381,76 @@ cudaError_t dispatch_dh(const FlashBwdParams& p, int dh, cudaStream_t stream) {
   }
 }
 
+// K10: K2's pre-pass delta = rowsum(do * o) per head. Replaces the TPU
+// kernel e2_tts_tpu/ops/flash_attention.py::_delta_kernel (driven by
+// _delta_bnh_pallas). o and do are contiguous (rows, heads * dh); delta is
+// (rows, heads) f32.
+//
+// What bounds it: bytes. It reads o and do once (two bf16 values per product,
+// 2 flops) and writes one f32 per (row, head): at the trainer's shape
+// (16, 1056, 8 x 64) bf16 that is ~35 MB, ~10.5 us at 3.35 TB/s. Design: one
+// thread per 16-byte chunk of a row (8 bf16 or 4 f32 lanes), the chunk's
+// products summed in f32, then the dh / VEC lanes of a head (consecutive
+// lanes of one warp, a power of two) summed by xor shuffles; the head's
+// first lane writes. Loads are 16 bytes a thread on neighbouring addresses.
+// The TPU kernel's lane contraction on the MXU (a 0/1 segment matrix) has
+// no point here: a shuffle tree is the warp's native segmented sum.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_delta_kernel(const T* o, const T* dout, float* delta,
+                                                          long long chunks, int chunks_per_row,
+                                                          int lanes_per_head, int heads) {
+  constexpr int VEC = 16 / sizeof(T);
+  // every lane of a warp runs the same iterations, so the shuffles see all 32
+  const long long padded = (chunks + 31) / 32 * 32;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < padded; c += stride) {
+    float sum = 0.f;
+    if (c < chunks) {
+      const uint4 ov = reinterpret_cast<const uint4*>(o)[c];
+      const uint4 dv = reinterpret_cast<const uint4*>(dout)[c];
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sum = fmaf(e2::to_float<T>(de[e]), e2::to_float<T>(oe[e]), sum);
+    }
+    for (int off = lanes_per_head / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (c < chunks && c % lanes_per_head == 0) {
+      const long long row = c / chunks_per_row;
+      delta[row * heads + (int)(c % chunks_per_row) / lanes_per_head] = sum;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta, long long rows, int heads,
+                         int dh, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lanes_per_head = dh / VEC;
+  if (dh % VEC != 0 || lanes_per_head < 1 || 32 % lanes_per_head != 0)
+    return cudaErrorInvalidValue;
+  const int chunks_per_row = heads * lanes_per_head;
+  const long long chunks = rows * chunks_per_row;
+  if (chunks == 0) return cudaSuccess;
+  long long blocks = (chunks + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  flash_delta_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), chunks,
+      chunks_per_row, lanes_per_head, heads);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int e2_flash_delta(const void* o, const void* dout, void* delta, long long rows,
+                              int heads, int dh, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == e2::kBFloat16) err = launch_delta<__nv_bfloat16>(o, dout, delta, rows, heads, dh, s);
+  else if (dtype == e2::kFloat32) err = launch_delta<float>(o, dout, delta, rows, heads, dh, s);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}
 
 extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,

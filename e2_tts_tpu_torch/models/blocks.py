@@ -78,6 +78,14 @@ class Linear(nn.Module):
         return F.linear(cast(x, ct), cast(self.weight, ct), bias)
 
 
+class Identity(nn.Module):
+    """Stands in for a time-conditioned norm's gate when the transformer is
+    not conditioned on time; ignores the condition."""
+
+    def forward(self, x, **kwargs):
+        return x
+
+
 # norms ----------------------------------------------------------------------
 
 class RMSNorm(nn.Module):

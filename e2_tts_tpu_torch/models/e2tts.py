@@ -17,10 +17,17 @@ pair runs as two sequential passes (the null pass runs no text stream at
 all) or as one 2x-batched pass whose null half gates the text->audio adds
 to zero.
 
-The port covers the flagship form (``concat_cond=False``) with mel inputs
-and, for sampling, a given ``duration``. Not ported yet (each raises): a
-raw-wave input or prompt (needs ops/mel.py), the duration predictor, the
-vocoder, ``concat_cond``, interpolated text and the frequency axis.
+Inputs and prompts are mels ``(b, n, num_channels)`` or raw waves ``(b,
+nw)``, which the mel frontend (``mel_spec_kwargs``; ``mode='pallas'`` runs
+kernel K11) turns into mels. Without a ``duration``, `sample` asks the
+duration predictor. ``use_vocos=True`` decodes the sampled mels to
+waveforms with the port's own `Vocos` (the JAX package's
+``vocos_backend='jax'``), which stays out of this module's parameters.
+
+The port covers the flagship form (``concat_cond=False``). Not ported yet
+(each raises): the external torch ``vocos`` package
+(``vocos_backend='torch'``), ``save_to_filename``, ``concat_cond``,
+interpolated text and the frequency axis.
 """
 
 from __future__ import annotations
@@ -34,14 +41,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.models.blocks import CharacterEmbed, Linear
+from e2_tts_tpu_torch.models.duration import DurationPredictor
 from e2_tts_tpu_torch.models.transformer import Transformer
+from e2_tts_tpu_torch.ops.mel import MelSpec, as_mel, db_to_amplitude
 from e2_tts_tpu_torch.ops.ode import odeint
-from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer
+from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer, tokenize_batch
 from e2_tts_tpu_torch.utils.helpers import default, exists, resolve_device, round_up_to_multiple
 from e2_tts_tpu_torch.utils.masking import lens_to_mask, mask_from_frac_lengths
 from e2_tts_tpu_torch.utils.tensor import project
-
-MEL_CHANNELS = 100       # the JAX package's MelSpec default (n_mel_channels)
+from e2_tts_tpu_torch.vocoder.vocos import Vocos
 
 LossBreakdown = namedtuple('LossBreakdown', ['flow', 'velocity_consistency'])
 
@@ -60,39 +68,55 @@ def _not_ported(what: str):
     raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
 
 
+class _StaticBox:
+    """Keeps a module (the frozen vocoder) out of the surrounding module's
+    parameters: not trained, EMA'd, checkpointed or moved with the model."""
+
+    def __init__(self, value):
+        self.value = value
+
+
 class E2TTS(nn.Module):
 
     def __init__(
         self,
         transformer: dict | Transformer | None = None,
-        duration_predictor=None,
+        duration_predictor: dict | DurationPredictor | None = None,
         odeint_kwargs: dict = dict(atol=1e-5, rtol=1e-5, method='midpoint'),
         cond_drop_prob: float = 0.25,
         num_channels: int | None = None,
-        mel_spec_module=None,
+        mel_spec_module: MelSpec | None = None,
         num_freq_tokens: int = 1,
+        mel_spec_kwargs: dict = dict(),
         frac_lengths_mask: tuple[float, float] = (0.7, 1.0),
         concat_cond: bool = False,
         interpolated_text: bool = False,
         text_num_embeds: int | None = None,
         tokenizer='char_utf8',
         use_vocos: bool = False,
+        vocos_backend: str = 'jax',
+        sampling_rate: int | None = None,
         velocity_consistency_weight: float = 0.0,
         dtype=None,
         generator: torch.Generator | None = None,
         device=None,
     ):
         """``generator`` draws the initial weights and stays the default
-        source of `forward`'s draws (as the JAX model's ``rngs``)."""
+        source of `forward`'s draws (as the JAX model's ``rngs``).
+        ``use_vocos`` builds the port's `Vocos` (random weights from a
+        seed: load a checkpoint into ``model.vocos``); ``vocos_backend`` is
+        the JAX package's option, of which the port has only ``'jax'``, its
+        own on-device Vocos."""
         super().__init__()
-        for flag, what in ((exists(duration_predictor), 'the duration predictor'),
-                           (exists(mel_spec_module), 'the mel frontend (mel_spec_module)'),
-                           (num_freq_tokens > 1, 'the frequency axis (num_freq_tokens > 1)'),
+        for flag, what in ((num_freq_tokens > 1, 'the frequency axis (num_freq_tokens > 1)'),
                            (concat_cond, 'concat_cond'),
                            (interpolated_text, 'interpolated_text'),
-                           (use_vocos, 'the Vocos vocoder (use_vocos)')):
+                           (use_vocos and vocos_backend == 'torch',
+                            "the torch `vocos` package (vocos_backend='torch')")):
             if flag:
                 _not_ported(what)
+        if vocos_backend not in ('jax', 'torch'):
+            raise ValueError(f"vocos_backend must be 'jax' or 'torch', got {vocos_backend!r}")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -101,10 +125,16 @@ class E2TTS(nn.Module):
             transformer = Transformer(**transformer, dtype=dtype, generator=generator,
                                       device=device)
         self.transformer = transformer
+        if isinstance(duration_predictor, dict):
+            duration_predictor = DurationPredictor(**duration_predictor, dtype=dtype,
+                                                   generator=generator, device=device)
+        self.duration_predictor = duration_predictor
         self.dim = dim = transformer.dim
         self.dim_text = transformer.dim_text
         self.odeint_kwargs = dict(odeint_kwargs)
-        self.num_channels = num_channels = default(num_channels, MEL_CHANNELS)
+        self.mel_spec = default(mel_spec_module, MelSpec(**mel_spec_kwargs))
+        self.num_channels = num_channels = default(num_channels, self.mel_spec.n_mel_channels)
+        self.sampling_rate = default(sampling_rate, self.mel_spec.sampling_rate)
 
         self.proj_in = Linear(num_channels, dim, dtype=dtype, generator=generator)
         self.cond_proj_in = Linear(num_channels, dim, dtype=dtype, generator=generator)
@@ -117,18 +147,29 @@ class E2TTS(nn.Module):
         self.frac_lengths_mask = tuple(frac_lengths_mask)
         self.velocity_consistency_weight = velocity_consistency_weight
         self.generator = generator
+        self.use_vocos = use_vocos
+        self._vocos = _StaticBox(Vocos(input_channels=num_channels, device=device)) \
+            if use_vocos else None
         self.to(device)
 
     @property
     def device(self) -> torch.device:
         return self.proj_in.weight.device
 
+    @property
+    def vocos(self) -> Vocos | None:
+        return self._vocos.value if exists(self._vocos) else None
+
+    def _as_mel(self, inp: torch.Tensor) -> torch.Tensor:
+        return as_mel(self.mel_spec, inp, self.num_channels)
+
     def forward(self, inp: torch.Tensor, *, text=None, times=None, lens=None,
                 noise=None, rand_span_mask=None, velocity_consistency_model=None,
                 velocity_consistency_delta: float = 1e-5,
                 drop_text_cond: bool | None = None,
                 generator: torch.Generator | None = None) -> E2TTSReturn:
-        """The flow-matching loss on mels ``inp (b, n, num_channels)``.
+        """The flow-matching loss on mels ``inp (b, n, num_channels)`` or raw
+        waves ``(b, nw)``.
 
         ``times (b,)``, ``noise`` (x0, the shape of ``inp``) and
         ``rand_span_mask (b, n)`` replace the draws from ``generator``
@@ -137,14 +178,12 @@ class E2TTS(nn.Module):
         host-side coin with probability ``cond_drop_prob`` in training mode.
         ``velocity_consistency_model`` (an EMA teacher) adds the
         velocity-consistency term when ``velocity_consistency_weight > 0``."""
-        if inp.ndim == 2:
-            _not_ported('a raw-wave input (it needs ops/mel.py)')
         need_velocity_loss = (exists(velocity_consistency_model)
                               and self.velocity_consistency_weight > 0.0)
         device = self.device
         generator = default(generator, self.generator)
         gen_device = generator.device
-        inp = inp.to(device)
+        inp = self._as_mel(inp.to(device))
         batch, seq_len = inp.shape[0], inp.shape[1]
         dtype = inp.dtype
 
@@ -203,12 +242,7 @@ class E2TTS(nn.Module):
         return E2TTSReturn(total, cond, pred, x0 + pred, LossBreakdown(loss, velocity_loss))
 
     def _tokenize(self, text, batch):
-        if isinstance(text, list):
-            text = torch.as_tensor(self.tokenizer(text), dtype=torch.long, device=self.device)
-        if exists(text):
-            if text.shape[0] != batch:
-                raise ValueError(f'got {text.shape[0]} texts for a batch of {batch} audio samples')
-        return text
+        return tokenize_batch(self.tokenizer, text, batch, self.device)
 
     # -- prediction heads ----------------------------------------------------
 
@@ -282,15 +316,17 @@ class E2TTS(nn.Module):
                save_to_filename: str | None = None, noise: torch.Tensor | None = None,
                generator: torch.Generator | None = None, duration_bucket: int = 128,
                batched_cfg: bool = False):
-        """Zero-shot inference: mel prompt ``cond (b, n, num_channels)`` +
-        text -> infilled mel ``(b, max duration, num_channels)`` (or what
-        ``vocoder`` makes of it). ``noise`` replaces the initial state drawn
-        from ``generator``; it has the padded generation shape
-        ``(b, padded length, num_channels)``."""
-        if cond.ndim == 2:
-            _not_ported('a raw-wave prompt (it needs ops/mel.py)')
+        """Zero-shot inference: prompt ``cond`` (mel ``(b, n, num_channels)``
+        or raw wave ``(b, nw)``) + text -> infilled mel ``(b, max duration,
+        num_channels)``, or what ``vocoder`` makes of it, or with
+        ``use_vocos`` a list of per-sample waveforms of ``(duration - 1) *
+        hop`` samples. Without ``duration`` the duration predictor sets it.
+        ``noise`` replaces the initial state drawn from ``generator``; it
+        has the padded generation shape ``(b, padded length, num_channels)``."""
         if exists(save_to_filename):
-            _not_ported('save_to_filename (it needs a vocoder)')
+            _not_ported('save_to_filename (audio file output)')
+        if exists(vocoder) and self.use_vocos:
+            raise ValueError('`use_vocos` should not be on when passing a custom `vocoder`')
         was_training = self.training
         self.eval()
         try:
@@ -307,7 +343,7 @@ class E2TTS(nn.Module):
                 max_duration, vocoder, return_raw_output, noise, generator,
                 duration_bucket, batched_cfg):
         device = self.device
-        cond = cond.to(device)
+        cond = self._as_mel(cond.to(device))
         batch, cond_seq_len = cond.shape[0], cond.shape[1]
 
         if not exists(lens):
@@ -318,10 +354,13 @@ class E2TTS(nn.Module):
         if exists(text):
             lens = torch.maximum((text != -1).sum(dim=-1).to(lens.dtype), lens)
 
-        if not exists(duration):
-            raise ValueError('`duration` must be given when no duration predictor is attached')
         if isinstance(duration, int):
             duration = torch.full((batch,), duration, dtype=torch.long, device=device)
+        elif not exists(duration):
+            if not exists(self.duration_predictor):
+                raise ValueError('`duration` must be given when no duration predictor is attached')
+            duration = self.duration_predictor(cond, text=text, lens=lens,
+                                               return_loss=False).to(torch.long)
         duration = torch.maximum(lens + 1, duration.to(device))  # at least one frame
         duration = duration.clamp(max=max_duration)
         if duration.shape != (batch,):
@@ -363,4 +402,20 @@ class E2TTS(nn.Module):
             return out
         if exists(vocoder):
             return vocoder(out.transpose(1, 2))
+        if self.use_vocos:
+            return self._vocos_decode(out, mask[:, :tmax])
         return out
+
+    def _vocos_decode(self, mels, mask):
+        """The batch decoded at once, frames beyond each length zeroed (they
+        would otherwise reach shorter samples' tails through the
+        convolutions and the overlap-add), then each waveform trimmed to
+        ``(len - 1) * hop``. The amplitude keeps the reference's
+        ``DB_to_amplitude(mel, 1, 0.5)`` (it treats the ln-mel as dB)."""
+        vocos = self.vocos.to(mels.device)
+        amp = db_to_amplitude(mels.float(), 1.0, 0.5)
+        amp = torch.where(mask[..., None], amp, 0.0)
+        wav = vocos.decode(amp)
+        hop = vocos.head.hop_length
+        lens = mask.sum(dim=-1).tolist()
+        return [wav[i, :max(int(n) - 1, 0) * hop] for i, n in enumerate(lens)]

@@ -5,7 +5,9 @@ A speech stream (dim) and a smaller text stream (dim_text) run side by side
 and cross-condition at every text layer; UNet-style skips join the first and
 second halves of the speech stack; register tokens are prepended to both
 streams; residuals route through hyper-connections; time conditioning enters
-through AdaptiveRMSNorm + AdaLNZero gates.
+through AdaptiveRMSNorm + AdaLNZero gates. With ``cond_on_time=False`` (the
+duration predictor's backbone) the norms are plain RMSNorms, the gates are
+identities, there is no time MLP and ``times`` is not passed.
 
 Per layer the hot path is four kernels: K5 (the first width connection of a
 chain, after expansion / cross-condition / skip), K3 (each chained width
@@ -23,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.models.blocks import (
-    AdaLNZero, AdaptiveRMSNorm, Attention, DepthwiseConv, FeedForward, Linear,
+    AdaLNZero, AdaptiveRMSNorm, Attention, DepthwiseConv, FeedForward, Identity, Linear,
     RandomFourierEmbed, RMSNorm, TextAudioCrossCondition, cast,
 )
 from e2_tts_tpu_torch.models.hyper_connections import (
@@ -37,22 +39,25 @@ class SpeechLayer(nn.Module):
     """Per-layer speech-stream modules."""
 
     def __init__(self, *, dim, heads, dim_head, ff_mult, kernel_size, dropout,
-                 is_first_block, is_later_half, attn_kwargs, ff_kwargs, dtype,
-                 generator):
+                 is_first_block, is_later_half, cond_on_time, attn_kwargs, ff_kwargs,
+                 dtype, generator):
         super().__init__()
+        norm = (lambda: AdaptiveRMSNorm(dim, dtype=dtype)) if cond_on_time else (
+            lambda: RMSNorm(dim))
+        gate = (lambda: AdaLNZero(dim, dtype=dtype)) if cond_on_time else Identity
         self.skip_proj = (Linear(dim * 2, dim, bias=False, dtype=dtype, generator=generator)
                           if is_later_half else None)
         self.conv = DepthwiseConv(dim, kernel_size=kernel_size, dtype=dtype,
                                   generator=generator)
-        self.attn_norm = AdaptiveRMSNorm(dim, dtype=dtype)
+        self.attn_norm = norm()
         self.attn = Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout,
                               learned_value_residual_mix=not is_first_block,
                               dtype=dtype, generator=generator, **attn_kwargs)
-        self.attn_adaln_zero = AdaLNZero(dim, dtype=dtype)
-        self.ff_norm = AdaptiveRMSNorm(dim, dtype=dtype)
+        self.attn_adaln_zero = gate()
+        self.ff_norm = norm()
         self.ff = FeedForward(dim, mult=ff_mult, dropout=dropout, dtype=dtype,
                               generator=generator, **ff_kwargs)
-        self.ff_adaln_zero = AdaLNZero(dim, dtype=dtype)
+        self.ff_adaln_zero = gate()
 
 
 class TextLayer(nn.Module):
@@ -91,6 +96,8 @@ class Transformer(nn.Module):
         text_dim_head: int | None = None,
         text_ff_mult: int | None = None,
         has_freq_axis: bool = False,
+        cond_on_time: bool = True,
+        abs_pos_emb: bool = True,
         max_seq_len: int = 8192,
         kernel_size: int = 31,
         dropout: float = 0.1,
@@ -135,18 +142,23 @@ class Transformer(nn.Module):
         self.text_depth = text_depth
         self.dim_head = dim_head
         self.text_dim_head = text_dim_head
+        self.cond_on_time = cond_on_time
 
-        self.abs_pos_emb = nn.Embedding(max_seq_len, dim)
-        with torch.no_grad():
-            self.abs_pos_emb.weight.normal_(0.0, max_seq_len ** -0.5, generator=generator)
+        self.abs_pos_emb = None
+        if abs_pos_emb:
+            self.abs_pos_emb = nn.Embedding(max_seq_len, dim)
+            with torch.no_grad():
+                self.abs_pos_emb.weight.normal_(0.0, max_seq_len ** -0.5, generator=generator)
 
         self.registers = nn.Parameter(torch.randn(num_registers, dim, generator=generator) * 0.02)
         self.text_registers = nn.Parameter(
             torch.randn(num_registers, dim_text, generator=generator) * 0.02)
 
         self.num_residual_streams = num_residual_streams
-        self.time_fourier = RandomFourierEmbed(dim, generator=generator)
-        self.time_mlp = Linear(dim + 1, dim, dtype=dtype, generator=generator)
+        self.time_fourier = self.time_mlp = None
+        if cond_on_time:
+            self.time_fourier = RandomFourierEmbed(dim, generator=generator)
+            self.time_mlp = Linear(dim + 1, dim, dtype=dtype, generator=generator)
 
         common = dict(attn_kwargs=dict(attn_kwargs), ff_kwargs=dict(ff_kwargs),
                       dtype=dtype, generator=generator)
@@ -168,7 +180,7 @@ class Transformer(nn.Module):
             self.speech_layers.append(SpeechLayer(
                 dim=dim, heads=heads, dim_head=dim_head, ff_mult=ff_mult,
                 kernel_size=kernel_size, dropout=dropout, is_first_block=ind == 0,
-                is_later_half=ind >= depth // 2, **common))
+                is_later_half=ind >= depth // 2, cond_on_time=cond_on_time, **common))
             self.speech_hcs.append(make_hcs(dim))
             if ind < text_depth:
                 self.text_layers.append(TextLayer(
@@ -227,9 +239,10 @@ class Transformer(nn.Module):
 
         return materialize(x), text_embed, skip_out, attn_v, text_v
 
-    def forward(self, x, times, mask=None, text_embed=None, text_cond_gate=None,
+    def forward(self, x, times=None, mask=None, text_embed=None, text_cond_gate=None,
                 generator: torch.Generator | None = None):
-        """``x (b, n, dim)``, ``times (b,)`` or scalar, ``mask (b, n)`` bool,
+        """``x (b, n, dim)``, ``times (b,)`` or scalar (given iff the model is
+        conditioned on time), ``mask (b, n)`` bool,
         ``text_embed (b, n, dim_text)``; ``text_cond_gate (b,)`` scales each
         sample's text->audio adds (0 = a text-free pass). ``generator``
         draws the dropout seeds in training mode. Returns ``(b, n, dim)``."""
@@ -243,9 +256,12 @@ class Transformer(nn.Module):
         text_gate = text_cond_gate[None, :, None, None] if exists(text_cond_gate) else None
         batch, seq_len = x.shape[0], x.shape[1]
 
-        if seq_len > self.max_seq_len:
-            raise ValueError(f'{seq_len} exceeds the set `max_seq_len` ({self.max_seq_len})')
-        x = x + cast(self.abs_pos_emb.weight[:seq_len], x.dtype)
+        if exists(times) != self.cond_on_time:
+            raise ValueError('`times` must be passed in iff `cond_on_time` is set')
+        if exists(self.abs_pos_emb):
+            if seq_len > self.max_seq_len:
+                raise ValueError(f'{seq_len} exceeds the set `max_seq_len` ({self.max_seq_len})')
+            x = x + cast(self.abs_pos_emb.weight[:seq_len], x.dtype)
 
         r = self.num_registers
         x = torch.cat((cast(self.registers, x.dtype)[None].expand(batch, r, self.dim), x), dim=1)
@@ -253,9 +269,11 @@ class Transformer(nn.Module):
             mask = F.pad(mask, (r, 0), value=True)
         packed_len = x.shape[1]
 
-        if times.ndim == 0:
-            times = times.expand(batch)
-        cond = cast(F.silu(self.time_mlp(self.time_fourier(times))), x.dtype)
+        cond = None
+        if exists(times):
+            if times.ndim == 0:
+                times = times.expand(batch)
+            cond = cast(F.silu(self.time_mlp(self.time_fourier(times))), x.dtype)
 
         rotary = rotary_tables(packed_len, self.dim_head, device=x.device)
         text_rotary = None

@@ -35,9 +35,11 @@ NVCC_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo']
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# forward kernels K1, K5, K3, K6, then their backward kernels K2, K5b, K4, K7
+# forward kernels K1, K5, K3, K6, then their backward kernels K2, K5b, K4, K7,
+# then K11 (the log-mel frontend) and K10 (K2's delta pre-pass)
 KERNELS = ('flash_fwd', 'hc_width', 'hc_width_fused', 'geglu_fwd',
-           'flash_bwd', 'hc_width_bwd', 'hc_width_fused_bwd', 'geglu_bwd')
+           'flash_bwd', 'hc_width_bwd', 'hc_width_fused_bwd', 'geglu_bwd',
+           'mel_fwd', 'flash_delta')
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -117,6 +119,8 @@ _SIGNATURES = {
     'e2_hc_width_bwd': [_P] * 13 + [_I, _I, _LL, _I, _I, _P],
     'e2_hc_width_fused_bwd': [_P] * 17 + [_I, _I, _LL, _I, _I, _P],
     'e2_geglu_bwd': [_P, _P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
+    'e2_mel_fwd': [_P, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _P],
+    'e2_flash_delta': [_P, _P, _P, _LL, _I, _I, _I, _P],
 }
 
 

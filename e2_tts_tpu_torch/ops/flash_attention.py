@@ -1,11 +1,13 @@
-"""K1 and K2: packed flash attention, forward and backward (counterpart of
-e2_tts_tpu/ops/flash_attention.py::flash_attention_packed).
+"""K1, K2 and K10: packed flash attention, forward and backward (counterpart
+of e2_tts_tpu/ops/flash_attention.py::flash_attention_packed).
 
 K1 replaces the TPU kernel ``_packed_fwd_kernel`` (driven by
 ``_flash_packed_forward``), K2 the TPU kernel ``_packed_bwd_kernel`` (driven
-by ``_flash_packed_backward``). The CUDA kernels are
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; their
-source notes say what bounds them on the H100 and how their designs answer.
+by ``_flash_packed_backward``), K10 the TPU kernel ``_delta_kernel`` (driven
+by ``_delta_bnh_pallas``), K2's pre-pass. The CUDA kernels are
+``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K2,
+K10); their source notes say what bounds them on the H100 and how their
+designs answer.
 In short: tensor-core bound at the model's shapes; score tiles stay in
 shared memory, the products run on the tensor cores (wmma, bf16 in / f32
 accumulate). `_FlashPacked` ties the two together as one
@@ -16,13 +18,13 @@ tanh softclamp of the scaled logits, key-padding bias 0 / -1e30, softmax,
 post-softmax counter-hash dropout (bits identical to the JAX package's
 ``_keep_tile``), optional per-head sigmoid output gate; also returns the
 per-row log-sum-exp ``(b*h, n)`` the backward uses. The backward takes
-``delta = rowsum(do * o)`` per head as a plain PyTorch reduction beside K2
-(the JAX package's default XLA pre-pass) and returns the gate-logit grad
+``delta = rowsum(do * o)`` per head from K10, launched just before K2 on
+the same stream, and returns the gate-logit grad
 ``delta * (1 - sigmoid(gate))``.
 
-`flash_attention_packed` and `flash_attention_packed_backward` take the
-plain PyTorch versions for CPU tensors (tests) and launch the kernels for
-CUDA tensors; there is no other route.
+`flash_attention_packed`, `flash_attention_packed_backward` and
+`flash_delta` take the plain PyTorch versions for CPU tensors (tests) and
+launch the kernels for CUDA tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -82,6 +84,40 @@ def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
     return o.permute(0, 2, 1, 3).reshape(b, n, D).to(q.dtype), lse
 
 
+def flash_delta_plain(out, dout, heads):
+    """Plain PyTorch version of K10: ``rowsum(dout * out)`` per head, f32
+    ``(b, n, heads)``."""
+    b, n, D = out.shape
+    return (dout.float() * out.float()).view(b, n, heads, D // heads).sum(-1)
+
+
+def _flash_delta_cuda(out, dout, heads):
+    b, n, D = out.shape
+    device, dtype = out.device, out.dtype
+    if dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f'flash_delta takes bf16 or f32, got {dtype}')
+    for t, name in ((out, 'out'), (dout, 'dout')):
+        _cuda.check_cuda_tensor(t, name, device, dtype)
+        if tuple(t.shape) != (b, n, D) or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f'{name} must be a contiguous, 16-byte aligned {(b, n, D)} '
+                             f'tensor, got shape {tuple(t.shape)} strides {t.stride()}')
+    delta = torch.empty((b, n, heads), dtype=torch.float32, device=device)
+    err = _cuda.lib().e2_flash_delta(out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+                                     b * n, heads, D // heads, _cuda.DTYPE_CODES[dtype],
+                                     _cuda.stream_ptr(device))
+    _cuda.check(err, 'flash_delta')
+    _cuda.count_launch('flash_delta')
+    return delta
+
+
+def flash_delta(out, dout, *, heads: int):
+    """K10 alone: ``delta = rowsum(dout * out)`` per head of the packed
+    ``(b, n, heads*dh)`` layout, f32 ``(b, n, heads)``."""
+    if out.device.type == 'cpu':
+        return flash_delta_plain(out, dout, heads)
+    return _flash_delta_cuda(out, dout, heads)
+
+
 def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
                                           softclamp_value=None, dropout_rate=0.0,
                                           dropout_seed=0, gate_logits=None):
@@ -100,7 +136,7 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
         gv = torch.sigmoid(gate_logits.float())                       # (b, n, h)
         do = (dout.float() * gv.repeat_interleave(dh, dim=-1)).to(dt)
     dof = split(do)
-    delta = (dout.float() * out.float()).view(b, n, heads, dh).sum(-1)   # (b, n, h)
+    delta = flash_delta_plain(out, dout, heads)                        # (b, n, h)
     delta_col = delta.permute(0, 2, 1)[..., None]                     # (b, h, n, 1)
 
     s = torch.einsum('bhid,bhjd->bhij', qf, kf) * scale
@@ -206,9 +242,7 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
     if tuple(lse.shape) != (b * heads, n) or not lse.is_contiguous():
         raise ValueError('lse must be a contiguous (b * heads, n) f32 tensor')
 
-    # delta = rowsum(do * o) per head: the JAX package's XLA pre-pass, here a
-    # plain reduction beside the kernel
-    delta = (dout.float() * out.float()).view(b, n, heads, dh).sum(-1)
+    delta = _flash_delta_cuda(out, dout, heads)           # K10, same stream
     dq = torch.zeros((b, n, D), dtype=torch.float32, device=device)
     dk = torch.empty((b, n, D), dtype=dtype, device=device)
     dv = torch.empty((b, n, D), dtype=dtype, device=device)

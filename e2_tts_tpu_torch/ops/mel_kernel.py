@@ -1,0 +1,115 @@
+"""K11: the fused log-mel kernel (counterpart of
+e2_tts_tpu/ops/mel_kernel.py::fused_log_mel).
+
+Replaces the TPU kernel ``_mel_kernel``. Framed audio -> window-folded DFT
+(two products against the cos / sin bases) -> |.|^power -> mel filterbank
+-> ``log(max(., 1e-5))``, in one pass: the ``(rows, n_freqs)`` spectrum
+never reaches device memory. The CUDA kernel is ``csrc/mel.cu``; its source
+note says what bounds it on the H100 (the f32 FMA rate) and how its design
+answers. For few rows (a serving prompt) the wrapper splits the frequency
+tiles over several blocks per row block (`frequency_splits`, from the row
+count and the card's SM count) and allocates their scratch; such a call
+launches two CUDA kernels, the product pass and the pass that sums the
+splits and takes the log. The ``mel_fwd`` launch counter counts wrapper
+calls: one per call, split or not.
+
+`fused_log_mel` takes the frames as a strided view (``(rows, n_fft)`` or
+``(b, frames, n_fft)``, unit last stride): `ops.mel` hands it the
+reflect-padded wave unfolded with step ``hop``, which the kernel reads by
+index, so no frame tensor is materialised. It runs the plain PyTorch
+version for CPU tensors (tests) and launches the kernel for CUDA tensors;
+there is no other route. The TPU kernel's lane padding of the tables (513
+-> 576 bins, 100 -> 128 mels) is a TPU artefact and is not carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from e2_tts_tpu_torch.ops import _cuda
+from e2_tts_tpu_torch.utils.helpers import exists
+
+
+def spectrum(mag_sq: torch.Tensor, power: float) -> torch.Tensor:
+    """``|X|^power`` from ``|X|^2``."""
+    if power == 1.0:
+        return torch.sqrt(torch.clamp(mag_sq, min=0.0))
+    if power == 2.0:
+        return mag_sq
+    return torch.pow(torch.clamp(mag_sq, min=0.0), power / 2.0)
+
+
+def fused_log_mel_plain(frames: torch.Tensor, dft_cos: torch.Tensor, dft_sin: torch.Tensor,
+                        fbanks: torch.Tensor, power: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of K11 (f32), for CPU tensors and the tests:
+    ``frames (..., n_fft)`` -> log-mel ``(..., n_mels)``."""
+    frames = frames.float()
+    re = frames @ dft_cos
+    im = frames @ dft_sin
+    mel = spectrum(re * re + im * im, power) @ fbanks
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+ROWS_PER_BLOCK = 64      # csrc/mel.cu: BR
+BINS_PER_TILE = 64       # csrc/mel.cu: BF
+
+
+def frequency_splits(rows: int, n_freqs: int, sms: int) -> int:
+    """How many blocks share a row block's frequency tiles: 1 when the row
+    blocks alone fill the card's ``sms`` SMs, else enough (at most one per
+    tile) that row blocks x splits reach about ``sms``."""
+    row_blocks = -(-rows // ROWS_PER_BLOCK)
+    if row_blocks >= sms:
+        return 1
+    return min(-(-n_freqs // BINS_PER_TILE), -(-sms // row_blocks))
+
+
+def _mel_cuda(frames, dft_cos, dft_sin, fbanks, power):
+    device = frames.device
+    squeeze = frames.ndim == 2
+    if squeeze:
+        frames = frames[None]
+    if frames.ndim != 3:
+        raise ValueError(f'frames must be (rows, n_fft) or (b, frames, n_fft), got '
+                         f'{tuple(frames.shape)}')
+    b, t, n_fft = frames.shape
+    n_freqs, n_mels = fbanks.shape
+    _cuda.check_cuda_tensor(frames, 'frames', device, torch.float32)
+    if frames.stride(-1) != 1:
+        raise ValueError(f'frames need a unit last stride, got strides {frames.stride()}')
+    for tab, name, shape in ((dft_cos, 'dft_cos', (n_fft, n_freqs)),
+                             (dft_sin, 'dft_sin', (n_fft, n_freqs)),
+                             (fbanks, 'fbanks', (n_freqs, n_mels))):
+        _cuda.check_cuda_tensor(tab, name, device, torch.float32)
+        if tuple(tab.shape) != shape or not tab.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous {shape} tensor, '
+                             f'got {tuple(tab.shape)}')
+    if n_fft % 16 or not 1 <= n_mels <= 128:
+        raise ValueError(f'the kernel takes n_fft a multiple of 16 and 1..128 mels, '
+                         f'got n_fft={n_fft}, n_mels={n_mels}')
+    out = torch.empty((b, t, n_mels), dtype=torch.float32, device=device)
+    nsplit = frequency_splits(b * t, n_freqs, torch.cuda.get_device_properties(device)
+                              .multi_processor_count)
+    partial = (torch.empty((nsplit, b * t, n_mels), dtype=torch.float32, device=device)
+               if nsplit > 1 else None)
+    err = _cuda.lib().e2_mel_fwd(
+        frames.data_ptr(), frames.stride(0), frames.stride(1), t, b * t, n_fft,
+        dft_cos.data_ptr(), dft_sin.data_ptr(), n_freqs, fbanks.data_ptr(), n_mels,
+        out.data_ptr(), partial.data_ptr() if exists(partial) else None, nsplit,
+        float(power), _cuda.stream_ptr(device))
+    _cuda.check(err, 'mel_fwd')
+    _cuda.count_launch('mel_fwd')        # once per call, also when the split adds a pass
+    return out[0] if squeeze else out
+
+
+def fused_log_mel(frames: torch.Tensor, dft_cos: torch.Tensor, dft_sin: torch.Tensor,
+                  fbanks: torch.Tensor, power: float = 1.0) -> torch.Tensor:
+    """Log-mel of ``frames`` ((rows, n_fft) or (b, frames, n_fft), f32, any
+    strides but the last) against window-folded bases ``(n_fft, n_freqs)``
+    and ``fbanks (n_freqs, n_mels)``: ``(..., n_mels)`` f32."""
+    power = float(power)
+    if not power > 0.0:
+        raise ValueError(f'power must be positive, got {power}')
+    if frames.device.type == 'cpu':
+        return fused_log_mel_plain(frames, dft_cos, dft_sin, fbanks, power)
+    return _mel_cuda(frames, dft_cos, dft_sin, fbanks, power)

@@ -7,6 +7,7 @@ int32 id arrays (pad value -1).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from e2_tts_tpu_torch.utils.helpers import exists
 
@@ -44,3 +45,13 @@ def resolve_tokenizer(tokenizer, text_num_embeds=None):
         raise NotImplementedError(
             "the 'phoneme_en' tokenizer is not ported to e2_tts_tpu_torch yet")
     raise ValueError(f'unknown tokenizer string {tokenizer}')
+
+
+def tokenize_batch(tokenizer, text, batch: int, device) -> torch.Tensor | None:
+    """``text`` (a list of strings, ids ``(b, nt)`` or None) as a long id
+    tensor on ``device``; raises unless it has ``batch`` rows."""
+    if isinstance(text, list):
+        text = torch.as_tensor(tokenizer(text), dtype=torch.long, device=device)
+    if exists(text) and text.shape[0] != batch:
+        raise ValueError(f'got {text.shape[0]} texts for a batch of {batch} audio samples')
+    return text

@@ -11,9 +11,10 @@ rest), a global-norm clip with optax's formula, ADOPT with a linear warmup
 draw of a step (span, x0, t, dropout seeds) comes from the trainer's
 ``torch.Generator``.
 
-Not ported yet (each raises NotImplementedError): the duration predictor,
-gradient accumulation, meshes / FSDP / sequence parallelism, TensorBoard,
-the profiler hook, data prefetch workers, checkpoint save and resume.
+Not ported yet (each raises NotImplementedError): training the duration
+predictor in the trainer, gradient accumulation, meshes / FSDP / sequence
+parallelism, TensorBoard, the profiler hook, data prefetch workers,
+checkpoint save and resume.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ class E2Trainer:
         `train`. ``dtype`` sets the compute dtype of every submodule
         (parameters stay f32). The trainer runs on the model's device."""
         for flag, what in ((exists(duration_predictor) or train_duration_predictor,
-                            'the duration predictor'),
+                            'training the duration predictor in E2Trainer'),
                            (grad_accumulation_steps > 1, 'gradient accumulation'),
                            (exists(mesh), 'a device mesh'),
                            (param_sharding != 'replicated', f'param_sharding={param_sharding!r}'),

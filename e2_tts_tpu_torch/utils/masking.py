@@ -20,6 +20,16 @@ def lens_to_mask(lens: torch.Tensor, length: int | None = None) -> torch.Tensor:
     return seq[None, :] < lens[:, None]
 
 
+def maybe_masked_mean(t: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean over the sequence axis, respecting an optional bool mask:
+    ``t (b, n, d) -> (b, d)``."""
+    if not exists(mask):
+        return t.mean(dim=1)
+    t = torch.where(mask[..., None], t, torch.zeros((), dtype=t.dtype, device=t.device))
+    den = mask.to(t.dtype).sum(dim=-1)
+    return t.sum(dim=1) / torch.clamp(den, min=1.0)[..., None]
+
+
 def pad_to_length(t: torch.Tensor, length: int, value=None) -> torch.Tensor:
     """Right-pad (or truncate) the LAST axis to ``length``."""
     seq_len = t.shape[-1]

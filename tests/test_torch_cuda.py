@@ -14,7 +14,10 @@ orders), f32 within 1e-4 + 1e-4 |ref|. The backward kernels' grads are held
 to the same relative terms with the absolute term scaled by the largest
 |ref| of each grad (grads of sums over thousands of rows are far from
 unit scale); K2's dq also sums key tiles by atomicAdd in an order that
-changes from run to run, which stays within the f32 term.
+changes from run to run, which stays within the f32 term. K11's log-mel is
+held to 2e-3 + 1e-3 |ref| (the JAX package's tolerance between its mel
+modes: 1024-term f32 sums in other orders, amplified by the log in quiet
+bins); K10's f32 sums to 1e-5 relative plus 1e-5 of the largest |ref|.
 """
 
 import pytest
@@ -25,6 +28,8 @@ from e2_tts_tpu_torch.ops import _cuda
 from e2_tts_tpu_torch.ops import flash_attention as fa
 from e2_tts_tpu_torch.ops import geglu_kernel as gk
 from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
+from e2_tts_tpu_torch.ops import mel_kernel as mk
+from e2_tts_tpu_torch.ops.mel import MelSpec, frame_signal
 
 pytestmark = pytest.mark.cuda
 
@@ -115,9 +120,10 @@ def test_flash_bwd_kernel(dev, dtype, rate, gated):
               gate_logits=gate)
     out, lse = fa.flash_attention_packed(q, k, v, mask, return_lse=True, **kw)
     dout = torch.randn(b, n, h * dh, generator=g, device=dev).to(dtype)
-    before = _cuda.launch_counts['flash_bwd']
+    before = dict(_cuda.launch_counts)
     got = fa.flash_attention_packed_backward(q, k, v, mask, out, lse, dout, **kw)
-    assert _cuda.launch_counts['flash_bwd'] == before + 1
+    assert _cuda.launch_counts['flash_bwd'] == before['flash_bwd'] + 1
+    assert _cuda.launch_counts['flash_delta'] == before['flash_delta'] + 1
     ref = fa.flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout,
                                                    scale=dh ** -0.5, **kw)
     assert (got[3] is None) == (not gated)
@@ -162,6 +168,36 @@ def test_geglu_bwd_kernel(dev, dtype, inner, rate):
     _close(got, gk.geglu_dropout_backward_plain(h2, gout, 99, rate), dtype)
 
 
+@pytest.mark.parametrize('case', ['prompt', 'power2', 'power0.7', 'win800', 'ragged_b2'])
+def test_mel_kernel(dev, case):
+    g = torch.Generator(device=dev).manual_seed(6)
+    kw = dict(power2=dict(power=2.0), win800=dict(win_length=800),
+              **{'power0.7': dict(power=0.7)}).get(case, {})
+    spec = MelSpec(mode='pallas', **kw).to(dev)
+    b, nw = (2, 300 * 256 + 77) if case == 'ragged_b2' else (1, 72000)
+    wave = torch.randn(b, nw, generator=g, device=dev) * 0.1
+    frames = frame_signal(wave, 1024, 256, center=True)
+    before = _cuda.launch_counts['mel_fwd']
+    got = spec(wave)
+    assert _cuda.launch_counts['mel_fwd'] == before + 1
+    ref = mk.fused_log_mel_plain(frames, spec.dft_cos, spec.dft_sin, spec.fbanks,
+                                 spec.power).transpose(1, 2)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(16, 1056, 8, 64), (3, 333, 4, 32), (2, 65, 2, 128)])
+def test_flash_delta_kernel(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, n, h, dh = shape
+    o, do = (torch.randn(b, n, h * dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    before = _cuda.launch_counts['flash_delta']
+    got = fa.flash_delta(o, do, heads=h)
+    assert _cuda.launch_counts['flash_delta'] == before + 1
+    ref = fa.flash_delta_plain(o, do, h)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
 def test_wrappers_keep_the_graph(dev):
     """On CUDA tensors that require grad, every kernel wrapper's output has
     a grad_fn (the autograd.Functions tie each forward kernel to its
@@ -183,15 +219,16 @@ def test_wrappers_keep_the_graph(dev):
 
 
 def test_loss_backward_reaches_every_parameter(dev):
-    """`loss.backward()` on the card, through all eight kernels, gives every
-    parameter a finite grad."""
+    """`loss.backward()` on the card from a raw-wave batch, through all ten
+    kernels, gives every parameter a finite grad."""
     gen = torch.Generator().manual_seed(0)
     model = E2TTS(transformer=dict(dim=512, depth=2, heads=8, dim_head=64, num_registers=4,
                                    kernel_size=7, dropout=0.1),
-                  dtype=torch.bfloat16, generator=gen, device=dev).train()
-    mel = torch.randn(2, 120, 100, generator=gen).to(dev)
+                  mel_spec_kwargs=dict(mode='pallas'), dtype=torch.bfloat16, generator=gen,
+                  device=dev).train()
+    wave = 0.1 * torch.randn(2, 119 * 256, generator=gen).to(dev)     # 120 frames
     before = dict(_cuda.launch_counts)
-    out = model(mel, text=['hello there', 'a b c'], lens=torch.tensor([120, 90]),
+    out = model(wave, text=['hello there', 'a b c'], lens=torch.tensor([120, 90]),
                 drop_text_cond=False, generator=torch.Generator().manual_seed(1))
     out.loss.backward()
     torch.cuda.synchronize()
@@ -210,3 +247,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                              *(torch.zeros(1, device=dev),) * 6)
     with pytest.raises(ValueError):
         gk.geglu_dropout(torch.zeros(1, 8, 64, device=dev).half())
+    spec = MelSpec().to(dev)
+    frames = torch.zeros(2, 1024, device=dev)
+    with pytest.raises(ValueError):                            # f64 frames
+        mk.fused_log_mel(frames.double(), spec.dft_cos, spec.dft_sin, spec.fbanks)
+    with pytest.raises(ValueError):                            # tables on the CPU
+        mk.fused_log_mel(frames, spec.dft_cos.cpu(), spec.dft_sin, spec.fbanks)
+    o = torch.zeros(1, 16, 128, device=dev)
+    with pytest.raises(ValueError):                            # not contiguous
+        fa.flash_delta(o[:, ::2], o[:, ::2], heads=4)

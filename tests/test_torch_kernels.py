@@ -26,6 +26,7 @@ from e2_tts_tpu_torch.ops import flash_attention as fa
 from e2_tts_tpu_torch.ops import geglu_kernel as gk
 from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
 from e2_tts_tpu_torch.ops.dropout import hash_keep
+from e2_tts_tpu_torch.ops.mel import MelSpec
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -186,11 +187,14 @@ def test_plain_path_does_not_count_launches():
     gk.geglu_dropout(torch.zeros(1, 4, 128), 0, 0.0)
     hck.width_connection(torch.zeros(4, 8, 64), *(torch.as_tensor(p) for p in _hc_params()))
     fa.flash_attention_packed(*(torch.zeros(1, 8, 128),) * 3, heads=4)
+    fa.flash_delta(torch.zeros(1, 8, 128), torch.zeros(1, 8, 128), heads=4)
+    spec = MelSpec(mode='pallas')
+    spec(torch.zeros(1, 2048))
     assert _cuda.launch_counts == before
 
 
 def test_kernel_sources_exist_for_every_counter():
     names = {p.stem for p in _cuda.CSRC.glob('*.cu')}
     assert names == {'flash_attention', 'flash_attention_bwd', 'hyper_conn',
-                     'hyper_conn_bwd', 'geglu'}
+                     'hyper_conn_bwd', 'geglu', 'mel'}
     assert set(_cuda.launch_counts) == set(_cuda.KERNELS)

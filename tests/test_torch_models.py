@@ -31,9 +31,11 @@ from e2_tts_tpu.ops.rotary import rotary_freqs
 from _torch_port_helpers import SMALL_TF, flat_state, perturb
 from e2_tts_tpu_torch.convert import load_jax_params
 from e2_tts_tpu_torch.models import blocks, hyper_connections as hc
+from e2_tts_tpu_torch.models.duration import DurationPredictor
 from e2_tts_tpu_torch.models.e2tts import E2TTS
 from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.rotary import rotary_tables
+from e2_tts_tpu_torch.vocoder.vocos import Vocos
 
 MODULE_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -291,15 +293,18 @@ def test_sample_generator_is_deterministic(e2tts_pair):
 def test_unported_paths_raise(e2tts_pair):
     _, p = e2tts_pair
     with pytest.raises(NotImplementedError):
-        p.sample(torch.zeros(1, 2400), text=['hi'], duration=16)     # raw wave
+        p.sample(torch.zeros(1, 8, 100), text=['hi'], duration=16, save_to_filename='a.wav')
     with pytest.raises(ValueError):
-        p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration
-    with pytest.raises(NotImplementedError):
-        p(torch.zeros(1, 2400), text=['hi'])                          # raw-wave loss input
-    for kw in (dict(concat_cond=True), dict(use_vocos=True), dict(num_freq_tokens=2),
-               dict(interpolated_text=True), dict(tokenizer='phoneme_en')):
+        p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration, no predictor
+    with pytest.raises(ValueError, match='more than 512'):
+        p(torch.zeros(1, 512), text=['hi'])                           # wave too short to centre
+    for kw in (dict(concat_cond=True), dict(use_vocos=True, vocos_backend='torch'),
+               dict(num_freq_tokens=2), dict(interpolated_text=True),
+               dict(tokenizer='phoneme_en')):
         with pytest.raises(NotImplementedError):
             E2TTS(transformer=dict(SMALL_TF), device='cpu', **kw)
+    with pytest.raises(NotImplementedError):
+        DurationPredictor(transformer=dict(SMALL_TF), num_freq_tokens=2, device='cpu')
     for kw in (dict(scan_layers=True), dict(remat=True), dict(attn_laser=True)):
         with pytest.raises(NotImplementedError):
             Transformer(**SMALL_TF, device='cpu', **kw)
@@ -328,6 +333,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         E2TTS(transformer=dict(SMALL_TF))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Transformer(**SMALL_TF)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DurationPredictor(transformer=dict(SMALL_TF))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Vocos(dim=32, num_layers=1)
 
 
 def test_port_imports_no_jax():
@@ -337,6 +346,7 @@ def test_port_imports_no_jax():
         'for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):\n'
         '    importlib.import_module(m.name)\n'
         'from e2_tts_tpu_torch import E2TTS, Transformer, E2Trainer, EMA, Adopt\n'
+        'from e2_tts_tpu_torch import DurationPredictor, MelSpec, Vocos\n'
         'import e2_tts_tpu_torch.training.trainer, e2_tts_tpu_torch.training.data\n'
         'bad = [m for m in sys.modules if m.split(".")[0] in\n'
         '       ("jax", "jaxlib", "flax", "optax", "orbax", "e2_tts_tpu")]\n'

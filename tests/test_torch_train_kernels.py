@@ -1,10 +1,11 @@
-"""The port's backward kernels K2, K4, K5b and K7 against the JAX package, on
-the CPU.
+"""The port's backward kernels K2 (with its delta pre-pass K10), K4, K5b and
+K7 against the JAX package, on the CPU.
 
 On a CPU tensor each port wrapper runs its kernel's plain PyTorch version;
 the JAX side is ``jax.vjp`` of the JAX package's public function with its
 Pallas kernels in interpret mode (so the backward runs ``_packed_bwd_kernel``,
-``_width_bwd_kernel``, ``_width_fused_bwd_kernel`` and ``_bwd_kernel``), and
+``_width_bwd_kernel``, ``_width_fused_bwd_kernel`` and ``_bwd_kernel``; K10
+against ``_delta_kernel`` directly), and
 for GEGLU at an inner the Pallas kernel does not take, its XLA reference.
 Inputs and output grads come from numpy seeds.
 
@@ -119,6 +120,24 @@ def test_flash_backward_matches_autograd_of_plain_forward(rate):
     for a, h, f in zip(auto, hand, [t.grad for t in leaves]):
         _close(h.numpy(), a.numpy())
         np.testing.assert_array_equal(f.numpy(), h.numpy())
+
+
+# -- K10: the delta pre-pass of K2 ------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(2, 128, 4, 32), (3, 37, 8, 64), (1, 20, 2, 128)],
+                         ids=['4x32', 'ragged_n_8x64', '2x128'])
+def test_flash_delta_matches_jax_kernel(interpret, shape):
+    """K10's plain version against ``_delta_kernel`` in interpret mode and
+    the XLA pre-pass, 1e-5 relative (f32 sums of dh products in other
+    orders; the JAX kernel sums on the MXU through a 0/1 matrix)."""
+    b, n, heads, dh = shape
+    rng = np.random.default_rng(n)
+    o, do = (rng.standard_normal((b, n, heads * dh)).astype(np.float32) for _ in range(2))
+    port = fa.flash_delta(_t(o), _t(do), heads=heads)
+    assert port.shape == (b, n, heads) and port.dtype == torch.float32
+    for ref in (jfa._delta_bnh_pallas(jnp.asarray(o), jnp.asarray(do), heads),
+                jfa._delta_bnh_xla(jnp.asarray(o), jnp.asarray(do), heads)):
+        _close(port.numpy(), np.asarray(ref))
 
 
 # -- K5b / K4: hyper-connection width-connection adjoints -------------------------------

@@ -43,6 +43,19 @@ def test_masks_match_jax():
             np.asarray(jmask.pad_to_length(jnp.asarray(t), length, value=-1)))
 
 
+def test_maybe_masked_mean_matches_jax():
+    rng = np.random.default_rng(2)
+    t = rng.standard_normal((3, 6, 4)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 0, 0, 0], [0] * 6, [1] * 6], bool)
+    for m in (None, mask):
+        np.testing.assert_allclose(
+            masking.maybe_masked_mean(torch.from_numpy(t),
+                                      None if m is None else torch.from_numpy(m)).numpy(),
+            np.asarray(jmask.maybe_masked_mean(jnp.asarray(t),
+                                               None if m is None else jnp.asarray(m))),
+            atol=1e-6, rtol=1e-6)
+
+
 def test_project_matches_jax():
     rng = np.random.default_rng(0)
     x, y = rng.standard_normal((2, 5, 7)).astype(np.float32), \
