@@ -8,25 +8,31 @@ exit code and no result line:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — nvcc compiles every kernel from e2_tts_tpu_torch/csrc (sm_90a).
-3. kernels — the ten kernels, each against its plain PyTorch version on the
-   card: K1 (packed flash attention) and its backward K2 with K2's delta
-   pre-pass K10, K3 / K5 (hyper-connection width connection, depth-fused and
-   plain) and their adjoints K4 / K5b, K6 (GEGLU) and its backward K7, K11
-   (the fused log-mel frontend). Forward kernels at the sampler's shapes
-   (B=1; K11 at a 3-s prompt), at the duration predictor's (B=1, the
-   prompt's 282 frames + 32 registers) and at the trainer's (B=16);
-   backward kernels at the trainer's; each with ragged, dropout, softclamp
-   (K1, K2), power / window (K11) and f32 cases. K11 at the prompt is also
-   run and timed unsplit (one block per 64 rows), the design its frequency
-   split replaced. A check whose plain version leaves out a
-   feature (K1 / K2 without the softclamp, K11 at power 1 against the power-2
-   kernel) must fail. The first case of each kernel is timed: device time
-   per call (100 calls captured in one CUDA graph, timed with CUDA events,
-   so host dispatch is left out), its plain version's device time (the same
-   way), the one PyTorch call that computes the same function where there
-   is one (K10: einsum), the wall time of one eager call of the wrapper, and
-   the bound. The forward kernels are timed at the training shapes as well;
-   K11 also beside `MelSpec(mode='dft')`.
+3. kernels — the twelve kernels and the probe, each against its plain
+   PyTorch version on the card: K1 (packed flash attention) and its
+   backward K2 with K2's delta pre-pass K10, K8 / K9 (the same attention on
+   (b, h, n, dh) operands, for heads K1 does not take), K3 / K5
+   (hyper-connection width connection, depth-fused and plain) and their
+   adjoints K4 / K5b, K6 (GEGLU) and its backward K7, K11 (the fused log-mel
+   frontend), one LASER `attention`, and the probe (K8 stripped to its
+   products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
+   at a 3-s prompt), at the duration predictor's (B=1, the prompt's 282
+   frames + 32 registers) and at the trainer's (B=16), the flagship's and
+   DiT-XL's (16 heads x 72, widths 1152 / 576); backward kernels at the
+   trainers'; each with ragged, dropout, softclamp (K1, K2, K8, K9), dim_head
+   8 to 128 (K8, K9), power / window (K11) and f32 cases. K11 at the prompt
+   is also run and timed unsplit (one block per 64 rows), the design its
+   frequency split replaced. A check whose plain version leaves out a
+   feature (K1 / K2 / K8 / K9 without the softclamp, K11 at power 1 against
+   the power-2 kernel) must fail. The first case of each kernel is timed:
+   device time per call (100 calls captured in one CUDA graph, timed with
+   CUDA events, so host dispatch is left out), its plain version's device
+   time (the same way), the one PyTorch call that computes the same
+   function where there is one (K10: einsum), the wall time of one eager
+   call of the wrapper, and the bound. The forward kernels are timed at the
+   training shapes as well; K11 also beside `MelSpec(mode='dft')`; K8 / K9
+   also at the flagship's training shape, beside K1 / K2; the probe in each
+   mode at both training shapes.
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -54,6 +60,16 @@ exit code and no result line:
    the warm-up), then timed `train_step`s with and without text, with the
    launch counters checked against the model's structure; then one step
    under torch.profiler (trace: build/profile/train_step_trace.json).
+7. dit     — the E2TTS at DiT-XL/2's widths (dim 1152, 16 heads x 72: every
+   attention on K8 / K9; text stream 576) in bf16 with seeded random
+   weights: one CFG evaluation at depth 2 against the CPU in f32; `sample`
+   at depth 28 (B=1, 1024 frames, NFE 32 midpoint, CFG 1.0 sequential) with
+   its launch counters; one train step at depth 2 (card f32 / bf16 against
+   the CPU) and remat on against off (f32, dropout 0.1); then `E2Trainer`
+   at depth 28, B=16 x 1024, dropout 0.1, remat, timed steps with and
+   without text, with the launch counters (the recompute runs every
+   forward kernel twice); one CFG evaluation and one train step at depth 28
+   under torch.profiler (traces: build/profile/dit_*.json).
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -69,6 +85,11 @@ import time
 
 # the flagship configuration (JAX package: bench.py flagship backbone)
 FLAGSHIP = dict(dim=512, depth=8, heads=8, dim_head=64)
+# DiT-XL/2's widths (Peebles & Xie 2023, Table 1; facebookresearch/DiT
+# models.py DiT_XL_2): 28 layers, hidden 1152, 16 heads of 72, which only
+# K8 / K9 take; every other setting the port's default
+DIT = dict(dim=1152, depth=28, heads=16, dim_head=72)
+DIT_TRAIN_STEPS_TIMED = 5
 FRAMES = 1024
 PROMPT_FRAMES = 256
 STEPS = 32
@@ -195,6 +216,7 @@ def kernel_cases(torch, dev):
     the same function, where there is one. Inputs come from a seeded
     generator on the card."""
     from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.ops import attention as attention_op
     from e2_tts_tpu_torch.ops import flash_attention as fa
     from e2_tts_tpu_torch.ops import geglu_kernel as gk
     from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
@@ -286,7 +308,7 @@ def kernel_cases(torch, dev):
                 randn(d, dtype=f32, scale=0.05),
                 torch.tensor(0.5, device=dev))
 
-    def hc_case(label, s, m, d, dtype, fused, train=False):
+    def hc_case(label, s, m, d, dtype, fused, train=False, timed=False):
         params = hc_params(s, d)
         es = esize(dtype)
         out_bytes = ((s + 1) * m * d + s * m) * es
@@ -303,11 +325,12 @@ def kernel_cases(torch, dev):
             in_bytes = s * m * d * es
         cases.append(dict(
             kernel='K3' if fused else 'K5', label=label, run=run, plain=plain, train=train,
+            timed=timed,
             tol=tol[dtype], nbytes=in_bytes + out_bytes,
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
             peak=PEAK_F32_FLOPS))        # the kernel's arithmetic is f32 FMA
 
-    def hc_bwd_case(label, s, m, d, dtype, fused):
+    def hc_bwd_case(label, s, m, d, dtype, fused, timed=False):
         params = hc_params(s, d)
         es = esize(dtype)
         grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
@@ -331,22 +354,25 @@ def kernel_cases(torch, dev):
             io_bytes = 2 * s * m * d * es
         cases.append(dict(
             kernel='K4' if fused else 'K5b', label=label, run=run, plain=plain, scaled=True,
+            timed=timed,
             tol=tol[dtype], nbytes=io_bytes + grad_in_bytes + param_bytes, flops=flops,
             peak=PEAK_F32_FLOPS))
 
-    def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False):
+    def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False, timed=False):
         h2 = randn(b, n, 2 * inner, dtype=dtype)
         cases.append(dict(
             kernel='K6', label=label, run=lambda: gk.geglu_dropout(h2, 77, rate), train=train,
+            timed=timed,
             plain=lambda: gk.geglu_dropout_plain(h2, 77, rate), tol=tol[dtype],
             nbytes=3 * b * n * inner * esize(dtype), flops=20 * b * n * inner,
             peak=PEAK_F32_FLOPS))
 
-    def geglu_bwd_case(label, b, n, inner, dtype, rate=0.0):
+    def geglu_bwd_case(label, b, n, inner, dtype, rate=0.0, timed=False):
         h2 = randn(b, n, 2 * inner, dtype=dtype)
         gout = randn(b, n, inner, dtype=dtype)
         cases.append(dict(
-            kernel='K7', label=label, run=lambda: gk.geglu_dropout_backward(h2, gout, 77, rate),
+            kernel='K7', label=label, timed=timed,
+            run=lambda: gk.geglu_dropout_backward(h2, gout, 77, rate),
             plain=lambda: gk.geglu_dropout_backward_plain(h2, gout, 77, rate), tol=tol[dtype],
             nbytes=5 * b * n * inner * esize(dtype), flops=30 * b * n * inner,
             peak=PEAK_F32_FLOPS))
@@ -416,6 +442,81 @@ def kernel_cases(torch, dev):
             nbytes=2 * b * n * heads * dh * esize(dtype) + 4 * b * n * heads,
             flops=2 * b * n * heads * dh, peak=PEAK_F32_FLOPS))
 
+    def bhnd_inputs(b, n, heads, dh, dtype, lens, qk_scale):
+        # (b, h, n, dh) views of one (b, n, 3 h dh) projection, as the model hands them to K8
+        q, k, v, mask, _ = attn_inputs(b, n, heads, dh, dtype, lens, False, qk_scale)
+        to_bhnd = lambda t: t.unflatten(-1, (heads, dh)).transpose(1, 2)
+        return to_bhnd(q), to_bhnd(k), to_bhnd(v), mask
+
+    def bhnd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, softclamp=50.0,
+                  qk_scale=1.0, train=False, timed=False):
+        q, k, v, mask = bhnd_inputs(b, n, heads, dh, dtype, lens, qk_scale)
+        es = esize(dtype)
+        kw = dict(dropout_rate=rate, dropout_seed=1234)
+        case = dict(
+            kernel='K8', label=label, train=train, timed=timed,
+            run=lambda: fa.flash_attention(q, k, v, mask, return_lse=True,
+                                           softclamp_value=softclamp, **kw),
+            plain=lambda: fa.flash_attention_plain(q, k, v, mask, scale=dh ** -0.5,
+                                                   softclamp_value=softclamp, **kw),
+            tol=attn_tol[dtype],
+            # q, k, v read, o written (the useful dh columns), lse (+ mask)
+            nbytes=4 * b * heads * n * dh * es + b * heads * n * 4 + (b * n if lens else 0),
+            flops=4 * b * heads * n * n * dh,
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+        if qk_scale != 1.0 or softclamp != 50.0:
+            case['against'] = ('without softclamp', lambda: fa.flash_attention_plain(
+                q, k, v, mask, scale=dh ** -0.5, softclamp_value=None, **kw)[0])
+        cases.append(case)
+
+    def bhnd_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, softclamp=50.0,
+                      qk_scale=1.0, timed=False):
+        q, k, v, mask = bhnd_inputs(b, n, heads, dh, dtype, lens, qk_scale)
+        es = esize(dtype)
+        kw = dict(dropout_rate=rate, dropout_seed=4321)
+        out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, softclamp_value=softclamp,
+                                      **kw)
+        dout = randn(b, heads, n, dh, dtype=dtype)
+        bwd = lambda sc: fa.flash_attention_backward_plain(
+            q, k, v, mask, out, lse, dout, scale=dh ** -0.5, softclamp_value=sc, **kw)
+        case = dict(
+            kernel='K9', label=label, scaled=True, timed=timed,
+            run=lambda: fa.flash_attention_backward(q, k, v, mask, out, lse, dout,
+                                                    softclamp_value=softclamp, **kw),
+            plain=lambda: bwd(softclamp),
+            tol=tol[dtype],
+            # reads q, k, v, o, do, lse (+ mask); writes dq, dk, dv
+            nbytes=8 * b * heads * n * dh * es + b * heads * n * 4 + (b * n if lens else 0),
+            flops=10 * b * heads * n * n * dh,     # five n x n x dh products
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+        if qk_scale != 1.0 or softclamp != 50.0:
+            case['against'] = ('without softclamp', lambda: bwd(None))
+        cases.append(case)
+
+    def laser_case(label, b, n, heads, dh, dtype, lens=None):
+        q, k, v, mask = bhnd_inputs(b, n, heads, dh, dtype, lens, 1.0)
+        laser_v = torch.exp(attention_op.softclamp(v.float(), 15.0)).to(dtype)
+        cases.append(dict(
+            kernel='K8', label=label,
+            run=lambda: attention_op.attention(q, k, v, mask, laser=True),
+            plain=lambda: torch.log(fa.flash_attention_plain(
+                q, k, laser_v, mask, scale=dh ** -0.5, softclamp_value=50.0)[0].float()
+                .clamp(min=1e-20)).to(dtype),
+            # the log turns one bf16 ulp of out (2**-8 relative) into 4e-3, and
+            # its result of order 1 is rounded to bf16 again
+            tol=(2e-2, 1e-2), nbytes=0, flops=0, peak=PEAK_BF16_FLOPS))
+
+    def probe_case(label, b, heads, n, dh, mode, timed=False):
+        x = randn(b, heads, n, dh, scale=0.25)
+        cases.append(dict(
+            kernel='probe', label=label, timed=timed, scaled=True,
+            run=lambda: fa.flash_probe(x, mode), plain=lambda: fa.flash_probe_plain(x, mode),
+            # mode 2 rounds s - (max + sum) (magnitude ~70) to bf16: a max or sum
+            # summed in another order moves it by an ulp of that; 1e-2 of max|ref|
+            tol=tol[bf16],
+            nbytes=2 * b * heads * n * dh * 2, flops=4 * b * heads * n * n * dh,
+            peak=PEAK_BF16_FLOPS))
+
     n = FRAMES + 32          # 1024 frames + 32 registers
     B = TRAIN_BATCH
     # the first case of each kernel is the main path's shape: it is the one timed
@@ -452,6 +553,13 @@ def kernel_cases(torch, dev):
         hc_bwd_case(f'{tag} train text (4,{M},256) bf16', 4, M, 256, bf16, fused)
         hc_bwd_case(f'{tag} ragged M={M - 77} d=512 bf16', 4, M - 77, 512, bf16, fused)
         hc_bwd_case(f'{tag} f32 M=333 d=256', 4, 333, 256, f32, fused)
+        # DiT-XL's speech and text widths
+        hc_case(f'{tag} DiT speech (4,1056,1152) bf16', 4, n, 1152, bf16, fused, timed=True)
+        hc_case(f'{tag} DiT text (4,1056,576) bf16', 4, n, 576, bf16, fused)
+        hc_bwd_case(f'{tag} DiT train speech (4,{M},1152) bf16', 4, M, 1152, bf16, fused,
+                    timed=True)
+        hc_bwd_case(f'{tag} DiT train text (4,{M},576) bf16', 4, M, 576, bf16, fused)
+        hc_bwd_case(f'{tag} f32 M=333 d=1152', 4, 333, 1152, f32, fused)
     geglu_case('speech (1,1056,2x1408) bf16', 1, n, 1408, bf16)
     geglu_case('text (1,1056,2x704) bf16', 1, n, 704, bf16)
     geglu_case('ragged B=2 (2,1056,2x1408) bf16', 2, n, 1408, bf16)
@@ -468,6 +576,9 @@ def kernel_cases(torch, dev):
                    rate=0.1)
     geglu_bwd_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1)
     geglu_bwd_case('f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1)
+    geglu_case('DiT speech (1,1056,2x3072) bf16', 1, n, 3072, bf16, timed=True)
+    geglu_bwd_case(f'DiT train speech ({B},1056,2x3072) bf16 dropout 0.1', B, n, 3072, bf16,
+                   rate=0.1, timed=True)
     mel_case(f'prompt (1,{PROMPT_SAMPLES}) = 282 frames power 1', 1, PROMPT_SAMPLES,
              unsplit=True)
     mel_case(f'train ({B},{TRAIN_WAVE_SAMPLES}) = {B}x1024 frames power 1', B,
@@ -479,6 +590,37 @@ def kernel_cases(torch, dev):
     delta_case(f'train ({B},1056,8x64) bf16', B, n, 8, 64, bf16)
     delta_case('ragged n (3,777,8x64) bf16', 3, 777, 8, 64, bf16)
     delta_case('f32 (2,300,4x32)', 2, 300, 4, 32, f32)
+    H, DH = DIT['heads'], DIT['dim_head']
+    bhnd_case(f'DiT sampler (1,{H},1056,{DH}) bf16', 1, n, H, DH, bf16)
+    bhnd_case(f'DiT train ({B},{H},1056,{DH}) bf16 dropout 0.1 softclamp 50', B, n, H, DH, bf16,
+              rate=0.1, train=True)
+    bhnd_case(f'flagship train shape ({B},8,1056,64) bf16 dropout 0.1 (K1 on the same work: '
+              f'its train row)', B, n, 8, 64, bf16, rate=0.1, timed=True)
+    bhnd_case(f'ragged n=777 B=2 lens 777/500 ({H}x{DH}) bf16 dropout 0.1', 2, 777, H, DH, bf16,
+              lens=[777, 500], rate=0.1)
+    bhnd_case(f'softclamp 2 (1,{H},1056,{DH}) bf16', 1, n, H, DH, bf16, softclamp=2.0)
+    for dh in (8, 16, 48, 96, 128):
+        bhnd_case(f'dh={dh} (2,4,300) bf16 ragged dropout 0.1', 2, 300, 4, dh, bf16,
+                  lens=[300, 211], rate=0.1)
+    bhnd_case(f'f32 (1,4,300,{DH}) q/k x4 (scores ~N(0, 16^2), softclamp 50)', 1, 300, 4, DH,
+              f32, lens=[250], qk_scale=4.0)
+    bhnd_bwd_case(f'DiT train ({B},{H},1056,{DH}) bf16 dropout 0.1', B, n, H, DH, bf16, rate=0.1)
+    bhnd_bwd_case(f'flagship train shape ({B},8,1056,64) bf16 dropout 0.1 (K2 on the same work)',
+                  B, n, 8, 64, bf16, rate=0.1, timed=True)
+    bhnd_bwd_case(f'ragged n=777 B=2 lens 777/500 ({H}x{DH}) bf16 dropout 0.1', 2, 777, H, DH,
+                  bf16, lens=[777, 500], rate=0.1)
+    bhnd_bwd_case(f'softclamp 2 (2,{H},1056,{DH}) bf16', 2, n, H, DH, bf16, softclamp=2.0)
+    for dh in (8, 16, 48, 96, 128):
+        bhnd_bwd_case(f'dh={dh} (2,4,300) bf16 ragged dropout 0.1', 2, 300, 4, dh, bf16,
+                      lens=[300, 211], rate=0.1)
+    bhnd_bwd_case(f'f32 (2,4,300,{DH}) ragged q/k x4 dropout 0.1', 2, 300, 4, DH, f32,
+                  lens=[300, 250], rate=0.1, qk_scale=4.0)
+    laser_case(f'LASER attention (2,{H},1056,{DH}) bf16 ragged', 2, n, H, DH, bf16,
+               lens=[n, 700])
+    for mode in fa.PROBE_MODES:
+        probe_case(f'mode {mode} ({B},8,1056,64) bf16', B, 8, n, 64, mode, timed=True)
+        probe_case(f'mode {mode} DiT train ({B},{H},1056,{DH}) bf16', B, H, n, DH, mode,
+                   timed=True)
     return cases
 
 
@@ -513,11 +655,24 @@ KERNEL_INFO = {
     'K10': dict(name='flash_delta', route='cuda',
                 source='e2_tts_tpu_torch/csrc/flash_attention_bwd.cu',
                 replaces='e2_tts_tpu/ops/flash_attention.py:1198'),
+    'K8': dict(name='flash_fwd_bhnd', route='cuda',
+               source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
+               replaces='e2_tts_tpu/ops/flash_attention.py:161'),
+    'K9': dict(name='flash_bwd_bhnd', route='cuda',
+               source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
+               replaces='e2_tts_tpu/ops/flash_attention.py:421'),
+    'probe': dict(name='flash_probe', route='cuda',
+                  source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
+                  replaces='scripts/_kernel_floor.py:18'),
 }
 # the kernels whose launches the JSON line takes from the sampling run, the
-# serving run and the train steps
+# serving run, the DiT sampling run and the DiT train steps; the rest from the
+# flagship train steps. The probe is on no path: its count is the flagship
+# train steps' 0.
 SAMPLE_KERNELS = ('K1', 'K3', 'K5', 'K6')
 SERVE_KERNELS = ('K11',)
+DIT_SAMPLE_KERNELS = ('K8',)
+DIT_TRAIN_KERNELS = ('K9',)
 
 
 def time_case(case):
@@ -550,8 +705,8 @@ def phase_kernels(torch, dev):
         separated = True
         if 'against' in case:
             what, against = case['against']
-            err_nc, worst_nc = compare(out[0] if kname == 'K1' else out, against(), atol, rtol,
-                                       scaled)
+            err_nc, worst_nc = compare(out[0] if kname in ('K1', 'K8') else out, against(),
+                                       atol, rtol, scaled)
             separated = worst_nc > 1.0
             line += (f'; against the plain version {what}: '
                      f'max_abs_err={err_nc:.3e}, worst ratio {worst_nc:.3f} (must be > 1)')
@@ -562,9 +717,10 @@ def phase_kernels(torch, dev):
         timed = None
         if case.get('train'):
             timed = train_records[kname] = time_case(case)
-        elif 'ms' not in rec:
+        elif case.get('timed') or 'ms' not in rec:
             timed = time_case(case)
-            rec.update(timed)
+            if 'ms' not in rec:
+                rec.update(timed)
         if timed:
             line += (f' ms={timed["ms"]:.5f} plain_ms={timed["plain_ms"]:.5f} '
                      f'eager_call_ms={timed["eager_ms"]:.5f} bound_ms={timed["bound_ms"]:.5f} '
@@ -588,15 +744,16 @@ def phase_kernels(torch, dev):
 
 # -- phase 4: main path (sample) --------------------------------------------------
 
-def build_e2tts(torch, device, dtype, e2tts=None, **transformer):
-    """The flagship E2TTS (with the keyword arguments ``e2tts``) with weights
-    from seed 0, each perturbed by 0.02 * randn (so zero-initialised branches
-    are live), built on the CPU and moved: equal seeds give equal weights on
-    every device. A Vocos (outside the parameters) is seeded on its own and
-    follows the mels to their device when it decodes."""
+def build_e2tts(torch, device, dtype, e2tts=None, config=FLAGSHIP, **transformer):
+    """The E2TTS of ``config`` (the flagship unless given; with the keyword
+    arguments ``e2tts``) with weights from seed 0, each perturbed by 0.02 *
+    randn (so zero-initialised branches are live), built on the CPU and moved:
+    equal seeds give equal weights on every device. A Vocos (outside the
+    parameters) is seeded on its own and follows the mels to their device
+    when it decodes."""
     from e2_tts_tpu_torch import E2TTS
     gen = torch.Generator().manual_seed(0)
-    model = E2TTS(transformer=dict(FLAGSHIP, **transformer), dtype=dtype, generator=gen,
+    model = E2TTS(transformer=dict(config, **transformer), dtype=dtype, generator=gen,
                   device='cpu', **(e2tts or {}))
     with torch.no_grad():
         for p in model.parameters():
@@ -604,28 +761,27 @@ def build_e2tts(torch, device, dtype, e2tts=None, **transformer):
     return model.to(device)
 
 
-def expected_launches(model, steps: int) -> dict:
+def expected_launches(model, steps: int, attention='flash_fwd') -> dict:
     """Launches of one `sample` with sequential CFG, from the model's
     structure: per speech layer K5 once (the conv branch starts a chain),
-    K3 twice (attention, feedforward chained), K1 once, K6 once; per text
-    layer the same again. The null pass runs no text stream. Midpoint makes
-    two evaluations per interval, each a cond and a null pass."""
+    K3 twice (attention, feedforward chained), the attention kernel once (K1,
+    or K8 for heads K1 does not take), K6 once; per text layer the same again.
+    The null pass runs no text stream. Midpoint makes two evaluations per
+    interval, each a cond and a null pass."""
     tf = model.transformer
     cond_layers = tf.depth + tf.text_depth
     null_layers = tf.depth
     per_eval = cond_layers + null_layers
     evals = (steps - 1) * 2
-    return dict(flash_fwd=per_eval * evals, geglu_fwd=per_eval * evals,
-                hc_width=per_eval * evals, hc_width_fused=2 * per_eval * evals)
+    return {attention: per_eval * evals, 'geglu_fwd': per_eval * evals,
+            'hc_width': per_eval * evals, 'hc_width_fused': 2 * per_eval * evals}
 
 
-def phase_main(torch, dev, smi):
-    from e2_tts_tpu_torch.ops import _cuda
-
-    model = build_e2tts(torch, dev, torch.bfloat16).eval()
-    cpu_model = build_e2tts(torch, 'cpu', None).eval()     # same weights, f32 compute
-    n_params = sum(p.numel() for p in model.parameters())
-
+def check_cfg_eval(torch, dev, model, cpu_model, label):
+    """One sequential-CFG evaluation (B=1, 1024 frames, a 256-frame prompt,
+    the text) of ``model`` (bf16, on the card) against ``cpu_model`` (the
+    same weights, f32 on the CPU). Returns the generator of its inputs, to
+    draw the prompt from."""
     g = torch.Generator().manual_seed(1)
     text_ids = torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long)
     x = torch.randn(1, FRAMES, 100, generator=g)
@@ -642,11 +798,21 @@ def phase_main(torch, dev, smi):
                                                        mask=mask, **kw)
     rel_l2 = float((out - ref).norm() / ref.norm())
     rel_max = float((out - ref).abs().max() / ref.abs().max())
-    log(f'main cfg eval bf16 card vs f32 cpu: rel_l2={rel_l2:.3e} rel_max={rel_max:.3e} '
-        f'(tolerance rel_l2 <= 5e-2: bf16 keeps 8 mantissa bits; the same model in bf16 on '
+    log(f'{label} cfg eval bf16 card vs f32 cpu: rel_l2={rel_l2:.3e} rel_max={rel_max:.3e} '
+        f'(tolerance rel_l2 <= 5e-2: bf16 keeps 8 mantissa bits; the flagship in bf16 on '
         f'the CPU lands near 2e-2 at depth 8)')
     if not (torch.isfinite(out).all() and rel_l2 <= 5e-2):
-        raise AssertionError('the card disagrees with the f32 CPU reference')
+        raise AssertionError(f'{label}: the card disagrees with the f32 CPU reference')
+    return g
+
+
+def phase_main(torch, dev, smi):
+    from e2_tts_tpu_torch.ops import _cuda
+
+    model = build_e2tts(torch, dev, torch.bfloat16).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None).eval()     # same weights, f32 compute
+    n_params = sum(p.numel() for p in model.parameters())
+    g = check_cfg_eval(torch, dev, model, cpu_model, 'main')
     del cpu_model
 
     prompt = torch.randn(1, PROMPT_FRAMES, 100, generator=g).to(dev, torch.bfloat16)
@@ -817,28 +983,29 @@ def profile_run(torch, run, trace_name):
             f'cpu_ms_inclusive={e.cpu_time_total / 1e3:.3f}')
 
 
-def phase_profile(torch, model):
+def phase_profile(torch, model, tag=''):
     """One sequential-CFG evaluation under the profiler."""
     dev = model.device
     x = torch.randn(1, FRAMES, 100, device=dev, dtype=torch.bfloat16)
     text = torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long, device=dev)
     times = torch.full((1,), 0.5, device=dev)
-    log('profile one cfg eval:')
+    log(f'profile one {tag}cfg eval:')
     with torch.no_grad():
         profile_run(torch, lambda: model.cfg_transformer_with_pred_head(
-            x, x, times, text=text, batched_cfg=False), 'cfg_eval_trace.json')
+            x, x, times, text=text, batched_cfg=False), f'{tag}cfg_eval_trace.json')
 
 
 # -- phase 6: train ---------------------------------------------------------------
 
-def step_loss_and_grads(torch, model, batch):
-    """One loss + backward on ``batch`` (with its draws); returns the loss
-    and every parameter's grad as one f32 vector on the CPU."""
+def step_loss_and_grads(torch, model, batch, generator=None):
+    """One loss + backward on ``batch`` (with its draws; ``generator`` draws
+    the dropout seeds); returns the loss and every parameter's grad as one
+    f32 vector on the CPU."""
     model.zero_grad(set_to_none=True)
     dev = model.device
     out = model(batch['mel'].to(dev), text=batch['text'].to(dev), lens=batch['lens'].to(dev),
                 drop_text_cond=False, times=batch['times'], noise=batch['noise'],
-                rand_span_mask=batch['span'])
+                rand_span_mask=batch['span'], generator=generator)
     out.loss.backward()
     grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten().cpu()
              for p in model.parameters()]
@@ -872,6 +1039,34 @@ TRAIN_CHECK_TOL = {'f32': dict(loss=1e-5, grad=1e-4), 'bf16': dict(loss=1e-3, gr
 WAVE_LOSS_TOL = 1e-4
 
 
+def check_train_vs_cpu(torch, dev, label, config):
+    """One step's loss and grads of ``config`` at depth 2 on the card, in
+    f32 and in bf16, against the CPU's f32 step on the same weights and
+    draws (B=2, 512 frames, dropout 0); returns the batch."""
+    small = dict(depth=2, dropout=0.0)
+    cpu_model = build_e2tts(torch, 'cpu', None, config=config, **small).train()
+    batch = train_check_batch(torch, cpu_model)
+    ref_loss, ref_grad = step_loss_and_grads(torch, cpu_model, batch)
+    del cpu_model
+    for kind, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        model = build_e2tts(torch, dev, None if kind == 'f32' else dtype, config=config,
+                            **small).train()
+        loss, grad = step_loss_and_grads(torch, model, batch)
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        grad_rel = float((grad - ref_grad).norm() / ref_grad.norm())
+        lim = TRAIN_CHECK_TOL[kind]
+        log(f'{label} check card {kind} vs cpu f32 (depth 2, B=2, 512 frames, dropout 0, '
+            f'same weights and draws): loss={loss:.6f} cpu_loss={ref_loss:.6f} '
+            f'loss_rel={loss_rel:.3e} (<= {lim["loss"]:g}) grad_rel_l2={grad_rel:.3e} '
+            f'(<= {lim["grad"]:g}) over {grad.numel()} grads')
+        if not (torch.isfinite(grad).all() and loss_rel <= lim['loss']
+                and grad_rel <= lim['grad']):
+            raise AssertionError(f'{label}: train step on the card ({kind}) disagrees with '
+                                 f'the CPU')
+        del model
+    return batch
+
+
 def phase_train_check(torch, dev):
     """One step's loss and grads on the card, in f32 and in bf16, against
     the CPU's f32 step on the same weights and draws; then one f32 step from
@@ -881,24 +1076,7 @@ def phase_train_check(torch, dev):
     from e2_tts_tpu_torch.ops.mel import MelSpec
 
     small = dict(depth=2, dropout=0.0)
-    cpu_model = build_e2tts(torch, 'cpu', None, **small).train()
-    batch = train_check_batch(torch, cpu_model)
-    ref_loss, ref_grad = step_loss_and_grads(torch, cpu_model, batch)
-    del cpu_model
-    for label, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
-        model = build_e2tts(torch, dev, None if label == 'f32' else dtype, **small).train()
-        loss, grad = step_loss_and_grads(torch, model, batch)
-        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-        grad_rel = float((grad - ref_grad).norm() / ref_grad.norm())
-        lim = TRAIN_CHECK_TOL[label]
-        log(f'train check card {label} vs cpu f32 (depth 2, B=2, 512 frames, dropout 0, '
-            f'same weights and draws): loss={loss:.6f} cpu_loss={ref_loss:.6f} '
-            f'loss_rel={loss_rel:.3e} (<= {lim["loss"]:g}) grad_rel_l2={grad_rel:.3e} '
-            f'(<= {lim["grad"]:g}) over {grad.numel()} grads')
-        if not (torch.isfinite(grad).all() and loss_rel <= lim['loss']
-                and grad_rel <= lim['grad']):
-            raise AssertionError(f'train step on the card ({label}) disagrees with the CPU')
-        del model
+    batch = check_train_vs_cpu(torch, dev, 'train', FLAGSHIP)
 
     model = build_e2tts(torch, dev, None, e2tts=dict(mel_spec_kwargs=dict(mode='pallas')),
                         **small).train()
@@ -925,13 +1103,19 @@ def phase_train_check(torch, dev):
 def expected_train_launches(model, with_text: bool) -> dict:
     """Launches of one train step on mels, from the model's structure: per
     layer of a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 / K10
-    and K6 / K7 once. Without text the text stream does not run."""
+    (or K8 / K9 for heads K1 does not take) and K6 / K7 once. Without text
+    the text stream does not run. With per-layer remat every forward kernel
+    runs again in the backward's recompute."""
     tf = model.transformer
     layers = tf.depth + (tf.text_depth if with_text else 0)
-    counts = dict(flash_fwd=layers, hc_width=layers, hc_width_fused=2 * layers,
-                  geglu_fwd=layers)
-    counts.update(flash_bwd=layers, hc_width_bwd=layers, hc_width_fused_bwd=2 * layers,
-                  geglu_bwd=layers, flash_delta=layers, mel_fwd=0)
+    fwd = layers * (2 if tf.remat else 1)
+    packed = tf.dim_head in (32, 64, 128)
+    counts = {'flash_fwd' if packed else 'flash_fwd_bhnd': fwd, 'hc_width': fwd,
+              'hc_width_fused': 2 * fwd, 'geglu_fwd': fwd}
+    counts.update({'flash_bwd' if packed else 'flash_bwd_bhnd': layers, 'hc_width_bwd': layers,
+                   'hc_width_fused_bwd': 2 * layers, 'geglu_bwd': layers})
+    if packed:
+        counts['flash_delta'] = layers
     return counts
 
 
@@ -989,7 +1173,8 @@ def phase_train(torch, dev, smi):
         f'max_memory_allocated_gib={peak_gib:.3f} loss_finite={finite} '
         f'last_loss={float(losses[-1]):.5f} launches={json.dumps(counts, sort_keys=True)} [{smi}]')
     with_text, dropped = (expected_train_launches(model, t) for t in (True, False))
-    expected = {k: TRAIN_STEPS_TIMED * (with_text[k] + dropped[k]) for k in _cuda.KERNELS}
+    expected = {k: TRAIN_STEPS_TIMED * (with_text.get(k, 0) + dropped.get(k, 0))
+                for k in _cuda.KERNELS}
     if counts != expected:
         raise AssertionError(f'train launch counts {counts} != expected {expected}')
     if not finite:
@@ -999,6 +1184,128 @@ def phase_train(torch, dev, smi):
     profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
                 'train_step_trace.json')
     return counts
+
+
+# remat on against off, f32 on the card at dropout 0.1: the forward runs the
+# same kernels on the same inputs (equal losses); K9 adds dq over key tiles
+# by atomics in a run-dependent order, f32 summation noise (the flagship's
+# f32 card-vs-CPU grads, all summation orders together, read ~6e-7), far
+# under this limit
+DIT_REMAT_GRAD_TOL = 1e-5
+
+
+def phase_dit(torch, dev, smi):
+    """The DiT-width E2TTS (16 heads of 72: K8 / K9) in bf16: one CFG
+    evaluation at depth 2 against the CPU; `sample` at depth 28; the train
+    step at depth 2 against the CPU and remat on against off; then timed
+    `E2Trainer` steps at depth 28, B=16 x 1024, dropout 0.1, remat.
+    Returns the launch counts of the sample and of the train steps."""
+    import numpy as np
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    model = build_e2tts(torch, dev, torch.bfloat16, config=DIT, depth=2).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None, config=DIT, depth=2).eval()
+    check_cfg_eval(torch, dev, model, cpu_model, 'dit (depth 2)')
+    del model, cpu_model
+
+    t0 = time.perf_counter()
+    model = build_e2tts(torch, dev, torch.bfloat16, config=DIT, dropout=0.1, remat=True).eval()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randn(1, PROMPT_FRAMES, 100, generator=g).to(dev, torch.bfloat16)
+    sample_kw = dict(text=[TEXT], duration=FRAMES, cfg_strength=1.0,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    model.sample(prompt, steps=2, **sample_kw)          # warm-up: allocator, cuBLAS
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    mel = model.sample(prompt, steps=STEPS, **sample_kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample_counts = dict(_cuda.launch_counts)
+    if tuple(mel.shape) != (1, FRAMES, 100) or not torch.isfinite(mel).all():
+        raise AssertionError(f'dit sample output bad: shape {tuple(mel.shape)}')
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS, attention='flash_fwd_bhnd'))
+    log(f'dit sample depth {DIT["depth"]} B=1 frames={FRAMES} NFE={2 * (STEPS - 1)} midpoint '
+        f'cfg=1.0 sequential: seconds={seconds:.4f} rtf={seconds / (FRAMES / FRAMES_PER_SECOND):.5f} '
+        f'params={n_params} build_s={build_s:.1f} '
+        f'launches={json.dumps(sample_counts, sort_keys=True)} [{smi}]')
+    if sample_counts != expected:
+        raise AssertionError(f'dit launch counts {sample_counts} != expected {expected}')
+    del mel
+    phase_profile(torch, model, tag='dit_')
+
+    check_train_vs_cpu(torch, dev, 'dit (depth 2)', DIT)
+    batch = None
+    results = {}
+    for remat in (True, False):
+        small = build_e2tts(torch, dev, None, config=DIT, depth=2, dropout=0.1,
+                            remat=remat).train()
+        batch = batch or train_check_batch(torch, small)
+        _cuda.reset_launch_counts()
+        results[remat] = step_loss_and_grads(torch, small, batch,
+                                             generator=torch.Generator().manual_seed(7))
+        results[remat] += (_cuda.launch_counts['flash_fwd_bhnd'],)
+        del small
+    (loss_on, grad_on, fwd_on), (loss_off, grad_off, fwd_off) = results[True], results[False]
+    grad_rel = float((grad_on - grad_off).norm() / grad_off.norm())
+    log(f'dit (depth 2) remat on vs off, f32 card, dropout 0.1, same weights, draws and '
+        f'generator: loss={loss_on:.7f} loss_off={loss_off:.7f} grad_rel_l2={grad_rel:.3e} '
+        f'(<= {DIT_REMAT_GRAD_TOL:g}) flash_fwd_bhnd launches {fwd_on} / {fwd_off}')
+    if not (loss_on == loss_off and grad_rel <= DIT_REMAT_GRAD_TOL and fwd_on == 2 * fwd_off):
+        raise AssertionError('remat changes the train step')
+    torch.cuda.empty_cache()
+
+    model.train()
+    trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                        seed=0)
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    dataset = ArrayDataset(
+        [rng.standard_normal((100, FRAMES)).astype(np.float32) for _ in range(TRAIN_BATCH)],
+        [' '.join(rng.choice(words, size=12)) for _ in range(TRAIN_BATCH)])
+    batch = trainer.prepare_batch(next(iter_batches(dataset, TRAIN_BATCH, seed=1)))
+    for drop in (False, True):                          # warm-up: optimizer state, allocator
+        trainer.train_step(*batch, drop_text_cond=drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    ms, losses = {}, []
+    for drop in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIT_TRAIN_STEPS_TIMED):
+            loss, _, _ = trainer.train_step(*batch, drop_text_cond=drop)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms[drop] = (time.perf_counter() - t0) * 1e3 / DIT_TRAIN_STEPS_TIMED
+    train_counts = dict(_cuda.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(torch.stack(losses)).all())
+    mix_ms = (1 - TEXT_DROP_PROB) * ms[False] + TEXT_DROP_PROB * ms[True]
+    log(f'dit train steps depth {DIT["depth"]} B={TRAIN_BATCH} frames={FRAMES} dropout 0.1 '
+        f'remat bf16, {DIT_TRAIN_STEPS_TIMED} each: ms_per_step_with_text={ms[False]:.3f} '
+        f'ms_per_step_text_dropped={ms[True]:.3f} ms_per_step_mix_0.75_0.25={mix_ms:.3f} '
+        f'mel_frames_per_s={TRAIN_BATCH * FRAMES / (mix_ms / 1e3):.1f} '
+        f'max_memory_allocated_gib={peak_gib:.3f} loss_finite={finite} '
+        f'last_loss={float(losses[-1]):.5f} launches={json.dumps(train_counts, sort_keys=True)} '
+        f'[{smi}]')
+    with_text, dropped = (expected_train_launches(model, t) for t in (True, False))
+    expected = {k: DIT_TRAIN_STEPS_TIMED * (with_text.get(k, 0) + dropped.get(k, 0))
+                for k in _cuda.KERNELS}
+    if train_counts != expected:
+        raise AssertionError(f'dit train launch counts {train_counts} != expected {expected}')
+    if not finite:
+        raise AssertionError('dit train loss is not finite')
+    log('profile one dit train step (with text):')
+    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                'dit_train_step_trace.json')
+    return sample_counts, train_counts
 
 
 def main() -> int:
@@ -1038,12 +1345,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_check(torch, dev)
     train_counts = phase_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    dit_sample_counts, dit_train_counts = phase_dit(torch, dev, smi)
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
         rec = records[kid]
         counts = (sample_counts if kid in SAMPLE_KERNELS else
-                  serve_counts if kid in SERVE_KERNELS else train_counts)
+                  serve_counts if kid in SERVE_KERNELS else
+                  dit_sample_counts if kid in DIT_SAMPLE_KERNELS else
+                  dit_train_counts if kid in DIT_TRAIN_KERNELS else train_counts)
         kernels.append(dict(
             name=info['name'], route=info['route'], source=info['source'],
             replaces=info['replaces'], launches=counts[info['name']],

@@ -7,7 +7,8 @@
 //   post-softmax counter-hash dropout (keep bits identical to _keep_tile),
 //   o = (p v) / max(l, 1e-30) * sigmoid(gate[b, row, h]),  lse = m + log(l).
 // q/k/v are read straight from the (b, n, h*dh) projection layout: a row
-// stride and a head offset, no transpose in or out.
+// stride and a head offset, no transpose in or out. The kernel itself is
+// flash_fwd_kernel in flash_attention.cuh, shared with K8.
 //
 // What bounds it: at the sampler's shapes (b=1, n=1056, 8 heads of 64) the
 // work is ~2.3 GFLOP of matrix products against ~3 MB of q/k/v, far above
@@ -16,297 +17,47 @@
 // shared memory) and runs both products on the tensor cores through wmma
 // (bf16 in, f32 accumulate); the f32 variant uses FMA loops. Simple first:
 // no TMA, no wgmma, no pipelining of the k/v loads yet.
-#include <mma.h>
-
-#include <cstdint>
-#include <type_traits>
-
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BQ = 64;  // q rows per block (16 per warp)
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
-
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;  // batch / row strides (elements)
-  const unsigned char* mask;                       // (b, n) bool or null
-  const void* gate;                                // (b, n, heads) logits or null
-  void* o;                                         // (b, n, heads*dh) contiguous
-  float* lse;                                      // (b*heads, n)
-  int b, n, heads;
-  float scale, softclamp, inv_keep;
-  unsigned seed, threshold;
-  int dropping;
-};
-
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-template <typename T, int DH>
-struct Layout {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  // row pitches (elements); bf16 pitches keep wmma's 16-byte/32-byte rules,
-  // f32 pitches are odd so FMA loops read shared memory without conflicts
-  static constexpr int LDT = kBf16 ? DH + 8 : DH + 1;  // q / k / v tiles
-  static constexpr int LDS = BK + 4;                   // f32 scores
-  static constexpr int LDO = DH + 4;                   // f32 p@v tile
-  static constexpr int LDF = LDS > LDO ? LDS : LDO;
-  static constexpr int LDP = kBf16 ? BK + 8 : BK + 1;  // probabilities
-  static constexpr size_t tile = (size_t)BQ * LDT;
-  static constexpr size_t f_off = align128(3 * tile * sizeof(T));
-  static constexpr size_t p_off = f_off + align128((size_t)BQ * LDF * sizeof(float));
-  static constexpr size_t bias_off = p_off + align128((size_t)BQ * LDP * sizeof(T));
-  static constexpr size_t bytes = bias_off + BK * sizeof(float);
-};
-
-template <typename T, int DH, int LDT>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs, int r0, int n,
-                                          int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = DH / VEC;
-  for (int idx = tid; idx < 64 * VPR; idx += NTHREADS) {
-    const int r = idx / VPR, cv = idx % VPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + cv * VEC);
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) dst[r * LDT + cv * VEC + t] = e[t];
-  }
-}
-
-// scores of this warp's 16 q rows against the 64 keys of the tile -> sF
-template <typename T, int DH>
-__device__ __forceinline__ void warp_scores(const T* sQw, const T* sK, float* sFw, int lane) {
-  using L = Layout<T, DH>;
-  if constexpr (L::kBf16) {
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, sQw + kk * 16, L::LDT);
-        wmma::load_matrix_sync(b, sK + j * 16 * L::LDT + kk * 16, L::LDT);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(sFw + j * 16, c, L::LDS, wmma::mem_row_major);
-    }
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float qv = sQw[r * L::LDT + d];
-        s0 = fmaf(qv, sK[lane * L::LDT + d], s0);
-        s1 = fmaf(qv, sK[(lane + 32) * L::LDT + d], s1);
-      }
-      sFw[r * L::LDS + lane] = s0;
-      sFw[r * L::LDS + lane + 32] = s1;
-    }
-  }
-}
-
-// this warp's 16 x DH slice of p @ v -> sF (pitch LDO)
-template <typename T, int DH>
-__device__ __forceinline__ void warp_pv(const T* sPw, const T* sV, float* sFw, int lane) {
-  using L = Layout<T, DH>;
-  if constexpr (L::kBf16) {
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sPw + kk * 16, L::LDP);
-        wmma::load_matrix_sync(b, sV + kk * 16 * L::LDT + j * 16, L::LDT);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(sFw + j * 16, c, L::LDO, wmma::mem_row_major);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < DH / 32; ++i) {
-      const int col = lane + 32 * i;
-      for (int r = 0; r < 16; ++r) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) acc = fmaf(sPw[r * L::LDP + kk], sV[kk * L::LDT + col], acc);
-        sFw[r * L::LDO + col] = acc;
-      }
-    }
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FlashParams p) {
-  using L = Layout<T, DH>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + L::tile;
-  T* sV = sK + L::tile;
-  float* sF = reinterpret_cast<float*>(smem + L::f_off);
-  T* sP = reinterpret_cast<T*>(smem + L::p_off);
-  float* sBias = reinterpret_cast<float*>(smem + L::bias_off);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
-  const int n = p.n;
-  const T* qg = static_cast<const T*>(p.q) + bi * p.q_bs + (long long)h * DH;
-  const T* kg = static_cast<const T*>(p.k) + bi * p.k_bs + (long long)h * DH;
-  const T* vg = static_cast<const T*>(p.v) + bi * p.v_bs + (long long)h * DH;
-
-  load_tile<T, DH, L::LDT>(sQ, qg, p.q_rs, q0, n, tid);
-
-  // a lane pair owns one q row: `half` picks its 32 score columns and its
-  // DH/2 output columns
-  const int row_local = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int row_abs = q0 + row_local;
-  constexpr int OPL = DH / 2;
-  float acc[OPL];
-#pragma unroll
-  for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
-  float m_i = NEG_INF, l_i = 0.f;
-
-  const unsigned hseed = e2::fmix32(p.seed ^ ((unsigned)(bi * p.heads + h) * 0x27D4EB2Fu), 2);
-  const T* sQw = sQ + warp * 16 * L::LDT;
-  float* sFw = sF + warp * 16 * L::LDF;
-  T* sPw = sP + warp * 16 * L::LDP;
-  float* srow = sFw + (lane >> 1) * L::LDS;
-  T* prow = sPw + (lane >> 1) * L::LDP;
-  const float* orow = sFw + (lane >> 1) * L::LDO + half * OPL;
-
-  const int num_kt = (n + BK - 1) / BK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, DH, L::LDT>(sK, kg, p.k_rs, k0, n, tid);
-    load_tile<T, DH, L::LDT>(sV, vg, p.v_rs, k0, n, tid);
-    if (tid < BK) {
-      const int col = k0 + tid;
-      float bias = NEG_INF;  // keys past n: probability exactly 0
-      if (col < n) bias = (p.mask == nullptr || p.mask[(long long)bi * n + col]) ? 0.f : NEG_INF;
-      sBias[tid] = bias;
-    }
-    __syncthreads();
-
-    warp_scores<T, DH>(sQw, sK, sFw, lane);
-    __syncwarp();
-
-    float mx = NEG_INF;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      float s = srow[c] * p.scale;
-      if (p.softclamp > 0.f) s = tanhf(s / p.softclamp) * p.softclamp;
-      s += sBias[c];
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      float pr = expf(srow[c] - m_new);
-      sum += pr;  // the denominator counts un-dropped probabilities
-      if (p.dropping) {
-        const unsigned u = e2::fmix32(
-            hseed + (unsigned)row_abs * 0x9E3779B1u + (unsigned)(k0 + c) * 0x85EBCA77u, 1);
-        pr = (u >= p.threshold) ? pr * p.inv_keep : 0.f;
-      }
-      prow[c] = e2::from_float<T>(pr);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m_i - m_new);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    __syncwarp();
-
-    warp_pv<T, DH>(sPw, sV, sFw, lane);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < OPL; ++i) acc[i] = acc[i] * alpha + orow[i];
-    __syncwarp();
-  }
-
-  if (row_abs < n) {
-    const float l_fin = fmaxf(l_i, 1e-30f);
-    float sc = 1.f / l_fin;
-    if (p.gate != nullptr) {
-      const float g = e2::to_float<T>(
-          static_cast<const T*>(p.gate)[((long long)bi * n + row_abs) * p.heads + h]);
-      sc *= 1.f / (1.f + expf(-g));
-    }
-    T* og = static_cast<T*>(p.o) + ((long long)bi * n + row_abs) * ((long long)p.heads * DH) +
-            (long long)h * DH + half * OPL;
-#pragma unroll
-    for (int i = 0; i < OPL; ++i) og[i] = e2::from_float<T>(acc[i] * sc);
-    if (half == 0) p.lse[((long long)bi * p.heads + h) * n + row_abs] = m_i + logf(l_fin);
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
-  using L = Layout<T, DH>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L::bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  dim3 grid((p.n + BQ - 1) / BQ, p.heads, p.b);
-  flash_fwd_kernel<T, DH><<<grid, NTHREADS, L::bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename T>
-cudaError_t dispatch_dh(const FlashParams& p, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+cudaError_t dispatch_dh(const FwdParams& p, cudaStream_t stream) {
+  switch (p.dh) {
+    case 32: return launch_fwd<T, 32>(p, stream);
+    case 64: return launch_fwd<T, 64>(p, stream);
+    case 128: return launch_fwd<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// q, k, v: (b, n, heads * dh) with batch / row strides; o contiguous
 extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                             long long v_rs, const void* mask, const void* gate, void* o,
                             void* lse, int b, int n, int heads, int dh, float scale,
                             float softclamp, float inv_keep, unsigned seed, unsigned threshold,
                             int dropping, int dtype, void* stream) {
-  FlashParams p;
+  FwdParams p;
   p.q = q; p.k = k; p.v = v;
-  p.q_bs = q_bs; p.q_rs = q_rs; p.k_bs = k_bs; p.k_rs = k_rs; p.v_bs = v_bs; p.v_rs = v_rs;
+  p.qs = {q_bs, dh, q_rs};
+  p.ks = {k_bs, dh, k_rs};
+  p.vs = {v_bs, dh, v_rs};
+  const long long D = (long long)heads * dh;
+  p.os = {(long long)n * D, dh, D};
   p.mask = static_cast<const unsigned char*>(mask);
   p.gate = gate;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  p.b = b; p.n = n; p.heads = heads;
+  p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == e2::kBFloat16) err = dispatch_dh<__nv_bfloat16>(p, dh, s);
-  else if (dtype == e2::kFloat32) err = dispatch_dh<float>(p, dh, s);
+  if (dtype == e2::kBFloat16) err = dispatch_dh<__nv_bfloat16>(p, s);
+  else if (dtype == e2::kFloat32) err = dispatch_dh<float>(p, s);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -1,0 +1,260 @@
+// K8, K9 and the cost-floor probe: flash attention on (b, h, n, dh)
+// operands for the H100 (sm_90a).
+//
+// K8 replaces the TPU kernel e2_tts_tpu/ops/flash_attention.py::_fwd_kernel
+// (driven by _flash_forward): s = c tanh(scale q k^T / c) + bias(key mask),
+// online softmax over key tiles, post-softmax counter-hash dropout (keep
+// bits identical to _keep_tile for the global head b * heads + h),
+// o = (p v) / max(l, 1e-30), lse = m + log(l). No gate.
+// K9 replaces the TPU kernels _bwd_merged_kernel / _dq_kernel / _dkv_kernel
+// (driven by _flash_backward) with one design: dq, dk, dv from q, k, v, the
+// output grad, K8's lse and delta = rowsum(do * o) (a plain PyTorch sum
+// before the launch, as the JAX package leaves it to XLA).
+// Both are the templates of flash_attention.cuh (K1's and K2's), entered
+// here with (batch, head, row) strides for every operand: a (b, h, n, dh)
+// tensor, or a strided view of the packed (b, n, h*dh) projection, is read
+// and written where it lies, with no copies. dim_head is any multiple of 8
+// up to 128; the tiles are padded to the next multiple of 16 in shared
+// memory (72 -> 80), never past a head's own columns in device memory.
+//
+// What bounds them: at the DiT-width training shape (16, 16 heads, 1056, 72)
+// K8's two n x n x dh products are 82 GFLOP against 78 MB of q, k, v, o; K9's
+// five are 206 GFLOP against ~160 MB: both far above the H100's ~295
+// FLOP/byte ridge, so the tensor cores bound them (wmma, bf16 in / f32
+// accumulate; f32 operands use FMA loops). The padding of dh = 72 to 80 costs
+// 11% of the products. Simple first: no TMA, no wgmma, no pipelining.
+//
+// The probe replaces scripts/_kernel_floor.py::kern: K8 with the softclamp,
+// the mask, the dropout and the normalisation compiled out, at q = k = v, in
+// three modes that add the softmax's pieces one at a time: 0 the two products
+// only (acc += bf16(q k^T) v), 1 with exp, 2 with exp and the tile's max and
+// sum subtracted (s - (max + sum) per 64-key tile). It gives the redesigns of
+// K1 / K8 a floor at their own shapes.
+#include "flash_attention.cuh"
+
+namespace {
+
+constexpr int round16(int dh) { return (dh + 15) / 16 * 16; }
+
+template <typename T>
+cudaError_t dispatch_fwd(const FwdParams& p, cudaStream_t stream) {
+  switch (round16(p.dh)) {
+    case 16: return launch_fwd<T, 16>(p, stream);
+    case 32: return launch_fwd<T, 32>(p, stream);
+    case 48: return launch_fwd<T, 48>(p, stream);
+    case 64: return launch_fwd<T, 64>(p, stream);
+    case 80: return launch_fwd<T, 80>(p, stream);
+    case 96: return launch_fwd<T, 96>(p, stream);
+    case 112: return launch_fwd<T, 112>(p, stream);
+    case 128: return launch_fwd<T, 128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdParams& p, cudaStream_t stream) {
+  switch (round16(p.dh)) {
+    case 16: return launch_bwd<T, 16>(p, stream);
+    case 32: return launch_bwd<T, 32>(p, stream);
+    case 48: return launch_bwd<T, 48>(p, stream);
+    case 64: return launch_bwd<T, 64>(p, stream);
+    case 80: return launch_bwd<T, 80>(p, stream);
+    case 96: return launch_bwd<T, 96>(p, stream);
+    case 112: return launch_bwd<T, 112>(p, stream);
+    case 128: return launch_bwd<T, 128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_dh(int dh) { return dh >= 8 && dh <= 128 && dh % 8 == 0; }
+
+Strides strides(const long long* s) { return {s[0], s[1], s[2]}; }
+
+// ------------------------------------------------------------------ probe
+
+struct ProbeParams {
+  const __nv_bfloat16* x;  // q = k = v
+  Strides xs, os;
+  __nv_bfloat16* o;
+  int n, heads, dh, mode;
+};
+
+template <int DHP>
+__global__ void __launch_bounds__(NTHREADS) flash_probe_kernel(ProbeParams p) {
+  using T = __nv_bfloat16;
+  using L = FwdLayout<T, DHP>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + L::tile;
+  T* sV = sK + L::tile;
+  float* sF = reinterpret_cast<float*>(smem + L::f_off);
+  T* sP = reinterpret_cast<T*>(smem + L::p_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
+  const int n = p.n, dh = p.dh;
+  const T* xg = p.x + offset(p.xs, bi, h);
+
+  load_tile<T, DHP, L::LDT>(sQ, xg, p.xs.r, q0, n, dh, tid);
+  const int half = lane & 1;
+  const int row_abs = q0 + warp * 16 + (lane >> 1);
+  constexpr int OPL = DHP / 2;
+  float acc[OPL];
+#pragma unroll
+  for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
+
+  const T* sQw = sQ + warp * 16 * L::LDT;
+  float* sFw = sF + warp * 16 * L::LDF;
+  T* sPw = sP + warp * 16 * L::LDP;
+  float* srow = sFw + (lane >> 1) * L::LDS;
+  T* prow = sPw + (lane >> 1) * L::LDP;
+  const float* orow = sFw + (lane >> 1) * L::LDO + half * OPL;
+
+  const int num_kt = (n + BK - 1) / BK;
+  for (int kt = 0; kt < num_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile<T, DHP, L::LDT>(sK, xg, p.xs.r, k0, n, dh, tid);
+    load_tile<T, DHP, L::LDT>(sV, xg, p.xs.r, k0, n, dh, tid);
+    __syncthreads();
+
+    warp_scores<T, DHP>(sQw, sK, sFw, dh, lane);
+    __syncwarp();
+    if (p.mode == 0) {
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) prow[half * 32 + j] = __float2bfloat16(srow[half * 32 + j]);
+    } else if (p.mode == 1) {
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j)
+        prow[half * 32 + j] = __float2bfloat16(expf(srow[half * 32 + j]));
+    } else {
+      float mx = -3.0e38f, sum = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) {
+        const float e = expf(srow[half * 32 + j]);
+        srow[half * 32 + j] = e;
+        mx = fmaxf(mx, e);
+        sum += e;
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j)
+        prow[half * 32 + j] = __float2bfloat16(srow[half * 32 + j] - (mx + sum));
+    }
+    __syncwarp();
+
+    warp_pv<T, DHP>(sPw, sV, sFw, dh, lane);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < OPL; ++i) acc[i] += orow[i];
+    __syncwarp();
+  }
+
+  if (row_abs < n) {
+    T* og = p.o + offset(p.os, bi, h) + (long long)row_abs * p.os.r + half * OPL;
+#pragma unroll
+    for (int i = 0; i < OPL; ++i)
+      if (half * OPL + i < dh) og[i] = __float2bfloat16(acc[i]);
+  }
+}
+
+template <int DHP>
+cudaError_t launch_probe(const ProbeParams& p, int b, cudaStream_t stream) {
+  using L = FwdLayout<__nv_bfloat16, DHP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_probe_kernel<DHP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L::bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((p.n + BQ - 1) / BQ, p.heads, b);
+  flash_probe_kernel<DHP><<<grid, NTHREADS, L::bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K8. Strides are (batch, head, row) triples in elements; o may be any
+// (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32.
+extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, const long long* qs,
+                                 const long long* ks, const long long* vs, const void* mask,
+                                 void* o, const long long* os, void* lse, int b, int n,
+                                 int heads, int dh, float scale, float softclamp, float inv_keep,
+                                 unsigned seed, unsigned threshold, int dropping, int dtype,
+                                 void* stream) {
+  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
+  FwdParams p;
+  p.q = q; p.k = k; p.v = v;
+  p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.os = strides(os);
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.gate = nullptr;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.b = b; p.n = n; p.heads = heads; p.dh = dh;
+  p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
+  p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == e2::kBFloat16) err = dispatch_fwd<__nv_bfloat16>(p, s);
+  else if (dtype == e2::kFloat32) err = dispatch_fwd<float>(p, s);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K9. delta is f32 with strides ds; dq a zeroed f32 buffer with strides dqs.
+extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, const void* dout,
+                                 const long long* qs, const long long* ks, const long long* vs,
+                                 const long long* dos, const void* mask, const void* lse,
+                                 const void* delta, const long long* ds, void* dq,
+                                 const long long* dqs, void* dk, const long long* dks, void* dv,
+                                 const long long* dvs, int b, int n, int heads, int dh,
+                                 float scale, float softclamp, float inv_keep, unsigned seed,
+                                 unsigned threshold, int dropping, int dtype, void* stream) {
+  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
+  BwdParams p;
+  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.dos = strides(dos);
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.gate = nullptr;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.deltas = strides(ds);
+  p.dq = static_cast<float*>(dq);
+  p.dk = dk; p.dv = dv;
+  p.dqs = strides(dqs); p.dks = strides(dks); p.dvs = strides(dvs);
+  p.b = b; p.n = n; p.heads = heads; p.dh = dh;
+  p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
+  p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == e2::kBFloat16) err = dispatch_bwd<__nv_bfloat16>(p, s);
+  else if (dtype == e2::kFloat32) err = dispatch_bwd<float>(p, s);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The probe, bf16 only: x (b, h, n, dh) with strides xs, o with strides os.
+extern "C" int e2_flash_probe(const void* x, const long long* xs, void* o, const long long* os,
+                              int b, int n, int heads, int dh, int mode, void* stream) {
+  if (!valid_dh(dh) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  ProbeParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.xs = strides(xs); p.os = strides(os);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.n = n; p.heads = heads; p.dh = dh; p.mode = mode;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (round16(dh)) {
+    case 16: return (int)launch_probe<16>(p, b, s);
+    case 32: return (int)launch_probe<32>(p, b, s);
+    case 48: return (int)launch_probe<48>(p, b, s);
+    case 64: return (int)launch_probe<64>(p, b, s);
+    case 80: return (int)launch_probe<80>(p, b, s);
+    case 96: return (int)launch_probe<96>(p, b, s);
+    case 112: return (int)launch_probe<112>(p, b, s);
+    case 128: return (int)launch_probe<128>(p, b, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

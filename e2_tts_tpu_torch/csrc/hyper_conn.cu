@@ -147,6 +147,8 @@ cudaError_t dispatch_d(const HcParams& p, int d, bool fused, cudaStream_t stream
   switch (d) {
     case 256: return launch<T, NS, 8>(p, fused, stream);
     case 512: return launch<T, NS, 16>(p, fused, stream);
+    case 576: return launch<T, NS, 18>(p, fused, stream);   // DiT-XL's text stream
+    case 1152: return launch<T, NS, 36>(p, fused, stream);  // DiT-XL's speech stream
     default: return cudaErrorInvalidValue;
   }
 }

@@ -40,8 +40,11 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+// warps per block: 8, or 4 where 8 warps' weight-grad partials would not
+// fit in the 227 KB of shared memory a block can have (d = 1152)
+constexpr int bwd_warps(int ns, int d) {
+  return (size_t)9 * (ns + 2) * d * sizeof(float) <= 232448 ? 8 : 4;
+}
 
 struct HcBwdParams {
   const void* in0;     // K5b: residuals (s, M, d); K4: carried (s, M, d)
@@ -74,8 +77,9 @@ struct ParamLayout {
   static constexpr int NP = SCALES + 2;
 };
 
-template <typename T, int NS, int VPL, bool FUSED>
-__global__ void __launch_bounds__(THREADS) hc_width_bwd_kernel(HcBwdParams p) {
+template <typename T, int NS, int VPL, bool FUSED, int WARPS = bwd_warps(NS, VPL * 32)>
+__global__ void __launch_bounds__(WARPS * 32) hc_width_bwd_kernel(HcBwdParams p) {
+  constexpr int THREADS = WARPS * 32;
   constexpr int D = VPL * 32;
   constexpr int NC = NS + 2;
   using PL = ParamLayout<NS, D>;
@@ -299,6 +303,7 @@ cudaError_t launch(const HcBwdParams& p, bool fused, int blocks, float* params_o
                    cudaStream_t stream) {
   constexpr int D = VPL * 32;
   constexpr int NC = NS + 2;
+  constexpr int WARPS = bwd_warps(NS, D);
   const size_t smem = (size_t)(D * NC + WARPS * NC * D) * sizeof(float);
   auto kernel = fused ? hc_width_bwd_kernel<T, NS, VPL, true> : hc_width_bwd_kernel<T, NS, VPL, false>;
   // set once, outside any CUDA-graph capture that later launches replay
@@ -309,7 +314,7 @@ cudaError_t launch(const HcBwdParams& p, bool fused, int blocks, float* params_o
     if (err != cudaSuccess) return err;
     configured[fused] = true;
   }
-  kernel<<<blocks, THREADS, smem, stream>>>(p);
+  kernel<<<blocks, WARPS * 32, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr int NP = ParamLayout<NS, D>::NP;
@@ -323,6 +328,8 @@ cudaError_t dispatch_d(const HcBwdParams& p, int d, bool fused, int blocks, floa
   switch (d) {
     case 256: return launch<T, NS, 8>(p, fused, blocks, out, stream);
     case 512: return launch<T, NS, 16>(p, fused, blocks, out, stream);
+    case 576: return launch<T, NS, 18>(p, fused, blocks, out, stream);
+    case 1152: return launch<T, NS, 36>(p, fused, blocks, out, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,10 +7,11 @@ Conventions, as in the JAX package:
 - initialisation follows the JAX package's (lecun-normal linear and conv
   kernels, zero-init AdaLNZero / cross-condition weights, value-gate bias
   10), drawn from an explicit ``torch.Generator``.
-- dropout seeds, too, come from the caller's ``torch.Generator`` (the
-  ``generator`` argument of `Attention` / `FeedForward.forward`, handed
-  down from the transformer), never from torch's global generator, so a
-  training run repeats from its own generator.
+- dropout seeds, too, come from the caller's ``torch.Generator``: the
+  transformer draws each layer's seeds (`draw_seed`) and hands them to
+  `Attention` / `FeedForward.forward` as ``dropout_seed``; torch's global
+  generator is never used, so a training run repeats from its own
+  generator.
 - `load_jax_params` (convert.py) maps a JAX model's parameters onto these
   modules one to one; the names below mirror the JAX attribute paths.
 """
@@ -250,11 +251,12 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(inner, dim, dtype=dtype, generator=generator)
         self.dropout_rate = dropout
 
-    def forward(self, x, generator=None):
+    def forward(self, x, dropout_seed: int | None = None):
         h = self.proj_in(x)
         rate = self.dropout_rate if self.training else 0.0
-        seed = draw_seed(generator) if rate > 0.0 else 0
-        return self.proj_out(geglu_dropout(h, seed, rate))
+        if rate > 0.0 and dropout_seed is None:
+            raise ValueError('dropout in training mode needs a dropout_seed')
+        return self.proj_out(geglu_dropout(h, dropout_seed if rate > 0.0 else 0, rate))
 
 
 # attention ------------------------------------------------------------------
@@ -262,8 +264,10 @@ class FeedForward(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with the x-transformers flags the reference
     configures: tanh logit softclamp (50), per-head sigmoid value gates
-    (folded into kernel K1), the learned value-residual mix with the first
-    layer's raw values, attention dropout, key-padding mask, RoPE.
+    (folded into kernel K1 where it runs), the learned value-residual mix
+    with the first layer's raw values, attention dropout, key-padding mask,
+    RoPE, and LASER (exp-space values). dim_head 32, 64 or 128 runs on K1,
+    any other multiple of 8 up to 128 on K8 (ops/attention.py).
 
     Returns ``(out, values)``: ``values`` are this layer's raw (pre-mix)
     value heads, fed forward as the value residual. Everything stays in the
@@ -276,12 +280,12 @@ class Attention(nn.Module):
                  learned_value_residual_mix: bool = False, *,
                  dtype=None, generator=None):
         super().__init__()
-        if laser:
-            raise NotImplementedError('LASER attention is not ported to e2_tts_tpu_torch yet')
         self.heads = heads
         self.dim_head = dim_head
         self.dropout_rate = dropout
         self.softclamp_value = softclamp_logits_value if softclamp_logits else None
+        self.laser = laser
+        self.laser_softclamp_value = laser_softclamp_value
         inner = heads * dim_head
         self.inner = inner
 
@@ -301,7 +305,7 @@ class Attention(nn.Module):
             if learned_value_residual_mix else None)
 
     def forward(self, x, rotary_pos_emb=None, mask=None, value_residual=None,
-                generator=None):
+                dropout_seed: int | None = None):
         b, n, _ = x.shape
         h, inner = self.heads, self.inner
 
@@ -321,9 +325,12 @@ class Attention(nn.Module):
             k = apply_rotary_packed(k, rotary_pos_emb)
 
         training = self.training and self.dropout_rate > 0.0
+        if training and dropout_seed is None:
+            raise ValueError('dropout in training mode needs a dropout_seed')
         out = attention_packed(
             q, k, v, mask, heads=h, softclamp_value=self.softclamp_value,
+            laser=self.laser, laser_softclamp_value=self.laser_softclamp_value,
             dropout_rate=self.dropout_rate if training else 0.0,
-            dropout_seed=draw_seed(generator) if training else None,
+            dropout_seed=dropout_seed if training else None,
             gate_logits=gate_logits)
         return self.to_out(out), orig_values

@@ -11,22 +11,32 @@ identities, there is no time MLP and ``times`` is not passed.
 
 Per layer the hot path is four kernels: K5 (the first width connection of a
 chain, after expansion / cross-condition / skip), K3 (each chained width
-connection), K1 (attention) and K6 (GEGLU). Large GEMMs stay
+connection), K1 or K8 (attention: K1 for dim_head 32, 64 or 128, K8 for any
+other multiple of 8 up to 128) and K6 (GEGLU). Large GEMMs stay
 ``F.linear`` and the depthwise conv ``F.conv1d``.
 
-Not ported yet (each raises): the frequency axis, ``scan_layers``,
-``remat``, LASER, the FANformer input embedding.
+``remat=True`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nnx.remat``): a layer
+keeps only its inputs, at the cost of a second forward. Its dropout seeds
+are drawn before the layer and handed in, so the recompute draws the
+forward's masks.
+
+Not ported yet (each raises): the frequency axis, ``scan_layers``, ``remat``
+given a ``jax.checkpoint_policies`` name, the FANformer input embedding.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from e2_tts_tpu_torch.models.blocks import (
     AdaLNZero, AdaptiveRMSNorm, Attention, DepthwiseConv, FeedForward, Identity, Linear,
-    RandomFourierEmbed, RMSNorm, TextAudioCrossCondition, cast,
+    RandomFourierEmbed, RMSNorm, TextAudioCrossCondition, cast, draw_seed,
 )
 from e2_tts_tpu_torch.models.hyper_connections import (
     HyperConnection, expand_stream, materialize, reduce_stream,
@@ -103,6 +113,7 @@ class Transformer(nn.Module):
         dropout: float = 0.1,
         num_registers: int = 32,
         attn_laser: bool = False,
+        attn_laser_softclamp_value: float = 15.0,
         attn_fourier_embed_input: bool = False,
         num_residual_streams: int = 4,
         attn_kwargs: dict = dict(gate_value_heads=True, softclamp_logits=True),
@@ -115,8 +126,8 @@ class Transformer(nn.Module):
     ):
         super().__init__()
         for flag, what in ((has_freq_axis, 'the frequency axis (has_freq_axis)'),
-                           (scan_layers, 'scan_layers'), (remat, 'remat'),
-                           (attn_laser, 'LASER attention (attn_laser)'),
+                           (scan_layers, 'scan_layers'),
+                           (isinstance(remat, str), f'remat={remat!r} (a checkpoint policy)'),
                            (attn_fourier_embed_input, 'attn_fourier_embed_input')):
             if flag:
                 raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
@@ -128,6 +139,8 @@ class Transformer(nn.Module):
 
         self.dim = dim
         self.depth = depth
+        self.dropout = dropout
+        self.remat = bool(remat)
         self.max_seq_len = max_seq_len
         self.num_registers = num_registers
         self.dtype = dtype
@@ -160,8 +173,9 @@ class Transformer(nn.Module):
             self.time_fourier = RandomFourierEmbed(dim, generator=generator)
             self.time_mlp = Linear(dim + 1, dim, dtype=dtype, generator=generator)
 
-        common = dict(attn_kwargs=dict(attn_kwargs), ff_kwargs=dict(ff_kwargs),
-                      dtype=dtype, generator=generator)
+        common = dict(attn_kwargs=dict(attn_kwargs, laser=attn_laser,
+                                       laser_softclamp_value=attn_laser_softclamp_value),
+                      ff_kwargs=dict(ff_kwargs), dtype=dtype, generator=generator)
         self.speech_layers = nn.ModuleList()
         self.text_layers = nn.ModuleList()     # one per layer < text_depth
         self.speech_hcs = nn.ModuleList()      # per layer: [conv, attn, ff]
@@ -194,8 +208,13 @@ class Transformer(nn.Module):
         self.to(device)
 
     def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, cond,
-               attn_v, text_v, text_gate, push_skip, generator):
+               attn_v, text_v, text_gate, *, push_skip, seeds):
+        """One layer; ``seeds`` are its dropout seeds in the order the
+        branches run (text attention, text feedforward, attention,
+        feedforward), empty without dropout. Returns plain tensors (or
+        None), never lazy streams, so it can be checkpointed."""
         sl = self.speech_layers[ind]
+        seeds = iter(seeds)
 
         # text stream first, then cross-condition
         if exists(text_embed) and ind < self.text_depth:
@@ -207,12 +226,12 @@ class Transformer(nn.Module):
 
             t_in, add_residual = t_attn_hc(text_embed)
             t_out, t_values = tl.attn(tl.attn_norm(t_in), rotary_pos_emb=text_rotary,
-                                      mask=mask, value_residual=text_v, generator=generator)
+                                      mask=mask, value_residual=text_v, dropout_seed=next(seeds, None))
             text_embed = add_residual(t_out)
             text_v = default(text_v, t_values)
 
             t_in, add_residual = t_ff_hc(text_embed)
-            text_embed = add_residual(tl.ff(tl.ff_norm(t_in), generator=generator))
+            text_embed = add_residual(tl.ff(tl.ff_norm(t_in), dropout_seed=next(seeds, None)))
 
             x, text_embed = tl.cross_condition(
                 materialize(x), materialize(text_embed), gate=text_gate)
@@ -229,12 +248,12 @@ class Transformer(nn.Module):
 
         b_in, add_residual = attn_hc(x)
         attn_out, values = sl.attn(sl.attn_norm(b_in, condition=cond), rotary_pos_emb=rotary,
-                                   mask=mask, value_residual=attn_v, generator=generator)
+                                   mask=mask, value_residual=attn_v, dropout_seed=next(seeds, None))
         x = add_residual(sl.attn_adaln_zero(attn_out, condition=cond))
         attn_v = default(attn_v, values)
 
         b_in, add_residual = ff_hc(x)
-        ff_out = sl.ff(sl.ff_norm(b_in, condition=cond), generator=generator)
+        ff_out = sl.ff(sl.ff_norm(b_in, condition=cond), dropout_seed=next(seeds, None))
         x = add_residual(sl.ff_adaln_zero(ff_out, condition=cond))
 
         return materialize(x), text_embed, skip_out, attn_v, text_v
@@ -288,14 +307,22 @@ class Transformer(nn.Module):
         if exists(text_embed):
             text_embed = expand_stream(text_embed, s)
 
+        dropping = self.training and self.dropout > 0.0
+        remat = self.remat and torch.is_grad_enabled()
         skips = []
         attn_v = text_v = None
         for ind in range(self.depth):
             is_first_half = ind + 1 <= self.depth // 2
             skip_in = None if is_first_half else skips.pop()
-            x, text_embed, skip_out, attn_v, text_v = self._layer(
-                ind, x, text_embed, skip_in, mask, rotary, text_rotary, cond,
-                attn_v, text_v, text_gate, push_skip=is_first_half, generator=generator)
+            branches = 4 if exists(text_embed) and ind < self.text_depth else 2
+            seeds = tuple(draw_seed(generator) for _ in range(branches)) if dropping else ()
+            layer = partial(self._layer, ind, push_skip=is_first_half, seeds=seeds)
+            args = (x, text_embed, skip_in, mask, rotary, text_rotary, cond, attn_v, text_v,
+                    text_gate)
+            # nothing in a layer reads torch's global generators: no RNG state to keep
+            x, text_embed, skip_out, attn_v, text_v = (
+                checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+                if remat else layer(*args))
             if is_first_half:
                 skips.append(skip_out)
         assert len(skips) == 0

@@ -36,10 +36,11 @@ NVCC_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo']
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward kernels K1, K5, K3, K6, then their backward kernels K2, K5b, K4, K7,
-# then K11 (the log-mel frontend) and K10 (K2's delta pre-pass)
+# then K11 (the log-mel frontend), K10 (K2's delta pre-pass), K8 and K9 (flash
+# attention on (b, h, n, dh) operands) and the flash cost-floor probe
 KERNELS = ('flash_fwd', 'hc_width', 'hc_width_fused', 'geglu_fwd',
            'flash_bwd', 'hc_width_bwd', 'hc_width_fused_bwd', 'geglu_bwd',
-           'mel_fwd', 'flash_delta')
+           'mel_fwd', 'flash_delta', 'flash_fwd_bhnd', 'flash_bwd_bhnd', 'flash_probe')
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -121,6 +122,10 @@ _SIGNATURES = {
     'e2_geglu_bwd': [_P, _P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
     'e2_mel_fwd': [_P, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _P],
     'e2_flash_delta': [_P, _P, _P, _LL, _I, _I, _I, _P],
+    'e2_flash_fwd_bhnd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _F, _F, _U, _U, _I, _I, _P],
+    'e2_flash_bwd_bhnd': [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _P],
+    'e2_flash_probe': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -139,6 +144,12 @@ def lib() -> ctypes.CDLL:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def strides_bhn(t: torch.Tensor):
+    """The (batch, head, row) element strides of a (b, h, n, dh) tensor (or
+    of a (b, h, n) one) as a C ``long long[3]``, read during the call."""
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
 
 
 def check(err: int, name: str):

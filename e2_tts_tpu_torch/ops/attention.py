@@ -1,17 +1,60 @@
 """Attention op with the reference's "epicycles" (counterpart of
-e2_tts_tpu/ops/attention.py::attention_packed).
+e2_tts_tpu/ops/attention.py::attention and ``attention_packed``).
 
-Every attention runs through K1 (`flash_attention_packed`) on the packed
-``(b, n, h*dh)`` layout: tanh logit softclamp, key-padding bias, counter-hash
-attention dropout and the per-head sigmoid output gate folded into the
-kernel. There is no routing by shape: the JAX package sent small batches to
-XLA on the TPU; the port has one path.
+`attention` runs on ``(b, h, n, dh)`` tensors through K8 / K9
+(`flash_attention`); `attention_packed` on the packed ``(b, n, h*dh)``
+projection layout: through K1 / K2 (`flash_attention_packed`, the per-head
+sigmoid output gate folded into the kernel) when dim_head is 32, 64 or 128,
+else through K8 / K9 on strided ``(b, h, n, dh)`` views of the projection
+(no copies), the gate applied after the kernel, as the JAX package routes
+the heads its lane-packed kernels reject. Both take the tanh logit
+softclamp, the key-padding mask, counter-hash attention dropout and LASER:
+exp-space values ``exp(softclamp(v, 15))`` cast to q's dtype before the
+kernel and ``log(max(out, 1e-20))`` after it, with the gate after the log.
+The JAX package sent small batches to XLA on the TPU; the port has no such
+routing by batch.
 """
 
 from __future__ import annotations
 
-from e2_tts_tpu_torch.ops.flash_attention import flash_attention_packed
-from e2_tts_tpu_torch.utils.helpers import exists
+import torch
+
+from e2_tts_tpu_torch.ops.flash_attention import (
+    SUPPORTED_DIM_HEAD, flash_attention, flash_attention_packed,
+)
+from e2_tts_tpu_torch.utils.helpers import default, exists
+
+
+def softclamp(x: torch.Tensor, value: float) -> torch.Tensor:
+    """tanh soft clamp: value * tanh(x / value)."""
+    return torch.tanh(x / value) * value
+
+
+def _laser_values(v, laser_softclamp_value):
+    return torch.exp(softclamp(v.float(), laser_softclamp_value))
+
+
+def _laser_log(out):
+    return torch.log(torch.clamp(out.float(), min=1e-20))
+
+
+def attention(q, k, v, mask=None, *, scale=None, softclamp_value: float | None = 50.0,
+              laser: bool = False, laser_softclamp_value: float = 15.0,
+              dropout_rate: float = 0.0, dropout_seed: int | None = None):
+    """``q, k, v (b, h, n, dh)`` -> ``(b, h, n, dh)`` through K8 (K9 in the
+    backward). Dropout is drawn only when both ``dropout_rate > 0`` and a
+    ``dropout_seed`` are given."""
+    scale = default(scale, q.shape[-1] ** -0.5)
+    if laser:
+        v = _laser_values(v, laser_softclamp_value)
+    dropping = dropout_rate > 0.0 and exists(dropout_seed)
+    out = flash_attention(q, k, v.to(q.dtype), mask, scale=scale,
+                          softclamp_value=softclamp_value,
+                          dropout_rate=dropout_rate if dropping else 0.0,
+                          dropout_seed=dropout_seed if dropping else 0)
+    if laser:
+        out = _laser_log(out)
+    return out.to(q.dtype)
 
 
 def attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
@@ -19,16 +62,35 @@ def attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                      laser_softclamp_value: float = 15.0,
                      dropout_rate: float = 0.0, dropout_seed: int | None = None,
                      gate_logits=None, sp_mesh=None):
-    """``q, k, v (b, n, h*dh)`` -> ``(b, n, h*dh)``. Dropout is drawn only
+    """``q, k, v (b, n, h*dh)`` -> ``(b, n, h*dh)``; ``gate_logits (b, n,
+    h)`` the optional per-head sigmoid output gate. Dropout is drawn only
     when both ``dropout_rate > 0`` and a ``dropout_seed`` are given."""
-    if laser:
-        raise NotImplementedError('LASER attention is not ported to e2_tts_tpu_torch yet')
     if exists(sp_mesh):
         raise NotImplementedError('sequence-parallel attention is not ported yet')
-    dropping = dropout_rate > 0.0 and exists(dropout_seed)
-    return flash_attention_packed(
-        q, k, v.to(q.dtype), mask, heads=heads, scale=scale,
-        softclamp_value=softclamp_value,
-        dropout_rate=dropout_rate if dropping else 0.0,
-        dropout_seed=dropout_seed if dropping else 0,
-        gate_logits=gate_logits)
+    b, n, D = q.shape
+    dh = D // heads
+    scale = default(scale, dh ** -0.5)
+    if laser:
+        v = _laser_values(v, laser_softclamp_value)
+
+    fold_gate = exists(gate_logits) and dh in SUPPORTED_DIM_HEAD and not laser
+    if dh in SUPPORTED_DIM_HEAD:
+        dropping = dropout_rate > 0.0 and exists(dropout_seed)
+        out = flash_attention_packed(
+            q, k, v.to(q.dtype), mask, heads=heads, scale=scale,
+            softclamp_value=softclamp_value, dropout_rate=dropout_rate if dropping else 0.0,
+            dropout_seed=dropout_seed if dropping else 0,
+            gate_logits=gate_logits if fold_gate else None)
+    else:
+        to_bhnd = lambda t: t.unflatten(-1, (heads, dh)).transpose(1, 2)
+        out = attention(to_bhnd(q), to_bhnd(k), to_bhnd(v), mask, scale=scale,
+                        softclamp_value=softclamp_value, dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
+        out = out.transpose(1, 2).reshape(b, n, D)
+
+    if laser:
+        out = _laser_log(out)
+    if exists(gate_logits) and not fold_gate:
+        gate = torch.sigmoid(gate_logits).to(out.dtype)
+        out = (out.unflatten(-1, (heads, dh)) * gate[..., None]).flatten(-2)
+    return out.to(q.dtype)

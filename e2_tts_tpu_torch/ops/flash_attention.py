@@ -1,30 +1,36 @@
-"""K1, K2 and K10: packed flash attention, forward and backward (counterpart
-of e2_tts_tpu/ops/flash_attention.py::flash_attention_packed).
+"""Flash attention, forward and backward: K1, K2 and K10 on the packed
+``(b, n, h*dh)`` projection layout (counterpart of
+e2_tts_tpu/ops/flash_attention.py::flash_attention_packed), K8 and K9 on
+``(b, h, n, dh)`` operands (counterpart of ``flash_attention``), and the
+cost-floor probe.
 
 K1 replaces the TPU kernel ``_packed_fwd_kernel`` (driven by
 ``_flash_packed_forward``), K2 the TPU kernel ``_packed_bwd_kernel`` (driven
 by ``_flash_packed_backward``), K10 the TPU kernel ``_delta_kernel`` (driven
-by ``_delta_bnh_pallas``), K2's pre-pass. The CUDA kernels are
-``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K2,
-K10); their source notes say what bounds them on the H100 and how their
-designs answer.
-In short: tensor-core bound at the model's shapes; score tiles stay in
-shared memory, the products run on the tensor cores (wmma, bf16 in / f32
-accumulate). `_FlashPacked` ties the two together as one
-``torch.autograd.Function``.
+by ``_delta_bnh_pallas``), K2's pre-pass. K8 replaces ``_fwd_kernel``
+(``_flash_forward``), K9 the backward kernels of ``_flash_backward``, the
+probe ``scripts/_kernel_floor.py::kern``. The CUDA kernels are
+``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10)
+and ``csrc/flash_attention_bhnd.cu`` (K8, K9, the probe); K1/K8 and K2/K9
+share their device code (``csrc/flash_attention.cuh``) and differ in the
+strides they are given. The source notes say what bounds them on the H100
+and how their designs answer. In short: tensor-core bound at the model's
+shapes; score tiles stay in shared memory, the products run on the tensor
+cores (wmma, bf16 in / f32 accumulate). `_FlashPacked` (K1 + K2) and
+`_Flash` (K8 + K9) are the ``torch.autograd.Function`` s.
 
-Semantics, on the packed ``(b, n, h*dh)`` projection layout:
-tanh softclamp of the scaled logits, key-padding bias 0 / -1e30, softmax,
-post-softmax counter-hash dropout (bits identical to the JAX package's
-``_keep_tile``), optional per-head sigmoid output gate; also returns the
-per-row log-sum-exp ``(b*h, n)`` the backward uses. The backward takes
-``delta = rowsum(do * o)`` per head from K10, launched just before K2 on
-the same stream, and returns the gate-logit grad
-``delta * (1 - sigmoid(gate))``.
+Semantics: tanh softclamp of the scaled logits, key-padding bias 0 / -1e30,
+softmax, post-softmax counter-hash dropout (bits identical to the JAX
+package's ``_keep_tile`` for the global head ``b * heads + h``); K1 also the
+optional per-head sigmoid output gate. The forward also returns the
+per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
+``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
+same stream, and returns the gate-logit grad ``delta * (1 - sigmoid(gate))``;
+K9 takes delta from a plain PyTorch sum, as the JAX package takes it from
+XLA. K1/K2 take dim_head 32, 64 or 128; K8/K9 any multiple of 8 up to 128.
 
-`flash_attention_packed`, `flash_attention_packed_backward` and
-`flash_delta` take the plain PyTorch versions for CPU tensors (tests) and
-launch the kernels for CUDA tensors; there is no other route.
+Every wrapper takes its plain PyTorch version for CPU tensors (tests) and
+launches its kernel for CUDA tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from e2_tts_tpu_torch.utils.helpers import default, exists
 
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
-SUPPORTED_DIM_HEAD = (32, 64, 128)
+SUPPORTED_DIM_HEAD = (32, 64, 128)      # K1 / K2
+MAX_DIM_HEAD_BHND = 128                 # K8 / K9: multiples of 8 up to this
 
 
 def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float,
@@ -53,15 +60,11 @@ def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float,
     return u >= keep_threshold(rate)
 
 
-def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
-                                 softclamp_value=None, dropout_rate=0.0,
-                                 dropout_seed=0, gate_logits=None):
-    """Plain PyTorch version of K1 (f32 math): returns (out, lse)."""
-    b, n, D = q.shape
-    dh = D // heads
-    split = lambda t: t.reshape(b, n, heads, dh).permute(0, 2, 1, 3).float()
-    qf, kf, vf = split(q), split(k), split(v)
-
+def _forward_core_plain(qf, kf, vf, mask, scale, softclamp_value, dropout_rate,
+                        dropout_seed):
+    """f32 ``(b, h, n, dh)`` q, k, v -> f32 ``o (b, h, n, dh)`` and ``lse
+    (b*h, n)``: the arithmetic K1 and K8 share."""
+    b, h, n, _ = qf.shape
     s = torch.einsum('bhid,bhjd->bhij', qf, kf) * scale
     if exists(softclamp_value):
         s = torch.tanh(s / softclamp_value) * softclamp_value
@@ -71,17 +74,45 @@ def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    lse = (m + torch.log(l)).reshape(b * heads, n)
+    lse = (m + torch.log(l)).reshape(b * h, n)
     p = p / l
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b * heads, n, dropout_rate,
-                                 device=q.device).view(b, heads, n, n)
+        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate,
+                                 device=qf.device).view(b, h, n, n)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    return p @ vf, lse
 
-    o = p @ vf                                              # (b, h, n, dh)
+
+def _split_heads(t, heads):
+    """Packed ``(b, n, h*dh)`` -> f32 ``(b, h, n, dh)``."""
+    b, n, D = t.shape
+    return t.reshape(b, n, heads, D // heads).permute(0, 2, 1, 3).float()
+
+
+def _merge_heads(t):
+    b, h, n, dh = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b, n, h * dh)
+
+
+def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
+                                 softclamp_value=None, dropout_rate=0.0,
+                                 dropout_seed=0, gate_logits=None):
+    """Plain PyTorch version of K1 (f32 math): returns (out, lse)."""
+    o, lse = _forward_core_plain(
+        _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads), mask,
+        scale, softclamp_value, dropout_rate, dropout_seed)
     if exists(gate_logits):
         o = o * torch.sigmoid(gate_logits.float()).permute(0, 2, 1)[..., None]
-    return o.permute(0, 2, 1, 3).reshape(b, n, D).to(q.dtype), lse
+    return _merge_heads(o).to(q.dtype), lse
+
+
+def flash_attention_plain(q, k, v, mask=None, *, scale, softclamp_value=None,
+                          dropout_rate=0.0, dropout_seed=0):
+    """Plain PyTorch version of K8 (f32 math) on ``(b, h, n, dh)``: returns
+    (out, lse)."""
+    o, lse = _forward_core_plain(q.float(), k.float(), v.float(), mask, scale,
+                                 softclamp_value, dropout_rate, dropout_seed)
+    return o.to(q.dtype), lse
 
 
 def flash_delta_plain(out, dout, heads):
@@ -118,27 +149,13 @@ def flash_delta(out, dout, *, heads: int):
     return _flash_delta_cuda(out, dout, heads)
 
 
-def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
-                                          softclamp_value=None, dropout_rate=0.0,
-                                          dropout_seed=0, gate_logits=None):
-    """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
-    where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
-    the last None without a gate."""
-    b, n, D = q.shape
-    dh = D // heads
-    dt = q.dtype
-    split = lambda t: t.reshape(b, n, heads, dh).permute(0, 2, 1, 3).float()
-    qf, kf, vf = split(q), split(k), split(v)
-
-    gv = None
-    do = dout
-    if exists(gate_logits):
-        gv = torch.sigmoid(gate_logits.float())                       # (b, n, h)
-        do = (dout.float() * gv.repeat_interleave(dh, dim=-1)).to(dt)
-    dof = split(do)
-    delta = flash_delta_plain(out, dout, heads)                        # (b, n, h)
-    delta_col = delta.permute(0, 2, 1)[..., None]                     # (b, h, n, 1)
-
+def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp_value,
+                         dropout_rate, dropout_seed):
+    """f32 ``(b, h, n, dh)`` q, k, v, do and ``delta (b, h, n)`` -> f32 dq,
+    dk, dv: the arithmetic K2 and K9 share, with the compute dtype ``dt``'s
+    rounding where the TPU kernels round."""
+    b, h, n, _ = qf.shape
+    delta_col = delta[..., None]                                       # (b, h, n, 1)
     s = torch.einsum('bhid,bhjd->bhij', qf, kf) * scale
     jac = None
     if exists(softclamp_value):
@@ -147,11 +164,11 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
         jac = 1.0 - th * th
     if exists(mask):
         s = s + torch.where(mask, 0.0, NEG_INF).float()[:, None, None, :]
-    p = torch.exp(s - lse.view(b, heads, n, 1))
+    p = torch.exp(s - lse.view(b, h, n, 1))
     dp = dof @ vf.transpose(-1, -2)
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b * heads, n, dropout_rate,
-                                 device=q.device).view(b, heads, n, n)
+        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate,
+                                 device=qf.device).view(b, h, n, n)
         keep_scaled = keep.float() * (1.0 / (1.0 - dropout_rate))
         ds = p * (keep_scaled * dp - delta_col)
         p = p * keep_scaled
@@ -162,13 +179,41 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
     ds = ds * scale
     p = p.to(dt).float()
     ds = ds.to(dt).float()
+    return ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof
 
-    dv = p.transpose(-1, -2) @ dof
-    dk = ds.transpose(-1, -2) @ qf
-    dq = ds @ kf
-    merge = lambda t: t.permute(0, 2, 1, 3).reshape(b, n, D).to(dt)
+
+def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
+                                          softclamp_value=None, dropout_rate=0.0,
+                                          dropout_seed=0, gate_logits=None):
+    """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
+    where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
+    the last None without a gate."""
+    dh = q.shape[-1] // heads
+    dt = q.dtype
+    gv = None
+    do = dout
+    if exists(gate_logits):
+        gv = torch.sigmoid(gate_logits.float())                       # (b, n, h)
+        do = (dout.float() * gv.repeat_interleave(dh, dim=-1)).to(dt)
+    delta = flash_delta_plain(out, dout, heads)                        # (b, n, h)
+    grads = _backward_core_plain(
+        _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
+        _split_heads(do, heads), delta.permute(0, 2, 1), mask, lse, dt, scale,
+        softclamp_value, dropout_rate, dropout_seed)
+    dq, dk, dv = (_merge_heads(g).to(dt) for g in grads)
     dgate = (delta * (1.0 - gv)).to(gate_logits.dtype) if exists(gv) else None
-    return merge(dq), merge(dk), merge(dv), dgate
+    return dq, dk, dv, dgate
+
+
+def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, *, scale,
+                                   softclamp_value=None, dropout_rate=0.0, dropout_seed=0):
+    """Plain PyTorch version of K9 on ``(b, h, n, dh)``, with K9's delta =
+    rowsum(dout * out) (f32): returns ``(dq, dk, dv)``."""
+    delta = (dout.float() * out.float()).sum(-1)                      # (b, h, n)
+    grads = _backward_core_plain(q.float(), k.float(), v.float(), dout.float(), delta,
+                                 mask, lse, q.dtype, scale, softclamp_value, dropout_rate,
+                                 dropout_seed)
+    return tuple(g.to(q.dtype) for g in grads)
 
 
 def _check_operand(t, name, shape, device, dtype, vec):
@@ -344,3 +389,199 @@ def flash_attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
     out, lse = _FlashPacked.apply(q, k, v, mask, gate_logits, heads, scale,
                                   softclamp_value, dropout_rate, dropout_seed)
     return (out, lse) if return_lse else out
+
+
+# -- K8 / K9: (b, h, n, dh) operands ------------------------------------------------
+
+def _check_bhnd(t, name, shape, device, dtype):
+    """A (b, h, n, dh) operand K8 / K9 take: unit column stride, batch, head
+    and row strides in whole 16-byte chunks, a 16-byte aligned start (so a
+    head of 72 bf16 values is nine chunks, and the heads of a packed
+    projection's view are chunk-aligned)."""
+    _cuda.check_cuda_tensor(t, name, device, dtype)
+    if tuple(t.shape) != shape:
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(
+            f'{name} must have a unit last stride, batch, head and row strides that '
+            f'are multiples of {vec} elements and a 16-byte aligned start; got '
+            f'strides {t.stride()}')
+
+
+def _check_dim_head(dh):
+    if dh % 8 or not 8 <= dh <= MAX_DIM_HEAD_BHND:
+        raise ValueError(f'dim_head must be a multiple of 8 from 8 to {MAX_DIM_HEAD_BHND}, '
+                         f'got {dh}')
+
+
+def _check_bhnd_inputs(q, k, v, mask):
+    b, h, n, dh = q.shape
+    device, dtype = q.device, q.dtype
+    if dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f'flash attention takes bf16 or f32, got {dtype}')
+    _check_dim_head(dh)
+    for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
+        _check_bhnd(t, name, (b, h, n, dh), device, dtype)
+    if exists(mask):
+        _cuda.check_cuda_tensor(mask, 'mask', device, torch.bool)
+        if tuple(mask.shape) != (b, n) or not mask.is_contiguous():
+            raise ValueError('mask must be a contiguous (b, n) bool tensor')
+    return b, h, n, dh
+
+
+def _bhnd_empty(b, h, n, dh, dtype, device):
+    """A (b, h, n, dh) view of a (b, n, h, dh) buffer: the packed layout the
+    model's out-projection reads without a copy."""
+    return torch.empty((b, n, h, dh), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed):
+    b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
+    device, dtype = q.device, q.dtype
+    out = _bhnd_empty(b, h, n, dh, dtype, device)
+    lse = torch.empty((b * h, n), dtype=torch.float32, device=device)
+    dropping = dropout_rate > 0.0
+    st = _cuda.strides_bhn
+    err = _cuda.lib().e2_flash_fwd_bhnd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), st(q), st(k), st(v),
+        mask.data_ptr() if exists(mask) else None, out.data_ptr(), st(out), lse.data_ptr(),
+        b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
+        1.0 / (1.0 - dropout_rate) if dropping else 1.0,
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+    _cuda.check(err, 'flash_fwd_bhnd')
+    _cuda.count_launch('flash_fwd_bhnd')
+    return out, lse
+
+
+def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
+                         dropout_rate, dropout_seed):
+    b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
+    device, dtype = q.device, q.dtype
+    for t, name in ((out, 'out'), (dout, 'dout')):
+        _check_bhnd(t, name, (b, h, n, dh), device, dtype)
+    _cuda.check_cuda_tensor(lse, 'lse', device, torch.float32)
+    if tuple(lse.shape) != (b * h, n) or not lse.is_contiguous():
+        raise ValueError('lse must be a contiguous (b * heads, n) f32 tensor')
+
+    delta = (dout.float() * out.float()).sum(-1)          # (b, h, n), as XLA does it
+    dq = torch.zeros((b, n, h, dh), dtype=torch.float32, device=device).transpose(1, 2)
+    dk = _bhnd_empty(b, h, n, dh, dtype, device)
+    dv = _bhnd_empty(b, h, n, dh, dtype, device)
+    dropping = dropout_rate > 0.0
+    st = _cuda.strides_bhn
+    err = _cuda.lib().e2_flash_bwd_bhnd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), st(q), st(k), st(v),
+        st(dout), mask.data_ptr() if exists(mask) else None, lse.data_ptr(),
+        delta.data_ptr(), st(delta), dq.data_ptr(), st(dq), dk.data_ptr(), st(dk), dv.data_ptr(), st(dv),
+        b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
+        1.0 / (1.0 - dropout_rate) if dropping else 1.0,
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+    _cuda.check(err, 'flash_bwd_bhnd')
+    _cuda.count_launch('flash_bwd_bhnd')
+    return dq.to(dtype), dk, dv
+
+
+def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale=None,
+                             softclamp_value=None, dropout_rate: float = 0.0,
+                             dropout_seed: int = 0):
+    """K9 alone (the counterpart of ``_flash_backward``): from the forward's
+    ``(b, h, n, dh)`` inputs, its output ``out``, its ``lse`` and the output
+    grad ``dout``, returns ``(dq, dk, dv)``."""
+    scale = default(scale, q.shape[-1] ** -0.5)
+    dropout_rate = _check_rate(dropout_rate)
+    if q.device.type == 'cpu':
+        return flash_attention_backward_plain(
+            q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    return _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
+                                dropout_rate, dropout_seed)
+
+
+class _Flash(torch.autograd.Function):
+    """K8 forward, K9 backward. Saves q, k, v (as given: views stay views),
+    the mask, the output and K8's lse; the dropout bits are regenerated from
+    the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed):
+        if q.device.type == 'cpu':
+            out, lse = flash_attention_plain(
+                q, k, v, mask, scale=scale, softclamp_value=softclamp_value,
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        else:
+            out, lse = _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value,
+                                        dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.config = (scale, softclamp_value, dropout_rate, dropout_seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        scale, softclamp_value, dropout_rate, dropout_seed = ctx.config
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
+                    dropout_rate: float = 0.0, dropout_seed: int = 0,
+                    return_lse: bool = False):
+    """Attention on ``q, k, v (b, h, n, dh)`` (strided views are read where
+    they lie) with a key padding ``mask (b, n)`` (True = attend). Returns
+    ``out (b, h, n, dh)`` (and ``lse (b*h, n)`` if asked); differentiable in
+    q, k and v (forward K8, backward K9). On the card ``out`` is a view of a
+    ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous."""
+    scale = default(scale, q.shape[-1] ** -0.5)
+    dropout_rate = _check_rate(dropout_rate)
+    out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed)
+    return (out, lse) if return_lse else out
+
+
+# -- the cost-floor probe -------------------------------------------------------------
+
+PROBE_MODES = (0, 1, 2)    # the products only; + exp; + the tile's max / sum
+
+
+def flash_probe_plain(x, mode: int):
+    """Plain PyTorch version of the probe on ``x (b, h, n, dh)`` bf16 used as
+    q, k and v: per 64-key tile (keys past n are zero rows) s = x x^T, then
+    mode 1 ``exp(s)``, mode 2 ``exp(s) - (max + sum)`` over the tile; the
+    tiles' bf16(s) v summed in f32; bf16 out."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f'probe mode must be one of {PROBE_MODES}, got {mode}')
+    b, h, n, dh = x.shape
+    nk = -(-n // 64) * 64
+    xf = x.float()
+    kv = torch.nn.functional.pad(xf, (0, 0, 0, nk - n))
+    s = torch.einsum('bhid,bhjd->bhij', xf, kv)
+    if mode >= 1:
+        s = torch.exp(s)
+    if mode == 2:
+        tiles = s.view(b, h, n, nk // 64, 64)
+        s = (tiles - (tiles.amax(-1, keepdim=True) + tiles.sum(-1, keepdim=True))).view(s.shape)
+    return (s.to(x.dtype).float() @ kv).to(x.dtype)
+
+
+def flash_probe(x, mode: int):
+    """The probe (K8 stripped to its products, exp and tile statistics) on
+    ``x (b, h, n, dh)`` bf16; returns a contiguous ``(b, h, n, dh)``."""
+    if x.device.type == 'cpu':
+        return flash_probe_plain(x, mode)
+    if mode not in PROBE_MODES:
+        raise ValueError(f'probe mode must be one of {PROBE_MODES}, got {mode}')
+    b, h, n, dh = x.shape
+    _check_dim_head(dh)
+    _check_bhnd(x, 'x', (b, h, n, dh), x.device, torch.bfloat16)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    err = _cuda.lib().e2_flash_probe(x.data_ptr(), _cuda.strides_bhn(x), out.data_ptr(),
+                                     _cuda.strides_bhn(out), b, n, h, dh, int(mode),
+                                     _cuda.stream_ptr(x.device))
+    _cuda.check(err, 'flash_probe')
+    _cuda.count_launch('flash_probe')
+    return out

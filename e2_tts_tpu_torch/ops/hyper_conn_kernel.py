@@ -31,9 +31,10 @@ import torch
 
 from e2_tts_tpu_torch.ops import _cuda
 
-# the flagship's 4 streams at its text (256) and speech (512) widths
+# 4 streams at the flagship's text and speech widths (256, 512) and DiT-XL's
+# (576, 1152)
 SUPPORTED_STREAMS = (4,)
-SUPPORTED_DIMS = (256, 512)
+SUPPORTED_DIMS = (256, 512, 576, 1152)
 
 
 def width_connection_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
@@ -177,7 +178,7 @@ def _launch(name, streams_in, params, s, m, d, dtype, device):
 
 
 # blocks of the adjoint kernels (csrc/hyper_conn_bwd.cu: 8 rows in flight
-# per block, two blocks per SM of the H100's 132)
+# per block, 4 at d = 1152; two blocks per SM of the H100's 132)
 _BWD_ROWS_PER_BLOCK = 8
 _BWD_MAX_BLOCKS = 264
 
