@@ -8,14 +8,18 @@ exit code and no result line:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — nvcc compiles every kernel from e2_tts_tpu_torch/csrc (sm_90a).
-3. kernels — the twelve kernels and the probe, each against its plain
+3. kernels — the sixteen kernels and the probe, each against its plain
    PyTorch version on the card: K1 (packed flash attention) and its
    backward K2 with K2's delta pre-pass K10, K8 / K9 (the same attention on
-   (b, h, n, dh) operands, for heads K1 does not take), K3 / K5
+   (b, h, n, dh) operands, for heads K1 does not take; dim_head 8 to 256,
+   and 12, zero-padded), K3 / K5
    (hyper-connection width connection, depth-fused and plain) and their
-   adjoints K4 / K5b, K6 (GEGLU) and its backward K7, K11 (the fused log-mel
-   frontend), one LASER `attention`, and the probe (K8 stripped to its
-   products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
+   adjoints K4 / K5b (also at 2, 3 and 8 streams and widths 32 to 2048), the
+   save-state variants K3s / K5s (outputs bit for bit K3 / K5's, and the
+   saved tanh and rms reciprocal) and K4s / K5bs (also against K4 / K5b),
+   K6 (GEGLU) and its backward K7, K11 (the fused log-mel frontend; also at
+   160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
+   stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
    at a 3-s prompt), at the duration predictor's (B=1, the prompt's 282
    frames + 32 registers) and at the trainer's (B=16), the flagship's and
    DiT-XL's (16 heads x 72, widths 1152 / 576); backward kernels at the
@@ -32,7 +36,9 @@ exit code and no result line:
    call of the wrapper, and the bound. The forward kernels are timed at the
    training shapes as well; K11 also beside `MelSpec(mode='dft')`; K8 / K9
    also at the flagship's training shape, beside K1 / K2; the probe in each
-   mode at both training shapes.
+   mode at both training shapes. Then `hc save A/B` lines: the
+   hyper-connection forward and adjoint, recomputing and saving, and the
+   pairs' sums, at the training shape for widths 512, 1024 and 1152.
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -70,6 +76,19 @@ exit code and no result line:
    without text, with the launch counters (the recompute runs every
    forward kernel twice); one CFG evaluation and one train step at depth 28
    under torch.profiler (traces: build/profile/dit_*.json).
+8. tiny    — the JAX package's test geometry (dim 64, text 32, 2 heads of 16,
+   2 streams, depth 4): one CFG evaluation bf16 on the card against f32 on
+   the CPU and one train step f32 against the CPU, with the launch counts of
+   K3 / K5 at 2 streams and K8 / K9 at dim_head 16.
+9. paper   — the E2-TTS paper's configuration (dim 1024, 16 heads of 64,
+   text 512; 600.7 M parameters) in bf16: at depth 2 one CFG evaluation and
+   one train step (f32, bf16) against the CPU, and hc_save_state on against
+   off (f32); `sample` at depth 24 with hc_save_state=True (the save
+   counters stay 0 without a backward); then `E2Trainer` at depth 24, B=16 x
+   1024, dropout 0.1, remat, timed steps with and without text, with
+   hc_save_state off and then on (launch counters, peak memory); one CFG
+   evaluation and one train step at depth 24 under torch.profiler (traces:
+   build/profile/paper_*.json).
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -90,6 +109,16 @@ FLAGSHIP = dict(dim=512, depth=8, heads=8, dim_head=64)
 # K8 / K9 take; every other setting the port's default
 DIT = dict(dim=1152, depth=28, heads=16, dim_head=72)
 DIT_TRAIN_STEPS_TIMED = 5
+# the E2-TTS paper's configuration (Chen et al. 2024, arXiv 2406.18009, 4.1;
+# SWivid/F5-TTS configs/E2TTS_Base.yaml): 24 layers, dim 1024, 16 heads of 64;
+# every other setting the port's default (text 512, 32 registers, 4 streams)
+PAPER = dict(dim=1024, depth=24, heads=16, dim_head=64)
+PAPER_TRAIN_STEPS_TIMED = 5
+# the JAX package's own test geometry (tests/test_models.py SMALL_TF) in the
+# port's arguments: speech width 64, text 32, 2 heads of 16, 2 streams
+TINY = dict(dim=64, depth=4, heads=2, dim_head=16, ff_mult=2, num_registers=4,
+            max_seq_len=256, kernel_size=7, dropout=0.0, num_residual_streams=2)
+TINY_FRAMES = 200
 FRAMES = 1024
 PROMPT_FRAMES = 256
 STEPS = 32
@@ -308,7 +337,17 @@ def kernel_cases(torch, dev):
                 randn(d, dtype=f32, scale=0.05),
                 torch.tensor(0.5, device=dev))
 
-    def hc_case(label, s, m, d, dtype, fused, train=False, timed=False):
+    def alpha_tol(ins, dtype):
+        """bf16: besides the output's own rounding (1e-2 + 1e-2 |ref|), an
+        alpha may round to the neighbouring bf16 value (its tanh comes from a
+        d-term f32 sum taken in another order): one ulp of an alpha near 1
+        (2**-7) times the largest |stream| value. At widths 1024-2048 and 8
+        streams that happens within the 16896 x 4 rows of the training shape."""
+        if dtype != bf16:
+            return tol[dtype]
+        return (1e-2 + 2 ** -7 * max(float(t.abs().max()) for t in ins), 1e-2)
+
+    def hc_case(label, s, m, d, dtype, fused, train=False, timed=False, any_width=False):
         params = hc_params(s, d)
         es = esize(dtype)
         out_bytes = ((s + 1) * m * d + s * m) * es
@@ -323,10 +362,11 @@ def kernel_cases(torch, dev):
             run = lambda: hck.width_connection(res, *params)
             plain = lambda: hck.width_connection_plain(res, *params)
             in_bytes = s * m * d * es
+        ins = (carried, branch) if fused else (res,)
         cases.append(dict(
             kernel='K3' if fused else 'K5', label=label, run=run, plain=plain, train=train,
             timed=timed,
-            tol=tol[dtype], nbytes=in_bytes + out_bytes,
+            tol=alpha_tol(ins, dtype) if any_width else tol[dtype], nbytes=in_bytes + out_bytes,
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
             peak=PEAK_F32_FLOPS))        # the kernel's arithmetic is f32 FMA
 
@@ -356,6 +396,85 @@ def kernel_cases(torch, dev):
             kernel='K4' if fused else 'K5b', label=label, run=run, plain=plain, scaled=True,
             timed=timed,
             tol=tol[dtype], nbytes=io_bytes + grad_in_bytes + param_bytes, flops=flops,
+            peak=PEAK_F32_FLOPS))
+
+    def hc_inputs(s, m, d, dtype, fused):
+        """Streams with a zero row (row 5: the rms statistic on its clamp)."""
+        if fused:
+            ins = (randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype),
+                   randn(s, m, dtype=dtype, scale=0.5))
+            ins[0][:, 5] = 0
+            ins[1][5] = 0
+        else:
+            ins = (randn(s, m, d, dtype=dtype),)
+            ins[0][:, 5] = 0
+        return ins
+
+    def hc_save_case(label, s, m, d, dtype, fused, timed=False):
+        """K5s / K3s: the public outputs and the state (ta, inv) against the
+        plain version; beside it, the outputs must equal K5 / K3's bit for
+        bit and the state the plain state: inv to 1e-6 relative, ta (tanh of
+        a d-term f32 sum in another order) to 1e-5 absolute in f32 and 1e-2
+        in bf16, where a normed value may round the other way."""
+        params, es = hc_params(s, d), esize(dtype)
+        ins = hc_inputs(s, m, d, dtype, fused)
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        plain = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+        flat = lambda out: (*out[0], *out[1])
+
+        def extra():
+            out = fwd(*ins, *params, save_state=True)
+            bitwise = all(torch.equal(a, b) for a, b in zip(out[0], fwd(*ins, *params)))
+            _, (pta, pinv) = plain(*ins, *params, save_state=True)
+            ta, inv = out[1]
+            inv_rel = float(((inv - pinv).abs() / pinv.abs()).max())
+            ta_err = float((ta - pta).abs().max())
+            ta_lim = 1e-5 if dtype == f32 else 1e-2
+            ok = bitwise and inv_rel <= 1e-6 and ta_err <= ta_lim
+            return (f'; outputs bitwise equal to {"K3" if fused else "K5"}: {bitwise}; '
+                    f'inv max rel err {inv_rel:.3e} (<= 1e-6), ta max abs err {ta_err:.3e} '
+                    f'(<= {ta_lim:g})'), ok
+
+        in_bytes = (((s + 1) * m * d + s * m) if fused else s * m * d) * es
+        cases.append(dict(
+            kernel='K3s' if fused else 'K5s', label=label, timed=timed,
+            run=lambda: flat(fwd(*ins, *params, save_state=True)),
+            plain=lambda: flat(plain(*ins, *params, save_state=True)),
+            extra=extra, tol=alpha_tol(ins[:2], dtype),
+            nbytes=in_bytes + ((s + 1) * m * d + s * m) * es + s * m * (s + 3) * 4,
+            flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
+            peak=PEAK_F32_FLOPS))
+
+    def hc_bwd_save_case(label, s, m, d, dtype, fused, timed=False):
+        """K5bs / K4s from K5s / K3s's state against the plain save adjoint
+        (K4 / K5b's limits); beside it, against K5b / K4 (rel 1e-5 of each
+        tensor's max |ref|)."""
+        params, es = hc_params(s, d), esize(dtype)
+        ins = hc_inputs(s, m, d, dtype, fused)
+        grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+        bplain = (hck.width_connection_fused_backward_plain if fused
+                  else hck.width_connection_backward_plain)
+        _, state = fwd(*ins, *params, save_state=True)
+
+        def extra():
+            _, worst = compare(bwd(*ins, *params, *grads, state=state),
+                               bwd(*ins, *params, *grads), 1e-5, 1e-5, scaled=True)
+            return (f'; against {"K4" if fused else "K5b"}: worst ratio {worst:.3f} '
+                    f'(|err| <= 1e-5 max|ref| + 1e-5|ref|)'), worst <= 1.0
+
+        param_bytes = ((s + 2) * d + s * (s + 2) + 2) * 4 * 2
+        io_bytes = 2 * ((((s + 1) * m * d + s * m) if fused else s * m * d) * es)
+        cases.append(dict(
+            kernel='K4s' if fused else 'K5bs', label=label, scaled=True, timed=timed,
+            run=lambda: bwd(*ins, *params, *grads, state=state),
+            plain=lambda: bplain(*ins, *params, *grads, state=state),
+            extra=extra, tol=tol[dtype],
+            nbytes=io_bytes + ((s + 1) * m * d + s * m) * es + param_bytes
+            + s * m * (s + 3) * 4,
+            # the adjoint without the rms statistic and the projection
+            flops=m * s * d * (2 + 4 * (s + 2) + 4 * (s + 1) + 6) + (6 * m * s * d if fused else 0),
             peak=PEAK_F32_FLOPS))
 
     def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False, timed=False):
@@ -392,24 +511,26 @@ def kernel_cases(torch, dev):
         return out
 
     def mel_case(label, b, nw, power=1.0, win=1024, train=False, against_power=None,
-                 unsplit=False):
-        spec = MelSpec(power=power, win_length=win, mode='pallas').to(dev)
-        dft_spec = MelSpec(power=power, win_length=win).to(dev)
+                 unsplit=False, n_fft=1024, n_mels=100, timed=False):
+        kw = dict(power=power, win_length=win, filter_length=n_fft, n_mel_channels=n_mels)
+        spec = MelSpec(mode='pallas', **kw).to(dev)
+        dft_spec = MelSpec(**kw).to(dev)
         wave = torch.randn(b, nw, generator=g, device=dev) * 0.1
-        frames = frame_signal(wave, 1024, HOP, center=True)      # a view of the padded wave
+        frames = frame_signal(wave, n_fft, HOP, center=True)     # a view of the padded wave
         tables = (spec.dft_cos, spec.dft_sin, spec.fbanks)
         rows, n_freqs, n_mels = b * frames.shape[1], spec.fbanks.shape[0], spec.fbanks.shape[1]
         if unsplit and mk.frequency_splits(rows, n_freqs, sms) == 1:
             raise AssertionError(f'{label}: the wrapper does not split at {rows} rows')
         case = dict(
-            kernel='K11', label=label, train=train,
+            kernel='K11', label=label, train=train, timed=timed,
             run=lambda: mk.fused_log_mel(frames, *tables, power),
             plain=lambda: mk.fused_log_mel_plain(frames, *tables, power),
             dft=lambda: dft_spec(wave),
             tol=(2e-3, 1e-3),
             # the padded wave, the two bases and the filterbank read once; log-mel written
-            nbytes=4 * (b * (nw + 1024) + 2 * 1024 * n_freqs + n_freqs * n_mels + rows * n_mels),
-            flops=rows * (4 * 1024 * n_freqs + 2 * n_freqs * n_mels),
+            nbytes=4 * (b * (nw + n_fft) + 2 * n_fft * n_freqs + n_freqs * n_mels
+                        + rows * n_mels),
+            flops=rows * (4 * n_fft * n_freqs + 2 * n_freqs * n_mels),
             peak=PEAK_F32_FLOPS)
         if against_power is not None:
             case['against'] = (f'at power {against_power:g}', lambda: mk.fused_log_mel_plain(
@@ -560,6 +681,34 @@ def kernel_cases(torch, dev):
                     timed=True)
         hc_bwd_case(f'{tag} DiT train text (4,{M},576) bf16', 4, M, 576, bf16, fused)
         hc_bwd_case(f'{tag} f32 M=333 d=1152', 4, 333, 1152, f32, fused)
+    # the save-state variants: first (timed, the JSON line's) at the E2-TTS
+    # paper's training shape, speech width 1024; the flagship's and DiT's
+    # widths timed too; small cases at other stream counts, f32, a ragged M
+    for fused in (False, True):
+        tag = 'fused' if fused else 'plain'
+        for d in (1024, 512, 1152):
+            hc_save_case(f'{tag} train (4,{M},{d}) bf16', 4, M, d, bf16, fused, timed=True)
+            hc_bwd_save_case(f'{tag} train (4,{M},{d}) bf16', 4, M, d, bf16, fused, timed=True)
+        for s_, d, dt, label in ((4, 1024, f32, 'f32'), (2, 64, bf16, 'bf16'),
+                                 (3, 100, f32, 'f32'), (8, 2048, bf16, 'bf16')):
+            hc_save_case(f'{tag} s={s_} M=2000 d={d} {label}', s_, 2000, d, dt, fused)
+            hc_bwd_save_case(f'{tag} s={s_} M=1999 d={d} {label}', s_, 1999, d, dt, fused)
+    # any stream count and width (the JAX kernels take any)
+    for s_ in (2, 3, 8):
+        for d in (32, 64, 100, 768, 1024):
+            for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+                for fused in (False, True):
+                    tag = 'fused' if fused else 'plain'
+                    hc_case(f'{tag} s={s_} M=2000 d={d} {label}', s_, 2000, d, dt, fused,
+                            any_width=True)
+                    hc_bwd_case(f'{tag} s={s_} M=2000 d={d} {label}', s_, 2000, d, dt, fused)
+    for d in (1024, 2048):
+        for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+            for fused in (False, True):
+                tag = 'fused' if fused else 'plain'
+                hc_case(f'{tag} s=4 M=2000 d={d} {label}', 4, 2000, d, dt, fused,
+                        any_width=True)
+                hc_bwd_case(f'{tag} s=4 M=2000 d={d} {label}', 4, 2000, d, dt, fused)
     geglu_case('speech (1,1056,2x1408) bf16', 1, n, 1408, bf16)
     geglu_case('text (1,1056,2x704) bf16', 1, n, 704, bf16)
     geglu_case('ragged B=2 (2,1056,2x1408) bf16', 2, n, 1408, bf16)
@@ -587,6 +736,8 @@ def kernel_cases(torch, dev):
     mel_case('power 0.7 prompt', 1, PROMPT_SAMPLES, power=0.7)
     mel_case('win_length 800 prompt', 1, PROMPT_SAMPLES, win=800)
     mel_case('ragged 300 rows (2,38144)', 2, 149 * HOP)
+    mel_case(f'160 mels n_fft 1000 prompt (1,{PROMPT_SAMPLES})', 1, PROMPT_SAMPLES, win=1000,
+             n_fft=1000, n_mels=160, timed=True)
     delta_case(f'train ({B},1056,8x64) bf16', B, n, 8, 64, bf16)
     delta_case('ragged n (3,777,8x64) bf16', 3, 777, 8, 64, bf16)
     delta_case('f32 (2,300,4x32)', 2, 300, 4, 32, f32)
@@ -604,6 +755,12 @@ def kernel_cases(torch, dev):
                   lens=[300, 211], rate=0.1)
     bhnd_case(f'f32 (1,4,300,{DH}) q/k x4 (scores ~N(0, 16^2), softclamp 50)', 1, 300, 4, DH,
               f32, lens=[250], qk_scale=4.0)
+    # any dim_head: 12 (zero-padded to 16 by the wrapper), 136 and 256 (two
+    # column chunks), ragged n = 777
+    for dh in (12, 136, 256):
+        for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+            bhnd_case(f'dh={dh} ragged n=777 B=2 lens 777/500 (2,4) {label} dropout 0.1', 2, 777,
+                      4, dh, dt, lens=[777, 500], rate=0.1, timed=dh == 256 and dt == bf16)
     bhnd_bwd_case(f'DiT train ({B},{H},1056,{DH}) bf16 dropout 0.1', B, n, H, DH, bf16, rate=0.1)
     bhnd_bwd_case(f'flagship train shape ({B},8,1056,64) bf16 dropout 0.1 (K2 on the same work)',
                   B, n, 8, 64, bf16, rate=0.1, timed=True)
@@ -615,6 +772,11 @@ def kernel_cases(torch, dev):
                       lens=[300, 211], rate=0.1)
     bhnd_bwd_case(f'f32 (2,4,300,{DH}) ragged q/k x4 dropout 0.1', 2, 300, 4, DH, f32,
                   lens=[300, 250], rate=0.1, qk_scale=4.0)
+    for dh in (12, 136, 256):
+        for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+            bhnd_bwd_case(f'dh={dh} ragged n=777 B=2 lens 777/500 (2,4) {label} dropout 0.1', 2,
+                          777, 4, dh, dt, lens=[777, 500], rate=0.1,
+                          timed=dh == 256 and dt == bf16)
     laser_case(f'LASER attention (2,{H},1056,{DH}) bf16 ragged', 2, n, H, DH, bf16,
                lens=[n, 700])
     for mode in fa.PROBE_MODES:
@@ -664,6 +826,18 @@ KERNEL_INFO = {
     'probe': dict(name='flash_probe', route='cuda',
                   source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
                   replaces='scripts/_kernel_floor.py:18'),
+    'K5s': dict(name='hc_width_save', route='cuda',
+                source='e2_tts_tpu_torch/csrc/hyper_conn_save.cu',
+                replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:176'),
+    'K3s': dict(name='hc_width_fused_save', route='cuda',
+                source='e2_tts_tpu_torch/csrc/hyper_conn_save.cu',
+                replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:207'),
+    'K5bs': dict(name='hc_width_bwd_save', route='cuda',
+                 source='e2_tts_tpu_torch/csrc/hyper_conn_bwd_save.cu',
+                 replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:573'),
+    'K4s': dict(name='hc_width_fused_bwd_save', route='cuda',
+                source='e2_tts_tpu_torch/csrc/hyper_conn_bwd_save.cu',
+                replaces='e2_tts_tpu/ops/hyper_conn_kernel.py:619'),
 }
 # the kernels whose launches the JSON line takes from the sampling run, the
 # serving run, the DiT sampling run and the DiT train steps; the rest from the
@@ -673,6 +847,7 @@ SAMPLE_KERNELS = ('K1', 'K3', 'K5', 'K6')
 SERVE_KERNELS = ('K11',)
 DIT_SAMPLE_KERNELS = ('K8',)
 DIT_TRAIN_KERNELS = ('K9',)
+PAPER_SAVE_KERNELS = ('K5s', 'K3s', 'K5bs', 'K4s')    # the paper's train steps, saving
 
 
 def time_case(case):
@@ -714,6 +889,10 @@ def phase_kernels(torch, dev):
             err_u, worst_u = compare(case['unsplit'](), case['plain'](), atol, rtol, scaled)
             worst = max(worst, worst_u)
             line += f'; unsplit: max_abs_err={err_u:.3e}, worst ratio {worst_u:.3f}'
+        extra_ok = True
+        if 'extra' in case:
+            suffix, extra_ok = case['extra']()
+            line += suffix
         timed = None
         if case.get('train'):
             timed = train_records[kname] = time_case(case)
@@ -735,11 +914,61 @@ def phase_kernels(torch, dev):
         del out
         if worst > 1.0:
             raise AssertionError(f'{kname} {label}: kernel disagrees with its plain version')
+        if not extra_ok:
+            raise AssertionError(f'{kname} {label}: a check beside the plain version failed')
         if not separated:
             raise AssertionError(f'{kname} {label}: the check cannot tell the kernel from '
                                  f'the plain version {case["against"][0]}')
     torch.cuda.empty_cache()
     return records, train_records
+
+
+def time_hc_save_pairs(torch, dev, smi):
+    """The hyper-connection save-state A/B at the training shape (4 streams,
+    B=16 x 1056 rows, bf16): each forward and adjoint alone, recomputing
+    (K5 + K5b, K3 + K4) and saving (K5s + K5bs, K3s + K4s), and the pairs'
+    sums, device time in CUDA graphs, each beside its bound."""
+    from e2_tts_tpu_torch.ops import hyper_conn_kernel as hck
+    g = torch.Generator(device=dev).manual_seed(9)
+    randn = lambda *shape, scale=1.0: (torch.randn(shape, generator=g, device=dev)
+                                       * scale).to(torch.bfloat16)
+    s, m = 4, TRAIN_BATCH * (FRAMES + 32)
+    for d in (512, 1024, 1152):
+        params = (torch.eye(s, s + 1, device=dev).roll(1, dims=1),
+                  torch.ones(s, device=dev), randn(d, s + 1, scale=0.05).float(),
+                  torch.tensor(0.5, device=dev), randn(d, scale=0.05).float(),
+                  torch.tensor(0.5, device=dev))
+        grads = (randn(m, d), randn(s, m, d), randn(s, m))
+        for fused in (False, True):
+            ins = ((randn(s, m, d), randn(m, d), randn(s, m, scale=0.5)) if fused
+                   else (randn(s, m, d),))
+            fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+            bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+            _, state = fwd(*ins, *params, save_state=True)
+            row = ((s + 1) * d + s) if fused else s * d          # stream values read per row
+            out_row = (s + 1) * d + s
+            st_row = s * (s + 3) * 4                              # ta and inv, f32 bytes
+            nbytes = dict(fwd=m * (row + out_row) * 2, bwd=m * (2 * row + out_row) * 2)
+            ms = dict(
+                fwd=graph_ms(lambda: fwd(*ins, *params), 100),
+                fwd_save=graph_ms(lambda: fwd(*ins, *params, save_state=True), 100),
+                bwd=graph_ms(lambda: bwd(*ins, *params, *grads), 50),
+                bwd_save=graph_ms(lambda: bwd(*ins, *params, *grads, state=state), 50))
+            bound = dict(fwd=nbytes['fwd'] / PEAK_BYTES * 1e3,
+                         fwd_save=(nbytes['fwd'] + m * st_row) / PEAK_BYTES * 1e3,
+                         bwd=nbytes['bwd'] / PEAK_BYTES * 1e3,
+                         bwd_save=(nbytes['bwd'] + m * st_row) / PEAK_BYTES * 1e3)
+            names = ('K3', 'K4', 'K3s', 'K4s') if fused else ('K5', 'K5b', 'K5s', 'K5bs')
+            log(f'hc save A/B (4,{m},{d}) bf16 {"fused" if fused else "plain"}: '
+                f'{names[0]}_ms={ms["fwd"]:.5f} {names[1]}_ms={ms["bwd"]:.5f} '
+                f'pair_ms={ms["fwd"] + ms["bwd"]:.5f} (bound {bound["fwd"] + bound["bwd"]:.5f}); '
+                f'{names[2]}_ms={ms["fwd_save"]:.5f} {names[3]}_ms={ms["bwd_save"]:.5f} '
+                f'pair_ms={ms["fwd_save"] + ms["bwd_save"]:.5f} '
+                f'(bound {bound["fwd_save"] + bound["bwd_save"]:.5f}); bounds_ms '
+                f'{json.dumps({k: round(v, 5) for k, v in bound.items()})} [{smi}]')
+            del ins, state
+        del grads
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: main path (sample) --------------------------------------------------
@@ -777,18 +1006,19 @@ def expected_launches(model, steps: int, attention='flash_fwd') -> dict:
             'hc_width': per_eval * evals, 'hc_width_fused': 2 * per_eval * evals}
 
 
-def check_cfg_eval(torch, dev, model, cpu_model, label):
+def check_cfg_eval(torch, dev, model, cpu_model, label, frames=FRAMES,
+                   prompt_frames=PROMPT_FRAMES):
     """One sequential-CFG evaluation (B=1, 1024 frames, a 256-frame prompt,
     the text) of ``model`` (bf16, on the card) against ``cpu_model`` (the
     same weights, f32 on the CPU). Returns the generator of its inputs, to
     draw the prompt from."""
     g = torch.Generator().manual_seed(1)
     text_ids = torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long)
-    x = torch.randn(1, FRAMES, 100, generator=g)
-    cond = torch.zeros(1, FRAMES, 100)
-    cond[:, :PROMPT_FRAMES] = torch.randn(1, PROMPT_FRAMES, 100, generator=g)
+    x = torch.randn(1, frames, 100, generator=g)
+    cond = torch.zeros(1, frames, 100)
+    cond[:, :prompt_frames] = torch.randn(1, prompt_frames, 100, generator=g)
     times = torch.tensor([0.5])
-    mask = torch.ones(1, FRAMES, dtype=torch.bool)
+    mask = torch.ones(1, frames, dtype=torch.bool)
     kw = dict(cfg_strength=1.0, batched_cfg=False)
     with torch.no_grad():
         out = model.cfg_transformer_with_pred_head(
@@ -1017,8 +1247,9 @@ def train_check_batch(torch, model, frames=512):
     g = torch.Generator().manual_seed(3)
     lens = torch.tensor([frames, frames - 112])
     span = torch.zeros(2, frames, dtype=torch.bool)
-    span[0, 100:400] = True
-    span[1, 50:350] = True
+    at = lambda i: frames * i // 512          # 100:400 and 50:350 at 512 frames
+    span[0, at(100):at(400)] = True
+    span[1, at(50):at(350)] = True
     return dict(mel=torch.randn(2, frames, 100, generator=g),
                 text=torch.as_tensor(model.tokenizer([TEXT, TEXT[:60]]), dtype=torch.long),
                 lens=lens, span=span, times=torch.rand(2, generator=g),
@@ -1039,24 +1270,25 @@ TRAIN_CHECK_TOL = {'f32': dict(loss=1e-5, grad=1e-4), 'bf16': dict(loss=1e-3, gr
 WAVE_LOSS_TOL = 1e-4
 
 
-def check_train_vs_cpu(torch, dev, label, config):
-    """One step's loss and grads of ``config`` at depth 2 on the card, in
-    f32 and in bf16, against the CPU's f32 step on the same weights and
-    draws (B=2, 512 frames, dropout 0); returns the batch."""
-    small = dict(depth=2, dropout=0.0)
+def check_train_vs_cpu(torch, dev, label, config, kinds=('f32', 'bf16'), depth=2, frames=512):
+    """One step's loss and grads of ``config`` at ``depth`` on the card, in
+    f32 and in bf16 (``kinds``), against the CPU's f32 step on the same
+    weights and draws (B=2, ``frames`` frames, dropout 0); returns the
+    batch."""
+    small = dict(depth=depth, dropout=0.0)
     cpu_model = build_e2tts(torch, 'cpu', None, config=config, **small).train()
-    batch = train_check_batch(torch, cpu_model)
+    batch = train_check_batch(torch, cpu_model, frames)
     ref_loss, ref_grad = step_loss_and_grads(torch, cpu_model, batch)
     del cpu_model
-    for kind, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
-        model = build_e2tts(torch, dev, None if kind == 'f32' else dtype, config=config,
-                            **small).train()
+    for kind in kinds:
+        dtype = torch.bfloat16 if kind == 'bf16' else None
+        model = build_e2tts(torch, dev, dtype, config=config, **small).train()
         loss, grad = step_loss_and_grads(torch, model, batch)
         loss_rel = abs(loss - ref_loss) / abs(ref_loss)
         grad_rel = float((grad - ref_grad).norm() / ref_grad.norm())
         lim = TRAIN_CHECK_TOL[kind]
-        log(f'{label} check card {kind} vs cpu f32 (depth 2, B=2, 512 frames, dropout 0, '
-            f'same weights and draws): loss={loss:.6f} cpu_loss={ref_loss:.6f} '
+        log(f'{label} check card {kind} vs cpu f32 (depth {depth}, B=2, {frames} frames, '
+            f'dropout 0, same weights and draws): loss={loss:.6f} cpu_loss={ref_loss:.6f} '
             f'loss_rel={loss_rel:.3e} (<= {lim["loss"]:g}) grad_rel_l2={grad_rel:.3e} '
             f'(<= {lim["grad"]:g}) over {grad.numel()} grads')
         if not (torch.isfinite(grad).all() and loss_rel <= lim['loss']
@@ -1100,12 +1332,20 @@ def phase_train_check(torch, dev):
     torch.cuda.empty_cache()
 
 
-def expected_train_launches(model, with_text: bool) -> dict:
+# the hyper-connection kernels and their save-state variants
+SAVE_VARIANT = {'hc_width': 'hc_width_save', 'hc_width_fused': 'hc_width_fused_save',
+                'hc_width_bwd': 'hc_width_bwd_save',
+                'hc_width_fused_bwd': 'hc_width_fused_bwd_save'}
+
+
+def expected_train_launches(model, with_text: bool, save_state: bool = False) -> dict:
     """Launches of one train step on mels, from the model's structure: per
     layer of a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 / K10
     (or K8 / K9 for heads K1 does not take) and K6 / K7 once. Without text
     the text stream does not run. With per-layer remat every forward kernel
-    runs again in the backward's recompute."""
+    runs again in the backward's recompute. With ``save_state`` the
+    hyper-connection kernels are their save-state variants (K5s, K3s, K5bs,
+    K4s; remat's first forward runs with grad on, so it saves too)."""
     tf = model.transformer
     layers = tf.depth + (tf.text_depth if with_text else 0)
     fwd = layers * (2 if tf.remat else 1)
@@ -1116,6 +1356,8 @@ def expected_train_launches(model, with_text: bool) -> dict:
                    'hc_width_fused_bwd': 2 * layers, 'geglu_bwd': layers})
     if packed:
         counts['flash_delta'] = layers
+    if save_state:
+        counts = {SAVE_VARIANT.get(k, k): n for k, n in counts.items()}
     return counts
 
 
@@ -1308,6 +1550,170 @@ def phase_dit(torch, dev, smi):
     return sample_counts, train_counts
 
 
+def phase_tiny(torch, dev):
+    """The JAX package's test geometry (2 streams at widths 64 and 32, heads
+    of 16: K3 / K5 at s = 2, K8 / K9 at dh 16) with seeded random weights:
+    one CFG evaluation (200 frames) bf16 on the card against f32 on the CPU,
+    and one train step f32 on the card against the CPU at its depth 4."""
+    from e2_tts_tpu_torch.ops import _cuda
+    model = build_e2tts(torch, dev, torch.bfloat16, config=TINY).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None, config=TINY).eval()
+    _cuda.reset_launch_counts()
+    check_cfg_eval(torch, dev, model, cpu_model, 'tiny', frames=TINY_FRAMES, prompt_frames=64)
+    fwd = dict(_cuda.launch_counts)
+    del model, cpu_model
+    _cuda.reset_launch_counts()
+    check_train_vs_cpu(torch, dev, 'tiny', TINY, kinds=('f32',), depth=TINY['depth'],
+                       frames=TINY_FRAMES)
+    bwd = dict(_cuda.launch_counts)
+    used = ('hc_width', 'hc_width_fused', 'flash_fwd_bhnd')
+    used_bwd = ('hc_width_bwd', 'hc_width_fused_bwd', 'flash_bwd_bhnd')
+    log(f'tiny launches: cfg eval {json.dumps({k: fwd[k] for k in used})} train step '
+        f'{json.dumps({k: bwd[k] for k in used + used_bwd})}')
+    if not (all(fwd[k] > 0 for k in used) and all(bwd[k] > 0 for k in used + used_bwd)):
+        raise AssertionError('tiny: the 2-stream, 16-wide-head path did not run its kernels')
+    torch.cuda.empty_cache()
+
+
+def set_hc_save_state(model, on: bool):
+    """Switch every hyper-connection of ``model`` to (or from) the
+    save-state kernels."""
+    from e2_tts_tpu_torch.models.hyper_connections import HyperConnection
+    for m in model.modules():
+        if isinstance(m, HyperConnection):
+            m.save_state = on
+
+
+# the save path against the recomputing path, f32 on the card at dropout
+# 0.1: the forward is bit for bit the same (equal losses); the adjoints read
+# the same tanh and inv (recomputed by the same instructions), and K2 sums dq
+# by atomics in a run-dependent order: f32 summation noise, far under this
+PAPER_SAVE_GRAD_TOL = 1e-5
+
+
+def phase_paper(torch, dev, smi):
+    """The E2-TTS paper's configuration (dim 1024, 16 heads of 64, text 512)
+    in bf16 with seeded random weights: at depth 2 one CFG evaluation and
+    one train step (f32 and bf16) against the CPU, and ``hc_save_state`` on
+    against off (f32); `sample` at depth 24 with ``hc_save_state=True`` (no
+    grad: the save counters stay 0); then `E2Trainer` at depth 24, B=16 x
+    1024, dropout 0.1, remat, timed steps with ``hc_save_state`` off and
+    then on. Returns the launch counts of the sample and of the two sets of
+    train steps."""
+    import numpy as np
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    model = build_e2tts(torch, dev, torch.bfloat16, config=PAPER, depth=2).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None, config=PAPER, depth=2).eval()
+    check_cfg_eval(torch, dev, model, cpu_model, 'paper (depth 2)')
+    del model, cpu_model
+    check_train_vs_cpu(torch, dev, 'paper (depth 2)', PAPER)
+    batch, results = None, {}
+    for save in (False, True):
+        small = build_e2tts(torch, dev, None, config=PAPER, depth=2, dropout=0.1,
+                            hc_save_state=save).train()
+        batch = batch or train_check_batch(torch, small)
+        _cuda.reset_launch_counts()
+        loss, grad = step_loss_and_grads(torch, small, batch,
+                                         generator=torch.Generator().manual_seed(7))
+        results[save] = (loss, grad, sum(_cuda.launch_counts[k] for k in SAVE_VARIANT.values()))
+        del small
+    (loss_on, grad_on, n_on), (loss_off, grad_off, n_off) = results[True], results[False]
+    grad_rel = float((grad_on - grad_off).norm() / grad_off.norm())
+    log(f'paper (depth 2) hc_save_state on vs off, f32 card, dropout 0.1, same weights, draws '
+        f'and generator: loss={loss_on:.7f} loss_off={loss_off:.7f} grad_rel_l2={grad_rel:.3e} '
+        f'(<= {PAPER_SAVE_GRAD_TOL:g}) save-variant launches {n_on} / {n_off}')
+    if not (loss_on == loss_off and grad_rel <= PAPER_SAVE_GRAD_TOL and n_on > 0 and n_off == 0):
+        raise AssertionError('hc_save_state changes the train step')
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_e2tts(torch, dev, torch.bfloat16, config=PAPER, dropout=0.1, remat=True,
+                        hc_save_state=True).eval()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randn(1, PROMPT_FRAMES, 100, generator=g).to(dev, torch.bfloat16)
+    sample_kw = dict(text=[TEXT], duration=FRAMES, cfg_strength=1.0,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    model.sample(prompt, steps=2, **sample_kw)          # warm-up: allocator, cuBLAS
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    mel = model.sample(prompt, steps=STEPS, **sample_kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample_counts = dict(_cuda.launch_counts)
+    if tuple(mel.shape) != (1, FRAMES, 100) or not torch.isfinite(mel).all():
+        raise AssertionError(f'paper sample output bad: shape {tuple(mel.shape)}')
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS))
+    log(f'paper sample depth {PAPER["depth"]} hc_save_state=True B=1 frames={FRAMES} '
+        f'NFE={2 * (STEPS - 1)} midpoint cfg=1.0 sequential: seconds={seconds:.4f} '
+        f'rtf={seconds / (FRAMES / FRAMES_PER_SECOND):.5f} params={n_params} '
+        f'build_s={build_s:.1f} launches={json.dumps(sample_counts, sort_keys=True)} [{smi}]')
+    if sample_counts != expected:
+        raise AssertionError(f'paper launch counts {sample_counts} != expected {expected}')
+    del mel
+    phase_profile(torch, model, tag='paper_')
+
+    model.train()
+    trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                        seed=0)
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    dataset = ArrayDataset(
+        [rng.standard_normal((100, FRAMES)).astype(np.float32) for _ in range(TRAIN_BATCH)],
+        [' '.join(rng.choice(words, size=12)) for _ in range(TRAIN_BATCH)])
+    batch = trainer.prepare_batch(next(iter_batches(dataset, TRAIN_BATCH, seed=1)))
+    train_counts = {}
+    for save in (False, True):
+        set_hc_save_state(model, save)
+        for drop in (False, True):                      # warm-up: optimizer state, allocator
+            trainer.train_step(*batch, drop_text_cond=drop)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        ms, losses = {}, []
+        for drop in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PAPER_TRAIN_STEPS_TIMED):
+                loss, _, _ = trainer.train_step(*batch, drop_text_cond=drop)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            ms[drop] = (time.perf_counter() - t0) * 1e3 / PAPER_TRAIN_STEPS_TIMED
+        counts = train_counts[save] = dict(_cuda.launch_counts)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        mix_ms = (1 - TEXT_DROP_PROB) * ms[False] + TEXT_DROP_PROB * ms[True]
+        log(f'paper train steps depth {PAPER["depth"]} hc_save_state={save} B={TRAIN_BATCH} '
+            f'frames={FRAMES} dropout 0.1 remat bf16, {PAPER_TRAIN_STEPS_TIMED} each: '
+            f'ms_per_step_with_text={ms[False]:.3f} ms_per_step_text_dropped={ms[True]:.3f} '
+            f'ms_per_step_mix_0.75_0.25={mix_ms:.3f} '
+            f'mel_frames_per_s={TRAIN_BATCH * FRAMES / (mix_ms / 1e3):.1f} '
+            f'max_memory_allocated_gib={peak_gib:.3f} loss_finite={finite} '
+            f'last_loss={float(losses[-1]):.5f} launches={json.dumps(counts, sort_keys=True)} '
+            f'[{smi}]')
+        with_text, dropped = (expected_train_launches(model, t, save) for t in (True, False))
+        expected = {k: PAPER_TRAIN_STEPS_TIMED * (with_text.get(k, 0) + dropped.get(k, 0))
+                    for k in _cuda.KERNELS}
+        if counts != expected:
+            raise AssertionError(f'paper train launch counts {counts} != expected {expected}')
+        if not finite:
+            raise AssertionError('paper train loss is not finite')
+    set_hc_save_state(model, False)
+    log('profile one paper train step (with text, hc_save_state off):')
+    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                'paper_train_step_trace.json')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return sample_counts, train_counts[False], train_counts[True]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1337,6 +1743,7 @@ def main() -> int:
         log(f'kernel {kid} at the training shape vs the sampling shape: ms={t["ms"]:.5f} '
             f'(sampling {r["ms"]:.5f}) plain_ms={t["plain_ms"]:.5f} '
             f'eager_call_ms={t["eager_ms"]:.5f} bound_ms={t["bound_ms"]:.5f} ({t["bound_by"]})')
+    time_hc_save_pairs(torch, dev, smi)
     sample_counts, model = phase_main(torch, dev, smi)
     phase_profile(torch, model)
     del model
@@ -1347,6 +1754,9 @@ def main() -> int:
     train_counts = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_sample_counts, dit_train_counts = phase_dit(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_tiny(torch, dev)
+    _, _, paper_save_counts = phase_paper(torch, dev, smi)
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
@@ -1354,7 +1764,8 @@ def main() -> int:
         counts = (sample_counts if kid in SAMPLE_KERNELS else
                   serve_counts if kid in SERVE_KERNELS else
                   dit_sample_counts if kid in DIT_SAMPLE_KERNELS else
-                  dit_train_counts if kid in DIT_TRAIN_KERNELS else train_counts)
+                  dit_train_counts if kid in DIT_TRAIN_KERNELS else
+                  paper_save_counts if kid in PAPER_SAVE_KERNELS else train_counts)
         kernels.append(dict(
             name=info['name'], route=info['route'], source=info['source'],
             replaces=info['replaces'], launches=counts[info['name']],

@@ -4,12 +4,22 @@
 // their strides, so one template serves both: every operand is addressed
 // as base + batch * s.b + head * s.h + row * s.r + column.
 //
-// A head is dh columns, any multiple of 8 up to 128. The tiles in shared
+// A head is dh columns, any multiple of 8 up to 256. The tiles in shared
 // memory are DHP = dh rounded up to 16 columns wide (the depth of a bf16
 // wmma product), the columns past dh zero-filled by the loads, so both
 // products contract over zeros there; nothing past a head's dh columns is
 // read from or written to device memory. Rows past n are zero too, and keys
 // past n get the -1e30 bias (probability exactly 0).
+//
+// A head wider than 128 (SPLIT = 2) is two column chunks of DHP = dh rounded
+// up to 32, halved (136 -> 80 + 80, 256 -> 128 + 128), and the grid gets two
+// blocks per (tile, head, batch row), one per chunk of the output columns:
+// each block sums the scores over both chunks (the other chunk first, its
+// own last, so its own q / k / v / do stay in shared memory) and keeps only
+// its own chunk's accumulators (the forward's p v, the backward's dk, dv
+// and dq). The score products run twice, the rest once: 1.4x the work of one
+// block for the whole head, and every tile, register accumulator and
+// shared-memory layout stays that of a 128-wide head.
 //
 // The definitions sit in an anonymous namespace: each translation unit
 // that includes this header compiles its own instantiations.
@@ -83,7 +93,7 @@ struct FwdParams {
   int dropping;
 };
 
-template <typename T, int DHP>
+template <typename T, int DHP, int SPLIT = 1>
 struct FwdLayout {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   // row pitches (elements); bf16 pitches keep wmma's 16-byte/32-byte rules,
@@ -94,22 +104,25 @@ struct FwdLayout {
   static constexpr int LDF = LDS > LDO ? LDS : LDO;
   static constexpr int LDP = kBf16 ? BK + 8 : BK + 1;   // probabilities
   static constexpr size_t tile = (size_t)BQ * LDT;
-  static constexpr size_t f_off = align128(3 * tile * sizeof(T));
+  // SPLIT q tiles (one per column chunk), then k and v
+  static constexpr size_t f_off = align128((2 + SPLIT) * tile * sizeof(T));
   static constexpr size_t p_off = f_off + align128((size_t)BQ * LDF * sizeof(float));
   static constexpr size_t bias_off = p_off + align128((size_t)BQ * LDP * sizeof(T));
   static constexpr size_t bytes = bias_off + BK * sizeof(float);
 };
 
 // scores of this warp's 16 q rows against the 64 keys of the tile -> sF
+// (added to what sF holds with `accumulate`: a wide head's second chunk)
 template <typename T, int DHP>
 __device__ __forceinline__ void warp_scores(const T* sQw, const T* sK, float* sFw, int dh,
-                                            int lane) {
+                                            int lane, bool accumulate = false) {
   using L = FwdLayout<T, DHP>;
   if constexpr (L::kBf16) {
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
+      if (accumulate) wmma::load_matrix_sync(c, sFw + j * 16, L::LDS, wmma::mem_row_major);
+      else wmma::fill_fragment(c, 0.f);
 #pragma unroll
       for (int kk = 0; kk < DHP / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
@@ -122,7 +135,8 @@ __device__ __forceinline__ void warp_scores(const T* sQw, const T* sK, float* sF
     }
   } else {
     for (int r = 0; r < 16; ++r) {
-      float s0 = 0.f, s1 = 0.f;
+      float s0 = accumulate ? sFw[r * L::LDS + lane] : 0.f;
+      float s1 = accumulate ? sFw[r * L::LDS + lane + 32] : 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) {
         const float qv = sQw[r * L::LDT + d];
@@ -166,28 +180,33 @@ __device__ __forceinline__ void warp_pv(const T* sPw, const T* sV, float* sFw, i
   }
 }
 
-// One block per (64 query rows, head, batch row): s = c tanh(scale q k^T / c)
-// + bias, online softmax over 64-key tiles, post-softmax hash dropout,
-// o = (p v) / l * sigmoid(gate), lse = m + log(l).
-template <typename T, int DHP>
+// One block per (64 query rows, head, batch row[, column chunk]): s = c
+// tanh(scale q k^T / c) + bias, online softmax over 64-key tiles,
+// post-softmax hash dropout, o = (p v) / l * sigmoid(gate), lse = m + log(l).
+template <typename T, int DHP, int SPLIT = 1>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
-  using L = FwdLayout<T, DHP>;
+  using L = FwdLayout<T, DHP, SPLIT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + L::tile;
+  T* sQ = reinterpret_cast<T*>(smem);  // chunk c of the q rows at sQ + c * tile
+  T* sK = sQ + SPLIT * L::tile;
   T* sV = sK + L::tile;
   float* sF = reinterpret_cast<float*>(smem + L::f_off);
   T* sP = reinterpret_cast<T*>(smem + L::p_off);
   float* sBias = reinterpret_cast<float*>(smem + L::bias_off);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int bi = blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
   const int n = p.n, dh = p.dh;
+  const int c0 = split * DHP, dh_own = min(DHP, dh - c0);  // this block's output columns
   const T* qg = static_cast<const T*>(p.q) + offset(p.qs, bi, h);
   const T* kg = static_cast<const T*>(p.k) + offset(p.ks, bi, h);
   const T* vg = static_cast<const T*>(p.v) + offset(p.vs, bi, h);
 
-  load_tile<T, DHP, L::LDT>(sQ, qg, p.qs.r, q0, n, dh, tid);
+#pragma unroll
+  for (int ch = 0; ch < SPLIT; ++ch)
+    load_tile<T, DHP, L::LDT>(sQ + ch * L::tile, qg + ch * DHP, p.qs.r, q0, n, dh - ch * DHP,
+                              tid);
 
   // a lane pair owns one q row: `half` picks its 32 score columns and its
   // DHP/2 output columns
@@ -201,7 +220,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
   float m_i = NEG_INF, l_i = 0.f;
 
   const unsigned hseed = e2::fmix32(p.seed ^ ((unsigned)(bi * p.heads + h) * 0x27D4EB2Fu), 2);
-  const T* sQw = sQ + warp * 16 * L::LDT;
   float* sFw = sF + warp * 16 * L::LDF;
   T* sPw = sP + warp * 16 * L::LDP;
   float* srow = sFw + (lane >> 1) * L::LDS;
@@ -211,19 +229,27 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
   const int num_kt = (n + BK - 1) / BK;
   for (int kt = 0; kt < num_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, DHP, L::LDT>(sK, kg, p.ks.r, k0, n, dh, tid);
-    load_tile<T, DHP, L::LDT>(sV, vg, p.vs.r, k0, n, dh, tid);
-    if (tid < BK) {
-      const int col = k0 + tid;
-      float bias = NEG_INF;  // keys past n: probability exactly 0
-      if (col < n) bias = (p.mask == nullptr || p.mask[(long long)bi * n + col]) ? 0.f : NEG_INF;
-      sBias[tid] = bias;
+    // the score chunks: a wide head's other chunk first, this block's own last
+#pragma unroll
+    for (int j = 0; j < SPLIT; ++j) {
+      const int ch = (split + 1 + j) % SPLIT;
+      __syncthreads();  // every warp is done with the previous k (and v) tile
+      load_tile<T, DHP, L::LDT>(sK, kg + ch * DHP, p.ks.r, k0, n, dh - ch * DHP, tid);
+      if (j == SPLIT - 1) {
+        load_tile<T, DHP, L::LDT>(sV, vg + c0, p.vs.r, k0, n, dh_own, tid);
+        if (tid < BK) {
+          const int col = k0 + tid;
+          float bias = NEG_INF;  // keys past n: probability exactly 0
+          if (col < n)
+            bias = (p.mask == nullptr || p.mask[(long long)bi * n + col]) ? 0.f : NEG_INF;
+          sBias[tid] = bias;
+        }
+      }
+      __syncthreads();
+      warp_scores<T, DHP>(sQ + ch * L::tile + warp * 16 * L::LDT, sK, sFw,
+                          min(DHP, dh - ch * DHP), lane, j > 0);
+      __syncwarp();
     }
-    __syncthreads();
-
-    warp_scores<T, DHP>(sQw, sK, sFw, dh, lane);
-    __syncwarp();
 
     float mx = NEG_INF;
 #pragma unroll 8
@@ -256,7 +282,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
     m_i = m_new;
     __syncwarp();
 
-    warp_pv<T, DHP>(sPw, sV, sFw, dh, lane);
+    warp_pv<T, DHP>(sPw, sV, sFw, dh_own, lane);
     __syncwarp();
 #pragma unroll
     for (int i = 0; i < OPL; ++i) acc[i] = acc[i] * alpha + orow[i];
@@ -271,28 +297,29 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
           static_cast<const T*>(p.gate)[((long long)bi * n + row_abs) * p.heads + h]);
       sc *= 1.f / (1.f + expf(-g));
     }
-    T* og = static_cast<T*>(p.o) + offset(p.os, bi, h) + (long long)row_abs * p.os.r +
+    T* og = static_cast<T*>(p.o) + offset(p.os, bi, h) + (long long)row_abs * p.os.r + c0 +
             half * OPL;
 #pragma unroll
     for (int i = 0; i < OPL; ++i)
-      if (half * OPL + i < dh) og[i] = e2::from_float<T>(acc[i] * sc);
-    if (half == 0) p.lse[((long long)bi * p.heads + h) * n + row_abs] = m_i + logf(l_fin);
+      if (half * OPL + i < dh_own) og[i] = e2::from_float<T>(acc[i] * sc);
+    if (half == 0 && split == 0)
+      p.lse[((long long)bi * p.heads + h) * n + row_abs] = m_i + logf(l_fin);
   }
 }
 
-template <typename T, int DHP>
+template <typename T, int DHP, int SPLIT = 1>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  using L = FwdLayout<T, DHP>;
+  using L = FwdLayout<T, DHP, SPLIT>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DHP>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DHP, SPLIT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + BQ - 1) / BQ, p.heads, p.b);
-  flash_fwd_kernel<T, DHP><<<grid, NTHREADS, L::bytes, stream>>>(p);
+  dim3 grid((p.n + BQ - 1) / BQ, p.heads, p.b * SPLIT);
+  flash_fwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -338,14 +365,17 @@ struct BwdLayout {
 };
 
 // C (16 x 64, f32, pitch LDS) = A (16 x DHP rows of pitch LDT) . B^T, B = 64 rows x DHP
+// (C += with `accumulate`: a wide head's second chunk)
 template <typename T, int DHP>
-__device__ __forceinline__ void warp_abt(const T* A, const T* B, float* C, int dh, int lane) {
+__device__ __forceinline__ void warp_abt(const T* A, const T* B, float* C, int dh, int lane,
+                                         bool accumulate = false) {
   using L = BwdLayout<T, DHP>;
   if constexpr (L::kBf16) {
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
+      if (accumulate) wmma::load_matrix_sync(c, C + j * 16, L::LDS, wmma::mem_row_major);
+      else wmma::fill_fragment(c, 0.f);
 #pragma unroll
       for (int kk = 0; kk < DHP / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
@@ -358,7 +388,8 @@ __device__ __forceinline__ void warp_abt(const T* A, const T* B, float* C, int d
     }
   } else {
     for (int r = 0; r < 16; ++r) {
-      float s0 = 0.f, s1 = 0.f;
+      float s0 = accumulate ? C[r * L::LDS + lane] : 0.f;
+      float s1 = accumulate ? C[r * L::LDS + lane + 32] : 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) {
         const float av = A[r * L::LDT + d];
@@ -465,8 +496,11 @@ __device__ __forceinline__ void store_rows(WarpAcc<T, DHP>& acc, float* stage, T
 //   dv += p_drop^T do_g,  dk += ds^T q,  dq += ds k
 // p_drop and ds are rounded to T before the three products, as the TPU
 // kernels round them. dk and dv stay on chip until the end; dq, a sum over
-// key tiles, goes to the zeroed f32 buffer by atomicAdd.
-template <typename T, int DHP>
+// key tiles, goes to the zeroed f32 buffer by atomicAdd. A wide head's block
+// (SPLIT = 2) loads both column chunks of k, v, q and do for each query tile
+// (its own last) to sum s and dp, then accumulates its own chunk of dk, dv
+// and dq.
+template <typename T, int DHP, int SPLIT = 1>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
   using L = BwdLayout<T, DHP>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -483,16 +517,20 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
   __shared__ float sGate[BQ];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, bi = blockIdx.z;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y;
+  const int bi = blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
   const int n = p.n, H = p.heads, dh = p.dh;
+  const int c0 = split * DHP, dh_own = min(DHP, dh - c0);  // this block's grad columns
   const T* qg = static_cast<const T*>(p.q) + offset(p.qs, bi, h);
   const T* kg = static_cast<const T*>(p.k) + offset(p.ks, bi, h);
   const T* vg = static_cast<const T*>(p.v) + offset(p.vs, bi, h);
   const T* dog = static_cast<const T*>(p.dout) + offset(p.dos, bi, h);
   const float* deltag = p.delta + offset(p.deltas, bi, h);
 
-  load_tile<T, DHP, L::LDT>(sK, kg, p.ks.r, k0, n, dh, tid);
-  load_tile<T, DHP, L::LDT>(sV, vg, p.vs.r, k0, n, dh, tid);
+  if constexpr (SPLIT == 1) {
+    load_tile<T, DHP, L::LDT>(sK, kg, p.ks.r, k0, n, dh, tid);
+    load_tile<T, DHP, L::LDT>(sV, vg, p.vs.r, k0, n, dh, tid);
+  }
   if (tid < BK) {
     const int col = k0 + tid;
     float bias = NEG_INF;  // keys past n: probability exactly 0
@@ -530,15 +568,26 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
       sLse[tid] = row < n ? p.lse[((long long)bi * H + h) * n + row] : -NEG_INF;
       sDelta[tid] = row < n ? deltag[(long long)row * p.deltas.r] : 0.f;
     }
-    load_tile<T, DHP, L::LDT>(sQ, qg, p.qs.r, q0, n, dh, tid);
-    __syncthreads();  // sGate ready for the gated do load
-    load_tile<T, DHP, L::LDT>(sDO, dog, p.dos.r, q0, n, dh, tid,
-                              p.gate != nullptr ? sGate : nullptr);
-    __syncthreads();
+    // the score chunks: a wide head's other chunk first, this block's own last
+#pragma unroll
+    for (int j = 0; j < SPLIT; ++j) {
+      const int ch = (split + 1 + j) % SPLIT, cc = ch * DHP;
+      if (j > 0) __syncthreads();  // every warp is done with the other chunk's tiles
+      if constexpr (SPLIT > 1) {
+        load_tile<T, DHP, L::LDT>(sK, kg + cc, p.ks.r, k0, n, dh - cc, tid);
+        load_tile<T, DHP, L::LDT>(sV, vg + cc, p.vs.r, k0, n, dh - cc, tid);
+      }
+      load_tile<T, DHP, L::LDT>(sQ, qg + cc, p.qs.r, q0, n, dh - cc, tid);
+      __syncthreads();  // sGate ready for the gated do load
+      load_tile<T, DHP, L::LDT>(sDO, dog + cc, p.dos.r, q0, n, dh - cc, tid,
+                                p.gate != nullptr ? sGate : nullptr);
+      __syncthreads();
 
-    warp_abt<T, DHP>(sKw, sQ, sSw, dh, lane);   // s^T = k q^T
-    warp_abt<T, DHP>(sVw, sDO, sDPw, dh, lane);  // dp^T = v do^T
-    __syncwarp();
+      const int dh_ch = min(DHP, dh - cc);
+      warp_abt<T, DHP>(sKw, sQ, sSw, dh_ch, lane, j > 0);   // s^T = k q^T
+      warp_abt<T, DHP>(sVw, sDO, sDPw, dh_ch, lane, j > 0);  // dp^T = v do^T
+      __syncwarp();
+    }
 
     // a lane pair owns one key row; `half` picks its 32 query columns
     const float bias = sBias[key_local];
@@ -589,35 +638,36 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
       dq_acc.store(sFw, L::LDO, lane);  // s^T / dp^T of this warp are consumed
     }
     __syncwarp();
-    float* dqg = p.dq + offset(p.dqs, bi, h);
+    float* dqg = p.dq + offset(p.dqs, bi, h) + c0;
     for (int idx = lane; idx < 16 * DHP; idx += 32) {
       const int r = idx / DHP, c = idx % DHP;
       const int row = q0 + warp * 16 + r;
-      if (row < n && c < dh) atomicAdd(dqg + (long long)row * p.dqs.r + c, sFw[r * L::LDO + c]);
+      if (row < n && c < dh_own)
+        atomicAdd(dqg + (long long)row * p.dqs.r + c, sFw[r * L::LDO + c]);
     }
     __syncwarp();
   }
 
   // dk, dv rows of this warp's 16 keys
-  store_rows<T, DHP>(dk_acc, sFw, static_cast<T*>(p.dk) + offset(p.dks, bi, h), p.dks.r,
-                     k0 + warp * 16, n, dh, lane);
-  store_rows<T, DHP>(dv_acc, sFw, static_cast<T*>(p.dv) + offset(p.dvs, bi, h), p.dvs.r,
-                     k0 + warp * 16, n, dh, lane);
+  store_rows<T, DHP>(dk_acc, sFw, static_cast<T*>(p.dk) + offset(p.dks, bi, h) + c0, p.dks.r,
+                     k0 + warp * 16, n, dh_own, lane);
+  store_rows<T, DHP>(dv_acc, sFw, static_cast<T*>(p.dv) + offset(p.dvs, bi, h) + c0, p.dvs.r,
+                     k0 + warp * 16, n, dh_own, lane);
 }
 
-template <typename T, int DHP>
+template <typename T, int DHP, int SPLIT = 1>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   using L = BwdLayout<T, DHP>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, DHP>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, DHP, SPLIT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + BK - 1) / BK, p.heads, p.b);
-  flash_bwd_kernel<T, DHP><<<grid, NTHREADS, L::bytes, stream>>>(p);
+  dim3 grid((p.n + BK - 1) / BK, p.heads, p.b * SPLIT);
+  flash_bwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -14,8 +14,11 @@
 // here with (batch, head, row) strides for every operand: a (b, h, n, dh)
 // tensor, or a strided view of the packed (b, n, h*dh) projection, is read
 // and written where it lies, with no copies. dim_head is any multiple of 8
-// up to 128; the tiles are padded to the next multiple of 16 in shared
-// memory (72 -> 80), never past a head's own columns in device memory.
+// up to 256; the tiles are padded to the next multiple of 16 in shared
+// memory (72 -> 80), never past a head's own columns in device memory. A
+// head wider than 128 runs as two column chunks (flash_attention.cuh,
+// SPLIT = 2), built in flash_attention_bhnd_wide.cu (another nvcc, in
+// parallel); the wrapper zero-pads a head that is not a multiple of 8.
 //
 // What bounds them: at the DiT-width training shape (16, 16 heads, 1056, 72)
 // K8's two n x n x dh products are 82 GFLOP against 78 MB of q, k, v, o; K9's
@@ -35,6 +38,14 @@
 namespace {
 
 constexpr int round16(int dh) { return (dh + 15) / 16 * 16; }
+
+}  // namespace
+
+// heads of 136 to 256 columns (flash_attention_bhnd_wide.cu); params points
+// at this header's FwdParams / BwdParams
+int e2_flash_bhnd_wide(const void* params, int backward, int dtype, void* stream);
+
+namespace {
 
 template <typename T>
 cudaError_t dispatch_fwd(const FwdParams& p, cudaStream_t stream) {
@@ -66,7 +77,8 @@ cudaError_t dispatch_bwd(const BwdParams& p, cudaStream_t stream) {
   }
 }
 
-bool valid_dh(int dh) { return dh >= 8 && dh <= 128 && dh % 8 == 0; }
+bool valid_dh(int dh) { return dh >= 8 && dh <= 256 && dh % 8 == 0; }
+bool probe_dh(int dh) { return dh >= 8 && dh <= 128 && dh % 8 == 0; }
 
 Strides strides(const long long* s) { return {s[0], s[1], s[2]}; }
 
@@ -196,6 +208,7 @@ extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, co
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == e2::kBFloat16) err = dispatch_fwd<__nv_bfloat16>(p, s);
@@ -228,6 +241,7 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == e2::kBFloat16) err = dispatch_bwd<__nv_bfloat16>(p, s);
@@ -239,7 +253,7 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
 // The probe, bf16 only: x (b, h, n, dh) with strides xs, o with strides os.
 extern "C" int e2_flash_probe(const void* x, const long long* xs, void* o, const long long* os,
                               int b, int n, int heads, int dh, int mode, void* stream) {
-  if (!valid_dh(dh) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (!probe_dh(dh) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   ProbeParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.xs = strides(xs); p.os = strides(os);

@@ -25,8 +25,14 @@
 // magnitudes go to shared memory and are multiplied into the block's
 // (64, n_mels) mel accumulator (4 x 8 per thread, registers) against the
 // tile's filterbank rows, so the (rows, n_freqs) spectrum never leaves the
-// SM. The last tile's bins beyond n_freqs and the rows beyond the last frame
-// are zero.
+// SM. The last tile's bins beyond n_freqs, the samples of the last slice
+// beyond n_fft (any n_fft: 1000 is 62 slices and a tail of 8) and the rows
+// beyond the last frame are zero. More than 128 mels run as mel groups of
+// 128 (the grid's third dimension), each block computing the DFT of its rows
+// for its group: 160 mels cost two DFT passes where one would do, the price
+// of a register accumulator that stays at 4 x 8 per thread. Those two cases
+// are a second instantiation (GENERAL), so that the common geometry compiles
+// without their masks and groups.
 //
 // Few rows (a 3-s prompt is 282 frames: 5 row blocks) would leave most of
 // the 132 SMs idle, so the wrapper then splits the frequency tiles over
@@ -34,6 +40,8 @@
 // scratch (nsplit, rows, n_mels) buffer and a second pass sums the splits
 // in a fixed order and takes the log (the same result every run). With
 // enough rows (nsplit = 1) the first pass writes the log-mel itself.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -42,7 +50,7 @@ constexpr int BR = 64;         // frame rows per block
 constexpr int BF = 64;         // frequency bins per tile
 constexpr int BK = 16;         // samples per staged slice
 constexpr int THREADS = 256;   // 16 x 16; thread (tx, ty): rows 4ty.., bins 4tx..
-constexpr int MAXM = 128;      // largest n_mels (8 mel columns per thread)
+constexpr int MAXM = 128;      // mels per group (8 mel columns per thread)
 constexpr int LDR = BR + 4;    // padded row stride of the staged frames / magnitudes
 constexpr int STAGE = BK * LDR + 2 * BK * BF;    // one frames + cos + sin slice
 constexpr int LOADS = BR * BK / THREADS;         // 4 (= BK * BF / THREADS)
@@ -55,7 +63,7 @@ struct MelParams {
   const float* sin_b;
   int n_freqs;
   const float* fbanks;                   // (n_freqs, n_mels)
-  int n_mels, mel_ld;                    // mel_ld: n_mels rounded up to 16
+  int n_mels;
   float* out;                            // (rows, n_mels) log-mel, or
   float* partial;                        // (nsplit, rows, n_mels) partial sums
   int tiles_per_split;
@@ -70,6 +78,10 @@ __device__ __forceinline__ float spectrum(float re, float im, int mode, float ha
   return powf(fmaxf(sq, 0.f), half_power);
 }
 
+// GENERAL: more than 128 mels (mel groups over the grid's third dimension)
+// or an n_fft that is not a multiple of 16 (a masked last slice); the common
+// geometry (n_fft a multiple of 16, at most 128 mels) compiles without either
+template <bool GENERAL>
 __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -82,6 +94,11 @@ __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int row0 = blockIdx.x * BR;
+  // this block's mel group: columns [mel0, mel0 + n_here); mel_ld is n_here
+  // rounded up to 16
+  const int mel0 = GENERAL ? blockIdx.z * MAXM : 0;
+  const int n_here = GENERAL ? min(MAXM, p.n_mels - mel0) : p.n_mels;
+  const int mel_ld = (n_here + 15) / 16 * 16;
 
   // the frame rows this thread stages: 16 threads cover one row's slice
   const float* stage_ptr[LOADS];
@@ -104,19 +121,27 @@ __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
 
   const int tile0 = blockIdx.y * p.tiles_per_split;
   const int f_end = min(p.n_freqs, (tile0 + p.tiles_per_split) * BF);
-  const int nk = p.n_fft / BK;
+  const int nk = (p.n_fft + BK - 1) / BK;
   for (int f0 = tile0 * BF; f0 < f_end; f0 += BF) {
     float fv[LOADS], cv[LOADS], sv[LOADS];
-    auto load = [&](int k0) {
+    // samples k0 .. k0 + 15 of the frames and bases; only the last slice of
+    // an n_fft that is not a multiple of 16 (TAIL) masks the samples past it
+    auto load = [&](int k0, auto tail) {
+      constexpr bool TAIL = decltype(tail)::value;
 #pragma unroll
       for (int l = 0; l < LOADS; ++l) {
-        fv[l] = stage_ptr[l] ? stage_ptr[l][k0] : 0.f;
+        fv[l] = stage_ptr[l] && (!TAIL || k0 + tid % BK < p.n_fft) ? stage_ptr[l][k0] : 0.f;
         const int idx = tid + l * THREADS;
         const int f = f0 + idx % BF;
         const long long off = (long long)(k0 + idx / BF) * p.n_freqs + f;
-        cv[l] = f < p.n_freqs ? p.cos_b[off] : 0.f;
-        sv[l] = f < p.n_freqs ? p.sin_b[off] : 0.f;
+        const bool ok = f < p.n_freqs && (!TAIL || k0 + idx / BF < p.n_fft);
+        cv[l] = ok ? p.cos_b[off] : 0.f;
+        sv[l] = ok ? p.sin_b[off] : 0.f;
       }
+    };
+    auto load_slice = [&](int k0) {
+      if (!GENERAL || k0 + BK <= p.n_fft) load(k0, std::false_type{});
+      else load(k0, std::true_type{});
     };
     auto store = [&](float* stage) {
       float* fr_s = stage;
@@ -137,11 +162,11 @@ __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
 
-    load(0);
+    load_slice(0);
     store(smem);
     __syncthreads();
     for (int c = 0; c < nk; ++c) {
-      if (c + 1 < nk) load((c + 1) * BK);
+      if (c + 1 < nk) load_slice((c + 1) * BK);
       const float* stage = smem + (c & 1) * STAGE;
       const float* fr_s = stage;
       const float* cos_s = stage + BK * LDR;
@@ -173,19 +198,20 @@ __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
       for (int j = 0; j < 4; ++j)
         mag_s[(4 * tx + j) * LDR + 4 * ty + i] =
             spectrum(re[i][j], im[i][j], p.power_mode, p.half_power);
-    for (int idx = tid; idx < BF * p.mel_ld; idx += THREADS) {
-      const int f = f0 + idx / p.mel_ld, m = idx % p.mel_ld;
-      fb_s[idx] = (f < p.n_freqs && m < p.n_mels) ? p.fbanks[(long long)f * p.n_mels + m] : 0.f;
+    for (int idx = tid; idx < BF * mel_ld; idx += THREADS) {
+      const int f = f0 + idx / mel_ld, m = idx % mel_ld;
+      fb_s[idx] = (f < p.n_freqs && m < n_here) ? p.fbanks[(long long)f * p.n_mels + mel0 + m]
+                                                 : 0.f;
     }
     __syncthreads();
-    const int mcols = p.mel_ld / 16;
+    const int mcols = mel_ld / 16;
     for (int f = 0; f < BF; ++f) {
       const float4 mg4 = *reinterpret_cast<const float4*>(mag_s + f * LDR + 4 * ty);
       const float mg[4] = {mg4.x, mg4.y, mg4.z, mg4.w};
 #pragma unroll
       for (int j = 0; j < MAXM / 16; ++j) {
         if (j < mcols) {
-          const float w = fb_s[f * p.mel_ld + tx + 16 * j];
+          const float w = fb_s[f * mel_ld + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(mg[i], w, acc[i][j]);
         }
@@ -203,8 +229,9 @@ __global__ void __launch_bounds__(THREADS, 2) mel_fwd_kernel(MelParams p) {
 #pragma unroll
     for (int j = 0; j < MAXM / 16; ++j) {
       const int m = tx + 16 * j;
-      if (m < p.n_mels)
-        dst[(long long)r * p.n_mels + m] = split ? acc[i][j] : logf(fmaxf(acc[i][j], 1e-5f));
+      if (m < n_here)
+        dst[(long long)r * p.n_mels + mel0 + m] =
+            split ? acc[i][j] : logf(fmaxf(acc[i][j], 1e-5f));
     }
   }
 }
@@ -227,7 +254,7 @@ extern "C" int e2_mel_fwd(const void* frames, long long batch_stride, long long 
                           const void* sin_b, int n_freqs, const void* fbanks, int n_mels,
                           void* out, void* partial, int nsplit, float power, void* stream) {
   const int tiles = (n_freqs + BF - 1) / BF;
-  if (n_mels < 1 || n_mels > MAXM || n_fft % BK != 0 || n_fft < BK || rows < 0 ||
+  if (n_mels < 1 || n_fft < 1 || rows < 0 ||
       frames_per_batch < 1 || nsplit < 1 || nsplit > tiles || (nsplit > 1 && !partial))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
@@ -243,7 +270,6 @@ extern "C" int e2_mel_fwd(const void* frames, long long batch_stride, long long 
   p.n_freqs = n_freqs;
   p.fbanks = static_cast<const float*>(fbanks);
   p.n_mels = n_mels;
-  p.mel_ld = (n_mels + 15) / 16 * 16;
   p.out = static_cast<float*>(out);
   p.partial = static_cast<float*>(partial);
   p.tiles_per_split = (tiles + nsplit - 1) / nsplit;
@@ -252,16 +278,20 @@ extern "C" int e2_mel_fwd(const void* frames, long long batch_stride, long long 
   p.half_power = 0.5f * power;
 
   const size_t phase_a = (size_t)2 * STAGE * sizeof(float);
-  const size_t phase_b = (size_t)(BF * LDR + BF * p.mel_ld) * sizeof(float);
+  const int mel_ld = ((n_mels < MAXM ? n_mels : MAXM) + 15) / 16 * 16;  // widest group
+  const size_t phase_b = (size_t)(BF * LDR + BF * mel_ld) * sizeof(float);
   const size_t bytes = phase_a > phase_b ? phase_a : phase_b;
+  const bool general = n_mels > MAXM || n_fft % BK != 0;
+  auto kernel = general ? mel_fwd_kernel<true> : mel_fwd_kernel<false>;
   if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mel_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((rows + BR - 1) / BR), (unsigned)nsplit);
-  mel_fwd_kernel<<<grid, THREADS, bytes, s>>>(p);
+  const dim3 grid((unsigned)((rows + BR - 1) / BR), (unsigned)nsplit,
+                  (unsigned)((n_mels + MAXM - 1) / MAXM));
+  kernel<<<grid, THREADS, bytes, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   const long long total = (long long)rows * n_mels;

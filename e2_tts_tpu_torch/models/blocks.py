@@ -267,7 +267,7 @@ class Attention(nn.Module):
     (folded into kernel K1 where it runs), the learned value-residual mix
     with the first layer's raw values, attention dropout, key-padding mask,
     RoPE, and LASER (exp-space values). dim_head 32, 64 or 128 runs on K1,
-    any other multiple of 8 up to 128 on K8 (ops/attention.py).
+    any other dim_head up to 256 on K8 (ops/attention.py).
 
     Returns ``(out, values)``: ``values`` are this layer's raw (pre-mix)
     value heads, fed forward as the value residual. Everything stays in the

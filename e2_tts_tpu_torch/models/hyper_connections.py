@@ -63,11 +63,16 @@ def reduce_stream(x) -> torch.Tensor:
 
 class HyperConnection(nn.Module):
     """One residual-branch router: ``forward(residuals) -> (branch_input,
-    add_residual)`` with residuals (s, b, n, d) or `LazyStreams`."""
+    add_residual)`` with residuals (s, b, n, d) or `LazyStreams`.
+    ``save_state`` keeps the width connection's forward state for its
+    adjoint (K5s / K3s, then K5bs / K4s) instead of recomputing it; it adds
+    no parameters."""
 
-    def __init__(self, dim: int, num_streams: int, layer_index: int = 0):
+    def __init__(self, dim: int, num_streams: int, layer_index: int = 0,
+                 save_state: bool = False):
         super().__init__()
         self.num_streams = num_streams
+        self.save_state = save_state
         if num_streams == 1:
             return
         s = num_streams
@@ -95,10 +100,12 @@ class HyperConnection(nn.Module):
             branch_input, carried, beta = hck.width_connection_fused(
                 residuals.carried.reshape(s, b * n, d),
                 residuals.branch.reshape(b * n, d).contiguous(),
-                residuals.beta.reshape(s, b * n).contiguous(), *params)
+                residuals.beta.reshape(s, b * n).contiguous(), *params,
+                save_state=self.save_state)
         else:
             branch_input, carried, beta = hck.width_connection(
-                residuals.reshape(s, b * n, d).contiguous(), *params)
+                residuals.reshape(s, b * n, d).contiguous(), *params,
+                save_state=self.save_state)
         branch_input = branch_input.reshape(b, n, d)
         carried = carried.reshape(s, b, n, d)
         beta = beta.reshape(s, b, n)

@@ -12,8 +12,12 @@ identities, there is no time MLP and ``times`` is not passed.
 Per layer the hot path is four kernels: K5 (the first width connection of a
 chain, after expansion / cross-condition / skip), K3 (each chained width
 connection), K1 or K8 (attention: K1 for dim_head 32, 64 or 128, K8 for any
-other multiple of 8 up to 128) and K6 (GEGLU). Large GEMMs stay
-``F.linear`` and the depthwise conv ``F.conv1d``.
+other dim_head up to 256) and K6 (GEGLU). Large GEMMs stay ``F.linear`` and
+the depthwise conv ``F.conv1d``. ``hc_save_state=True`` hands every
+hyper-connection ``save_state``: in training the width connections run
+K5s / K3s and their adjoints K5bs / K4s, which keep the forward's rms
+reciprocal and tanh instead of recomputing them (default off, as in the
+JAX package).
 
 ``remat=True`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nnx.remat``): a layer
@@ -116,6 +120,7 @@ class Transformer(nn.Module):
         attn_laser_softclamp_value: float = 15.0,
         attn_fourier_embed_input: bool = False,
         num_residual_streams: int = 4,
+        hc_save_state: bool = False,
         attn_kwargs: dict = dict(gate_value_heads=True, softclamp_logits=True),
         ff_kwargs: dict = dict(),
         remat: bool | str = False,
@@ -186,7 +191,8 @@ class Transformer(nn.Module):
             nonlocal hc_index
             hcs = nn.ModuleList()
             for _ in range(3):
-                hcs.append(HyperConnection(d, num_residual_streams, hc_index))
+                hcs.append(HyperConnection(d, num_residual_streams, hc_index,
+                                           save_state=hc_save_state))
                 hc_index += 1
             return hcs
 

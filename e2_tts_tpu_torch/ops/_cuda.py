@@ -37,10 +37,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # forward kernels K1, K5, K3, K6, then their backward kernels K2, K5b, K4, K7,
 # then K11 (the log-mel frontend), K10 (K2's delta pre-pass), K8 and K9 (flash
-# attention on (b, h, n, dh) operands) and the flash cost-floor probe
+# attention on (b, h, n, dh) operands), the flash cost-floor probe, and the
+# hyper-connection save-state variants K5s, K3s, K5bs, K4s
 KERNELS = ('flash_fwd', 'hc_width', 'hc_width_fused', 'geglu_fwd',
            'flash_bwd', 'hc_width_bwd', 'hc_width_fused_bwd', 'geglu_bwd',
-           'mel_fwd', 'flash_delta', 'flash_fwd_bhnd', 'flash_bwd_bhnd', 'flash_probe')
+           'mel_fwd', 'flash_delta', 'flash_fwd_bhnd', 'flash_bwd_bhnd', 'flash_probe',
+           'hc_width_save', 'hc_width_fused_save', 'hc_width_bwd_save',
+           'hc_width_fused_bwd_save')
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lib = None
@@ -111,14 +114,15 @@ _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     'e2_flash_fwd': [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P,
                      _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _P],
-    'e2_hc_width': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
-    'e2_hc_width_fused': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _LL, _I, _I, _P],
+    'e2_hc_width': [_P] * 12 + [_I, _LL, _I, _I, _P],
+    'e2_hc_width_fused': [_P] * 14 + [_I, _LL, _I, _I, _P],
     'e2_geglu_fwd': [_P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
     'e2_flash_bwd': [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _P],
-    'e2_hc_width_bwd': [_P] * 13 + [_I, _I, _LL, _I, _I, _P],
-    'e2_hc_width_fused_bwd': [_P] * 17 + [_I, _I, _LL, _I, _I, _P],
+    'e2_hc_width_bwd': [_P] * 13 + [_I, _I, _I, _LL, _I, _I, _P],
+    'e2_hc_width_fused_bwd': [_P] * 17 + [_I, _I, _I, _LL, _I, _I, _P],
+    'e2_hc_width_bwd_save': [_P] * 15 + [_I, _I, _I, _LL, _I, _I, _P],
+    'e2_hc_width_fused_bwd_save': [_P] * 19 + [_I, _I, _I, _LL, _I, _I, _P],
     'e2_geglu_bwd': [_P, _P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
     'e2_mel_fwd': [_P, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _P],
     'e2_flash_delta': [_P, _P, _P, _LL, _I, _I, _I, _P],

@@ -27,7 +27,12 @@ per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
 ``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
 same stream, and returns the gate-logit grad ``delta * (1 - sigmoid(gate))``;
 K9 takes delta from a plain PyTorch sum, as the JAX package takes it from
-XLA. K1/K2 take dim_head 32, 64 or 128; K8/K9 any multiple of 8 up to 128.
+XLA. K1/K2 take dim_head 32, 64 or 128; K8/K9 any dim_head from 1 to 256:
+the kernels take multiples of 8 (a head wider than 128 as two column
+chunks), and the wrappers zero-pad any other head to the next multiple of 8
+(zero columns add nothing to q k^T; the padded output columns are dropped)
+and launch the same kernels with the caller's scale. The probe takes
+multiples of 8 up to 128.
 
 Every wrapper takes its plain PyTorch version for CPU tensors (tests) and
 launches its kernel for CUDA tensors; there is no other route.
@@ -44,7 +49,8 @@ from e2_tts_tpu_torch.utils.helpers import default, exists
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 SUPPORTED_DIM_HEAD = (32, 64, 128)      # K1 / K2
-MAX_DIM_HEAD_BHND = 128                 # K8 / K9: multiples of 8 up to this
+MAX_DIM_HEAD_BHND = 256                 # K8 / K9: any dim_head up to this
+MAX_DIM_HEAD_PROBE = 128                # the probe: multiples of 8 up to this
 
 
 def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float,
@@ -410,9 +416,18 @@ def _check_bhnd(t, name, shape, device, dtype):
 
 
 def _check_dim_head(dh):
-    if dh % 8 or not 8 <= dh <= MAX_DIM_HEAD_BHND:
-        raise ValueError(f'dim_head must be a multiple of 8 from 8 to {MAX_DIM_HEAD_BHND}, '
-                         f'got {dh}')
+    if not 1 <= dh <= MAX_DIM_HEAD_BHND:
+        raise ValueError(f'dim_head must be from 1 to {MAX_DIM_HEAD_BHND}, got {dh}')
+
+
+def _padded_dim_head(dh):
+    """The head width the kernels run: ``dh`` rounded up to a multiple of 8
+    (a head of 12 bf16 values is 24 bytes, not whole 16-byte chunks)."""
+    return -(-dh // 8) * 8
+
+
+def _pad_head(t, dhp):
+    return torch.nn.functional.pad(t, (0, dhp - t.shape[-1]))
 
 
 def _check_bhnd_inputs(q, k, v, mask):
@@ -421,6 +436,8 @@ def _check_bhnd_inputs(q, k, v, mask):
     if dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f'flash attention takes bf16 or f32, got {dtype}')
     _check_dim_head(dh)
+    if dh % 8:
+        raise ValueError(f'the kernels take dim_head a multiple of 8, got {dh}')
     for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
         _check_bhnd(t, name, (b, h, n, dh), device, dtype)
     if exists(mask):
@@ -437,6 +454,13 @@ def _bhnd_empty(b, h, n, dh, dtype, device):
 
 
 def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed):
+    dh = q.shape[-1]
+    _check_dim_head(dh)
+    if dh % 8:              # K8 on zero-padded heads, the caller's scale; pad columns dropped
+        dhp = _padded_dim_head(dh)
+        out, lse = _flash_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask, scale,
+                                    softclamp_value, dropout_rate, dropout_seed)
+        return out[..., :dh], lse
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
     out = _bhnd_empty(b, h, n, dh, dtype, device)
@@ -457,6 +481,14 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
 
 def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
                          dropout_rate, dropout_seed):
+    dh = q.shape[-1]
+    _check_dim_head(dh)
+    if dh % 8:              # K9 on zero-padded heads (o, do too); pad columns dropped
+        dhp = _padded_dim_head(dh)
+        grads = _flash_bwd_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask,
+                                     _pad_head(out, dhp), lse, _pad_head(dout, dhp), scale,
+                                     softclamp_value, dropout_rate, dropout_seed)
+        return tuple(g[..., :dh] for g in grads)
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
     for t, name in ((out, 'out'), (dout, 'dout')):
@@ -536,7 +568,13 @@ def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
     they lie) with a key padding ``mask (b, n)`` (True = attend). Returns
     ``out (b, h, n, dh)`` (and ``lse (b*h, n)`` if asked); differentiable in
     q, k and v (forward K8, backward K9). On the card ``out`` is a view of a
-    ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous."""
+    ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous (for
+    dh a multiple of 8). Any dh from 1 to 256: a head that is not a multiple
+    of 8 is zero-padded to one on the head axis (q, k, v, and o, do in the
+    backward), K8 / K9 run on the padded heads with the caller's ``scale``,
+    and the outputs are sliced back: zero columns add nothing to q k^T and
+    the padded output columns are dropped. That is a launch of K8 / K9, not
+    a fallback."""
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed)
@@ -576,7 +614,9 @@ def flash_probe(x, mode: int):
     if mode not in PROBE_MODES:
         raise ValueError(f'probe mode must be one of {PROBE_MODES}, got {mode}')
     b, h, n, dh = x.shape
-    _check_dim_head(dh)
+    if dh % 8 or not 8 <= dh <= MAX_DIM_HEAD_PROBE:
+        raise ValueError(f'the probe takes dim_head a multiple of 8 from 8 to '
+                         f'{MAX_DIM_HEAD_PROBE}, got {dh}')
     _check_bhnd(x, 'x', (b, h, n, dh), x.device, torch.bfloat16)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     err = _cuda.lib().e2_flash_probe(x.data_ptr(), _cuda.strides_bhn(x), out.data_ptr(),

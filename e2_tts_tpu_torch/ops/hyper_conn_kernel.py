@@ -1,20 +1,34 @@
-"""K5 / K3 and their adjoints K5b / K4: the hyper-connection width
-connection (counterpart of e2_tts_tpu/ops/hyper_conn_kernel.py::
-width_connection and ::width_connection_fused).
+"""K5 / K3 and their adjoints K5b / K4, with the save-state variants K5s /
+K3s / K5bs / K4s: the hyper-connection width connection (counterpart of
+e2_tts_tpu/ops/hyper_conn_kernel.py::width_connection and
+::width_connection_fused).
 
 Replace the TPU kernels ``_width_kernel`` (K5, driven by ``_width_pallas``),
 ``_width_fused_kernel`` (K3, driven by ``_width_fused_pallas``),
 ``_width_bwd_kernel`` (K5b, driven by ``_width_bwd_pallas``) and
-``_width_fused_bwd_kernel`` (K4, driven by ``_width_fused_bwd_pallas``).
-The forward kernels live in ``csrc/hyper_conn.cu``, the adjoints in
-``csrc/hyper_conn_bwd.cu``: all bandwidth bound; one warp holds one row of
-every stream in registers, so each input is read once and each output
-written once, and K3 / K4 form the previous branch's depth connection
-``carried + branch * beta`` in registers instead of device memory. The
-adjoints port the hand-derived chain rule of the JAX package's
-``_width_bwd_core_tall``; their parameter grads are per-block partial sums
+``_width_fused_bwd_kernel`` (K4, driven by ``_width_fused_bwd_pallas``), and
+their ``_save`` bodies. The forward kernels live in ``csrc/hyper_conn.cu``,
+the adjoints in ``csrc/hyper_conn_bwd.cuh`` (built as
+``hyper_conn_bwd.cu`` and ``hyper_conn_bwd_save.cu``): all bandwidth
+bound; one warp holds one row of every stream in registers (streamed in
+chunks when the row is wider than the register tile), so each input is read
+once and each output written once, and K3 / K4 form the previous branch's
+depth connection ``carried + branch * beta`` in registers instead of device
+memory. The adjoints port the hand-derived chain rule of the JAX package's
+``_width_bwd_core``; their parameter grads are per-block partial sums
 reduced in a fixed order (the same result every run). `_Width` (K5 + K5b)
-and `_WidthFused` (K3 + K4) are the ``torch.autograd.Function``s.
+and `_WidthFused` (K3 + K4) are the ``torch.autograd.Function`` s. They take
+any stream count from 2 to 8 and any width from 1 to `max_dim` (s) (2901
+at 8 streams, 4840 at 4).
+
+``save_state=True`` is the explicit counterpart of the JAX package's
+``E2TTS_HC_SAVE_STATE`` knob: when a backward can follow, the forward runs
+K5s / K3s, which also write ``ta (s, M, s+2)`` f32 (tanh of the packed
+projection, beta's at column s+1, before the scale / static affine) and
+``inv (s, M)`` f32 (the rms reciprocal before it is rounded), kept for the
+backward and never returned; the backward then runs K5bs / K4s, which read
+them instead of recomputing the rms statistic, the projection and the
+tanh. Under ``torch.no_grad`` the flag runs K5 / K3.
 
 Outputs are the mix's column 0 (the branch input, ``(M, d)``), columns 1..s
 (the carried streams, ``(s, M, d)``) and ``beta (s, M)``. K3 takes the
@@ -31,17 +45,36 @@ import torch
 
 from e2_tts_tpu_torch.ops import _cuda
 
-# 4 streams at the flagship's text and speech widths (256, 512) and DiT-XL's
-# (576, 1152)
-SUPPORTED_STREAMS = (4,)
-SUPPORTED_DIMS = (256, 512, 576, 1152)
+MIN_STREAMS, MAX_STREAMS = 2, 8
+_MAX_SMEM_FLOATS = 232448 // 4        # the shared memory a block may have on the H100
+
+
+def _n_small(s):
+    """The adjoint's per-warp g_static / scale partials: s (s+2) + 2 values."""
+    return s * (s + 2) + 2
+
+
+def max_dim(s: int) -> int:
+    """The widest row the adjoint takes at ``s`` streams: one warp's (s+2, d)
+    f32 weight-grad partials beside the (d, s+2) weights in 227 KB."""
+    return (_MAX_SMEM_FLOATS - _n_small(s)) // (2 * (s + 2))
+
+
+def _bwd_warps(s, d):
+    """Warps of an adjoint block (csrc/hyper_conn_bwd.cuh): as many (up to
+    8) as per-warp partials fit beside the weights."""
+    nc = s + 2
+    return max(1, min(8, (_MAX_SMEM_FLOATS - nc * d) // (nc * d + _n_small(s))))
 
 
 def width_connection_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
-                           dyn_alpha_scale, dyn_beta_w, dyn_beta_scale):
+                           dyn_alpha_scale, dyn_beta_w, dyn_beta_scale, *, save_state=False):
     """Plain PyTorch version of K5 on ``residuals (s, M, d)``: norm stats and
     products accumulate in f32, the normed rows, alpha, beta and the mix are
-    rounded to the compute dtype where the reference rounds them."""
+    rounded to the compute dtype where the reference rounds them. With
+    ``save_state`` (K5s) returns ``(outputs, (ta, inv))``: tanh of the packed
+    projection ``(s, M, s+2)`` and the unrounded rms reciprocal ``(s, M)``,
+    both f32."""
     dt = residuals.dtype
     s, _, d = residuals.shape
     rf = residuals.float()
@@ -54,14 +87,20 @@ def width_connection_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
     beta = (t[..., s + 1] * dyn_beta_scale.float()
             + static_beta.float()[:, None]).to(dt)                # (s, M)
     mixed = torch.einsum('smt,smd->tmd', alpha.float(), rf).to(dt)
-    return mixed[0], mixed[1:], beta
+    outs = (mixed[0], mixed[1:], beta)
+    return (outs, (t, inv)) if save_state else outs
 
 
-def width_connection_fused_plain(carried, branch, beta, *params):
-    """Plain PyTorch version of K3: the depth connection in the compute
-    dtype, then K5's math."""
-    r = carried + branch[None].to(carried.dtype) * beta[..., None].to(carried.dtype)
-    return width_connection_plain(r, *params)
+def _depth_connection(carried, branch, beta):
+    dt = carried.dtype
+    return carried + branch[None].to(dt) * beta[..., None].to(dt)
+
+
+def width_connection_fused_plain(carried, branch, beta, *params, save_state=False):
+    """Plain PyTorch version of K3 (K3s with ``save_state``): the depth
+    connection in the compute dtype, then K5's math."""
+    return width_connection_plain(_depth_connection(carried, branch, beta), *params,
+                                  save_state=save_state)
 
 
 def _packed_params(params, s, dt):
@@ -74,18 +113,26 @@ def _packed_params(params, s, dt):
     return w, sa_p, scale_row
 
 
-def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta):
-    """The hand-derived adjoint of `_width_bwd_core_tall` on streams ``r
-    (s, M, d)``: returns the f32 residual grads (s, M, d) and the six
-    parameter grads (f32)."""
+def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state=None):
+    """The hand-derived adjoint of `_width_bwd_core` on streams ``r (s, M,
+    d)``: returns the f32 residual grads (s, M, d) and the six parameter
+    grads (f32). With ``state = (ta, inv)`` (the save-state path) the tanh
+    and the unrounded rms reciprocal come from the forward, and the clamp
+    test is ``inv < 1e6``, as the reference's."""
     dt = r.dtype
     s, _, d = r.shape
     w, sa_p, scale_row = _packed_params(params, s, dt)
     rf = r.float()
-    var = (rf * rf).sum(-1) / d
-    inv = torch.rsqrt(torch.clamp(var, min=1e-12))
-    normed = (r * inv[..., None].to(dt)).float()
-    ta = torch.tanh(torch.einsum('smd,dc->smc', normed, w))          # (s, M, s+2)
+    if state is None:
+        var = (rf * rf).sum(-1) / d
+        inv = torch.rsqrt(torch.clamp(var, min=1e-12))
+        var_ok = var > 1e-12
+        normed = (r * inv[..., None].to(dt)).float()
+        ta = torch.tanh(torch.einsum('smd,dc->smc', normed, w))      # (s, M, s+2)
+    else:
+        ta, inv = (t.float() for t in state)
+        var_ok = inv < 1e6
+        normed = (r * inv[..., None].to(dt)).float()
     alpha = (ta * scale_row + sa_p[:, None, :]).to(dt).float()
 
     gm = torch.cat((g_branch_in[None], g_carried)).float()            # (s+1, M, d)
@@ -98,7 +145,7 @@ def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta):
     g_n = torch.einsum('smc,dc->smd', g_p, w)
     g_w = torch.einsum('smd,smc->dc', normed, g_p)                    # (d, s+2)
     g_inv = (g_n * rf).sum(-1)
-    g_sq = torch.where(var > 1e-12, g_inv * (-0.5) * inv * inv * inv / d, 0.0)
+    g_sq = torch.where(var_ok, g_inv * (-0.5) * inv * inv * inv / d, 0.0)
     g_r = g_mix + (g_n * inv[..., None] + 2.0 * rf * g_sq[..., None])
     grads = (g_static[:, :s + 1], g_static[:, s + 1], g_w[:, :s + 1].contiguous(),
              gt[..., :s + 1].sum(), g_w[:, s + 1].contiguous(), gt[..., s + 1].sum())
@@ -107,26 +154,29 @@ def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta):
 
 def width_connection_backward_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
                                     dyn_alpha_scale, dyn_beta_w, dyn_beta_scale,
-                                    g_branch_in, g_carried, g_beta):
-    """Plain PyTorch version of K5b: returns ``(g_residuals, *param_grads)``
-    in the order of the parameters."""
+                                    g_branch_in, g_carried, g_beta, *, state=None):
+    """Plain PyTorch version of K5b (K5bs with ``state = (ta, inv)``):
+    returns ``(g_residuals, *param_grads)`` in the order of the
+    parameters."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
-    g_r, grads = _width_adjoint_plain(residuals, params, g_branch_in, g_carried, g_beta)
+    g_r, grads = _width_adjoint_plain(residuals, params, g_branch_in, g_carried, g_beta,
+                                      state)
     return (g_r.to(residuals.dtype), *grads)
 
 
 def width_connection_fused_backward_plain(carried, branch, beta, static_alpha, static_beta,
                                           dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
-                                          dyn_beta_scale, g_branch_in, g_carried, g_beta):
-    """Plain PyTorch version of K4: returns ``(g_carried, g_branch, g_beta,
-    *param_grads)`` for the inputs ``carried (s, M, d), branch (M, d), beta
-    (s, M)``."""
+                                          dyn_beta_scale, g_branch_in, g_carried, g_beta, *,
+                                          state=None):
+    """Plain PyTorch version of K4 (K4s with ``state = (ta, inv)``): returns
+    ``(g_carried, g_branch, g_beta, *param_grads)`` for the inputs ``carried
+    (s, M, d), branch (M, d), beta (s, M)``."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
     dt = carried.dtype
-    r = carried + branch[None].to(dt) * beta[..., None].to(dt)
-    g_r, grads = _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta)
+    r = _depth_connection(carried, branch, beta)
+    g_r, grads = _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state)
     g_branch = (g_r * beta.float()[..., None]).sum(0)
     g_beta_prev = (g_r * branch.float()[None]).sum(-1)
     return (g_r.to(dt), g_branch.to(branch.dtype), g_beta_prev.to(beta.dtype), *grads)
@@ -137,15 +187,23 @@ def _f32(t):
     return t.contiguous()
 
 
+def check_geometry(name, s, d):
+    """The stream counts and widths the kernels take."""
+    if not MIN_STREAMS <= s <= MAX_STREAMS:
+        raise ValueError(f'{name}: the kernels take {MIN_STREAMS} to {MAX_STREAMS} streams, '
+                         f'got {s}')
+    if not 1 <= d <= max_dim(s):
+        raise ValueError(f'{name}: the kernels take a width from 1 to {max_dim(s)} at {s} '
+                         f'streams, got {d}')
+
+
 def _checked_params(name, tensors, params, s, d, dtype, device):
     """Check what the kernels take (contiguous bf16 / f32 ``tensors`` on
-    ``device``, s and d among the compiled widths, parameter shapes) and
-    return the six parameters as contiguous f32."""
+    ``device``, the stream count and width, parameter shapes) and return the
+    six parameters as contiguous f32."""
     if dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f'{name} takes bf16 or f32 streams, got {dtype}')
-    if s not in SUPPORTED_STREAMS or d not in SUPPORTED_DIMS:
-        raise ValueError(f'{name}: streams {s} / dim {d} not in '
-                         f'{SUPPORTED_STREAMS} / {SUPPORTED_DIMS}')
+    check_geometry(name, s, d)
     for t, label in tensors:
         _cuda.check_cuda_tensor(t, label, device, dtype)
         if not t.is_contiguous():
@@ -160,44 +218,66 @@ def _checked_params(name, tensors, params, s, d, dtype, device):
     return params
 
 
-def _launch(name, streams_in, params, s, m, d, dtype, device):
+def _launch(name, streams_in, params, s, m, d, dtype, device, save_state):
+    """Launch K5 / K3, or K5s / K3s with ``save_state`` (then also returns
+    ``(ta, inv)``)."""
     sa, sb, aw, ascale, bw, bscale = _checked_params(name, streams_in, params, s, d, dtype,
                                                      device)
     out_branch = torch.empty((m, d), dtype=dtype, device=device)
     out_carried = torch.empty((s, m, d), dtype=dtype, device=device)
     out_beta = torch.empty((s, m), dtype=dtype, device=device)
+    state = None
+    if save_state:
+        state = (torch.empty((s, m, s + 2), dtype=torch.float32, device=device),
+                 torch.empty((s, m), dtype=torch.float32, device=device))
     fn = getattr(_cuda.lib(), 'e2_' + name)
     err = fn(*(t.data_ptr() for t, _ in streams_in),
              sa.data_ptr(), sb.data_ptr(), aw.data_ptr(), bw.data_ptr(),
              ascale.data_ptr(), bscale.data_ptr(),
              out_branch.data_ptr(), out_carried.data_ptr(), out_beta.data_ptr(),
+             *((t.data_ptr() for t in state) if save_state else (None, None)),
              s, m, d, _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
-    _cuda.check(err, name)
-    _cuda.count_launch(name)
-    return out_branch, out_carried, out_beta
+    counter = name + ('_save' if save_state else '')
+    _cuda.check(err, counter)
+    _cuda.count_launch(counter)
+    outs = (out_branch, out_carried, out_beta)
+    return (outs, state) if save_state else outs
 
 
-# blocks of the adjoint kernels (csrc/hyper_conn_bwd.cu: 8 rows in flight
-# per block, 4 at d = 1152; two blocks per SM of the H100's 132)
-_BWD_ROWS_PER_BLOCK = 8
+# blocks of the adjoint kernels: up to two per SM of the H100's 132
 _BWD_MAX_BLOCKS = 264
 
 
-def _launch_bwd(name, streams_in, grads_in, params, s, m, d, dtype, device, outs):
-    """Launch K5b / K4 and its fixed-order reduction of the per-block
-    parameter-grad rows; returns the six parameter grads."""
+def _checked_state(name, state, s, m, device):
+    ta, inv = state
+    for t, label, shape in ((ta, 'ta', (s, m, s + 2)), (inv, 'inv', (s, m))):
+        _cuda.check_cuda_tensor(t, label, device, torch.float32)
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f'{name}: saved {label} must be a contiguous f32 {shape} tensor')
+    return ta, inv
+
+
+def _launch_bwd(name, streams_in, grads_in, params, s, m, d, dtype, device, outs, state):
+    """Launch K5b / K4 (K5bs / K4s with ``state``) and the fixed-order
+    reduction of the per-block parameter-grad rows; returns the six
+    parameter grads."""
     sa, sb, aw, ascale, bw, bscale = _checked_params(name, streams_in + grads_in, params, s,
                                                      d, dtype, device)
     nc = s + 2
-    n_param = nc * d + s * nc + 2
-    blocks = max(1, min(-(-m // _BWD_ROWS_PER_BLOCK), _BWD_MAX_BLOCKS))
+    n_param = nc * d + _n_small(s)
+    warps = _bwd_warps(s, d)
+    blocks = max(1, min(-(-m // warps), _BWD_MAX_BLOCKS))
     partials = torch.empty((blocks, n_param), dtype=torch.float32, device=device)
     row = torch.empty((n_param,), dtype=torch.float32, device=device)
+    saved = ()
+    if state is not None:
+        name += '_save'
+        saved = tuple(t.data_ptr() for t in _checked_state(name, state, s, m, device))
     fn = getattr(_cuda.lib(), 'e2_' + name)
     err = fn(*(t.data_ptr() for t, _ in streams_in + grads_in),
              sa.data_ptr(), sb.data_ptr(), aw.data_ptr(), bw.data_ptr(),
-             ascale.data_ptr(), bscale.data_ptr(), *(t.data_ptr() for t in outs),
-             partials.data_ptr(), row.data_ptr(), blocks, s, m, d,
+             ascale.data_ptr(), bscale.data_ptr(), *saved, *(t.data_ptr() for t in outs),
+             partials.data_ptr(), row.data_ptr(), blocks, warps, s, m, d,
              _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, name)
     _cuda.count_launch(name)
@@ -214,41 +294,71 @@ def _grads_or_zeros(g_branch_in, g_carried, g_beta, s, m, d, like):
     return pick(g_branch_in, (m, d)), pick(g_carried, (s, m, d)), pick(g_beta, (s, m))
 
 
+def width_connection_forward(residuals, *params, save_state=False):
+    """K5 alone (K5s with ``save_state``; the counterpart of
+    ``_width_pallas``): ``residuals (s, M, d)`` -> ``(branch_input,
+    carried, beta)``, and with ``save_state`` ``((branch_input, carried,
+    beta), (ta, inv))``. Not differentiable: `width_connection` is."""
+    s, m, d = residuals.shape
+    if residuals.device.type == 'cpu':
+        return width_connection_plain(residuals, *params, save_state=save_state)
+    return _launch('hc_width', [(residuals, 'residuals')], params, s, m, d,
+                   residuals.dtype, residuals.device, save_state)
+
+
+def width_connection_fused_forward(carried, branch, beta, *params, save_state=False):
+    """K3 alone (K3s with ``save_state``; the counterpart of
+    ``_width_fused_pallas``): outputs as `width_connection_forward`."""
+    s, m, d = carried.shape
+    if tuple(branch.shape) != (m, d) or tuple(beta.shape) != (s, m):
+        raise ValueError('width_connection_fused: branch must be (M, d) and '
+                         'beta (s, M) for carried (s, M, d)')
+    if carried.device.type == 'cpu':
+        return width_connection_fused_plain(carried, branch, beta, *params,
+                                            save_state=save_state)
+    return _launch('hc_width_fused', [(carried, 'carried'), (branch, 'branch'), (beta, 'beta')],
+                   params, s, m, d, carried.dtype, carried.device, save_state)
+
+
 def width_connection_backward(residuals, static_alpha, static_beta, dyn_alpha_w,
                               dyn_alpha_scale, dyn_beta_w, dyn_beta_scale,
-                              g_branch_in, g_carried, g_beta):
-    """K5b alone (the counterpart of ``_width_bwd_pallas``): returns
-    ``(g_residuals, g_static_alpha, g_static_beta, g_dyn_alpha_w,
-    g_dyn_alpha_scale, g_dyn_beta_w, g_dyn_beta_scale)``."""
+                              g_branch_in, g_carried, g_beta, *, state=None):
+    """K5b alone, or K5bs with the forward's ``state = (ta, inv)`` (the
+    counterpart of ``_width_bwd_pallas``): returns ``(g_residuals,
+    g_static_alpha, g_static_beta, g_dyn_alpha_w, g_dyn_alpha_scale,
+    g_dyn_beta_w, g_dyn_beta_scale)``."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
     s, m, d = residuals.shape
     grads = _grads_or_zeros(g_branch_in, g_carried, g_beta, s, m, d, residuals)
     if residuals.device.type == 'cpu':
-        return width_connection_backward_plain(residuals, *params, *grads)
+        return width_connection_backward_plain(residuals, *params, *grads, state=state)
     g_res = torch.empty_like(residuals)
     pgrads = _launch_bwd('hc_width_bwd', [(residuals, 'residuals')],
                          list(zip(grads, ('g_branch_in', 'g_carried', 'g_beta'))),
-                         params, s, m, d, residuals.dtype, residuals.device, [g_res])
+                         params, s, m, d, residuals.dtype, residuals.device, [g_res], state)
     return (g_res, *pgrads)
 
 
 def width_connection_fused_backward(carried, branch, beta, static_alpha, static_beta,
                                     dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
-                                    dyn_beta_scale, g_branch_in, g_carried, g_beta):
-    """K4 alone (the counterpart of ``_width_fused_bwd_pallas``): returns
-    ``(g_carried, g_branch, g_beta_prev, *param_grads)``."""
+                                    dyn_beta_scale, g_branch_in, g_carried, g_beta, *,
+                                    state=None):
+    """K4 alone, or K4s with the forward's ``state = (ta, inv)`` (the
+    counterpart of ``_width_fused_bwd_pallas``): returns ``(g_carried,
+    g_branch, g_beta_prev, *param_grads)``."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
     s, m, d = carried.shape
     grads = _grads_or_zeros(g_branch_in, g_carried, g_beta, s, m, d, carried)
     if carried.device.type == 'cpu':
-        return width_connection_fused_backward_plain(carried, branch, beta, *params, *grads)
+        return width_connection_fused_backward_plain(carried, branch, beta, *params, *grads,
+                                                     state=state)
     outs = [torch.empty_like(carried), torch.empty_like(branch), torch.empty_like(beta)]
     pgrads = _launch_bwd('hc_width_fused_bwd',
                          [(carried, 'carried'), (branch, 'branch'), (beta, 'beta')],
                          list(zip(grads, ('g_branch_in', 'g_carried', 'g_beta'))),
-                         params, s, m, d, carried.dtype, carried.device, outs)
+                         params, s, m, d, carried.dtype, carried.device, outs, state)
     return (*outs, *pgrads)
 
 
@@ -257,68 +367,85 @@ def _param_grads(params, grads):
     return tuple(g.to(p.dtype).reshape(p.shape) for p, g in zip(params, grads))
 
 
+def _save_and_split(ctx, out, save_state, inputs):
+    """Keep the inputs (and the save-state path's ``(ta, inv)``) for the
+    backward; return the public outputs."""
+    ctx.save_state = save_state
+    if save_state:
+        out, state = out
+        ctx.save_for_backward(*inputs, *state)
+    else:
+        ctx.save_for_backward(*inputs)
+    return out
+
+
+def _saved(ctx):
+    """The inputs and the state (or None) that `_save_and_split` kept."""
+    saved = ctx.saved_tensors
+    return (saved[:-2], tuple(saved[-2:])) if ctx.save_state else (saved, None)
+
+
 class _Width(torch.autograd.Function):
-    """K5 forward, K5b backward."""
+    """K5 (or K5s) forward, K5b (or K5bs) backward."""
 
     @staticmethod
-    def forward(ctx, residuals, *params):
-        s, m, d = residuals.shape
-        if residuals.device.type == 'cpu':
-            outs = width_connection_plain(residuals, *params)
-        else:
-            outs = _launch('hc_width', [(residuals, 'residuals')], params, s, m, d,
-                           residuals.dtype, residuals.device)
-        ctx.save_for_backward(residuals, *params)
-        return outs
+    def forward(ctx, residuals, save_state, *params):
+        out = width_connection_forward(residuals, *params, save_state=save_state)
+        return _save_and_split(ctx, out, save_state, (residuals, *params))
 
     @staticmethod
     def backward(ctx, g_branch_in, g_carried, g_beta):
-        residuals, *params = ctx.saved_tensors
+        (residuals, *params), state = _saved(ctx)
         g_res, *grads = width_connection_backward(residuals, *params, g_branch_in,
-                                                  g_carried, g_beta)
-        return (g_res, *_param_grads(params, grads))
+                                                  g_carried, g_beta, state=state)
+        return (g_res, None, *_param_grads(params, grads))
 
 
 class _WidthFused(torch.autograd.Function):
-    """K3 forward, K4 backward."""
+    """K3 (or K3s) forward, K4 (or K4s) backward."""
 
     @staticmethod
-    def forward(ctx, carried, branch, beta, *params):
-        s, m, d = carried.shape
-        if carried.device.type == 'cpu':
-            outs = width_connection_fused_plain(carried, branch, beta, *params)
-        else:
-            outs = _launch('hc_width_fused',
-                           [(carried, 'carried'), (branch, 'branch'), (beta, 'beta')],
-                           params, s, m, d, carried.dtype, carried.device)
-        ctx.save_for_backward(carried, branch, beta, *params)
-        return outs
+    def forward(ctx, carried, branch, beta, save_state, *params):
+        out = width_connection_fused_forward(carried, branch, beta, *params,
+                                             save_state=save_state)
+        return _save_and_split(ctx, out, save_state, (carried, branch, beta, *params))
 
     @staticmethod
     def backward(ctx, g_branch_in, g_carried, g_beta):
-        carried, branch, beta, *params = ctx.saved_tensors
+        (carried, branch, beta, *params), state = _saved(ctx)
         g_c, g_br, g_bp, *grads = width_connection_fused_backward(
-            carried, branch, beta, *params, g_branch_in, g_carried, g_beta)
-        return (g_c, g_br, g_bp, *_param_grads(params, grads))
+            carried, branch, beta, *params, g_branch_in, g_carried, g_beta, state=state)
+        return (g_c, g_br, g_bp, None, *_param_grads(params, grads))
+
+
+def _keeps_state(save_state, tensors):
+    """Save the state only where a backward can follow."""
+    return bool(save_state) and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
 
 
 def width_connection(residuals, static_alpha, static_beta, dyn_alpha_w,
-                     dyn_alpha_scale, dyn_beta_w, dyn_beta_scale):
+                     dyn_alpha_scale, dyn_beta_w, dyn_beta_scale, *, save_state=False):
     """K5: ``residuals (s, M, d)`` -> ``(branch_input (M, d), carried
-    (s, M, d), beta (s, M))``; differentiable (backward: K5b)."""
-    return _Width.apply(residuals, static_alpha, static_beta, dyn_alpha_w,
-                        dyn_alpha_scale, dyn_beta_w, dyn_beta_scale)
+    (s, M, d), beta (s, M))``; differentiable (backward: K5b). With
+    ``save_state``, when a backward can follow, K5s and K5bs instead."""
+    params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
+              dyn_beta_scale)
+    return _Width.apply(residuals, _keeps_state(save_state, (residuals, *params)), *params)
 
 
 def width_connection_fused(carried, branch, beta, static_alpha, static_beta,
                            dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
-                           dyn_beta_scale):
+                           dyn_beta_scale, *, save_state=False):
     """K3: ``carried (s, M, d)``, ``branch (M, d)``, ``beta (s, M)`` stand
     for the streams ``carried + branch * beta``; same outputs as K5;
-    differentiable (backward: K4)."""
+    differentiable (backward: K4). With ``save_state``, when a backward can
+    follow, K3s and K4s instead."""
     s, m, d = carried.shape
     if tuple(branch.shape) != (m, d) or tuple(beta.shape) != (s, m):
         raise ValueError('width_connection_fused: branch must be (M, d) and '
                          'beta (s, M) for carried (s, M, d)')
-    return _WidthFused.apply(carried, branch, beta, static_alpha, static_beta,
-                             dyn_alpha_w, dyn_alpha_scale, dyn_beta_w, dyn_beta_scale)
+    params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
+              dyn_beta_scale)
+    save = _keeps_state(save_state, (carried, branch, beta, *params))
+    return _WidthFused.apply(carried, branch, beta, save, *params)

@@ -237,8 +237,11 @@ def test_loss_backward_reaches_every_parameter(dev):
     assert torch.isfinite(out.loss)
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
-    # the flagship's heads of 64 run on K1 / K2: K8, K9 and the probe stay idle
-    idle = ('flash_fwd_bhnd', 'flash_bwd_bhnd', 'flash_probe')
+    # the flagship's heads of 64 run on K1 / K2: K8, K9 and the probe stay
+    # idle, and so do the hyper-connection save-state variants (hc_save_state
+    # is off)
+    idle = ('flash_fwd_bhnd', 'flash_bwd_bhnd', 'flash_probe', 'hc_width_save',
+            'hc_width_fused_save', 'hc_width_bwd_save', 'hc_width_fused_bwd_save')
     assert all(_cuda.launch_counts[k] > before[k] for k in _cuda.KERNELS if k not in idle)
     assert all(_cuda.launch_counts[k] == before[k] for k in idle)
 
@@ -296,10 +299,127 @@ def test_flash_bhnd_kernels(dev, dtype, rate, dh):
 
 
 def test_flash_bhnd_rejects_other_heads(dev):
-    for dh in (136, 12):
-        x = torch.zeros(1, 2, 16, dh, device=dev, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match='multiple of 8'):
-            fa.flash_attention(x, x, x)
+    """K8 / K9 take any dim_head from 1 to 256: just past that raises."""
+    x = torch.zeros(1, 2, 16, 257, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='from 1 to 256'):
+        fa.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dh', [12, 136, 256])
+def test_flash_bhnd_kernels_any_dim_head(dev, dtype, dh):
+    """K8 / K9 at a head that is not a multiple of 8 (zero-padded by the
+    wrapper) and at heads wider than 128 (two column chunks), ragged n = 777,
+    softclamp and dropout, against their plain versions."""
+    b, n, h = 2, 777, 2
+    q, k, v, mask, g = _bhnd_inputs(dev, dtype, b, n, h, dh, seed=dh)
+    kw = dict(softclamp_value=5.0, dropout_rate=0.1, dropout_seed=7)
+    before = dict(_cuda.launch_counts)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    assert _cuda.launch_counts['flash_fwd_bhnd'] == before['flash_fwd_bhnd'] + 1
+    assert out.shape == (b, h, n, dh)
+    _close((out, lse), fa.flash_attention_plain(q, k, v, mask, scale=dh ** -0.5, **kw), dtype)
+    dout = torch.randn(b, h, n, dh, generator=g, device=dev).to(dtype)
+    got = fa.flash_attention_backward(q, k, v, mask, out, lse, dout, **kw)
+    assert _cuda.launch_counts['flash_bwd_bhnd'] == before['flash_bwd_bhnd'] + 1
+    ref = fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale=dh ** -0.5,
+                                            **kw)
+    _close_grads(got, ref, dtype)
+
+
+def _hc_args(dev, dtype, s, m, d, fused, seed):
+    """Parameters, streams (one zero row) and incoming grads on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+    params = (torch.eye(s, s + 1, device=dev) + rnd(s, s + 1, scale=0.1),
+              1.0 + rnd(s, scale=0.1), rnd(d, s + 1, scale=0.05),
+              torch.tensor(0.5, device=dev), rnd(d, scale=0.05), torch.tensor(0.5, device=dev))
+    if fused:
+        ins = [rnd(s, m, d), rnd(m, d), rnd(s, m, scale=0.5)]
+        ins[0][:, 5] = 0.0
+        ins[1][5] = 0.0
+    else:
+        ins = [rnd(s, m, d)]
+        ins[0][:, 5] = 0.0
+    grads = (rnd(m, d).to(dtype), rnd(s, m, d).to(dtype), rnd(s, m).to(dtype))
+    return [t.to(dtype) for t in ins], params, grads
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('d', [32, 64, 100, 768, 1024])
+@pytest.mark.parametrize('s', [2, 3, 8])
+def test_width_kernels_any_streams_and_width(dev, s, d, dtype):
+    """K3 / K5 and K4 / K5b at stream counts and widths outside the
+    flagship's, against their plain versions."""
+    for fused in (False, True):
+        ins, params, grads = _hc_args(dev, dtype, s, 700, d, fused, seed=s * 10 + d)
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        plain = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+        _close(fwd(*ins, *params), plain(*ins, *params), dtype)
+        bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+        bplain = (hck.width_connection_fused_backward_plain if fused
+                  else hck.width_connection_backward_plain)
+        _close_grads(bwd(*ins, *params, *grads), bplain(*ins, *params, *grads), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('s,d', [(4, 1024), (4, 2048), (8, 2048), (2, 64), (3, 100)])
+def test_width_save_variants(dev, s, d, dtype):
+    """K5s / K3s write the same public outputs as K5 / K3, bit for bit, and a
+    state that matches the plain version's (inv 1e-6 relative; ta, the tanh
+    of a d-term sum, 1e-5 absolute in f32); K5bs / K4s from that state match
+    the plain save adjoint and the recomputing K5b / K4 (a zero row
+    included)."""
+    for fused in (False, True):
+        ins, params, grads = _hc_args(dev, dtype, s, 900, d, fused, seed=s + d)
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        plain = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+        name = 'hc_width_fused' if fused else 'hc_width'
+        before = dict(_cuda.launch_counts)
+        pub, (ta, inv) = fwd(*ins, *params, save_state=True)
+        assert _cuda.launch_counts[name + '_save'] == before[name + '_save'] + 1
+        assert _cuda.launch_counts[name] == before[name]
+        for a, b in zip(pub, fwd(*ins, *params)):
+            assert torch.equal(a, b)
+        _, (pta, pinv) = plain(*ins, *params, save_state=True)
+        torch.testing.assert_close(inv, pinv, atol=0, rtol=1e-6)
+        # ta is tanh of a d-term f32 sum taken in another order: 1e-5 absolute
+        # in f32 (up to 2048 terms); in bf16 a normed value may round the
+        # other way
+        torch.testing.assert_close(ta, pta, rtol=0,
+                                   atol=1e-5 if dtype == torch.float32 else 1e-2)
+        bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+        bplain = (hck.width_connection_fused_backward_plain if fused
+                  else hck.width_connection_backward_plain)
+        got = bwd(*ins, *params, *grads, state=(ta, inv))
+        assert _cuda.launch_counts[name + '_bwd_save'] == before[name + '_bwd_save'] + 1
+        _close_grads(got, bplain(*ins, *params, *grads, state=(ta, inv)), dtype)
+        recompute = bwd(*ins, *params, *grads)
+        for a, b in zip(got, recompute):
+            torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                       atol=1e-5 * float(b.float().abs().max()) + 1e-12)
+
+
+def test_width_kernels_reject_other_geometries(dev):
+    """Stream counts outside 2..8 and widths past `max_dim` raise."""
+    for s, d in ((1, 64), (9, 64), (4, hck.max_dim(4) + 1), (8, hck.max_dim(8) + 1)):
+        ins, params, _ = _hc_args(dev, torch.bfloat16, s, 16, d, False, seed=0)
+        with pytest.raises(ValueError, match='streams|width'):
+            hck.width_connection(*ins, *params)
+
+
+def test_mel_kernel_160_mels_n_fft_1000(dev):
+    """K11 with two mel groups and a 1000-sample frame (a tail of 8)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    spec = MelSpec(filter_length=1000, win_length=1000, n_mel_channels=160,
+                   mode='pallas').to(dev)
+    wave = torch.randn(1, 72000, generator=g, device=dev) * 0.1
+    frames = frame_signal(wave, 1000, 256, center=True)
+    got = spec(wave)
+    assert got.shape[1] == 160
+    ref = mk.fused_log_mel_plain(frames, spec.dft_cos, spec.dft_sin, spec.fbanks,
+                                 spec.power).transpose(1, 2)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize('mode', fa.PROBE_MODES)

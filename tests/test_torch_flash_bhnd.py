@@ -196,18 +196,50 @@ def test_probe_plain_matches_a_tile_loop(mode):
 
 def test_k8_wrapper_checks():
     """What K8's wrapper refuses before a launch (the checks run on any
-    device): dim_head outside the multiples of 8 up to 128, a head stride
-    that is not a whole number of 16-byte chunks."""
+    device): a dim_head outside 1..256, a dim_head that is not a multiple of
+    8 at the launch (the wrapper pads such heads first), a head stride that
+    is not a whole number of 16-byte chunks."""
     ok = torch.zeros(1, 2, 8, 72)
     fa._check_bhnd_inputs(ok, ok, ok, None)
-    for dh in (12, 136, 4):
+    fa._check_bhnd_inputs(*(torch.zeros(1, 2, 8, 136),) * 3, None)
+    for dh in (12, 4):
         t = torch.zeros(1, 2, 8, dh)
         with pytest.raises(ValueError, match='multiple of 8'):
             fa._check_bhnd_inputs(t, t, t, None)
+    for dh in (264, 0):
+        t = torch.zeros(1, 2, 8, dh)
+        with pytest.raises(ValueError, match='from 1 to 256'):
+            fa._check_bhnd_inputs(t, t, t, None)
+    assert [fa._padded_dim_head(dh) for dh in (1, 8, 12, 250)] == [8, 8, 16, 256]
     # (b, n, h*dh) with dh 72 packed at an odd offset: rows of 2 * 72 + 2 floats
     skew = torch.zeros(1, 8, 146)[..., 2:].unflatten(-1, (2, 72)).transpose(1, 2)
     with pytest.raises(ValueError, match='strides'):
         fa._check_bhnd_inputs(skew, skew, skew, None)
+
+
+@pytest.mark.parametrize('dh', [12, 160])
+def test_k8_k9_plain_at_any_dim_head_match_jax(interpret, dh):
+    """K8 / K9's plain versions at a head that is not a multiple of 8 (12:
+    the wrapper pads it on the card) and one wider than 128 (160: two column
+    chunks on the card), against `_flash_forward` and ``jax.vjp`` of the JAX
+    `flash_attention` in interpret mode, softclamp and dropout on."""
+    shape = (2, 2, 70, dh)
+    q, k, v, mask = _inputs(shape, seed=dh)
+    out_j, lse_j = jfa._flash_forward(
+        *map(jnp.asarray, (q, k, v)), _bias(mask), jnp.full((1,), SEED, jnp.int32),
+        dh ** -0.5, 5.0, 0.1)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out_p, lse_p = fa.flash_attention(qt, kt, vt, torch.from_numpy(mask), softclamp_value=5.0,
+                                      dropout_rate=0.1, dropout_seed=SEED, return_lse=True)
+    np.testing.assert_allclose(out_p.detach().numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(lse_p.numpy(), np.asarray(lse_j)[..., 0], **TOL)
+
+    g = np.random.default_rng(dh + 1).standard_normal(shape).astype(np.float32)
+    f = lambda q, k, v: jfa.flash_attention(q, k, v, jnp.asarray(mask), softclamp_value=5.0,
+                                            dropout_rate=0.1, dropout_seed=SEED)
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    out_p.backward(torch.from_numpy(g))
+    _assert_grads((qt.grad, kt.grad, vt.grad), vjp(jnp.asarray(g)))
 
 
 def test_plain_paths_do_not_count_launches():

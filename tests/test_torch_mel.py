@@ -124,6 +124,25 @@ def test_fused_log_mel_plain_matches_jax_kernel(interpret):
                                ref, **MEL_TOL)
 
 
+def test_fused_log_mel_plain_160_mels_n_fft_1000_matches_jax_kernel(interpret):
+    """K11's plain version at a mel count over 128 (two mel groups on the
+    card) and an n_fft that is not a multiple of 16 (a tail of 8 samples on
+    the card), against ``_mel_kernel`` in interpret mode on the tables of a
+    JAX `MelSpec` of that geometry."""
+    kw = dict(filter_length=1000, win_length=1000, n_mel_channels=160)
+    spec = jmel.MelSpec(**kw)
+    tables = mel.MelSpec(**kw)
+    assert tuple(tables.fbanks.shape) == (501, 160)
+    np.testing.assert_array_equal(tables.fbanks.numpy(), np.asarray(spec._fbanks))
+    frames = _wave(5, 90, 1000)
+    ref = np.asarray(jmk.fused_log_mel(jnp.asarray(frames), spec._dft_cos, spec._dft_sin,
+                                       spec._fbanks, power=1.0))
+    port = mel_kernel.fused_log_mel(torch.from_numpy(frames), tables.dft_cos,
+                                    tables.dft_sin, tables.fbanks)
+    assert port.shape == (90, 160)
+    np.testing.assert_allclose(port.numpy(), ref, **MEL_TOL)
+
+
 def test_db_to_amplitude():
     x = np.linspace(-40.0, 10.0, 11).astype(np.float32)
     np.testing.assert_allclose(mel.db_to_amplitude(torch.from_numpy(x), 1.0, 0.5).numpy(),
