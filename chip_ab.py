@@ -3,15 +3,20 @@
 
     python3 chip_ab.py OTHER_CHECKOUT      # from this checkout's root; one CUDA card
 
-Builds K11 (csrc/mel.cu) and K5b / K4 (the hyper-connection adjoints) from
-both checkouts' sources with nvcc into build/, and times each pair in turns
-(other, this, this, other) as device time per call, 100 calls captured in a
-CUDA graph: K11 at the 3-s prompt (282 frames, split over frequency tiles
-as its wrapper splits it) and K5b / K4 at the flagship's training shape
-(4 streams, 16896 rows, width 512, bf16, 8 warps a block, 264 blocks). The
+Builds K11 (csrc/mel.cu), K5b / K4 (the hyper-connection adjoints) and K8 /
+K9 (flash_attention_bhnd.cu and its wide-head source) from both checkouts'
+sources with nvcc into build/, and times each pair in turns (other, this,
+this, other) as device time per call, 100 calls captured in a CUDA graph
+(K9: 20): K11 at the 3-s prompt (282 frames, split over frequency tiles as
+its wrapper splits it), K5b / K4 at the flagship's training shape (4
+streams, 16896 rows, width 512, bf16, 8 warps a block, 264 blocks), K8 at
+the DiT sampler's and training shapes (1 and 16, 16 heads, 1056, 72; bf16,
+softclamp 50; dropout 0.1 at 16) and K9 at the training shape, its launch
+alone and with the wrapper's PyTorch work (delta, the dq fill and cast). The
 other checkout's adjoint may predate the warps argument (it then ran 8
-warps a block at this width). Prints one line per kernel with the card's
-name and power limit.
+warps a block at this width), its K8 / K9 the design argument (they then
+ran the wmma design). Prints one line per kernel with the card's name and
+power limit.
 """
 import ctypes
 import os
@@ -64,12 +69,17 @@ def main():
     other = sys.argv[1]
     old_bwd = not os.path.exists(os.path.join(other, 'e2_tts_tpu_torch', 'csrc',
                                               'hyper_conn_bwd.cuh'))
+    has_design = {tag: os.path.exists(os.path.join(root, 'e2_tts_tpu_torch', 'csrc',
+                                                   'flash_attention_sm90.cuh'))
+                  for tag, root in (('other', other), ('this', '.'))}
     for tag, root in (('other', other), ('this', '.')):
         bwd = ['hyper_conn_bwd.cu'] if tag == 'other' and old_bwd else [
             'hyper_conn_bwd.cu', 'hyper_conn_bwd_save.cu', 'hyper_conn_bwd_streams.cu',
             'hyper_conn_bwd_f32.cu']
         libs[tag] = (build(root, ['mel.cu'], f'{tmp}/mel_{tag}.so'),
-                     build(root, bwd, f'{tmp}/bwd_{tag}.so'))
+                     build(root, bwd, f'{tmp}/bwd_{tag}.so'),
+                     build(root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu'],
+                           f'{tmp}/flash_{tag}.so'))
     g = torch.Generator(device=dev).manual_seed(0)
     # K11 at the prompt: 282 frames, split over frequency tiles as the wrapper does
     spec = MelSpec(mode='pallas').to(dev)
@@ -127,16 +137,99 @@ def main():
                 raise RuntimeError(f'{name} failed to launch: cudaError {err}')
         return call
 
+    # K8 / K9 on (b, h, n, dh) views of one packed projection, as the model has them
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+    from e2_tts_tpu_torch.ops.dropout import keep_threshold
+    LL, I, F, U = ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    st = lambda t: (LL * 3)(*t.stride()[:3])
+
+    def flash_inputs(b, h=16, n=1056, dh=72):
+        qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=dev).to(bf)
+        to = lambda t: t.unflatten(-1, (h, dh)).transpose(1, 2)
+        q, k, v = (to(qkv[..., i * h * dh:(i + 1) * h * dh]) for i in range(3))
+        return q, k, v
+
+    def flash_common(q, rate):
+        b, h, n, dh = q.shape
+        return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
+                F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
+                I(int(rate > 0)), I(1)]
+
+    def k8(tag, q, k, v, rate):
+        fn = libs[tag][2].e2_flash_fwd_bhnd
+        fn.restype = ctypes.c_int
+        b, h, n, dh = q.shape
+        o = torch.empty((b, n, h, dh), dtype=bf, device=dev).transpose(1, 2)
+        lse = torch.empty((b * h, n), device=dev)
+        design = [I(1)] if has_design[tag] else []
+        args = [P(t.data_ptr()) for t in (q, k, v)] + [st(q), st(k), st(v), P(None),
+                P(o.data_ptr()), st(o), P(lse.data_ptr())] + flash_common(q, rate) + design
+
+        def call():
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_fwd_bhnd failed to launch: cudaError {err}')
+        call.tensors = (q, k, v, o, lse)       # alive as long as the launches use them
+        return call
+
+    def k9(tag, q, k, v, rate, wrapper):
+        fn = libs[tag][2].e2_flash_bwd_bhnd
+        fn.restype = ctypes.c_int
+        b, h, n, dh = q.shape
+        out, lse = fa.flash_attention_plain(q, k, v, scale=dh ** -0.5, softclamp_value=50.0,
+                                            dropout_rate=rate, dropout_seed=1234)
+        dout = torch.randn(b, h, n, dh, generator=g, device=dev).to(bf)
+        delta = (dout.float() * out.float()).sum(-1)
+        dq = torch.zeros((b, n, h, dh), device=dev).transpose(1, 2)
+        dk, dv = torch.empty_like(dq, dtype=bf), torch.empty_like(dq, dtype=bf)
+        design = [I(1)] if has_design[tag] else []
+        args = ([P(t.data_ptr()) for t in (q, k, v, dout)] + [st(q), st(k), st(v), st(dout),
+                P(None), P(lse.data_ptr()), P(delta.data_ptr()), st(delta), P(dq.data_ptr()),
+                st(dq), P(dk.data_ptr()), st(dk), P(dv.data_ptr()), st(dv)]
+                + flash_common(q, rate) + design)
+
+        def call():
+            if wrapper:
+                delta.copy_((dout.float() * out.float()).sum(-1))
+                dq.zero_()
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_bwd_bhnd failed to launch: cudaError {err}')
+            if wrapper:
+                dq.to(bf)
+        call.tensors = (q, k, v, out, lse, dout, delta, dq, dk, dv)
+        return call
+
+    sampler, train = flash_inputs(1), flash_inputs(16)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip()
     for label, make in (('K11 prompt', lambda tag: mel(libs[tag][0])),
                         ('K5b (4,16896,512) bf16', lambda tag: bwd(libs[tag][1], tag, False)),
-                        ('K4 (4,16896,512) bf16', lambda tag: bwd(libs[tag][1], tag, True))):
+                        ('K4 (4,16896,512) bf16', lambda tag: bwd(libs[tag][1], tag, True)),
+                        ('K8 (1,16,1056,72) bf16 softclamp 50',
+                         lambda tag: k8(tag, *sampler, 0.0)),
+                        ('K8 (16,16,1056,72) bf16 softclamp 50 dropout 0.1',
+                         lambda tag: k8(tag, *train, 0.1)),
+                        ('K9 launch (16,16,1056,72) bf16 softclamp 50 dropout 0.1',
+                         lambda tag: k9(tag, *train, 0.1, False)),
+                        ('K9 with the wrapper\'s delta, dq fill and cast (16,16,1056,72)',
+                         lambda tag: k9(tag, *train, 0.1, True))):
         times = {tag: [] for tag in ('other', 'this')}
         for tag in ('other', 'this', 'this', 'other'):
-            times[tag].append(graph_ms(make(tag)))
+            times[tag].append(graph_ms(make(tag), 20 if label.startswith('K9') else 100))
         print(f'ab {label}: other_ms={[round(x, 5) for x in times["other"]]} '
               f'this_ms={[round(x, 5) for x in times["this"]]} [{smi}]', flush=True)
+    # the softclamp's floor on the special-function units, beside K8 / K9's
+    # tensor-core bound: a tanh and an exp2 a score (K9 recomputes both), 16
+    # results a clock per SM at the card's highest SM clock
+    mhz = float(subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                                '--format=csv,noheader,nounits'], capture_output=True,
+                               text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (1, 16):
+        scores = b * 16 * 1056 * 1056
+        print(f'sfu floor (K8 / K9) ({b},16,1056,72): {2 * scores / (16 * sms * mhz * 1e6) * 1e3:.5f} '
+              f'ms ({scores} scores, {sms} SMs at {mhz:g} MHz) [{smi}]', flush=True)
     return 0
 
 

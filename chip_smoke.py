@@ -35,10 +35,17 @@ exit code and no result line:
    function where there is one (K10: einsum), the wall time of one eager
    call of the wrapper, and the bound. The forward kernels are timed at the
    training shapes as well; K11 also beside `MelSpec(mode='dft')`; K8 / K9
-   also at the flagship's training shape, beside K1 / K2; the probe in each
-   mode at both training shapes. Then `hc save A/B` lines: the
+   also at the flagship's training shape and at the E2-TTS paper's heads
+   (16 x 64), each beside K1 / K2 on the same work; K9 also as its launch
+   alone (`kernel_only_ms`, without the wrapper's delta, dq fill and cast);
+   the probe in each mode at both training shapes. The build's `ptxas`
+   lines give the registers and spills of K8 / K9's Hopper design
+   (csrc/flash_attention_sm90.cuh). Then `hc save A/B` lines: the
    hyper-connection forward and adjoint, recomputing and saving, and the
-   pairs' sums, at the training shape for widths 512, 1024 and 1152.
+   pairs' sums, at the training shape for widths 512, 1024 and 1152; and
+   the `yardstick` line: K8 / K9 without softclamp and dropout beside
+   PyTorch's scaled_dot_product_attention (flash backend) at the DiT
+   training shape, which is not the same function.
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -282,13 +289,13 @@ def kernel_cases(torch, dev):
         return q, k, v, mask, gate
 
     def attn_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                  softclamp=50.0, qk_scale=1.0, train=False):
+                  softclamp=50.0, qk_scale=1.0, train=False, timed=False):
         q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
         D, es = heads * dh, esize(dtype)
         kw = dict(heads=heads, dropout_rate=rate, dropout_seed=1234, gate_logits=gate)
         scale = dh ** -0.5
         case = dict(
-            kernel='K1', label=label, train=train,
+            kernel='K1', label=label, train=train, timed=timed,
             run=lambda: fa.flash_attention_packed(q, k, v, mask, return_lse=True,
                                                   softclamp_value=softclamp, **kw),
             plain=lambda: fa.flash_attention_packed_plain(q, k, v, mask, scale=scale,
@@ -303,7 +310,7 @@ def kernel_cases(torch, dev):
         cases.append(case)
 
     def attn_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                      softclamp=50.0, qk_scale=1.0):
+                      softclamp=50.0, qk_scale=1.0, timed=False):
         q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
         D, es = heads * dh, esize(dtype)
         kw = dict(heads=heads, dropout_rate=rate, dropout_seed=4321, gate_logits=gate)
@@ -314,7 +321,7 @@ def kernel_cases(torch, dev):
         bwd = lambda sc: drop_none(fa.flash_attention_packed_backward_plain(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=sc, **kw))
         case = dict(
-            kernel='K2', label=label, scaled=True,
+            kernel='K2', label=label, scaled=True, timed=timed,
             run=lambda: drop_none(fa.flash_attention_packed_backward(
                 q, k, v, mask, out, lse, dout, softclamp_value=softclamp, **kw)),
             plain=lambda: bwd(softclamp),
@@ -612,6 +619,13 @@ def kernel_cases(torch, dev):
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
         if qk_scale != 1.0 or softclamp != 50.0:
             case['against'] = ('without softclamp', lambda: bwd(None))
+        if timed or not any(c['kernel'] == 'K9' for c in cases):
+            # K9's launch alone: the wrapper's delta, dq fill and dq cast left out
+            delta = (dout.float() * out.float()).sum(-1)
+            dq = torch.zeros((b, n, heads, dh), dtype=torch.float32, device=dev).transpose(1, 2)
+            dk, dv = torch.empty_like(dq, dtype=dtype), torch.empty_like(dq, dtype=dtype)
+            case['kernel_only'] = lambda: fa.launch_bwd_bhnd(
+                q, k, v, dout, mask, lse, delta, dq, dk, dv, dh ** -0.5, softclamp, rate, 4321)
         cases.append(case)
 
     def laser_case(label, b, n, heads, dh, dtype, lens=None):
@@ -779,6 +793,17 @@ def kernel_cases(torch, dev):
                           timed=dh == 256 and dt == bf16)
     laser_case(f'LASER attention (2,{H},1056,{DH}) bf16 ragged', 2, n, H, DH, bf16,
                lens=[n, 700])
+    # K8 / K9 at the E2-TTS paper's heads (16 x 64) beside K1 / K2 on the same
+    # work (ungated): whether K1 / K2 should move onto K8 / K9's design
+    PH, PDH = PAPER['heads'], PAPER['dim_head']
+    bhnd_case(f'paper heads ({B},{PH},1056,{PDH}) bf16 dropout 0.1', B, n, PH, PDH, bf16,
+              rate=0.1, timed=True)
+    bhnd_bwd_case(f'paper heads ({B},{PH},1056,{PDH}) bf16 dropout 0.1', B, n, PH, PDH, bf16,
+                  rate=0.1, timed=True)
+    attn_case(f'paper heads ({B},1056,{PH}x{PDH}) bf16 ungated dropout 0.1 (K8 on the same '
+              f'work)', B, n, PH, PDH, bf16, rate=0.1, gated=False, timed=True)
+    attn_bwd_case(f'paper heads ({B},1056,{PH}x{PDH}) bf16 ungated dropout 0.1 (K9 on the '
+                  f'same work)', B, n, PH, PDH, bf16, rate=0.1, gated=False, timed=True)
     for mode in fa.PROBE_MODES:
         probe_case(f'mode {mode} ({B},8,1056,64) bf16', B, 8, n, 64, mode, timed=True)
         probe_case(f'mode {mode} DiT train ({B},{H},1056,{DH}) bf16', B, H, n, DH, mode,
@@ -859,6 +884,8 @@ def time_case(case):
         timed['dft_ms'] = graph_ms(case['dft'], 50)
     if 'unsplit' in case:
         timed['unsplit_ms'] = graph_ms(case['unsplit'], 100)
+    if 'kernel_only' in case:
+        timed['kernel_only_ms'] = graph_ms(case['kernel_only'], 100)
     return timed
 
 
@@ -910,6 +937,8 @@ def phase_kernels(torch, dev):
                 line += f' melspec_dft_ms={timed["dft_ms"]:.5f}'
             if 'unsplit_ms' in timed:
                 line += f' unsplit_ms={timed["unsplit_ms"]:.5f}'
+            if 'kernel_only_ms' in timed:
+                line += f' kernel_only_ms={timed["kernel_only_ms"]:.5f}'
         log(line)
         del out
         if worst > 1.0:
@@ -968,6 +997,36 @@ def time_hc_save_pairs(torch, dev, smi):
                 f'{json.dumps({k: round(v, 5) for k, v in bound.items()})} [{smi}]')
             del ins, state
         del grads
+    torch.cuda.empty_cache()
+
+
+def time_sdpa_yardstick(torch, dev, smi):
+    """K8 / K9 without the softclamp and dropout beside PyTorch's
+    scaled_dot_product_attention (flash backend) at the DiT training shape:
+    a yardstick of the products alone, not the same function (no softclamp,
+    no counter-hash dropout). Forwards as device time in CUDA graphs; the
+    backwards as eager time over 20 back-to-back calls (SDPA's through
+    autograd), both sides the same way."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+    b, h, n, dh = TRAIN_BATCH, DIT['heads'], FRAMES + 32, DIT['dim_head']
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn(b, h, n, dh, generator=g, device=dev).to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_fwd = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                            100)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+        sdpa_bwd = eager_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                                        retain_graph=True), 20)
+    k8 = graph_ms(lambda: fa.flash_attention(q, k, v), 100)
+    k9 = eager_ms(lambda: fa.flash_attention_backward(q, k, v, None, out, lse, dout), 20)
+    log(f'yardstick ({b},{h},{n},{dh}) bf16, no softclamp, no dropout (not the same function): '
+        f'sdpa_flash_fwd_ms={sdpa_fwd:.5f} K8_ms={k8:.5f}; sdpa_flash_bwd_eager_ms='
+        f'{sdpa_bwd:.5f} K9_eager_ms={k9:.5f} [{smi}]')
+    del q, k, v, dout, out, lse, qg, kg, vg, sdpa_out
     torch.cuda.empty_cache()
 
 
@@ -1736,6 +1795,9 @@ def main() -> int:
     log(f'build: nvcc sm_90a {len(list(_cuda.CSRC.glob("*.cu")))} sources '
         f'seconds={_cuda.build_seconds:.2f}')
     _cuda.lib()
+    for name, regs, spill_st, spill_ld in _cuda.ptxas_usage('flash_attention_bhnd.cu', '4sm90'):
+        log(f'ptxas {name}: {regs} registers, {spill_st} bytes spill stores, '
+            f'{spill_ld} bytes spill loads')
 
     records, train_records = phase_kernels(torch, dev)
     for kid in train_records:
@@ -1744,6 +1806,7 @@ def main() -> int:
             f'(sampling {r["ms"]:.5f}) plain_ms={t["plain_ms"]:.5f} '
             f'eager_call_ms={t["eager_ms"]:.5f} bound_ms={t["bound_ms"]:.5f} ({t["bound_by"]})')
     time_hc_save_pairs(torch, dev, smi)
+    time_sdpa_yardstick(torch, dev, smi)
     sample_counts, model = phase_main(torch, dev, smi)
     phase_profile(torch, model)
     del model
@@ -1771,7 +1834,8 @@ def main() -> int:
             replaces=info['replaces'], launches=counts[info['name']],
             max_abs_err=rec['max_abs_err'], ms=rec['ms'], plain_ms=rec['plain_ms'],
             bound_ms=rec['bound_ms'], bound_by=rec['bound_by'],
-            library_ms=rec['library_ms']))
+            library_ms=rec['library_ms'],
+            **({'kernel_only_ms': rec['kernel_only_ms']} if 'kernel_only_ms' in rec else {})))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -10,22 +10,26 @@
 // (driven by _flash_backward) with one design: dq, dk, dv from q, k, v, the
 // output grad, K8's lse and delta = rowsum(do * o) (a plain PyTorch sum
 // before the launch, as the JAX package leaves it to XLA).
-// Both are the templates of flash_attention.cuh (K1's and K2's), entered
-// here with (batch, head, row) strides for every operand: a (b, h, n, dh)
+// Every operand is entered with (batch, head, row) strides: a (b, h, n, dh)
 // tensor, or a strided view of the packed (b, n, h*dh) projection, is read
 // and written where it lies, with no copies. dim_head is any multiple of 8
 // up to 256; the tiles are padded to the next multiple of 16 in shared
-// memory (72 -> 80), never past a head's own columns in device memory. A
-// head wider than 128 runs as two column chunks (flash_attention.cuh,
-// SPLIT = 2), built in flash_attention_bhnd_wide.cu (another nvcc, in
-// parallel); the wrapper zero-pads a head that is not a multiple of 8.
+// memory (72 -> 80), never past a head's own columns in device memory.
+// Two designs, chosen by the caller (`design`, ops/flash_attention.py):
+//   1 (bf16, dim_head up to 128): flash_attention_sm90.cuh, wgmma products
+//     on register-resident scores and cp.async tile rings;
+//   0 (f32, and every head wider than 128): the wmma templates of
+//     flash_attention.cuh (K1's and K2's); a head wider than 128 runs as two
+//     column chunks (SPLIT = 2), built in flash_attention_bhnd_wide.cu
+//     (another nvcc, in parallel).
+// The wrapper zero-pads a head that is not a multiple of 8.
 //
 // What bounds them: at the DiT-width training shape (16, 16 heads, 1056, 72)
 // K8's two n x n x dh products are 82 GFLOP against 78 MB of q, k, v, o; K9's
 // five are 206 GFLOP against ~160 MB: both far above the H100's ~295
-// FLOP/byte ridge, so the tensor cores bound them (wmma, bf16 in / f32
-// accumulate; f32 operands use FMA loops). The padding of dh = 72 to 80 costs
-// 11% of the products. Simple first: no TMA, no wgmma, no pipelining.
+// FLOP/byte ridge, so the tensor cores bound them, and K8's softclamp adds
+// two transcendentals a score on the special-function units. The padding of
+// dh = 72 to 80 costs 11% of the products.
 //
 // The probe replaces scripts/_kernel_floor.py::kern: K8 with the softclamp,
 // the mask, the dropout and the normalisation compiled out, at q = k = v, in
@@ -34,6 +38,7 @@
 // sum subtracted (s - (max + sum) per 64-key tile). It gives the redesigns of
 // K1 / K8 a floor at their own shapes.
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -47,34 +52,68 @@ int e2_flash_bhnd_wide(const void* params, int backward, int dtype, void* stream
 
 namespace {
 
-template <typename T>
-cudaError_t dispatch_fwd(const FwdParams& p, cudaStream_t stream) {
+// design 0 at heads up to 128: f32
+cudaError_t dispatch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   switch (round16(p.dh)) {
-    case 16: return launch_fwd<T, 16>(p, stream);
-    case 32: return launch_fwd<T, 32>(p, stream);
-    case 48: return launch_fwd<T, 48>(p, stream);
-    case 64: return launch_fwd<T, 64>(p, stream);
-    case 80: return launch_fwd<T, 80>(p, stream);
-    case 96: return launch_fwd<T, 96>(p, stream);
-    case 112: return launch_fwd<T, 112>(p, stream);
-    case 128: return launch_fwd<T, 128>(p, stream);
+    case 16: return launch_fwd<float, 16>(p, stream);
+    case 32: return launch_fwd<float, 32>(p, stream);
+    case 48: return launch_fwd<float, 48>(p, stream);
+    case 64: return launch_fwd<float, 64>(p, stream);
+    case 80: return launch_fwd<float, 80>(p, stream);
+    case 96: return launch_fwd<float, 96>(p, stream);
+    case 112: return launch_fwd<float, 112>(p, stream);
+    case 128: return launch_fwd<float, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(const BwdParams& p, cudaStream_t stream) {
+// design 0 at heads up to 128: f32
+cudaError_t dispatch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   switch (round16(p.dh)) {
-    case 16: return launch_bwd<T, 16>(p, stream);
-    case 32: return launch_bwd<T, 32>(p, stream);
-    case 48: return launch_bwd<T, 48>(p, stream);
-    case 64: return launch_bwd<T, 64>(p, stream);
-    case 80: return launch_bwd<T, 80>(p, stream);
-    case 96: return launch_bwd<T, 96>(p, stream);
-    case 112: return launch_bwd<T, 112>(p, stream);
-    case 128: return launch_bwd<T, 128>(p, stream);
+    case 16: return launch_bwd<float, 16>(p, stream);
+    case 32: return launch_bwd<float, 32>(p, stream);
+    case 48: return launch_bwd<float, 48>(p, stream);
+    case 64: return launch_bwd<float, 64>(p, stream);
+    case 80: return launch_bwd<float, 80>(p, stream);
+    case 96: return launch_bwd<float, 96>(p, stream);
+    case 112: return launch_bwd<float, 112>(p, stream);
+    case 128: return launch_bwd<float, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t dispatch_sm90_fwd(const FwdParams& p, cudaStream_t stream) {
+  switch (round16(p.dh)) {
+    case 16: return sm90::launch_fwd<16>(p, stream);
+    case 32: return sm90::launch_fwd<32>(p, stream);
+    case 48: return sm90::launch_fwd<48>(p, stream);
+    case 64: return sm90::launch_fwd<64>(p, stream);
+    case 80: return sm90::launch_fwd<80>(p, stream);
+    case 96: return sm90::launch_fwd<96>(p, stream);
+    case 112: return sm90::launch_fwd<112>(p, stream);
+    case 128: return sm90::launch_fwd<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_sm90_bwd(const BwdParams& p, cudaStream_t stream) {
+  switch (round16(p.dh)) {
+    case 16: return sm90::launch_bwd<16>(p, stream);
+    case 32: return sm90::launch_bwd<32>(p, stream);
+    case 48: return sm90::launch_bwd<48>(p, stream);
+    case 64: return sm90::launch_bwd<64>(p, stream);
+    case 80: return sm90::launch_bwd<80>(p, stream);
+    case 96: return sm90::launch_bwd<96>(p, stream);
+    case 112: return sm90::launch_bwd<112>(p, stream);
+    case 128: return sm90::launch_bwd<128>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// design 1 (flash_attention_sm90.cuh) for bf16 heads up to 128 wide, 0 for
+// the rest: the caller names it, and no other pairing is taken
+bool valid_design(int design, int dtype, int dh) {
+  return design == (dtype == e2::kBFloat16 && dh <= 128 ? 1 : 0);
 }
 
 bool valid_dh(int dh) { return dh >= 8 && dh <= 256 && dh % 8 == 0; }
@@ -190,14 +229,15 @@ cudaError_t launch_probe(const ProbeParams& p, int b, cudaStream_t stream) {
 }  // namespace
 
 // K8. Strides are (batch, head, row) triples in elements; o may be any
-// (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32.
+// (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32;
+// design 1 for bf16 heads up to 128, else 0 (see the head of this file).
 extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, const long long* qs,
                                  const long long* ks, const long long* vs, const void* mask,
                                  void* o, const long long* os, void* lse, int b, int n,
                                  int heads, int dh, float scale, float softclamp, float inv_keep,
                                  unsigned seed, unsigned threshold, int dropping, int dtype,
-                                 void* stream) {
-  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
+                                 int design, void* stream) {
+  if (!valid_dh(dh) || !valid_design(design, dtype, dh)) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
   p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.os = strides(os);
@@ -208,16 +248,15 @@ extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, co
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
-  if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == e2::kBFloat16) err = dispatch_fwd<__nv_bfloat16>(p, s);
-  else if (dtype == e2::kFloat32) err = dispatch_fwd<float>(p, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  if (design == 1) return (int)dispatch_sm90_fwd(p, s);
+  if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
+  if (dtype == e2::kFloat32) return (int)dispatch_fwd_f32(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// K9. delta is f32 with strides ds; dq a zeroed f32 buffer with strides dqs.
+// K9. delta is f32 with strides ds; dq a zeroed f32 buffer with strides dqs
+// (design 1: 16-byte aligned rows, for the vector reductions).
 extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, const void* dout,
                                  const long long* qs, const long long* ks, const long long* vs,
                                  const long long* dos, const void* mask, const void* lse,
@@ -225,8 +264,9 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
                                  const long long* dqs, void* dk, const long long* dks, void* dv,
                                  const long long* dvs, int b, int n, int heads, int dh,
                                  float scale, float softclamp, float inv_keep, unsigned seed,
-                                 unsigned threshold, int dropping, int dtype, void* stream) {
-  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
+                                 unsigned threshold, int dropping, int dtype, int design,
+                                 void* stream) {
+  if (!valid_dh(dh) || !valid_design(design, dtype, dh)) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.dos = strides(dos);
@@ -241,13 +281,11 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
-  if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == e2::kBFloat16) err = dispatch_bwd<__nv_bfloat16>(p, s);
-  else if (dtype == e2::kFloat32) err = dispatch_bwd<float>(p, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  if (design == 1) return (int)dispatch_sm90_bwd(p, s);
+  if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
+  if (dtype == e2::kFloat32) return (int)dispatch_bwd_f32(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The probe, bf16 only: x (b, h, n, dh) with strides xs, o with strides os.

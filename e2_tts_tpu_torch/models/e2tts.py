@@ -33,7 +33,6 @@ interpolated text and the frequency axis.
 from __future__ import annotations
 
 from collections import namedtuple
-from random import random as py_random
 
 import numpy as np
 import torch
@@ -174,8 +173,9 @@ class E2TTS(nn.Module):
         ``times (b,)``, ``noise`` (x0, the shape of ``inp``) and
         ``rand_span_mask (b, n)`` replace the draws from ``generator``
         (default: the model's), which are made in that order: the span's
-        length fractions and starts, x0, t. ``drop_text_cond`` defaults to a
-        host-side coin with probability ``cond_drop_prob`` in training mode.
+        length fractions and starts, x0, t, and then, in training mode and
+        without ``drop_text_cond``, the text-drop coin (probability
+        ``cond_drop_prob``).
         ``velocity_consistency_model`` (an EMA teacher) adds the
         velocity-consistency term when ``velocity_consistency_weight > 0``."""
         need_velocity_loss = (exists(velocity_consistency_model)
@@ -250,12 +250,15 @@ class E2TTS(nn.Module):
                                    drop_text_cond: bool | None = None,
                                    return_drop_text_cond: bool = False,
                                    generator: torch.Generator | None = None):
-        """Core prediction pass; ``drop_text_cond`` defaults to a host-side
-        coin with probability ``cond_drop_prob`` while training; in training
-        mode ``generator`` (default: the model's) draws the dropout seeds."""
+        """Core prediction pass; ``drop_text_cond`` defaults, while training,
+        to a coin with probability ``cond_drop_prob`` drawn from ``generator``
+        (default: the model's), which in training mode also draws the dropout
+        seeds."""
         seq_len = x.shape[-2]
-        drop_text_cond = default(
-            drop_text_cond, self.training and py_random() < self.cond_drop_prob)
+        generator = default(generator, self.generator)
+        if not exists(drop_text_cond):
+            drop_text_cond = self.training and float(torch.rand(
+                (), generator=generator, device=generator.device)) < self.cond_drop_prob
 
         x = self.proj_in(x) + self.cond_proj_in(cond)
         text_embed = None
@@ -263,7 +266,7 @@ class E2TTS(nn.Module):
             text_embed = self.embed_text(text, seq_len, mask=mask)
 
         pred = self.to_pred(self.transformer(x, times=times, mask=mask, text_embed=text_embed,
-                                             generator=default(generator, self.generator)))
+                                             generator=generator))
         return (pred, drop_text_cond) if return_drop_text_cond else pred
 
     def _cfg_batched_preds(self, x, cond, times, *, text, mask):

@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 LIB_NAME = 'libe2kernels.so'
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
-NVCC_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo']
+# -Xptxas -v: each kernel's registers and spills, kept in build_logs
+NVCC_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +49,7 @@ launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lib = None
 build_seconds = None
+build_logs = {}      # source file name -> nvcc's output of the last build
 
 
 def reset_launch_counts():
@@ -93,6 +95,7 @@ def build(force: bool = False) -> Path:
         failed = []
         for src, proc in procs:
             out, _ = proc.communicate()
+            build_logs[src.name] = out
             if proc.returncode != 0:
                 failed.append(f'{src.name}:\n{out}')
         if failed:
@@ -127,10 +130,28 @@ _SIGNATURES = {
     'e2_mel_fwd': [_P, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _P],
     'e2_flash_delta': [_P, _P, _P, _LL, _I, _I, _I, _P],
     'e2_flash_fwd_bhnd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _F, _F, _U, _U, _I, _I, _P],
-    'e2_flash_bwd_bhnd': [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _P],
+                          _F, _F, _F, _U, _U, _I, _I, _I, _P],
+    'e2_flash_bwd_bhnd': [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _P],
     'e2_flash_probe': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+
+
+def ptxas_usage(source: str, marker: str):
+    """``(kernel, registers, spill stores, spill loads)`` for each kernel of
+    ``source`` whose mangled name holds ``marker``, from the last build's
+    ``-Xptxas -v`` output."""
+    rows, name = [], None
+    for line in build_logs.get(source, '').splitlines():
+        if 'Compiling entry function' in line:
+            name = line.split("'")[1] if marker in line else None
+        elif name and 'spill stores' in line:
+            nums = [int(w) for w in line.replace(',', ' ').split() if w.isdigit()]
+            spill = (nums[1], nums[2])
+        elif name and 'Used' in line and 'registers' in line:
+            regs = int(line.split('Used')[1].split()[0])
+            rows.append((name, regs, *spill))
+            name = None
+    return rows
 
 
 def lib() -> ctypes.CDLL:

@@ -11,13 +11,15 @@ by ``_delta_bnh_pallas``), K2's pre-pass. K8 replaces ``_fwd_kernel``
 (``_flash_forward``), K9 the backward kernels of ``_flash_backward``, the
 probe ``scripts/_kernel_floor.py::kern``. The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10)
-and ``csrc/flash_attention_bhnd.cu`` (K8, K9, the probe); K1/K8 and K2/K9
-share their device code (``csrc/flash_attention.cuh``) and differ in the
-strides they are given. The source notes say what bounds them on the H100
-and how their designs answer. In short: tensor-core bound at the model's
-shapes; score tiles stay in shared memory, the products run on the tensor
-cores (wmma, bf16 in / f32 accumulate). `_FlashPacked` (K1 + K2) and
-`_Flash` (K8 + K9) are the ``torch.autograd.Function`` s.
+and ``csrc/flash_attention_bhnd.cu`` (K8, K9, the probe). The source notes
+say what bounds them on the H100 and how their designs answer. In short:
+tensor-core bound at the model's shapes. K1/K2, the probe, and K8/K9 on f32
+or on heads wider than 128 share the wmma templates of
+``csrc/flash_attention.cuh`` (score tiles in shared memory); K8/K9 on bf16
+heads up to 128 run the Hopper design of ``csrc/flash_attention_sm90.cuh``
+(wgmma products on register-resident scores, cp.async tile rings, dq by
+vector reductions). `bhnd_design` makes that choice. `_FlashPacked` (K1 +
+K2) and `_Flash` (K8 + K9) are the ``torch.autograd.Function`` s.
 
 Semantics: tanh softclamp of the scaled logits, key-padding bias 0 / -1e30,
 softmax, post-softmax counter-hash dropout (bits identical to the JAX
@@ -426,6 +428,16 @@ def _padded_dim_head(dh):
     return -(-dh // 8) * 8
 
 
+BHND_DESIGNS = {'wmma': 0, 'sm90': 1}    # the ``design`` codes of csrc/flash_attention_bhnd.cu
+
+
+def bhnd_design(dtype, dh: int) -> str:
+    """The K8 / K9 design for a head of ``dh`` (a multiple of 8) columns:
+    ``'sm90'`` (wgmma, flash_attention_sm90.cuh) for bf16 heads up to 128,
+    ``'wmma'`` (flash_attention.cuh) for f32 and for heads wider than 128."""
+    return 'sm90' if dtype == torch.bfloat16 and dh <= 128 else 'wmma'
+
+
 def _pad_head(t, dhp):
     return torch.nn.functional.pad(t, (0, dhp - t.shape[-1]))
 
@@ -473,7 +485,7 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
         int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
-        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        _cuda.DTYPE_CODES[dtype], BHND_DESIGNS[bhnd_design(dtype, dh)], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd_bhnd')
     _cuda.count_launch('flash_fwd_bhnd')
     return out, lse
@@ -501,6 +513,16 @@ def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
     dq = torch.zeros((b, n, h, dh), dtype=torch.float32, device=device).transpose(1, 2)
     dk = _bhnd_empty(b, h, n, dh, dtype, device)
     dv = _bhnd_empty(b, h, n, dh, dtype, device)
+    launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
+                    dropout_rate, dropout_seed)
+    return dq.to(dtype), dk, dv
+
+
+def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
+                    dropout_rate, dropout_seed):
+    """K9's launch alone, on checked operands: ``delta (b, h, n)`` f32, ``dq``
+    a zeroed f32 ``(b, h, n, dh)`` view, ``dk`` / ``dv`` written in place."""
+    b, h, n, dh = q.shape
     dropping = dropout_rate > 0.0
     st = _cuda.strides_bhn
     err = _cuda.lib().e2_flash_bwd_bhnd(
@@ -510,10 +532,10 @@ def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
         int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
-        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        _cuda.DTYPE_CODES[q.dtype], BHND_DESIGNS[bhnd_design(q.dtype, dh)],
+        _cuda.stream_ptr(q.device))
     _cuda.check(err, 'flash_bwd_bhnd')
     _cuda.count_launch('flash_bwd_bhnd')
-    return dq.to(dtype), dk, dv
 
 
 def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale=None,

@@ -465,3 +465,105 @@ def test_remat_matches_no_remat(dev):
     (loss_on, grads_on), (loss_off, grads_off) = results
     assert loss_on == loss_off
     _close_grads(grads_on, grads_off, torch.float32)
+
+
+# -- K8 / K9 on the Hopper design (flash_attention_sm90.cuh) ----------------------------
+
+SM90_HEADS = (8, 12, 16, 32, 48, 64, 72, 80, 96, 112, 128)
+
+
+def _sm90_inputs(dev, b, n, h, dh, seed):
+    """bf16 (b, h, n, dh) views of one packed projection, a ragged key mask
+    (the second row keeps half its keys) and an output grad."""
+    q, k, v, _, g = _bhnd_inputs(dev, torch.bfloat16, b, n, h, dh, seed)
+    lens = torch.tensor([n, max(1, n // 2)], device=dev)[:b]
+    mask = torch.arange(n, device=dev)[None] < lens[:, None]
+    dout = torch.randn(b, h, n, dh, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, mask, dout
+
+
+def _check_sm90(q, k, v, mask, dout, **kw):
+    dh = q.shape[-1]
+    assert fa.bhnd_design(q.dtype, -(-dh // 8) * 8) == 'sm90'
+    before = dict(_cuda.launch_counts)
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    got = fa.flash_attention_backward(q, k, v, mask, out, lse, dout, **kw)
+    assert _cuda.launch_counts['flash_fwd_bhnd'] == before['flash_fwd_bhnd'] + 1
+    assert _cuda.launch_counts['flash_bwd_bhnd'] == before['flash_bwd_bhnd'] + 1
+    _close((out, lse), fa.flash_attention_plain(q, k, v, mask, scale=dh ** -0.5, **kw),
+           torch.bfloat16)
+    ref = fa.flash_attention_backward_plain(q, k, v, mask, out, lse, dout, scale=dh ** -0.5,
+                                            **kw)
+    _close_grads(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 1056])
+@pytest.mark.parametrize('dh', SM90_HEADS)
+def test_flash_sm90_every_head_and_length(dev, dh, n):
+    """The Hopper K8 / K9 at every padded head width from 16 to 128 (and
+    heads of 8, 12, 72), lengths around the 64-row tile, a ragged mask,
+    softclamp 50 and dropout 0.1, against the plain versions."""
+    _check_sm90(*_sm90_inputs(dev, 2, n, 2, dh, seed=dh + n), softclamp_value=50.0,
+                dropout_rate=0.1, dropout_seed=11)
+
+
+@pytest.mark.parametrize('softclamp', [None, 50.0])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+def test_flash_sm90_softclamp_and_dropout(dev, softclamp, rate):
+    """Softclamp on and off, dropout on and off, at the DiT head (72)."""
+    _check_sm90(*_sm90_inputs(dev, 2, 300, 4, 72, seed=3), softclamp_value=softclamp,
+                dropout_rate=rate, dropout_seed=5)
+
+
+def test_flash_sm90_keep_bits(dev):
+    """The keep bits of both kernels are `dropout_keep_mask`'s, bit for bit:
+    with q = k = 0 every probability is 1 / n, so with v (forward) and do
+    (backward) the identity, o = keep / ((1 - rate) n) and dv = its
+    transpose: each element is positive exactly where a key is kept."""
+    b, h, n, rate, seed = 2, 3, 64, 0.25, 1234
+    zeros = torch.zeros(b, h, n, n, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(n, device=dev, dtype=torch.bfloat16).expand(b, h, n, n).contiguous()
+    keep = fa.dropout_keep_mask(seed, b * h, n, rate, device=dev).view(b, h, n, n)
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    out, lse = fa.flash_attention(zeros, zeros, eye, return_lse=True, **kw)
+    assert torch.equal(out > 0, keep)
+    _, _, dv = fa.flash_attention_backward(zeros, zeros, eye, None, out, lse, eye, **kw)
+    assert torch.equal(dv > 0, keep.transpose(-1, -2))
+
+
+def test_flash_sm90_laser(dev):
+    """LASER attention (log of K8 over exp(v)) on the Hopper design."""
+    from e2_tts_tpu_torch.ops import attention as attention_op
+    q, k, v, mask, _ = _sm90_inputs(dev, 2, 300, 4, 72, seed=9)
+    got = attention_op.attention(q, k, v, mask, laser=True)
+    laser_v = torch.exp(attention_op.softclamp(v.float(), 15.0)).to(torch.bfloat16)
+    ref = torch.log(fa.flash_attention_plain(q, k, laser_v, mask, scale=72 ** -0.5,
+                                             softclamp_value=50.0)[0].float().clamp(min=1e-20))
+    # the log turns one bf16 ulp of out into ~4e-3, rounded to bf16 again
+    torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=1e-2)
+
+
+def test_remat_matches_no_remat_bf16(dev):
+    """The heads-of-72 E2TTS in bf16 (K8 / K9 on the Hopper design): remat
+    gives the same loss as no remat, grads within the bf16 tolerance (dq's
+    vector reductions run in a run-dependent order)."""
+    cfg = dict(dim=512, depth=2, heads=4, dim_head=72, num_registers=4, kernel_size=7,
+               dropout=0.1)
+    gen = torch.Generator().manual_seed(0)
+    mel = torch.randn(2, 120, 100, generator=gen)
+    noise = torch.randn(2, 120, 100, generator=gen)
+    results = []
+    for remat in (True, False):
+        model = E2TTS(transformer=dict(cfg, remat=remat), dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(1), device=dev).train()
+        out = model(mel.to(dev), text=['hello there', 'a b c'], lens=torch.tensor([120, 90]),
+                    drop_text_cond=False, generator=torch.Generator().manual_seed(2),
+                    times=torch.tensor([0.3, 0.6]), noise=noise,
+                    rand_span_mask=torch.ones(2, 120, dtype=torch.bool))
+        out.loss.backward()
+        torch.cuda.synchronize()
+        results.append((float(out.loss.detach()), [p.grad.float() for p in model.parameters()
+                                                   if p.grad is not None]))
+    (loss_on, grads_on), (loss_off, grads_off) = results
+    assert loss_on == loss_off
+    _close_grads(grads_on, grads_off, torch.bfloat16)

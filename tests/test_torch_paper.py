@@ -43,7 +43,7 @@ def interpret():
 @nnx.jit
 def _jax_loss_and_grads(model, mel, lens, text, key):
     def loss_fn(m):
-        return m(mel, text=text, lens=lens, key=key).loss
+        return m(mel, text=text, lens=lens, key=key, drop_text_cond=False).loss
     return nnx.value_and_grad(loss_fn)(model)
 
 
@@ -78,7 +78,7 @@ def test_tiny_model_save_state_matches_jax_save_path(interpret, monkeypatch):
                  noise=torch.from_numpy(np.array(jax.random.normal(k_x0, (b, n, 100)))),
                  rand_span_mask=torch.from_numpy(np.array(span)))
     out = p(torch.from_numpy(mel), text=torch.from_numpy(text).long(),
-            lens=torch.from_numpy(lens).long(), **draws)
+            lens=torch.from_numpy(lens).long(), drop_text_cond=False, **draws)
     out.loss.backward()
     assert abs(float(out.loss.detach()) - float(loss_j)) <= 1e-5 * abs(float(loss_j))
 

@@ -326,6 +326,39 @@ def test_dropout_draws_from_the_given_generator():
         assert loss(3) != a          # eval mode: no dropout, same other draws
 
 
+def test_text_drop_coin_draws_from_the_given_generator():
+    """Without ``drop_text_cond`` the text-drop coin comes from the forward's
+    generator: equal seeds give equal losses whatever Python's global
+    ``random`` holds, and the loss is that of one side of the coin."""
+    import random
+    p = E2TTS(transformer=dict(SMALL_TF), device='cpu', cond_drop_prob=0.5).train()
+    rng = np.random.default_rng(8)
+    with torch.no_grad():        # no zero-initialised gate keeps the text out
+        for t in p.parameters():
+            t.add_(torch.from_numpy(np.asarray(0.02 * rng.standard_normal(t.shape), np.float32)))
+    mel = torch.from_numpy(rng.standard_normal((B, N, 100)).astype(np.float32))
+
+    def loss(seed):
+        with torch.no_grad():
+            out = p(mel, text=TEXTS, lens=torch.from_numpy(LENS).long(),
+                    generator=torch.Generator().manual_seed(seed))
+        return float(out.loss)
+
+    losses = []
+    for seed in range(6):
+        random.seed(seed)
+        a = loss(seed)
+        random.seed(seed + 100)
+        assert loss(seed) == a
+        losses.append(a)
+    with torch.no_grad():
+        dropped = [p(mel, text=TEXTS, lens=torch.from_numpy(LENS).long(), drop_text_cond=d,
+                     generator=torch.Generator().manual_seed(0)).loss.item()
+                   for d in (False, True)]
+    assert dropped[0] != dropped[1]
+    assert losses[0] in dropped
+
+
 def test_map_jax_tree_round_trips_a_grad_tree(models):
     """Grads, ADOPT moments and weights share the parameters' paths: the
     mapping is the same relayout for each (so it is linear), and it is strict
