@@ -3,20 +3,27 @@
 
     python3 chip_ab.py OTHER_CHECKOUT      # from this checkout's root; one CUDA card
 
-Builds K11 (csrc/mel.cu), K5b / K4 (the hyper-connection adjoints) and K8 /
-K9 (flash_attention_bhnd.cu and its wide-head source) from both checkouts'
-sources with nvcc into build/, and times each pair in turns (other, this,
-this, other) as device time per call, 100 calls captured in a CUDA graph
-(K9: 20): K11 at the 3-s prompt (282 frames, split over frequency tiles as
-its wrapper splits it), K5b / K4 at the flagship's training shape (4
-streams, 16896 rows, width 512, bf16, 8 warps a block, 264 blocks), K8 at
-the DiT sampler's and training shapes (1 and 16, 16 heads, 1056, 72; bf16,
-softclamp 50; dropout 0.1 at 16) and K9 at the training shape, its launch
-alone and with the wrapper's PyTorch work (delta, the dq fill and cast). The
-other checkout's adjoint may predate the warps argument (it then ran 8
-warps a block at this width), its K8 / K9 the design argument (they then
-ran the wmma design). Prints one line per kernel with the card's name and
-power limit.
+Builds K11 (csrc/mel.cu), K5b / K4 (the hyper-connection adjoints), K8 /
+K9 (flash_attention_bhnd.cu and its wide-head source) and K1 / K2 / K10
+(flash_attention.cu, flash_attention_bwd.cu) from both checkouts' sources
+with nvcc into build/ (every nvcc at once), and times each pair in turns
+(other, this, this, other) as device time per call, 100 calls captured in a
+CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
+frequency tiles as its wrapper splits it), K5b / K4 at the flagship's
+training shape (4 streams, 16896 rows, width 512, bf16, 8 warps a block,
+264 blocks), K8 at the DiT sampler's and training shapes (1 and 16, 16
+heads, 1056, 72; bf16, softclamp 50; dropout 0.1 at 16) and K9 at the
+training shape, its launch alone and with the wrapper's PyTorch work
+(delta, the dq fill and cast); K1 gated at the flagship sampler's shape (1,
+1056, 8 x 64) and at the paper's heads (16, 1056, 16 x 64) with dropout
+0.1, and K2 with its wrapper's work (K10, the dq fill and cast, the gate
+grad) at the flagship's and the paper's training shapes (16, 1056, 8 x 64
+and 16 x 64), gated, dropout 0.1, softclamp 50. The other checkout's
+adjoint may predate the warps argument (it then ran 8 warps a block at this
+width); its K8 / K9 may take a `design` argument (it is passed as 1, the
+Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
+design, K2 gating do itself and K10 writing delta alone). Prints one line
+per kernel with the card's name and power limit.
 """
 import ctypes
 import os
@@ -30,17 +37,23 @@ NVCC = '/usr/local/cuda/bin/nvcc'
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 
 
-def build(root, srcs, out):
-    """One nvcc -c per source, all started together, then one link."""
-    csrc = os.path.join(root, 'e2_tts_tpu_torch', 'csrc')
-    objs = [f'{out}.{i}.o' for i in range(len(srcs))]
-    procs = [subprocess.Popen([NVCC, *ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-I', csrc,
-                               '-c', os.path.join(csrc, src), '-o', obj])
-             for src, obj in zip(srcs, objs)]
+def build(jobs):
+    """``jobs``: (root, sources, library path). One nvcc -c per source of
+    every job, all started together, then one link a job; the libraries
+    loaded, in the jobs' order."""
+    procs, links = [], []
+    for root, srcs, out in jobs:
+        csrc = os.path.join(root, 'e2_tts_tpu_torch', 'csrc')
+        objs = [f'{out}.{i}.o' for i in range(len(srcs))]
+        procs += [subprocess.Popen([NVCC, *ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-I',
+                                    csrc, '-c', os.path.join(csrc, src), '-o', obj])
+                  for src, obj in zip(srcs, objs)]
+        links.append((objs, out))
     if any(p.wait() != 0 for p in procs):
-        raise RuntimeError(f'nvcc failed in {root}')
-    subprocess.run([NVCC, *ARCH, '-shared', *objs, '-o', out], check=True)
-    return ctypes.CDLL(out)
+        raise RuntimeError('nvcc failed')
+    for objs, out in links:
+        subprocess.run([NVCC, *ARCH, '-shared', *objs, '-o', out], check=True)
+    return [ctypes.CDLL(out) for _, out in links]
 
 
 def graph_ms(fn, iters=100):
@@ -69,17 +82,28 @@ def main():
     other = sys.argv[1]
     old_bwd = not os.path.exists(os.path.join(other, 'e2_tts_tpu_torch', 'csrc',
                                               'hyper_conn_bwd.cuh'))
-    has_design = {tag: os.path.exists(os.path.join(root, 'e2_tts_tpu_torch', 'csrc',
-                                                   'flash_attention_sm90.cuh'))
-                  for tag, root in (('other', other), ('this', '.'))}
-    for tag, root in (('other', other), ('this', '.')):
+    roots = (('other', other), ('this', '.'))
+    csrc_text = lambda root, name: open(os.path.join(root, 'e2_tts_tpu_torch', 'csrc',
+                                                     name)).read()
+    # K8 / K9 entry points that take the design as an argument
+    has_design = {tag: 'int design' in csrc_text(root, 'flash_attention_bhnd.cu')
+                  for tag, root in roots}
+    # K10 gating do into do_g for K2 (K1 / K2 on the Hopper design)
+    packed_sm90 = {tag: 'void* dout_g' in csrc_text(root, 'flash_attention_bwd.cu')
+                   for tag, root in roots}
+    jobs = []
+    for tag, root in roots:
         bwd = ['hyper_conn_bwd.cu'] if tag == 'other' and old_bwd else [
             'hyper_conn_bwd.cu', 'hyper_conn_bwd_save.cu', 'hyper_conn_bwd_streams.cu',
             'hyper_conn_bwd_f32.cu']
-        libs[tag] = (build(root, ['mel.cu'], f'{tmp}/mel_{tag}.so'),
-                     build(root, bwd, f'{tmp}/bwd_{tag}.so'),
-                     build(root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu'],
-                           f'{tmp}/flash_{tag}.so'))
+        jobs += [(root, ['mel.cu'], f'{tmp}/mel_{tag}.so'), (root, bwd, f'{tmp}/bwd_{tag}.so'),
+                 (root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu'],
+                  f'{tmp}/flash_{tag}.so'),
+                 (root, ['flash_attention.cu', 'flash_attention_bwd.cu'],
+                  f'{tmp}/packed_{tag}.so')]
+    built = build(jobs)
+    for i, (tag, _) in enumerate(roots):
+        libs[tag] = tuple(built[4 * i:4 * i + 4])
     g = torch.Generator(device=dev).manual_seed(0)
     # K11 at the prompt: 282 frames, split over frequency tiles as the wrapper does
     spec = MelSpec(mode='pallas').to(dev)
@@ -200,7 +224,83 @@ def main():
         call.tensors = (q, k, v, out, lse, dout, delta, dq, dk, dv)
         return call
 
+    # K1 / K2 on q, k, v as views of one packed (b, n, 3 h dh) projection, gated
+    def packed_inputs(b, h, n=1056, dh=64):
+        qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=dev).to(bf)
+        gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(bf)
+        return (*qkv.split(h * dh, dim=-1), gate, h)
+
+    def packed_common(q, h, rate):
+        b, n, D = q.shape
+        dh = D // h
+        return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
+                F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
+                I(int(rate > 0)), I(1)]
+
+    def qkv_strides(q, k, v):
+        return [LL(t.stride(i)) for t in (q, k, v) for i in (0, 1)]
+
+    def k1(tag, q, k, v, gate, h, rate):
+        fn = libs[tag][3].e2_flash_fwd
+        fn.restype = ctypes.c_int
+        b, n, D = q.shape
+        o = torch.empty((b, n, D), dtype=bf, device=dev)
+        lse = torch.empty((b * h, n), device=dev)
+        args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v)
+                + [P(None), P(gate.data_ptr()), P(o.data_ptr()), P(lse.data_ptr())]
+                + packed_common(q, h, rate))
+
+        def call():
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_fwd failed to launch: cudaError {err}')
+        call.tensors = (q, k, v, gate, o, lse)
+        return call
+
+    def k2(tag, q, k, v, gate, h, rate):
+        """K2 with its wrapper's work: K10 (and, gated on the Hopper design,
+        its do_g), the dq fill, K2, the dq cast and the gate grad."""
+        lib = libs[tag][3]
+        delta_fn, fn = lib.e2_flash_delta, lib.e2_flash_bwd
+        delta_fn.restype = fn.restype = ctypes.c_int
+        b, n, D = q.shape
+        dh = D // h
+        out, lse = fa.flash_attention_packed_plain(q, k, v, heads=h, scale=dh ** -0.5,
+                                                   softclamp_value=50.0, dropout_rate=rate,
+                                                   dropout_seed=1234, gate_logits=gate)
+        dout = torch.randn(b, n, D, generator=g, device=dev).to(bf)
+        delta = torch.empty((b, n, h), device=dev)
+        do_g = torch.empty_like(dout)
+        dq = torch.zeros((b, n, D), device=dev)
+        dk, dv = torch.empty_like(dout), torch.empty_like(dout)
+        if packed_sm90[tag]:        # K10 gates do; K2 reads do_g and no gate
+            delta_args = [P(out.data_ptr()), P(dout.data_ptr()), P(gate.data_ptr()),
+                          P(do_g.data_ptr()), P(delta.data_ptr())]
+            bwd_args = [P(do_g.data_ptr()), P(None)]
+        else:                       # K10 writes delta; K2 gates do itself
+            delta_args = [P(out.data_ptr()), P(dout.data_ptr()), P(delta.data_ptr())]
+            bwd_args = [P(dout.data_ptr()), P(None), P(gate.data_ptr())]
+        delta_args += [LL(b * n), I(h), I(dh), I(1)]
+        args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v) + bwd_args
+                + [P(lse.data_ptr()), P(delta.data_ptr()), P(dq.data_ptr()), P(dk.data_ptr()),
+                   P(dv.data_ptr())] + packed_common(q, h, rate))
+
+        def call():
+            err = delta_fn(*delta_args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_delta failed to launch: cudaError {err}')
+            dq.zero_()
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_bwd failed to launch: cudaError {err}')
+            dq.to(bf)
+            (delta * (1.0 - torch.sigmoid(gate.float()))).to(bf)
+        call.tensors = (q, k, v, gate, out, lse, dout, delta, do_g, dq, dk, dv)
+        return call
+
     sampler, train = flash_inputs(1), flash_inputs(16)
+    flagship_sampler, flagship_train = packed_inputs(1, 8), packed_inputs(16, 8)
+    paper_train = packed_inputs(16, 16)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip()
     for label, make in (('K11 prompt', lambda tag: mel(libs[tag][0])),
@@ -213,10 +313,20 @@ def main():
                         ('K9 launch (16,16,1056,72) bf16 softclamp 50 dropout 0.1',
                          lambda tag: k9(tag, *train, 0.1, False)),
                         ('K9 with the wrapper\'s delta, dq fill and cast (16,16,1056,72)',
-                         lambda tag: k9(tag, *train, 0.1, True))):
+                         lambda tag: k9(tag, *train, 0.1, True)),
+                        ('K1 (1,1056,8x64) bf16 gated softclamp 50',
+                         lambda tag: k1(tag, *flagship_sampler, 0.0)),
+                        ('K1 (16,1056,16x64) bf16 gated softclamp 50 dropout 0.1',
+                         lambda tag: k1(tag, *paper_train, 0.1)),
+                        ('K2 with its wrapper\'s K10, dq fill and cast, gate grad (16,1056,8x64) '
+                         'bf16 gated softclamp 50 dropout 0.1',
+                         lambda tag: k2(tag, *flagship_train, 0.1)),
+                        ('K2 with its wrapper\'s K10, dq fill and cast, gate grad (16,1056,16x64) '
+                         'bf16 gated softclamp 50 dropout 0.1',
+                         lambda tag: k2(tag, *paper_train, 0.1))):
         times = {tag: [] for tag in ('other', 'this')}
         for tag in ('other', 'this', 'this', 'other'):
-            times[tag].append(graph_ms(make(tag), 20 if label.startswith('K9') else 100))
+            times[tag].append(graph_ms(make(tag), 20 if label[:2] in ('K9', 'K2') else 100))
         print(f'ab {label}: other_ms={[round(x, 5) for x in times["other"]]} '
               f'this_ms={[round(x, 5) for x in times["this"]]} [{smi}]', flush=True)
     # the softclamp's floor on the special-function units, beside K8 / K9's
@@ -226,9 +336,11 @@ def main():
                                 '--format=csv,noheader,nounits'], capture_output=True,
                                text=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for b in (1, 16):
-        scores = b * 16 * 1056 * 1056
-        print(f'sfu floor (K8 / K9) ({b},16,1056,72): {2 * scores / (16 * sms * mhz * 1e6) * 1e3:.5f} '
+    for label, b, h in (('K8 / K9', 1, 16), ('K8 / K9', 16, 16), ('K1', 1, 8),
+                        ('K1 / K2', 16, 8), ('K1 / K2', 16, 16)):
+        scores = b * h * 1056 * 1056
+        print(f'sfu floor ({label}) ({b},{h},1056): '
+              f'{2 * scores / (16 * sms * mhz * 1e6) * 1e3:.5f} '
               f'ms ({scores} scores, {sms} SMs at {mhz:g} MHz) [{smi}]', flush=True)
     return 0
 

@@ -10,7 +10,8 @@ exit code and no result line:
 2. build   — nvcc compiles every kernel from e2_tts_tpu_torch/csrc (sm_90a).
 3. kernels — the sixteen kernels and the probe, each against its plain
    PyTorch version on the card: K1 (packed flash attention) and its
-   backward K2 with K2's delta pre-pass K10, K8 / K9 (the same attention on
+   backward K2 with K2's delta pre-pass K10 (gated: it also writes the
+   gated output grad K2 reads), K8 / K9 (the same attention on
    (b, h, n, dh) operands, for heads K1 does not take; dim_head 8 to 256,
    and 12, zero-padded), K3 / K5
    (hyper-connection width connection, depth-fused and plain) and their
@@ -38,11 +39,18 @@ exit code and no result line:
    also at the flagship's training shape and at the E2-TTS paper's heads
    (16 x 64), each beside K1 / K2 on the same work; K9 also as its launch
    alone (`kernel_only_ms`, without the wrapper's delta, dq fill and cast);
-   the probe in each mode at both training shapes. The build's `ptxas`
-   lines give the registers and spills of K8 / K9's Hopper design
-   (csrc/flash_attention_sm90.cuh). Then `hc save A/B` lines: the
-   hyper-connection forward and adjoint, recomputing and saving, and the
-   pairs' sums, at the training shape for widths 512, 1024 and 1152; and
+   the probe in each mode at both training shapes; K1 / K2 gated at the
+   paper's heads beside the ungated pair. The attention kernels' `kernel`
+   lines (not their records in the `kernels` line) also give
+   `sfu_floor_ms`: the softclamp's two transcendentals a score (one without
+   it) at the special-function units' 16 a clock per SM (the card's highest
+   SM clock). That is the floor of this implementation, which evaluates
+   them there, not of the function (polynomials on the FMA pipes could
+   share the work), so `bound_ms` stays bytes against tensor-core products.
+   The build's `ptxas` lines give the registers and spills of the Hopper
+   design (csrc/flash_attention_sm90.cuh: bf16 K1 / K2 and K8 / K9). Then
+   `hc save A/B` lines: the hyper-connection forward and adjoint,
+   recomputing and saving, and the pairs' sums, at the training shape for widths 512, 1024 and 1152; and
    the `yardstick` line: K8 / K9 without softclamp and dropout beside
    PyTorch's scaled_dot_product_attention (flash backend) at the DiT
    training shape, which is not the same function.
@@ -217,6 +225,14 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations')
 
 
+def sfu_rate(torch, dev) -> float:
+    """Transcendentals a second: 16 a clock per SM at the highest SM clock."""
+    mhz = float(subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                                '--format=csv,noheader,nounits'], check=True,
+                               capture_output=True, text=True, timeout=60).stdout.split()[0])
+    return 16 * torch.cuda.get_device_properties(dev).multi_processor_count * mhz * 1e6
+
+
 def compare(out, ref, atol, rtol, scaled=False):
     """(max abs error, worst |err| / (atol + rtol |ref|)) over a tuple; with
     ``scaled`` the absolute term is ``atol`` times each tensor's max |ref|
@@ -261,6 +277,11 @@ def kernel_cases(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sfu = sfu_rate(torch, dev)
+    # the attention kernels' transcendentals: tanh and exp2 a score with the
+    # softclamp (the backward recomputes both), exp2 alone without it; at the
+    # special-function units' rate they give `sfu_floor_ms`, not `bound_ms`
+    transcendentals = lambda b, heads, n, softclamp: (2 if softclamp else 1) * b * heads * n * n
     randn = lambda *shape, dtype=torch.bfloat16, scale=1.0: (
         torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -303,7 +324,8 @@ def kernel_cases(torch, dev):
             tol=attn_tol[dtype],
             nbytes=4 * b * n * D * es + b * n * heads * (es + 4) + (b * n if lens else 0),
             flops=4 * b * heads * n * n * dh,
-            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
+            sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
         if qk_scale != 1.0 or softclamp != 50.0:
             case['against'] = ('without softclamp', lambda: fa.flash_attention_packed_plain(
                 q, k, v, mask, scale=scale, softclamp_value=None, **kw)[0])
@@ -330,7 +352,8 @@ def kernel_cases(torch, dev):
             nbytes=8 * b * n * D * es + b * heads * n * 4 + 2 * b * n * heads * es
             + (b * n if lens else 0),
             flops=10 * b * heads * n * n * dh,     # five n x n x dh products
-            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
+            sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
         if qk_scale != 1.0 or softclamp != 50.0:
             case['against'] = ('without softclamp', lambda: bwd(None))
         cases.append(case)
@@ -546,8 +569,9 @@ def kernel_cases(torch, dev):
             case['unsplit'] = lambda: mel_unsplit(frames, *tables, power)
         cases.append(case)
 
-    def delta_case(label, b, n, heads, dh, dtype):
+    def delta_case(label, b, n, heads, dh, dtype, gated=False, timed=False):
         o, do = randn(b, n, heads * dh, dtype=dtype), randn(b, n, heads * dh, dtype=dtype)
+        gate = randn(b, n, heads, dtype=dtype, scale=2.0) if gated else None
         # K2's caller finds o and do in device memory, not in the 50 MB L2: each
         # call takes the next of four equal copies (4 x 35 MB at the training shape)
         pairs = [(o, do)] + [(o.clone(), do.clone()) for _ in range(3)]
@@ -560,15 +584,32 @@ def kernel_cases(torch, dev):
             return call
 
         split = lambda t: t.view(b, n, heads, dh)
-        cases.append(dict(
-            kernel='K10', label=label, scaled=True,
-            run=rotating(lambda o, do: fa.flash_delta(o, do, heads=heads)),
-            plain=rotating(lambda o, do: fa.flash_delta_plain(o, do, heads)),
-            library=rotating(lambda o, do: torch.einsum('bnhd,bnhd->bnh', split(o), split(do))),
+        es = esize(dtype)
+        case = dict(
+            kernel='K10', label=label, scaled=True, timed=timed,
+            run=rotating(lambda o, do: fa.flash_delta(o, do, heads=heads, gate_logits=gate)[0]),
+            plain=rotating(lambda o, do: fa.flash_delta_plain(o, do, heads, gate)[0]),
             # f32 sums of dh products in other orders
             tol=(1e-5, 1e-5),
-            nbytes=2 * b * n * heads * dh * esize(dtype) + 4 * b * n * heads,
-            flops=2 * b * n * heads * dh, peak=PEAK_F32_FLOPS))
+            # o, do (+ the gate) read; delta (+ do_g) written
+            nbytes=(3 if gated else 2) * b * n * heads * dh * es + b * n * heads * 4
+            + (b * n * heads * es if gated else 0),
+            flops=(3 if gated else 2) * b * n * heads * dh, peak=PEAK_F32_FLOPS)
+        if gated:
+            def extra():
+                # do_g within one ulp of the dtype: the kernel's expf and
+                # torch's sigmoid may differ in the last bit before the rounding
+                got = fa.flash_delta(o, do, heads=heads, gate_logits=gate)[1].float()
+                ref = fa.flash_delta_plain(o, do, heads, gate)[1].float()
+                ulp = 2.0 ** -7 if dtype == bf16 else 2.0 ** -22
+                worst_do_g = float(((got - ref).abs() / (ulp * ref.abs() + 1e-30)).max())
+                return (f'; do_g against the plain version: worst |err| / (one ulp of |ref|) '
+                        f'{worst_do_g:.3f} (<= 1)'), worst_do_g <= 1.0
+            case['extra'] = extra
+        else:
+            case['library'] = rotating(
+                lambda o, do: torch.einsum('bnhd,bnhd->bnh', split(o), split(do)))
+        cases.append(case)
 
     def bhnd_inputs(b, n, heads, dh, dtype, lens, qk_scale):
         # (b, h, n, dh) views of one (b, n, 3 h dh) projection, as the model hands them to K8
@@ -591,7 +632,8 @@ def kernel_cases(torch, dev):
             # q, k, v read, o written (the useful dh columns), lse (+ mask)
             nbytes=4 * b * heads * n * dh * es + b * heads * n * 4 + (b * n if lens else 0),
             flops=4 * b * heads * n * n * dh,
-            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
+            sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
         if qk_scale != 1.0 or softclamp != 50.0:
             case['against'] = ('without softclamp', lambda: fa.flash_attention_plain(
                 q, k, v, mask, scale=dh ** -0.5, softclamp_value=None, **kw)[0])
@@ -616,7 +658,8 @@ def kernel_cases(torch, dev):
             # reads q, k, v, o, do, lse (+ mask); writes dq, dk, dv
             nbytes=8 * b * heads * n * dh * es + b * heads * n * 4 + (b * n if lens else 0),
             flops=10 * b * heads * n * n * dh,     # five n x n x dh products
-            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS)
+            peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
+            sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
         if qk_scale != 1.0 or softclamp != 50.0:
             case['against'] = ('without softclamp', lambda: bwd(None))
         if timed or not any(c['kernel'] == 'K9' for c in cases):
@@ -752,8 +795,16 @@ def kernel_cases(torch, dev):
     mel_case('ragged 300 rows (2,38144)', 2, 149 * HOP)
     mel_case(f'160 mels n_fft 1000 prompt (1,{PROMPT_SAMPLES})', 1, PROMPT_SAMPLES, win=1000,
              n_fft=1000, n_mels=160, timed=True)
-    delta_case(f'train ({B},1056,8x64) bf16', B, n, 8, 64, bf16)
+    # the main path's K10 is gated (the flagship's value-head gates), so the
+    # gated case, which also writes do_g and has no one-call library
+    # yardstick, is K10's record in the `kernels` line; the ungated case
+    # beside it, timed with its torch.einsum yardstick, is the one to hold
+    # against records that predate the gated K10
+    delta_case(f'train ({B},1056,8x64) bf16 gated (writes do_g)', B, n, 8, 64, bf16, gated=True)
+    delta_case(f'train ({B},1056,8x64) bf16 ungated', B, n, 8, 64, bf16, timed=True)
+    delta_case('ragged n (3,777,8x64) bf16 gated', 3, 777, 8, 64, bf16, gated=True)
     delta_case('ragged n (3,777,8x64) bf16', 3, 777, 8, 64, bf16)
+    delta_case('f32 (2,300,4x32) gated', 2, 300, 4, 32, f32, gated=True)
     delta_case('f32 (2,300,4x32)', 2, 300, 4, 32, f32)
     H, DH = DIT['heads'], DIT['dim_head']
     bhnd_case(f'DiT sampler (1,{H},1056,{DH}) bf16', 1, n, H, DH, bf16)
@@ -794,7 +845,7 @@ def kernel_cases(torch, dev):
     laser_case(f'LASER attention (2,{H},1056,{DH}) bf16 ragged', 2, n, H, DH, bf16,
                lens=[n, 700])
     # K8 / K9 at the E2-TTS paper's heads (16 x 64) beside K1 / K2 on the same
-    # work (ungated): whether K1 / K2 should move onto K8 / K9's design
+    # work (ungated), and K1 / K2 gated as the paper's layers run them
     PH, PDH = PAPER['heads'], PAPER['dim_head']
     bhnd_case(f'paper heads ({B},{PH},1056,{PDH}) bf16 dropout 0.1', B, n, PH, PDH, bf16,
               rate=0.1, timed=True)
@@ -804,6 +855,10 @@ def kernel_cases(torch, dev):
               f'work)', B, n, PH, PDH, bf16, rate=0.1, gated=False, timed=True)
     attn_bwd_case(f'paper heads ({B},1056,{PH}x{PDH}) bf16 ungated dropout 0.1 (K9 on the '
                   f'same work)', B, n, PH, PDH, bf16, rate=0.1, gated=False, timed=True)
+    attn_case(f'paper heads ({B},1056,{PH}x{PDH}) bf16 gated dropout 0.1', B, n, PH, PDH, bf16,
+              rate=0.1, timed=True)
+    attn_bwd_case(f'paper heads ({B},1056,{PH}x{PDH}) bf16 gated dropout 0.1', B, n, PH, PDH,
+                  bf16, rate=0.1, timed=True)
     for mode in fa.PROBE_MODES:
         probe_case(f'mode {mode} ({B},8,1056,64) bf16', B, 8, n, 64, mode, timed=True)
         probe_case(f'mode {mode} DiT train ({B},{H},1056,{DH}) bf16', B, H, n, DH, mode,
@@ -880,6 +935,8 @@ def time_case(case):
     timed = dict(ms=graph_ms(case['run'], 100), plain_ms=graph_ms(case['plain'], 50),
                  library_ms=graph_ms(case['library'], 100) if 'library' in case else None,
                  eager_ms=eager_ms(case['run'], 100), bound_ms=bms, bound_by=by)
+    if 'sfu' in case:
+        timed['sfu_floor_ms'] = case['sfu'] / case['sfu_rate'] * 1e3
     if 'dft' in case:
         timed['dft_ms'] = graph_ms(case['dft'], 50)
     if 'unsplit' in case:
@@ -933,6 +990,8 @@ def phase_kernels(torch, dev):
                      f'({timed["bound_by"]})')
             if timed['library_ms'] is not None:
                 line += f' library_ms={timed["library_ms"]:.5f}'
+            if 'sfu_floor_ms' in timed:
+                line += f' sfu_floor_ms={timed["sfu_floor_ms"]:.5f}'
             if 'dft_ms' in timed:
                 line += f' melspec_dft_ms={timed["dft_ms"]:.5f}'
             if 'unsplit_ms' in timed:
@@ -1795,16 +1854,18 @@ def main() -> int:
     log(f'build: nvcc sm_90a {len(list(_cuda.CSRC.glob("*.cu")))} sources '
         f'seconds={_cuda.build_seconds:.2f}')
     _cuda.lib()
-    for name, regs, spill_st, spill_ld in _cuda.ptxas_usage('flash_attention_bhnd.cu', '4sm90'):
-        log(f'ptxas {name}: {regs} registers, {spill_st} bytes spill stores, '
-            f'{spill_ld} bytes spill loads')
+    for source in ('flash_attention.cu', 'flash_attention_bwd.cu', 'flash_attention_bhnd.cu'):
+        for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, '4sm90'):
+            log(f'ptxas {source} {name}: {regs} registers, {spill_st} bytes spill stores, '
+                f'{spill_ld} bytes spill loads')
 
     records, train_records = phase_kernels(torch, dev)
     for kid in train_records:
         r, t = records[kid], train_records[kid]
         log(f'kernel {kid} at the training shape vs the sampling shape: ms={t["ms"]:.5f} '
             f'(sampling {r["ms"]:.5f}) plain_ms={t["plain_ms"]:.5f} '
-            f'eager_call_ms={t["eager_ms"]:.5f} bound_ms={t["bound_ms"]:.5f} ({t["bound_by"]})')
+            f'eager_call_ms={t["eager_ms"]:.5f} bound_ms={t["bound_ms"]:.5f} ({t["bound_by"]})'
+            + (f' sfu_floor_ms={t["sfu_floor_ms"]:.5f}' if 'sfu_floor_ms' in t else ''))
     time_hc_save_pairs(torch, dev, smi)
     time_sdpa_yardstick(torch, dev, smi)
     sample_counts, model = phase_main(torch, dev, smi)

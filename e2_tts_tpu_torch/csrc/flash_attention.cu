@@ -7,39 +7,52 @@
 //   post-softmax counter-hash dropout (keep bits identical to _keep_tile),
 //   o = (p v) / max(l, 1e-30) * sigmoid(gate[b, row, h]),  lse = m + log(l).
 // q/k/v are read straight from the (b, n, h*dh) projection layout: a row
-// stride and a head offset, no transpose in or out. The kernel itself is
-// flash_fwd_kernel in flash_attention.cuh, shared with K8.
+// stride and a head offset, no transpose in or out.
 //
-// What bounds it: at the sampler's shapes (b=1, n=1056, 8 heads of 64) the
+// Two designs, chosen here by the dtype:
+//   bf16: flash_fwd_kernel of flash_attention_sm90.cuh, K8's Hopper
+//     design (wgmma products on register-resident scores, a cp.async K/V
+//     ring; the gate folded into its epilogue);
+//   f32: flash_fwd_kernel of flash_attention.cuh (wmma's f32 variant:
+//     FMA loops over shared-memory tiles).
+//
+// What bounds it: at the sampler's shape (b=1, n=1056, 8 heads of 64) the
 // work is ~2.3 GFLOP of matrix products against ~3 MB of q/k/v, far above
-// the H100's ~295 FLOP/byte ridge: the tensor cores bound it. The design
-// keeps the n x n scores out of device memory (one 64 x 64 tile at a time in
-// shared memory) and runs both products on the tensor cores through wmma
-// (bf16 in, f32 accumulate); the f32 variant uses FMA loops. Simple first:
-// no TMA, no wgmma, no pipelining of the k/v loads yet.
+// the H100's ~295 FLOP/byte ridge, and the softclamp adds two
+// transcendentals a score, which this design evaluates on the
+// special-function units (16 a clock per SM): at this shape they take longer
+// than the products on the tensor cores. The 17 x 8 =
+// 136 blocks of one warpgroup fill the 132 SMs in one wave.
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t dispatch_dh(const FwdParams& p, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch(const FwdParams& p, bool bf16, cudaStream_t stream) {
+  return bf16 ? sm90::launch_fwd<DH>(p, stream) : launch_fwd<float, DH>(p, stream);
+}
+
+cudaError_t dispatch_dh(const FwdParams& p, bool bf16, cudaStream_t stream) {
   switch (p.dh) {
-    case 32: return launch_fwd<T, 32>(p, stream);
-    case 64: return launch_fwd<T, 64>(p, stream);
-    case 128: return launch_fwd<T, 128>(p, stream);
+    case 32: return launch<32>(p, bf16, stream);
+    case 64: return launch<64>(p, bf16, stream);
+    case 128: return launch<128>(p, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v: (b, n, heads * dh) with batch / row strides; o contiguous
+// q, k, v: (b, n, heads * dh) with batch / row strides; o contiguous; gate
+// (b, n, heads) logits of q's dtype or null
 extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                             long long v_rs, const void* mask, const void* gate, void* o,
                             void* lse, int b, int n, int heads, int dh, float scale,
                             float softclamp, float inv_keep, unsigned seed, unsigned threshold,
                             int dropping, int dtype, void* stream) {
+  if (dtype != e2::kBFloat16 && dtype != e2::kFloat32) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
   p.qs = {q_bs, dh, q_rs};
@@ -54,10 +67,5 @@ extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long lo
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == e2::kBFloat16) err = dispatch_dh<__nv_bfloat16>(p, s);
-  else if (dtype == e2::kFloat32) err = dispatch_dh<float>(p, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

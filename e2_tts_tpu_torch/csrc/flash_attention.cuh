@@ -1,8 +1,12 @@
-// Device code shared by the flash-attention kernels: the forward (K1 on the
+// The wmma design of the flash-attention kernels: the forward (K1 on the
 // packed (b, n, h*dh) projection, K8 on (b, h, n, dh)), the backward (K2,
-// K9) and the cost-floor probe. On the H100 the two layouts differ only in
-// their strides, so one template serves both: every operand is addressed
-// as base + batch * s.b + head * s.h + row * s.r + column.
+// K9) and the cost-floor probe. It runs f32 K1 / K2 / K8 / K9, bf16 K8 / K9
+// on heads wider than 128, and the probe; bf16 heads up to 128 (K1 / K2 at
+// dim_head 32, 64, 128, and K8 / K9) run the Hopper design of
+// flash_attention_sm90.cuh, which takes this header's parameter structs.
+// On the H100 the two layouts differ only in their strides, so one
+// template serves both: every operand is addressed as base + batch * s.b +
+// head * s.h + row * s.r + column.
 //
 // A head is dh columns, any multiple of 8 up to 256. The tiles in shared
 // memory are DHP = dh rounded up to 16 columns wide (the depth of a bf16
@@ -54,12 +58,10 @@ __device__ __forceinline__ long long offset(const Strides& s, int bi, int h) {
 }
 
 // rows [r0, r0 + 64) of a (n, dh) slab with row stride rs -> smem (pitch
-// LDT), DHP columns: columns past dh and rows past n are zero. `row_gate`
-// (optional, per row) scales each row first and the product is rounded to
-// T, as the TPU kernels gate do.
+// LDT), DHP columns: columns past dh and rows past n are zero.
 template <typename T, int DHP, int LDT>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs, int r0, int n,
-                                          int dh, int tid, const float* row_gate = nullptr) {
+                                          int dh, int tid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = DHP / VEC;
   for (int idx = tid; idx < 64 * VPR; idx += NTHREADS) {
@@ -68,11 +70,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs, in
     if (r0 + r < n && cv * VEC < dh)
       val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + cv * VEC);
     const T* e = reinterpret_cast<const T*>(&val);
-    const float g = row_gate != nullptr ? row_gate[r] : 1.f;
 #pragma unroll
-    for (int t = 0; t < VEC; ++t)
-      dst[r * LDT + cv * VEC + t] =
-          row_gate != nullptr ? e2::from_float<T>(e2::to_float<T>(e[t]) * g) : e[t];
+    for (int t = 0; t < VEC; ++t) dst[r * LDT + cv * VEC + t] = e[t];
   }
 }
 
@@ -332,7 +331,6 @@ struct BwdParams {
   const void* dout;
   Strides qs, ks, vs, dos;
   const unsigned char* mask;  // (b, n) bool or null
-  const void* gate;           // (b, n, heads) logits or null
   const float* lse;           // (b*heads, n), from the forward
   const float* delta;         // rowsum(do * o) per (batch, head, row)
   Strides deltas;             // its strides (column stride unused)
@@ -490,10 +488,10 @@ __device__ __forceinline__ void store_rows(WarpAcc<T, DHP>& acc, float* stage, T
 // and recomputes, as the TPU kernels do in _recompute_p_ds / _bwd_keep_scaled,
 //   s  = scale * q k^T;  th = tanh(s / c);  s = c * th  (softclamp c, jac = 1 - th^2)
 //   p  = exp(s + bias[key] - lse[row])
-//   dp = do_g v^T,  do_g = do * sigmoid(gate[b, row, h]) (rounded to T)
+//   dp = do v^T  (a gated layer's do arrives gated: K10 writes it)
 //   ks = keep(seed, b*heads + h, row, key) / (1 - rate)  (the forward's bits)
 //   ds = p * (ks * dp - delta[row]) * jac * scale,  p_drop = p * ks
-//   dv += p_drop^T do_g,  dk += ds^T q,  dq += ds k
+//   dv += p_drop^T do,  dk += ds^T q,  dq += ds k
 // p_drop and ds are rounded to T before the three products, as the TPU
 // kernels round them. dk and dv stay on chip until the end; dq, a sum over
 // key tiles, goes to the zeroed f32 buffer by atomicAdd. A wide head's block
@@ -514,7 +512,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
   float* sBias = reinterpret_cast<float*>(smem + L::vec_off);
   float* sLse = sBias + BK;
   float* sDelta = sLse + BQ;
-  __shared__ float sGate[BQ];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * BK, h = blockIdx.y;
@@ -558,12 +555,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
     __syncthreads();  // every warp is done with the previous query tile
     if (tid < BQ) {
       const int row = q0 + tid;
-      float g = 1.f;
-      if (p.gate != nullptr && row < n) {
-        g = e2::to_float<T>(static_cast<const T*>(p.gate)[((long long)bi * n + row) * H + h]);
-        g = 1.f / (1.f + expf(-g));
-      }
-      sGate[tid] = g;
       // rows past n: p = exp(... - 1e30) = 0 and delta 0, so they add nothing
       sLse[tid] = row < n ? p.lse[((long long)bi * H + h) * n + row] : -NEG_INF;
       sDelta[tid] = row < n ? deltag[(long long)row * p.deltas.r] : 0.f;
@@ -578,9 +569,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
         load_tile<T, DHP, L::LDT>(sV, vg + cc, p.vs.r, k0, n, dh - cc, tid);
       }
       load_tile<T, DHP, L::LDT>(sQ, qg + cc, p.qs.r, q0, n, dh - cc, tid);
-      __syncthreads();  // sGate ready for the gated do load
-      load_tile<T, DHP, L::LDT>(sDO, dog + cc, p.dos.r, q0, n, dh - cc, tid,
-                                p.gate != nullptr ? sGate : nullptr);
+      load_tile<T, DHP, L::LDT>(sDO, dog + cc, p.dos.r, q0, n, dh - cc, tid);
       __syncthreads();
 
       const int dh_ch = min(DHP, dh - cc);

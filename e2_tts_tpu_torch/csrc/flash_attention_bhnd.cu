@@ -15,13 +15,13 @@
 // and written where it lies, with no copies. dim_head is any multiple of 8
 // up to 256; the tiles are padded to the next multiple of 16 in shared
 // memory (72 -> 80), never past a head's own columns in device memory.
-// Two designs, chosen by the caller (`design`, ops/flash_attention.py):
-//   1 (bf16, dim_head up to 128): flash_attention_sm90.cuh, wgmma products
+// Two designs, chosen here by the dtype and dim_head:
+//   bf16, dim_head up to 128: flash_attention_sm90.cuh, wgmma products
 //     on register-resident scores and cp.async tile rings;
-//   0 (f32, and every head wider than 128): the wmma templates of
-//     flash_attention.cuh (K1's and K2's); a head wider than 128 runs as two
-//     column chunks (SPLIT = 2), built in flash_attention_bhnd_wide.cu
-//     (another nvcc, in parallel).
+//   f32, and every head wider than 128: the wmma templates of
+//     flash_attention.cuh (f32 K1 / K2 use them too); a head wider than
+//     128 runs as two column chunks (SPLIT = 2), built in
+//     flash_attention_bhnd_wide.cu (another nvcc, in parallel).
 // The wrapper zero-pads a head that is not a multiple of 8.
 //
 // What bounds them: at the DiT-width training shape (16, 16 heads, 1056, 72)
@@ -52,7 +52,7 @@ int e2_flash_bhnd_wide(const void* params, int backward, int dtype, void* stream
 
 namespace {
 
-// design 0 at heads up to 128: f32
+// f32 heads up to 128: the wmma templates
 cudaError_t dispatch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   switch (round16(p.dh)) {
     case 16: return launch_fwd<float, 16>(p, stream);
@@ -67,7 +67,7 @@ cudaError_t dispatch_fwd_f32(const FwdParams& p, cudaStream_t stream) {
   }
 }
 
-// design 0 at heads up to 128: f32
+// f32 heads up to 128: the wmma templates
 cudaError_t dispatch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   switch (round16(p.dh)) {
     case 16: return launch_bwd<float, 16>(p, stream);
@@ -108,12 +108,6 @@ cudaError_t dispatch_sm90_bwd(const BwdParams& p, cudaStream_t stream) {
     case 128: return sm90::launch_bwd<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// design 1 (flash_attention_sm90.cuh) for bf16 heads up to 128 wide, 0 for
-// the rest: the caller names it, and no other pairing is taken
-bool valid_design(int design, int dtype, int dh) {
-  return design == (dtype == e2::kBFloat16 && dh <= 128 ? 1 : 0);
 }
 
 bool valid_dh(int dh) { return dh >= 8 && dh <= 256 && dh % 8 == 0; }
@@ -230,14 +224,13 @@ cudaError_t launch_probe(const ProbeParams& p, int b, cudaStream_t stream) {
 
 // K8. Strides are (batch, head, row) triples in elements; o may be any
 // (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32;
-// design 1 for bf16 heads up to 128, else 0 (see the head of this file).
 extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, const long long* qs,
                                  const long long* ks, const long long* vs, const void* mask,
                                  void* o, const long long* os, void* lse, int b, int n,
                                  int heads, int dh, float scale, float softclamp, float inv_keep,
                                  unsigned seed, unsigned threshold, int dropping, int dtype,
-                                 int design, void* stream) {
-  if (!valid_dh(dh) || !valid_design(design, dtype, dh)) return (int)cudaErrorInvalidValue;
+                                 void* stream) {
+  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
   p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.os = strides(os);
@@ -249,14 +242,14 @@ extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, co
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (design == 1) return (int)dispatch_sm90_fwd(p, s);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
+  if (dtype == e2::kBFloat16) return (int)dispatch_sm90_fwd(p, s);
   if (dtype == e2::kFloat32) return (int)dispatch_fwd_f32(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K9. delta is f32 with strides ds; dq a zeroed f32 buffer with strides dqs
-// (design 1: 16-byte aligned rows, for the vector reductions).
+// (bf16 heads up to 128: 16-byte aligned rows, for the vector reductions).
 extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, const void* dout,
                                  const long long* qs, const long long* ks, const long long* vs,
                                  const long long* dos, const void* mask, const void* lse,
@@ -264,14 +257,12 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
                                  const long long* dqs, void* dk, const long long* dks, void* dv,
                                  const long long* dvs, int b, int n, int heads, int dh,
                                  float scale, float softclamp, float inv_keep, unsigned seed,
-                                 unsigned threshold, int dropping, int dtype, int design,
-                                 void* stream) {
-  if (!valid_dh(dh) || !valid_design(design, dtype, dh)) return (int)cudaErrorInvalidValue;
+                                 unsigned threshold, int dropping, int dtype, void* stream) {
+  if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.qs = strides(qs); p.ks = strides(ks); p.vs = strides(vs); p.dos = strides(dos);
   p.mask = static_cast<const unsigned char*>(mask);
-  p.gate = nullptr;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.deltas = strides(ds);
@@ -282,8 +273,8 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (design == 1) return (int)dispatch_sm90_bwd(p, s);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
+  if (dtype == e2::kBFloat16) return (int)dispatch_sm90_bwd(p, s);
   if (dtype == e2::kFloat32) return (int)dispatch_bwd_f32(p, s);
   return (int)cudaErrorInvalidValue;
 }

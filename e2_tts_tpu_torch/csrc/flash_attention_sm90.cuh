@@ -1,8 +1,22 @@
-// K8 and K9 for Hopper: flash attention on bf16 (b, h, n, dh) operands with
+// K1 / K2 and K8 / K9 for Hopper: flash attention on bf16 operands with
 // dim_head up to 128, products on wgmma with the scores kept in registers,
 // operand tiles brought in by cp.async while the previous tile computes.
+// K8 / K9 enter from flash_attention_bhnd.cu ((b, h, n, dh) operands, any
+// multiple of 8 up to 128), K1 from flash_attention.cu and K2 from
+// flash_attention_bwd.cu (the packed (b, n, h*dh) projection, dim_head 32,
+// 64, 128): the same kernels, the packed layout being only other strides.
 // f32 operands and heads wider than 128 keep the wmma templates of
-// flash_attention.cuh; ops/flash_attention.py picks the design.
+// flash_attention.cuh. The entry points pick the design from the dtype and
+// dim_head.
+//
+// K1's per-head sigmoid output gate (gate: bf16 (b, n, heads) logits, or
+// null) is folded into the forward's epilogue: each row's 1 / l is
+// multiplied by sigmoid(gate[b, row, h]), taken in f32, so o = (p v) / l *
+// g, and lse stays gate-free, as the TPU kernel folds it. K2's gate is not
+// in this file: K10 writes do_g = bf16(do * g) while it reads do for delta
+// (the point where the TPU kernel rounds it), and the backward reads do_g
+// as its do. Scaling the do tile here instead would redo it once per key
+// block, add a barrier and an async-proxy fence per query tile.
 //
 // What bounds them at the DiT training shape (16, 16 heads, 1056, 72): the
 // tensor cores (K8's two n x n x dh products, K9's five; far above the
@@ -53,9 +67,10 @@
 // The semantics are those of flash_attention.cuh: s = c tanh(scale q k^T /
 // c) + bias (0 or -1e30 for masked keys and keys past n), online softmax,
 // post-softmax counter-hash dropout with the same keep bits, o = (p v) /
-// max(l, 1e-30), lse = m + log l; the backward's p_drop and ds rounded to
-// bf16 before the three products. Scores are kept in log2 units (s log2e);
-// K9 recomputes p with the same tanh.approx / ex2.approx from K8's lse.
+// max(l, 1e-30) (times the gate), lse = m + log l; the backward's p_drop
+// and ds rounded to bf16 before the three products. Scores are kept in log2
+// units (s log2e); the backward recomputes p with the same tanh.approx /
+// ex2.approx from the forward's lse.
 #pragma once
 
 #include <cstdint>
@@ -383,7 +398,11 @@ __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPer
     const int row = row0 + 8 * r;
     if (row >= n) continue;
     const float l_fin = fmaxf(l[r], 1e-30f);
-    const float inv = 1.f / l_fin;
+    float inv = 1.f / l_fin;
+    if (p.gate != nullptr) {
+      const bf16* gate = static_cast<const bf16*>(p.gate);
+      inv *= 1.f / (1.f + expf(-__bfloat162float(gate[((long long)bi * n + row) * p.heads + h])));
+    }
     bf16* orow = og + (long long)row * p.os.r;
 #pragma unroll
     for (int j = 0; j < DHP / 8; ++j)

@@ -13,13 +13,15 @@ probe ``scripts/_kernel_floor.py::kern``. The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10)
 and ``csrc/flash_attention_bhnd.cu`` (K8, K9, the probe). The source notes
 say what bounds them on the H100 and how their designs answer. In short:
-tensor-core bound at the model's shapes. K1/K2, the probe, and K8/K9 on f32
-or on heads wider than 128 share the wmma templates of
-``csrc/flash_attention.cuh`` (score tiles in shared memory); K8/K9 on bf16
-heads up to 128 run the Hopper design of ``csrc/flash_attention_sm90.cuh``
-(wgmma products on register-resident scores, cp.async tile rings, dq by
-vector reductions). `bhnd_design` makes that choice. `_FlashPacked` (K1 +
-K2) and `_Flash` (K8 + K9) are the ``torch.autograd.Function`` s.
+tensor-core bound at the model's shapes. Two designs: bf16 K1/K2 and bf16
+K8/K9 on heads up to 128 run the Hopper design of
+``csrc/flash_attention_sm90.cuh`` (wgmma products on register-resident
+scores, cp.async tile rings, dq by vector reductions); f32, K8/K9 on heads
+wider than 128 and the probe the wmma templates of
+``csrc/flash_attention.cuh`` (score tiles in shared memory).
+The C entry points choose the design from the dtype and dim_head.
+`_FlashPacked` (K1 + K2) and `_Flash` (K8 + K9) are the
+``torch.autograd.Function`` s.
 
 Semantics: tanh softclamp of the scaled logits, key-padding bias 0 / -1e30,
 softmax, post-softmax counter-hash dropout (bits identical to the JAX
@@ -27,7 +29,9 @@ package's ``_keep_tile`` for the global head ``b * heads + h``); K1 also the
 optional per-head sigmoid output gate. The forward also returns the
 per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
 ``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
-same stream, and returns the gate-logit grad ``delta * (1 - sigmoid(gate))``;
+same stream, which for a gated layer also writes ``do_g = do *
+sigmoid(gate)`` in the compute dtype for K2 to read as its output grad; the
+wrapper returns the gate-logit grad ``delta * (1 - sigmoid(gate))``;
 K9 takes delta from a plain PyTorch sum, as the JAX package takes it from
 XLA. K1/K2 take dim_head 32, 64 or 128; K8/K9 any dim_head from 1 to 256:
 the kernels take multiples of 8 (a head wider than 128 as two column
@@ -41,6 +45,7 @@ launches its kernel for CUDA tensors; there is no other route.
 """
 
 from __future__ import annotations
+
 
 import torch
 
@@ -123,14 +128,21 @@ def flash_attention_plain(q, k, v, mask=None, *, scale, softclamp_value=None,
     return o.to(q.dtype), lse
 
 
-def flash_delta_plain(out, dout, heads):
-    """Plain PyTorch version of K10: ``rowsum(dout * out)`` per head, f32
-    ``(b, n, heads)``."""
+def flash_delta_plain(out, dout, heads, gate_logits=None):
+    """Plain PyTorch version of K10: returns ``(delta, do_g)``, ``delta =
+    rowsum(dout * out)`` per head, f32 ``(b, n, heads)``, and ``do_g = dout
+    * sigmoid(gate)`` rounded to dout's dtype for ``gate_logits (b, n,
+    heads)``, dout itself without them. delta takes the ungated dout either
+    way (it is gate-invariant: rowsum(do * o) = rowsum(do_g * o / g))."""
     b, n, D = out.shape
-    return (dout.float() * out.float()).view(b, n, heads, D // heads).sum(-1)
+    delta = (dout.float() * out.float()).view(b, n, heads, D // heads).sum(-1)
+    if not exists(gate_logits):
+        return delta, dout
+    g = torch.sigmoid(gate_logits.float()).repeat_interleave(D // heads, dim=-1)
+    return delta, (dout.float() * g).to(dout.dtype)
 
 
-def _flash_delta_cuda(out, dout, heads):
+def _flash_delta_cuda(out, dout, heads, gate_logits=None):
     b, n, D = out.shape
     device, dtype = out.device, out.dtype
     if dtype not in _cuda.DTYPE_CODES:
@@ -140,21 +152,30 @@ def _flash_delta_cuda(out, dout, heads):
         if tuple(t.shape) != (b, n, D) or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f'{name} must be a contiguous, 16-byte aligned {(b, n, D)} '
                              f'tensor, got shape {tuple(t.shape)} strides {t.stride()}')
+    do_g = None
+    if exists(gate_logits):
+        _cuda.check_cuda_tensor(gate_logits, 'gate_logits', device, dtype)
+        if tuple(gate_logits.shape) != (b, n, heads) or not gate_logits.is_contiguous():
+            raise ValueError('gate_logits must be a contiguous (b, n, heads) tensor')
+        do_g = torch.empty((b, n, D), dtype=dtype, device=device)
     delta = torch.empty((b, n, heads), dtype=torch.float32, device=device)
-    err = _cuda.lib().e2_flash_delta(out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                                     b * n, heads, D // heads, _cuda.DTYPE_CODES[dtype],
-                                     _cuda.stream_ptr(device))
+    err = _cuda.lib().e2_flash_delta(
+        out.data_ptr(), dout.data_ptr(), gate_logits.data_ptr() if exists(gate_logits) else None,
+        do_g.data_ptr() if exists(do_g) else None, delta.data_ptr(), b * n, heads, D // heads,
+        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_delta')
     _cuda.count_launch('flash_delta')
-    return delta
+    return delta, (dout if do_g is None else do_g)
 
 
-def flash_delta(out, dout, *, heads: int):
-    """K10 alone: ``delta = rowsum(dout * out)`` per head of the packed
-    ``(b, n, heads*dh)`` layout, f32 ``(b, n, heads)``."""
+def flash_delta(out, dout, *, heads: int, gate_logits=None):
+    """K10 alone on the packed ``(b, n, heads*dh)`` layout: returns ``(delta,
+    do_g)``, delta ``rowsum(dout * out)`` per head, f32 ``(b, n, heads)``,
+    do_g ``dout * sigmoid(gate)`` in dout's dtype with ``gate_logits``, dout
+    itself without them (no buffer written; see `flash_delta_plain`)."""
     if out.device.type == 'cpu':
-        return flash_delta_plain(out, dout, heads)
-    return _flash_delta_cuda(out, dout, heads)
+        return flash_delta_plain(out, dout, heads, gate_logits)
+    return _flash_delta_cuda(out, dout, heads, gate_logits)
 
 
 def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp_value,
@@ -196,21 +217,22 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
     """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
     where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
     the last None without a gate."""
-    dh = q.shape[-1] // heads
     dt = q.dtype
-    gv = None
-    do = dout
-    if exists(gate_logits):
-        gv = torch.sigmoid(gate_logits.float())                       # (b, n, h)
-        do = (dout.float() * gv.repeat_interleave(dh, dim=-1)).to(dt)
-    delta = flash_delta_plain(out, dout, heads)                        # (b, n, h)
+    delta, do = flash_delta_plain(out, dout, heads, gate_logits)       # K10: (b, n, h)
     grads = _backward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
         _split_heads(do, heads), delta.permute(0, 2, 1), mask, lse, dt, scale,
         softclamp_value, dropout_rate, dropout_seed)
     dq, dk, dv = (_merge_heads(g).to(dt) for g in grads)
-    dgate = (delta * (1.0 - gv)).to(gate_logits.dtype) if exists(gv) else None
-    return dq, dk, dv, dgate
+    return dq, dk, dv, _gate_grad(delta, gate_logits)
+
+
+def _gate_grad(delta, gate_logits):
+    """The gate-logit grad ``delta * (1 - sigmoid(gate))`` (None without a
+    gate), outside the kernels as the JAX package computes it."""
+    if not exists(gate_logits):
+        return None
+    return (delta * (1.0 - torch.sigmoid(gate_logits.float()))).to(gate_logits.dtype)
 
 
 def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, *, scale,
@@ -295,7 +317,8 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
     if tuple(lse.shape) != (b * heads, n) or not lse.is_contiguous():
         raise ValueError('lse must be a contiguous (b * heads, n) f32 tensor')
 
-    delta = _flash_delta_cuda(out, dout, heads)           # K10, same stream
+    # K10, same stream; a gated layer's K2 reads K10's do_g as its do
+    delta, dout = _flash_delta_cuda(out, dout, heads, gate_logits)
     dq = torch.zeros((b, n, D), dtype=torch.float32, device=device)
     dk = torch.empty((b, n, D), dtype=dtype, device=device)
     dv = torch.empty((b, n, D), dtype=dtype, device=device)
@@ -304,7 +327,6 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         dout.data_ptr(), mask.data_ptr() if exists(mask) else None,
-        gate_logits.data_ptr() if exists(gate_logits) else None,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, n, heads, dh, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
@@ -313,10 +335,7 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
         _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_bwd')
     _cuda.count_launch('flash_bwd')
-    dgate = None
-    if exists(gate_logits):
-        dgate = (delta * (1.0 - torch.sigmoid(gate_logits.float()))).to(gate_logits.dtype)
-    return dq.to(dtype), dk, dv, dgate
+    return dq.to(dtype), dk, dv, _gate_grad(delta, gate_logits)
 
 
 def _check_rate(dropout_rate):
@@ -428,16 +447,6 @@ def _padded_dim_head(dh):
     return -(-dh // 8) * 8
 
 
-BHND_DESIGNS = {'wmma': 0, 'sm90': 1}    # the ``design`` codes of csrc/flash_attention_bhnd.cu
-
-
-def bhnd_design(dtype, dh: int) -> str:
-    """The K8 / K9 design for a head of ``dh`` (a multiple of 8) columns:
-    ``'sm90'`` (wgmma, flash_attention_sm90.cuh) for bf16 heads up to 128,
-    ``'wmma'`` (flash_attention.cuh) for f32 and for heads wider than 128."""
-    return 'sm90' if dtype == torch.bfloat16 and dh <= 128 else 'wmma'
-
-
 def _pad_head(t, dhp):
     return torch.nn.functional.pad(t, (0, dhp - t.shape[-1]))
 
@@ -485,7 +494,7 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
         int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
-        _cuda.DTYPE_CODES[dtype], BHND_DESIGNS[bhnd_design(dtype, dh)], _cuda.stream_ptr(device))
+        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd_bhnd')
     _cuda.count_launch('flash_fwd_bhnd')
     return out, lse
@@ -532,8 +541,7 @@ def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclam
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
         int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
-        _cuda.DTYPE_CODES[q.dtype], BHND_DESIGNS[bhnd_design(q.dtype, dh)],
-        _cuda.stream_ptr(q.device))
+        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device))
     _cuda.check(err, 'flash_bwd_bhnd')
     _cuda.count_launch('flash_bwd_bhnd')
 

@@ -19,7 +19,9 @@ held to 2e-3 + 1e-3 |ref| (the JAX package's tolerance between its mel
 modes: 1024-term f32 sums in other orders, amplified by the log in quiet
 bins); K10's f32 sums to 1e-5 relative plus 1e-5 of the largest |ref|.
 K8 / K9 as K1 / K2; the probe's bf16 output within 1e-2 |ref| plus 1e-2
-of the largest |ref| (see the test).
+of the largest |ref| (see the test). K10's do_g as the dtype's outputs
+(one ulp: the kernel's expf and torch's sigmoid may differ in the last
+bit before the rounding).
 """
 
 import pytest
@@ -194,10 +196,28 @@ def test_flash_delta_kernel(dev, dtype, shape):
     b, n, h, dh = shape
     o, do = (torch.randn(b, n, h * dh, generator=g, device=dev).to(dtype) for _ in range(2))
     before = _cuda.launch_counts['flash_delta']
-    got = fa.flash_delta(o, do, heads=h)
+    got, do_g = fa.flash_delta(o, do, heads=h)
     assert _cuda.launch_counts['flash_delta'] == before + 1
-    ref = fa.flash_delta_plain(o, do, h)
+    assert do_g is do                                   # ungated: no do_g buffer
+    ref, _ = fa.flash_delta_plain(o, do, h)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(16, 1056, 8, 64), (3, 333, 4, 32), (2, 65, 2, 128)])
+def test_flash_delta_kernel_gated(dev, dtype, shape):
+    """The gated K10: delta as without the gate, and do_g = do * sigmoid(gate)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, n, h, dh = shape
+    o, do = (torch.randn(b, n, h * dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(dtype)
+    before = _cuda.launch_counts['flash_delta']
+    delta, do_g = fa.flash_delta(o, do, heads=h, gate_logits=gate)
+    assert _cuda.launch_counts['flash_delta'] == before + 1
+    ref_delta, ref_do_g = fa.flash_delta_plain(o, do, h, gate)
+    torch.testing.assert_close(delta, ref_delta, rtol=1e-5,
+                               atol=1e-5 * float(ref_delta.abs().max()))
+    _close(do_g, ref_do_g, dtype)
 
 
 def test_wrappers_keep_the_graph(dev):
@@ -484,7 +504,7 @@ def _sm90_inputs(dev, b, n, h, dh, seed):
 
 def _check_sm90(q, k, v, mask, dout, **kw):
     dh = q.shape[-1]
-    assert fa.bhnd_design(q.dtype, -(-dh // 8) * 8) == 'sm90'
+    assert q.dtype == torch.bfloat16 and dh <= 128           # the Hopper design
     before = dict(_cuda.launch_counts)
     out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
     got = fa.flash_attention_backward(q, k, v, mask, out, lse, dout, **kw)
@@ -567,3 +587,101 @@ def test_remat_matches_no_remat_bf16(dev):
     (loss_on, grads_on), (loss_off, grads_off) = results
     assert loss_on == loss_off
     _close_grads(grads_on, grads_off, torch.bfloat16)
+
+
+# -- K1 / K2 on the Hopper design (flash_attention_sm90.cuh) ----------------------------
+
+def _packed_inputs(dev, b, n, h, dh, seed, gated=True):
+    """bf16 q, k, v as views of one (b, n, 3 h dh) projection, a ragged key
+    mask (the second row keeps half its keys), gate logits ~N(0, 2^2) and an
+    output grad."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.split(h * dh, dim=-1)
+    lens = torch.tensor([n, max(1, n // 2)], device=dev)[:b]
+    mask = torch.arange(n, device=dev)[None] < lens[:, None]
+    gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(torch.bfloat16)
+    dout = torch.randn(b, n, h * dh, generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v, mask, gate if gated else None, dout
+
+
+def _drop_none(ts):
+    return tuple(t for t in ts if t is not None)
+
+
+def _check_packed_sm90(q, k, v, mask, gate, dout, heads, **kw):
+    """K1 then K2 (with K10) on the Hopper design against the plain versions;
+    returns the kernels' (out, lse) and grads."""
+    dh = q.shape[-1] // heads
+    before = dict(_cuda.launch_counts)
+    out, lse = fa.flash_attention_packed(q, k, v, mask, heads=heads, gate_logits=gate,
+                                         return_lse=True, **kw)
+    got = fa.flash_attention_packed_backward(q, k, v, mask, out, lse, dout, heads=heads,
+                                             gate_logits=gate, **kw)
+    for name in ('flash_fwd', 'flash_bwd', 'flash_delta'):
+        assert _cuda.launch_counts[name] == before[name] + 1
+    _close((out, lse), fa.flash_attention_packed_plain(q, k, v, mask, heads=heads,
+                                                       scale=dh ** -0.5, gate_logits=gate,
+                                                       **kw), torch.bfloat16)
+    ref = fa.flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, heads=heads,
+                                                   scale=dh ** -0.5, gate_logits=gate, **kw)
+    assert (got[3] is None) == (gate is None)
+    _close_grads(_drop_none(got), _drop_none(ref), torch.bfloat16)
+    return (out, lse), got
+
+
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 314, 1056])
+@pytest.mark.parametrize('dh', [32, 64, 128])
+def test_flash_packed_sm90_every_head_and_length(dev, dh, n):
+    """The Hopper K1 / K2 at every head they take, lengths around the 64-row
+    tile and the duration predictor's 314, a ragged mask, the gate,
+    softclamp 50 and dropout 0.1, against the plain versions."""
+    _check_packed_sm90(*_packed_inputs(dev, 2, n, 2, dh, seed=dh + n), heads=2,
+                       softclamp_value=50.0, dropout_rate=0.1, dropout_seed=11)
+
+
+@pytest.mark.parametrize('gated', [False, True])
+@pytest.mark.parametrize('softclamp', [None, 50.0])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+def test_flash_packed_sm90_gate_softclamp_and_dropout(dev, gated, softclamp, rate):
+    """Gate, softclamp and dropout each on and off, at the flagship's heads."""
+    _check_packed_sm90(*_packed_inputs(dev, 2, 300, 8, 64, seed=4, gated=gated), heads=8,
+                       softclamp_value=softclamp, dropout_rate=rate, dropout_seed=5)
+
+
+def test_flash_packed_sm90_keeps_the_gate(dev):
+    """A gated layer keeps its gate: K1's output is far from the ungated
+    plain version's, and K2's grads far from those the plain backward gives
+    when it reads the ungated output grad (what K2 would give reading dout
+    in place of K10's do_g)."""
+    q, k, v, mask, gate, dout = _packed_inputs(dev, 2, 300, 8, 64, seed=6)
+    kw = dict(heads=8, softclamp_value=50.0, dropout_rate=0.1, dropout_seed=3)
+    (out, lse), got = _check_packed_sm90(q, k, v, mask, gate, dout, **kw)
+    ungated, _ = fa.flash_attention_packed_plain(q, k, v, mask, scale=64 ** -0.5, **kw)
+    assert (out.float() - ungated.float()).abs().max() > 10 * TOL[torch.bfloat16]['atol']
+    wrong = fa.flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout,
+                                                     scale=64 ** -0.5, **kw)
+    for g, w in zip(got[:3], wrong[:3]):
+        with pytest.raises(AssertionError):
+            _close_grads((g,), (w,), torch.bfloat16)
+
+
+@pytest.mark.parametrize('gated', [False, True])
+def test_flash_packed_sm90_keep_bits(dev, gated):
+    """The keep bits of the Hopper K1 / K2 are `dropout_keep_mask`'s, bit for
+    bit: with q = k = 0 every probability is 1 / n, so with each head's v
+    (forward) and do (backward) the identity, o = keep g / ((1 - rate) n)
+    and dv its transpose (g = sigmoid(0) = 1/2 when gated): each element is
+    positive exactly where a key is kept."""
+    b, h, n, rate, seed = 2, 3, 64, 0.25, 1234
+    zeros = torch.zeros(b, n, h * n, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(n, device=dev, dtype=torch.bfloat16).repeat(b, 1, h).contiguous()
+    gate = torch.zeros(b, n, h, device=dev, dtype=torch.bfloat16) if gated else None
+    keep = fa.dropout_keep_mask(seed, b * h, n, rate, device=dev).view(b, h, n, n)
+    kw = dict(heads=h, dropout_rate=rate, dropout_seed=seed, gate_logits=gate)
+    out, lse = fa.flash_attention_packed(zeros, zeros, eye, return_lse=True, **kw)
+    heads_of = lambda t: t.view(b, n, h, n).transpose(1, 2)
+    assert torch.equal(heads_of(out) > 0, keep)
+    _, _, dv, _ = fa.flash_attention_packed_backward(zeros, zeros, eye, None, out, lse, eye,
+                                                     **kw)
+    assert torch.equal(heads_of(dv) > 0, keep.transpose(-1, -2))

@@ -65,14 +65,21 @@ def _attn_case(seed, b=2, n=128, heads=4, dh=32, qk_scale=1.0):
     return q, k, v, mask, gate, dout
 
 
-@pytest.mark.parametrize('gated', [False, True])
-@pytest.mark.parametrize('rate', [0.0, 0.1])
-@pytest.mark.parametrize('softclamp', [50.0, 2.0], ids=['softclamp50', 'softclamp2'])
-def test_flash_backward_matches_jax_kernel(interpret, gated, rate, softclamp):
-    """dq, dk, dv and d gate_logits of the plain K2 against jax.vjp through
-    `_packed_bwd_kernel`; softclamp 2 puts the scores (~N(0, 1) scaled by 3)
-    deep into the tanh, so its Jacobian matters."""
-    q, k, v, mask, gate, dout = _attn_case(seed=int(gated) + 2 * int(rate > 0),
+# every gate / dropout / softclamp combination at dim_head 32, and K2's other
+# head widths gated with dropout 0.1 and softclamp 50
+_BWD_CASES = [pytest.param(gated, rate, softclamp, 32, id=f'softclamp{softclamp:g}-{rate}-{gated}')
+              for softclamp in (50.0, 2.0) for rate in (0.0, 0.1) for gated in (False, True)]
+_BWD_CASES += [pytest.param(True, 0.1, 50.0, dh, id=f'softclamp50-0.1-True-dh{dh}')
+               for dh in (64, 128)]
+
+
+@pytest.mark.parametrize('gated, rate, softclamp, dh', _BWD_CASES)
+def test_flash_backward_matches_jax_kernel(interpret, gated, rate, softclamp, dh):
+    """dq, dk, dv and d gate_logits of the plain K2 (a gated layer's do gated
+    by the plain K10) against jax.vjp through `_packed_bwd_kernel`, which
+    gates do inside its tile loop; softclamp 2 puts the scores (~N(0, 1)
+    scaled by 3) deep into the tanh, so its Jacobian matters."""
+    q, k, v, mask, gate, dout = _attn_case(seed=int(gated) + 2 * int(rate > 0), dh=dh,
                                            qk_scale=3.0 if softclamp == 2.0 else 1.0)
     seed, heads = 4321, 4
     kw = dict(heads=heads, softclamp_value=softclamp, dropout_rate=rate)
@@ -133,11 +140,30 @@ def test_flash_delta_matches_jax_kernel(interpret, shape):
     b, n, heads, dh = shape
     rng = np.random.default_rng(n)
     o, do = (rng.standard_normal((b, n, heads * dh)).astype(np.float32) for _ in range(2))
-    port = fa.flash_delta(_t(o), _t(do), heads=heads)
+    do_t = _t(do)
+    port, do_g = fa.flash_delta(_t(o), do_t, heads=heads)
     assert port.shape == (b, n, heads) and port.dtype == torch.float32
+    assert do_g is do_t                                 # ungated: do itself, no copy
     for ref in (jfa._delta_bnh_pallas(jnp.asarray(o), jnp.asarray(do), heads),
                 jfa._delta_bnh_xla(jnp.asarray(o), jnp.asarray(do), heads)):
         _close(port.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_gated_flash_delta_plain(dtype):
+    """The gated K10's plain version: the same delta as without the gate
+    (the ungated do against o), and do_g = do * sigmoid(gate) per head,
+    rounded to do's dtype, bit for bit."""
+    b, n, heads, dh = 2, 37, 4, 64
+    rng = np.random.default_rng(5)
+    o, do = (_t(rng.standard_normal((b, n, heads * dh)).astype(np.float32)).to(dtype)
+             for _ in range(2))
+    gate = _t(2 * rng.standard_normal((b, n, heads)).astype(np.float32)).to(dtype)
+    delta, do_g = fa.flash_delta(o, do, heads=heads, gate_logits=gate)
+    assert torch.equal(delta, fa.flash_delta(o, do, heads=heads)[0])
+    g = torch.sigmoid(gate.float())[..., None]
+    ref = (do.float().view(b, n, heads, dh) * g).to(dtype).view(b, n, heads * dh)
+    assert do_g.dtype == dtype and torch.equal(do_g, ref)
 
 
 # -- K5b / K4: hyper-connection width-connection adjoints -------------------------------
