@@ -9,9 +9,9 @@ K9 (flash_attention_bhnd.cu and its wide-head source) and K1 / K2 / K10
 with nvcc into build/ (every nvcc at once), and times each pair in turns
 (other, this, this, other) as device time per call, 100 calls captured in a
 CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
-frequency tiles as its wrapper splits it), K5b / K4 at the flagship's
-training shape (4 streams, 16896 rows, width 512, bf16, 8 warps a block,
-264 blocks), K8 at the DiT sampler's and training shapes (1 and 16, 16
+frequency tiles as its wrapper splits it), K5b / K4 at the training shapes
+(4 streams, 16896 rows, widths 256, 512, 576, 1024 and 1152, bf16), each
+checkout at the launch geometry its own wrapper computes, K8 at the DiT sampler's and training shapes (1 and 16, 16
 heads, 1056, 72; bf16, softclamp 50; dropout 0.1 at 16) and K9 at the
 training shape, its launch alone and with the wrapper's PyTorch work
 (delta, the dq fill and cast); K1 gated at the flagship sampler's shape (1,
@@ -19,13 +19,13 @@ training shape, its launch alone and with the wrapper's PyTorch work
 0.1, and K2 with its wrapper's work (K10, the dq fill and cast, the gate
 grad) at the flagship's and the paper's training shapes (16, 1056, 8 x 64
 and 16 x 64), gated, dropout 0.1, softclamp 50. The other checkout's
-adjoint may predate the warps argument (it then ran 8 warps a block at this
-width); its K8 / K9 may take a `design` argument (it is passed as 1, the
+adjoint may predate the warps argument (it then ran 8 warps a block); its K8 / K9 may take a `design` argument (it is passed as 1, the
 Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
 design, K2 gating do itself and K10 writing delta alone). Prints one line
 per kernel with the card's name and power limit.
 """
 import ctypes
+import importlib.util
 import os
 import subprocess
 import sys
@@ -128,37 +128,51 @@ def main():
                           spec.fbanks.data_ptr(), n_mels, out.data_ptr(), part.data_ptr(),
                           nsplit, 1.0, stream())
 
-    # K5b / K4 at (4, 16896, 512) bf16
-    s, m, d = 4, 16896, 512
+    # K5b / K4 at (4, 16896, d) bf16, each checkout at its own wrapper's
+    # launch geometry (warps, blocks)
+    s, m = 4, 16896
     rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=g, device=dev) * scale)
     bf = torch.bfloat16
-    res, branch, beta = rnd(s, m, d).to(bf), rnd(m, d).to(bf), rnd(s, m, scale=0.5).to(bf)
-    gb0, gcar, gbeta = rnd(m, d).to(bf), rnd(s, m, d).to(bf), rnd(s, m).to(bf)
-    sa, sb = torch.eye(s, s + 1, device=dev), torch.ones(s, device=dev)
-    aw, bw = rnd(d, s + 1, scale=0.05), rnd(d, scale=0.05)
-    asc = bsc = torch.tensor(0.5, device=dev)
-    blocks, np_ = 264, (s + 2) * d + s * (s + 2) + 2
-    partials = torch.empty(blocks, np_, device=dev)
-    row = torch.empty(np_, device=dev)
-    outs = [torch.empty_like(res), torch.empty_like(branch), torch.empty_like(beta)]
-    params = [t.data_ptr() for t in (sa, sb, aw, bw, asc, bsc)]
+    hc_inputs = {}
 
-    def bwd(lib, tag, fused):
+    def geometry(tag, d):
+        root = dict(roots)[tag]
+        spec = importlib.util.spec_from_file_location(
+            f'hck_{tag}', os.path.join(root, 'e2_tts_tpu_torch', 'ops', 'hyper_conn_kernel.py'))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if hasattr(mod, '_bwd_geometry'):
+            return mod._bwd_geometry(s, m, d, bf, False)
+        warps = mod._bwd_warps(s, d) if hasattr(mod, '_bwd_warps') else 8
+        return warps, max(1, min(-(-m // warps), mod._BWD_MAX_BLOCKS))
+
+    def bwd(lib, tag, fused, d):
+        if d not in hc_inputs:
+            hc_inputs[d] = dict(
+                ins=[rnd(s, m, d).to(bf), rnd(m, d).to(bf), rnd(s, m, scale=0.5).to(bf)],
+                grads=[rnd(m, d).to(bf), rnd(s, m, d).to(bf), rnd(s, m).to(bf)],
+                params=[torch.eye(s, s + 1, device=dev), torch.ones(s, device=dev),
+                        rnd(d, s + 1, scale=0.05), rnd(d, scale=0.05),
+                        torch.tensor(0.5, device=dev), torch.tensor(0.5, device=dev)])
+        t = hc_inputs[d]
+        warps, blocks = geometry(tag, d)
+        np_ = (s + 2) * d + s * (s + 2) + 2
+        partials = torch.empty(blocks, np_, device=dev)
+        row = torch.empty(np_, device=dev)
+        ins = t['ins'] if fused else t['ins'][:1]
+        outs = [torch.empty_like(x) for x in ins]
         name = 'e2_hc_width_fused_bwd' if fused else 'e2_hc_width_bwd'
         fn = getattr(lib, name)
-        ins = [res, branch, beta] if fused else [res]
-        o = outs if fused else outs[:1]
-        warps = [] if tag == 'other' and old_bwd else [ctypes.c_int(8)]
-        args = lambda: [*(t.data_ptr() for t in ins), gb0.data_ptr(), gcar.data_ptr(),
-                        gbeta.data_ptr(), *params, *(t.data_ptr() for t in o),
-                        partials.data_ptr(), row.data_ptr()]
         fn.restype = ctypes.c_int
+        warps_arg = [] if tag == 'other' and old_bwd else [ctypes.c_int(warps)]
+        args = [P(x.data_ptr()) for x in (*ins, *t['grads'], *t['params'], *outs, partials, row)]
 
         def call():
-            err = fn(*(P(a) for a in args()), ctypes.c_int(blocks), *warps, ctypes.c_int(s),
+            err = fn(*args, ctypes.c_int(blocks), *warps_arg, ctypes.c_int(s),
                      ctypes.c_longlong(m), ctypes.c_int(d), ctypes.c_int(1), P(stream()))
             if err:
                 raise RuntimeError(f'{name} failed to launch: cudaError {err}')
+        call.tensors = (partials, row, outs)
         return call
 
     # K8 / K9 on (b, h, n, dh) views of one packed projection, as the model has them
@@ -304,8 +318,9 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip()
     for label, make in (('K11 prompt', lambda tag: mel(libs[tag][0])),
-                        ('K5b (4,16896,512) bf16', lambda tag: bwd(libs[tag][1], tag, False)),
-                        ('K4 (4,16896,512) bf16', lambda tag: bwd(libs[tag][1], tag, True)),
+                        *((f'{k} (4,16896,{d}) bf16',
+                           lambda tag, d=d, fused=k == 'K4': bwd(libs[tag][1], tag, fused, d))
+                          for d in (256, 512, 576, 1024, 1152) for k in ('K5b', 'K4')),
                         ('K8 (1,16,1056,72) bf16 softclamp 50',
                          lambda tag: k8(tag, *sampler, 0.0)),
                         ('K8 (16,16,1056,72) bf16 softclamp 50 dropout 0.1',

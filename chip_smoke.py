@@ -15,9 +15,14 @@ exit code and no result line:
    (b, h, n, dh) operands, for heads K1 does not take; dim_head 8 to 256,
    and 12, zero-padded), K3 / K5
    (hyper-connection width connection, depth-fused and plain) and their
-   adjoints K4 / K5b (also at 2, 3 and 8 streams and widths 32 to 2048), the
+   adjoints K4 / K5b (also at 2, 3 and 8 streams and widths 32 to 2048; the
+   Hopper design at 4 bf16 streams also at widths 1 to 4840 with a zero row,
+   a ragged M of 16819 with two calls bit for bit, and M = 1), the
    save-state variants K3s / K5s (outputs bit for bit K3 / K5's, and the
-   saved tanh and rms reciprocal) and K4s / K5bs (also against K4 / K5b),
+   saved tanh and rms reciprocal) and K4s / K5bs (also against K4 / K5b:
+   1e-5 where both run one template; bf16 at 4 streams, where K4 / K5b run
+   the Hopper design, the bf16 stream grads at one bf16 ulp and the six
+   f32 parameter grads as one vector at 1e-3 relative L2),
    K6 (GEGLU) and its backward K7, K11 (the fused log-mel frontend; also at
    160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
    stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
@@ -48,7 +53,11 @@ exit code and no result line:
    them there, not of the function (polynomials on the FMA pipes could
    share the work), so `bound_ms` stays bytes against tensor-core products.
    The build's `ptxas` lines give the registers and spills of the Hopper
-   design (csrc/flash_attention_sm90.cuh: bf16 K1 / K2 and K8 / K9). Then
+   designs (csrc/flash_attention_sm90.cuh: bf16 K1 / K2 and K8 / K9;
+   csrc/hyper_conn_bwd_sm90.cuh: bf16 K4 / K5b at 4 streams, built in
+   hyper_conn_bwd.cu) and of the save variants' templates
+   (hyper_conn_bwd_save.cu). K4 / K5b are timed at the flagship's, the
+   paper's and DiT's training widths (512, 1024, 1152). Then
    `hc save A/B` lines: the hyper-connection forward and adjoint,
    recomputing and saving, and the pairs' sums, at the training shape for widths 512, 1024 and 1152; and
    the `yardstick` line: K8 / K9 without softclamp and dropout beside
@@ -256,6 +265,30 @@ def compare(out, ref, atol, rtol, scaled=False):
     return max_err, worst
 
 
+# the parameter grads of K5b / K4 (the last six outputs), in order
+HC_PARAM_GRADS = ('static_alpha', 'static_beta', 'dyn_alpha_w', 'dyn_alpha_scale',
+                  'dyn_beta_w', 'dyn_beta_scale')
+# K5bs / K4s against the Hopper K5b / K4, each parameter grad on its own:
+# the static grads at 1e-5 max|ref| + 1e-5|ref|; the dynamic weights and
+# scales, which sum products with gp (rounded to bf16, so another order
+# flips a few gp by an ulp), at 3e-4 max|ref|
+HC_GP_GRAD_LIMIT = 3e-4
+
+
+def hc_param_xcheck(got, ref):
+    """(text, ok) of the six parameter grads ``got`` against ``ref`` at the
+    limits above; the text gives each grad's worst |err| over its limit."""
+    ratios = []
+    for name, o, r in zip(HC_PARAM_GRADS, got[-6:], ref[-6:]):
+        o, r = o.float(), r.float()
+        if name.startswith('static'):
+            ratios.append(compare(o, r, 1e-5, 1e-5, scaled=True)[1])
+        else:
+            ratios.append(float((o - r).abs().max()) / (HC_GP_GRAD_LIMIT * float(r.abs().max())))
+    text = ', '.join(f'{n} {x:.3f}' for n, x in zip(HC_PARAM_GRADS, ratios))
+    return text, max(ratios) <= 1.0
+
+
 # -- phase 3: kernels -----------------------------------------------------------
 
 def kernel_cases(torch, dev):
@@ -400,33 +433,42 @@ def kernel_cases(torch, dev):
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
             peak=PEAK_F32_FLOPS))        # the kernel's arithmetic is f32 FMA
 
-    def hc_bwd_case(label, s, m, d, dtype, fused, timed=False):
+    def hc_bwd_case(label, s, m, d, dtype, fused, timed=False, zero_row=False, bit_equal=False):
+        """K4 / K5b against the plain adjoint; ``zero_row`` puts the rms
+        statistic of row 5 on its clamp, ``bit_equal`` also holds two calls
+        bit for bit."""
         params = hc_params(s, d)
         es = esize(dtype)
         grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
+        zeros = hc_inputs(s, m, d, dtype, fused) if zero_row else None
         param_bytes = ((s + 2) * d + s * (s + 2) + 2) * 4 * 2      # read and written
         grad_in_bytes = ((s + 1) * m * d + s * m) * es
         # per row and stream: rms stat, projection, mix adjoint, back-projection,
         # weight grad, rms adjoint, residual grad
         flops = m * s * d * (4 + 6 * (s + 2) + 4 * (s + 1) + 6)
         if fused:
-            carried, branch, beta = randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype), \
-                randn(s, m, dtype=dtype, scale=0.5)
-            args = (carried, branch, beta)
+            args = zeros or (randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype),
+                             randn(s, m, dtype=dtype, scale=0.5))
             run = lambda: hck.width_connection_fused_backward(*args, *params, *grads)
             plain = lambda: hck.width_connection_fused_backward_plain(*args, *params, *grads)
             io_bytes = 2 * ((s + 1) * m * d + s * m) * es      # inputs, and their grads
             flops += 6 * m * s * d
         else:
-            res = randn(s, m, d, dtype=dtype)
+            res = zeros[0] if zeros else randn(s, m, d, dtype=dtype)
             run = lambda: hck.width_connection_backward(res, *params, *grads)
             plain = lambda: hck.width_connection_backward_plain(res, *params, *grads)
             io_bytes = 2 * s * m * d * es
-        cases.append(dict(
+        case = dict(
             kernel='K4' if fused else 'K5b', label=label, run=run, plain=plain, scaled=True,
             timed=timed,
             tol=tol[dtype], nbytes=io_bytes + grad_in_bytes + param_bytes, flops=flops,
-            peak=PEAK_F32_FLOPS))
+            peak=PEAK_F32_FLOPS)
+        if bit_equal:
+            def extra():
+                same = all(torch.equal(a, b) for a, b in zip(run(), run()))
+                return f'; two calls bit-equal: {same}', same
+            case['extra'] = extra
+        cases.append(case)
 
     def hc_inputs(s, m, d, dtype, fused):
         """Streams with a zero row (row 5: the rms statistic on its clamp)."""
@@ -477,8 +519,9 @@ def kernel_cases(torch, dev):
 
     def hc_bwd_save_case(label, s, m, d, dtype, fused, timed=False):
         """K5bs / K4s from K5s / K3s's state against the plain save adjoint
-        (K4 / K5b's limits); beside it, against K5b / K4 (rel 1e-5 of each
-        tensor's max |ref|)."""
+        (K4 / K5b's limits); beside it, against K5b / K4: 1e-5 max|ref| +
+        1e-5|ref| where one template runs both, else as `hc_param_xcheck`
+        and the stream grads at one bf16 ulp."""
         params, es = hc_params(s, d), esize(dtype)
         ins = hc_inputs(s, m, d, dtype, fused)
         grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
@@ -489,8 +532,29 @@ def kernel_cases(torch, dev):
         _, state = fwd(*ins, *params, save_state=True)
 
         def extra():
-            _, worst = compare(bwd(*ins, *params, *grads, state=state),
-                               bwd(*ins, *params, *grads), 1e-5, 1e-5, scaled=True)
+            got, rec = bwd(*ins, *params, *grads, state=state), bwd(*ins, *params, *grads)
+            if dtype == bf16 and s == 4:
+                # K5b / K4 run the Hopper design there and sum in another
+                # order: the bf16 stream grads at one bf16 ulp, each
+                # parameter grad at its limit (hc_param_xcheck); two planted
+                # faults must fail those limits: row 0 left out (K5b / K4
+                # with row 0's incoming grads zero) and dyn_beta_scale's
+                # grad 30% off. Beside it, unchecked, the plain version
+                # (f32, a third order) against K5bs / K4s at the same limits
+                text, ok = hc_param_xcheck(got, rec)
+                _, w_str = compare(got[:-6], rec[:-6], 1e-5, 2 ** -7, scaled=True)
+                drop = tuple(g.clone() for g in grads)
+                drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
+                t_drop, ok_drop = hc_param_xcheck(got, bwd(*ins, *params, *drop))
+                _, ok_scale = hc_param_xcheck(got, (*rec[:-1], rec[-1] * 0.7))
+                t_plain, _ = hc_param_xcheck(bplain(*ins, *params, *grads, state=state), got)
+                return (f'; against {"K4" if fused else "K5b"} (Hopper design): parameter '
+                        f'grads, ratio to limit: {text}; stream grads worst ratio {w_str:.3f} '
+                        f'(|err| <= 1e-5 max|ref| + 2^-7|ref|); planted faults fail: row 0 '
+                        f'left out {not ok_drop} ({t_drop}), dyn_beta_scale grad x0.7 '
+                        f'{not ok_scale}; plain version against K5bs / K4s: {t_plain}'), \
+                    ok and w_str <= 1.0 and not ok_drop and not ok_scale
+            _, worst = compare(got, rec, 1e-5, 1e-5, scaled=True)
             return (f'; against {"K4" if fused else "K5b"}: worst ratio {worst:.3f} '
                     f'(|err| <= 1e-5 max|ref| + 1e-5|ref|)'), worst <= 1.0
 
@@ -736,8 +800,22 @@ def kernel_cases(torch, dev):
         hc_case(f'{tag} DiT text (4,1056,576) bf16', 4, n, 576, bf16, fused)
         hc_bwd_case(f'{tag} DiT train speech (4,{M},1152) bf16', 4, M, 1152, bf16, fused,
                     timed=True)
+        hc_bwd_case(f'{tag} paper train speech (4,{M},1024) bf16', 4, M, 1024, bf16, fused,
+                    timed=True)
         hc_bwd_case(f'{tag} DiT train text (4,{M},576) bf16', 4, M, 576, bf16, fused)
         hc_bwd_case(f'{tag} f32 M=333 d=1152', 4, 333, 1152, f32, fused)
+    # the Hopper K5b / K4 (bf16, 4 streams) at every width from 1 to
+    # max_dim(4) with a zero row, a ragged M (and two calls bit for bit), M = 1
+    for fused in (False, True):
+        tag = 'fused' if fused else 'plain'
+        for d in (1, 7, 256, 512, 576, 1000, 1024, 1152, 2048, 4840):
+            hc_bwd_case(f'{tag} M=2000 d={d} bf16 zero row', 4, 2000, d, bf16, fused,
+                        zero_row=True)
+        for d in (1024, 1152):
+            hc_bwd_case(f'{tag} ragged M={M - 77} d={d} bf16 zero row', 4, M - 77, d, bf16, fused,
+                        zero_row=True, bit_equal=True)
+        for d in (7, 1024, 4840):
+            hc_bwd_case(f'{tag} M=1 d={d} bf16', 4, 1, d, bf16, fused)
     # the save-state variants: first (timed, the JSON line's) at the E2-TTS
     # paper's training shape, speech width 1024; the flagship's and DiT's
     # widths timed too; small cases at other stream counts, f32, a ragged M
@@ -750,6 +828,12 @@ def kernel_cases(torch, dev):
                                  (3, 100, f32, 'f32'), (8, 2048, bf16, 'bf16')):
             hc_save_case(f'{tag} s={s_} M=2000 d={d} {label}', s_, 2000, d, dt, fused)
             hc_bwd_save_case(f'{tag} s={s_} M=1999 d={d} {label}', s_, 1999, d, dt, fused)
+    # the Hopper K5b / K4 at widths that copy 8-byte (100) and 4-byte (250)
+    # pieces, each ending in a part chunk
+    for fused in (False, True):
+        for d in (100, 250):
+            hc_bwd_case(f'{"fused" if fused else "plain"} M=2000 d={d} bf16 zero row', 4, 2000, d,
+                        bf16, fused, zero_row=True)
     # any stream count and width (the JAX kernels take any)
     for s_ in (2, 3, 8):
         for d in (32, 64, 100, 768, 1024):
@@ -1325,6 +1409,12 @@ def profile_run(torch, run, trace_name):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f'  device {e.key[:60]:60s} calls={e.count:5d} '
             f'device_ms={e.self_device_time_total / 1e3:.3f}')
+    # the hyper-connection kernels (K3 / K5, K4 / K5b and the adjoints'
+    # partial-row sum), whatever their rank
+    for e in sorted(events, key=lambda e: -e.self_device_time_total):
+        if '::hc_' in e.key:
+            log(f'  hc     {e.key[:80]:80s} calls={e.count:5d} '
+                f'device_ms={e.self_device_time_total / 1e3:.3f}')
     aten = [e for e in averages if e.key.startswith('aten::')]
     for e in sorted(aten, key=lambda e: -e.cpu_time_total)[:8]:
         log(f'  host   {e.key[:60]:60s} calls={e.count:5d} '
@@ -1854,8 +1944,10 @@ def main() -> int:
     log(f'build: nvcc sm_90a {len(list(_cuda.CSRC.glob("*.cu")))} sources '
         f'seconds={_cuda.build_seconds:.2f}')
     _cuda.lib()
-    for source in ('flash_attention.cu', 'flash_attention_bwd.cu', 'flash_attention_bhnd.cu'):
-        for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, '4sm90'):
+    for source, marker in (('flash_attention.cu', '4sm90'), ('flash_attention_bwd.cu', '4sm90'),
+                           ('flash_attention_bhnd.cu', '4sm90'), ('hyper_conn_bwd.cu', 'kernel'),
+                           ('hyper_conn_bwd_save.cu', 'kernel')):
+        for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, marker):
             log(f'ptxas {source} {name}: {regs} registers, {spill_st} bytes spill stores, '
                 f'{spill_ld} bytes spill loads')
 

@@ -1,5 +1,8 @@
 // K5b and K4 (and their save-state variants K5bs and K4s): adjoints of the
-// hyper-connection width connection for the H100 (sm_90a).
+// hyper-connection width connection for the H100 (sm_90a). These templates
+// run f32, bf16 at 2, 3 and 5-8 streams and the save-state variants; the
+// recomputing K5b / K4 on bf16 at 4 streams run the design of
+// hyper_conn_bwd_sm90.cuh, which hyper_conn_bwd.cu's entry points choose.
 //
 // Replace the TPU kernels e2_tts_tpu/ops/hyper_conn_kernel.py::
 // _width_bwd_kernel (K5b, driven by _width_bwd_pallas),
@@ -35,10 +38,10 @@
 // d a compile-time constant) at the widths the repo's configurations run
 // with 4 bf16 streams, one small streaming tile otherwise, masked past d
 // and re-read once per pass (rms statistic, projection, mix adjoint,
-// back-projection, residual grad) from L1 / L2. Four sources build them, one
-// nvcc each, in parallel: bf16 at 4 streams recomputing (hyper_conn_bwd.cu)
-// and saving (hyper_conn_bwd_save.cu), bf16 at the other stream counts
-// (hyper_conn_bwd_streams.cu) and f32 (hyper_conn_bwd_f32.cu).
+// back-projection, residual grad) from L1 / L2. Three sources build them, one
+// nvcc each, in parallel: bf16 at 4 streams saving (hyper_conn_bwd_save.cu),
+// bf16 at the other stream counts (hyper_conn_bwd_streams.cu) and f32
+// (hyper_conn_bwd_f32.cu).
 //
 // The TPU summed the parameter grads into an output block that its
 // sequential grid revisited. Here each warp keeps its own (s+2, d) f32
@@ -492,14 +495,17 @@ int e2_hc_bwd_f32_run(const void* params, int save, int s, int fused, int blocks
 
 namespace {
 
-// bf16 at 4 streams with this translation unit's SAVE flag; the rest where
-// it is built
+// the save variants' bf16 at 4 streams here (the recomputing adjoints take
+// hyper_conn_bwd_sm90.cuh there, from hyper_conn_bwd.cu's entry points); the
+// rest where it is built
 template <bool SAVE>
 int bwd_route(const HcBwdParams& p, int s, bool fused, int blocks, int warps, void* params_out,
               int dtype, void* stream) {
-  if (dtype == e2::kBFloat16 && s == 4)
-    return bwd_run<__nv_bfloat16, SAVE, Streams::kOnly4>(p, s, fused, blocks, warps,
-                                                          params_out, stream);
+  if constexpr (SAVE) {
+    if (dtype == e2::kBFloat16 && s == 4)
+      return bwd_run<__nv_bfloat16, true, Streams::kOnly4>(p, s, fused, blocks, warps,
+                                                            params_out, stream);
+  }
   if (dtype == e2::kBFloat16)
     return e2_hc_bwd_streams_run(&p, SAVE, s, fused, blocks, warps, params_out, stream);
   if (dtype == e2::kFloat32)

@@ -1,0 +1,756 @@
+// K5b and K4 for Hopper: the recomputing adjoints of the hyper-connection
+// width connection on bf16 streams at 4 streams, the count every
+// configuration of the repo runs, at any width from 1 to 5120. They port the
+// chain rule of e2_tts_tpu/ops/hyper_conn_kernel.py::_width_bwd_core and
+// ::_fused_bwd_epilogue (the math is written out in hyper_conn_bwd.cuh,
+// whose templates keep f32, the other stream counts and the save-state
+// variants K5bs / K4s); hyper_conn_bwd.cu's entry points choose this design
+// from the dtype and the stream count.
+//
+// What bounds them: bytes (per row K5b moves 13 d bf16 values, K4 15 d + 12)
+// and, close behind, the f32 arithmetic: ~36 FMAs per element and stream, a
+// third of them in the three small products n W, W gp and n^T gp. The
+// template of hyper_conn_bwd.cuh gave one warp a whole row in registers
+// (128 floats a lane at d = 1024, 255 registers and 2.1-2.3 KB of spill),
+// kept a (s+2, d) weight-grad partial per warp in shared memory (one
+// 8-warp block an SM), loaded 2-byte scalars, read the incoming grads twice
+// and formed W gp twice. Here:
+//  - A team of warps owns a row, each thread one 8-column chunk (two past d
+//    = 2048): 128 threads at d = 1024, 160 at 1152. Narrow rows put several
+//    teams (rows at once) in a block of at least four warps; each team
+//    synchronises on its own named barrier.
+//  - A thread copies its own chunks of every input of a row (the streams,
+//    the five incoming grads, K4's branch) with 16-byte cp.async into its
+//    own slots of a two-stage shared-memory ring: the next row is in flight
+//    while this one computes, and no barrier guards the ring, since no
+//    thread reads another's slots. Widths that are not a multiple of 8 (or
+//    rows not 16-byte aligned) copy 8-, 4- or 2-byte pieces, the widest the
+//    rows allow, and a chunk past d is zero-filled: a masked tail.
+//  - Every input is read from device memory once and every output written
+//    once; K4 forms r = round(carried + round(branch beta)) once, in place
+//    in its ring slots.
+//  - Three reductions a row over the team: (rms statistic, mix adjoint;
+//    K4 also the previous row's g_beta), projection, rms adjoint. A warp
+//    reduce-scatters its 24-28 partials in 31 shuffles (lane l ends with
+//    value l), the team's warps meet in shared memory, and each lane of
+//    every warp sums the warps' values in the same order. Lane s (s+2) + c
+//    then evaluates the row's rms reciprocal (c = s+1), tanh, alpha and gp
+//    for its (stream, column) once for the warp, and hands them on by
+//    shuffles or as vectors in shared memory.
+//  - W gp is formed once per element. The weights (rounded to bf16, kept
+//    as f32) sit in shared memory, which the block's teams share; gW = n^T
+//    gp accumulates in each thread's registers for its own columns. The
+//    block writes one partial row at the end; the second launch sums the
+//    blocks' rows in block order: the same result every run. Rows wider
+//    than 2048 (two chunks a thread) keep the weights in registers as bf16
+//    pairs and gW in shared memory, with a one-stage ring.
+//  - Registers are capped at 168 a thread (one chunk): three 128-thread
+//    blocks an SM at d = 1024, two 160-thread blocks at 1152, four
+//    96-thread blocks at 576. The grid is what the SMs hold at once (the
+//    occupancy API, at most the blocks the wrapper allocated partial rows
+//    for), each block walking rows with a stride of the grid.
+// Rounding is the reference's (round to bf16 at n, inv, alpha, gp and the
+// depth connection), sums in f32; only the order of the sums differs.
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+
+#include "hyper_conn_bwd.cuh"
+
+namespace {
+namespace hc_sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NS = 4;                     // streams
+constexpr int NC = NS + 2;                // alpha columns 0..NS, beta at NS + 1
+constexpr int NV = NS * NC;               // values of the first two reductions
+constexpr int J1_MAX_D = 2048;            // one chunk a thread up to here, two beyond
+constexpr int MIN_BLOCK_WARPS = 4;        // narrow rows: several teams a block
+constexpr int MAX_THREADS = 320;          // two chunks a thread: 5120 columns
+constexpr int MAX_BLOCKS = 1056;          // partial rows the wrapper may allocate
+constexpr int BCAST = 80;                 // floats of a warp's gp / alpha broadcast
+constexpr int MAX_REGS = 168;             // three warps of a quadrant's 16K registers
+
+// the geometry of width d
+__host__ __device__ constexpr int chunks(int d) { return (d + 7) / 8; }
+__host__ __device__ constexpr int per_thread(int d) { return d <= J1_MAX_D ? 1 : 2; }
+__host__ __device__ constexpr int team_warps(int d) { return (chunks(d) + 32 * per_thread(d) - 1) / (32 * per_thread(d)); }
+__host__ __device__ constexpr int teams(int d) { return team_warps(d) >= MIN_BLOCK_WARPS ? 1 : MIN_BLOCK_WARPS / team_warps(d); }
+__host__ __device__ constexpr int block_warps(int d) { return teams(d) * team_warps(d); }
+
+// ---------------------------------------------------------------- helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared, BYTES of 16, 8 or 4; src_size 0 writes zeros, reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the threads of one team (id 1..4; 0 is __syncthreads')
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  f[0] = lo(u.x), f[1] = hi(u.x), f[2] = lo(u.y), f[3] = hi(u.y);
+  f[4] = lo(u.z), f[5] = hi(u.z), f[6] = lo(u.w), f[7] = hi(u.w);
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack(f[0], f[1]), pack(f[2], f[3]), pack(f[4], f[5]), pack(f[6], f[7]));
+}
+
+// f rounded to bf16 (round to nearest even), in place
+__device__ __forceinline__ void round8(float (&f)[8]) {
+  uint4 u = pack8(f);
+  unpack8(u, f);
+}
+
+// this thread's chunk (8 columns from src, `valid` of them < d) into its ring
+// slot, in pieces of VEC columns; pieces past d are zero
+__device__ __forceinline__ void copy_chunk(uint4* dst, const bf16* src, int valid, int vec) {
+  if (vec == 8) {
+    cp_async<16>(dst, src, true);
+  } else if (vec == 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      cp_async<8>(reinterpret_cast<uint2*>(dst) + h, src + (4 * h < valid ? 4 * h : 0), 4 * h < valid);
+  } else if (vec == 2) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      cp_async<4>(reinterpret_cast<uint32_t*>(dst) + h, src + (2 * h < valid ? 2 * h : 0),
+                  2 * h < valid);
+  } else {
+    unsigned short e[8];
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = i < valid ? s[i] : 0;
+    *dst = make_uint4(e[0] | (uint32_t)e[1] << 16, e[2] | (uint32_t)e[3] << 16,
+                      e[4] | (uint32_t)e[5] << 16, e[6] | (uint32_t)e[7] << 16);
+  }
+}
+
+// the first `valid` columns of a chunk to dst, in pieces of VEC columns
+__device__ __forceinline__ void store_chunk(bf16* dst, const uint4& v, int valid, int vec) {
+  if (vec == 8) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else if (vec == 4) {
+    uint2* d2 = reinterpret_cast<uint2*>(dst);
+    d2[0] = make_uint2(v.x, v.y);
+    if (valid > 4) d2[1] = make_uint2(v.z, v.w);
+  } else {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    if (vec == 2) {
+      uint32_t* d1 = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        if (2 * h < valid) d1[h] = w[h];
+    } else {
+      unsigned short* d0 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < valid) d0[i] = (unsigned short)(w[i / 2] >> (16 * (i & 1)));
+    }
+  }
+}
+
+// Reduce-scatter of N values (a power of 2) over a warp: halving steps at
+// lane offsets OFF, OFF / 2, ... leave lane l the warp's sum of value
+// (l / (32 / N)) in v[0]; then butterflies give it to every lane of the group.
+template <int N, int OFF>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  if constexpr (N > 1) {
+    const bool up = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = up ? v[i] : v[i + N / 2];
+      const float keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    halve<N / 2, OFF / 2>(v, lane);
+  } else {
+#pragma unroll
+    for (int off = OFF; off > 0; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  }
+}
+
+// ---------------------------------------------------------------- kernel
+
+// One block: `teams(d)` teams of `tw` warps; team i walks rows blockIdx.x *
+// teams + i + k * gridDim.x * teams. J chunks of 8 columns a thread.
+template <bool FUSED, int J>
+__global__ void __maxnreg__(MAX_REGS)
+    hc_bwd_sm90_kernel(HcBwdParams p, int tw, int stages, int vec) {
+  constexpr int NSLOT = FUSED ? 2 * NS + 2 : 2 * NS + 1;  // streams, grads, branch
+  constexpr int BR = 2 * NS + 1;                          // K4: the branch's slot
+  const int d = p.d;
+  const int M = (int)p.m;  // rows are ints (bwd_run refuses 2^31 - 2^16 or more)
+  const int T = tw * 32;
+  const int R = blockDim.x / T;
+  const int team = threadIdx.x / T, tt = threadIdx.x % T;
+  const int wt = tt >> 5, lane = threadIdx.x & 31;
+  const int slots = J * T;
+  const int nchunk = chunks(d);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // (R, stages, NSLOT, slots)
+  const size_t ring_bytes = (size_t)R * stages * NSLOT * slots * sizeof(uint4);
+  float4* sW = reinterpret_cast<float4*>(smem_raw + ring_bytes);  // J == 1: (NC, 2, slots)
+  float* red = reinterpret_cast<float*>(sW + (J == 1 ? NC * 2 * slots : 0));  // (R, 4, tw, 32)
+  float* bcast = red + R * 4 * T;                                // (block warps, BCAST)
+  float* sacc = bcast + R * tw * BCAST;                          // (R, 2, 32): g_static, ga ta
+  float* sgw = sacc + R * 64;                                    // J == 2: (NC, d) gW
+  float* myred = red + team * 4 * T;
+  float* wb = bcast + (threadIdx.x >> 5) * BCAST;  // gp (c, s) | gp (s, 8) | alpha (t, s)
+
+  const bf16* in0 = static_cast<const bf16*>(p.in0);
+  const bf16* in1 = static_cast<const bf16*>(p.in1);
+  const bf16* in2 = static_cast<const bf16*>(p.in2);
+  const bf16* g_b0 = static_cast<const bf16*>(p.g_b0);
+  const bf16* g_car = static_cast<const bf16*>(p.g_car);
+  const bf16* g_beta = static_cast<const bf16*>(p.g_beta);
+  bf16* out0 = static_cast<bf16*>(p.out0);
+  bf16* out1 = static_cast<bf16*>(p.out1);
+  bf16* out2 = static_cast<bf16*>(p.out2);
+
+  // this thread's chunks: columns 8 q .. 8 q + 7 of chunk q = j T + tt
+  int col0[J], nval[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int q = j * T + tt;
+    col0[j] = 8 * q;
+    nval[j] = q < nchunk ? min(8, d - 8 * q) : 0;
+  }
+  auto weight = [&](int col, int c) {
+    return col < d ? __bfloat162float(__float2bfloat16(c <= NS ? p.aw[col * (NS + 1) + c]
+                                                               : p.bw[col]))
+                   : 0.f;
+  };
+
+  // The weights rounded to bf16: one chunk a thread, in shared memory as f32
+  // (the block's teams share them), float4 (c, half, chunk); two chunks, in
+  // registers as bf16 pairs w[j][c][k] (columns 2k, 2k+1 of chunk j).
+  uint32_t w[J == 1 ? 1 : J][NC][4];
+  float gw[J == 1 ? NC : 1][8];  // one chunk: this thread's gW columns
+#pragma unroll
+  for (int c = 0; c < (J == 1 ? NC : 1); ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gw[c][e] = 0.f;
+  if constexpr (J == 1) {
+    for (int i = threadIdx.x; i < NC * 2 * slots; i += blockDim.x) {
+      const int q = i % slots, h = (i / slots) % 2, c = i / (2 * slots), c0 = 8 * q + 4 * h;
+      sW[i] = make_float4(weight(c0, c), weight(c0 + 1, c), weight(c0 + 2, c), weight(c0 + 3, c));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[j][c][k] = pack(weight(col0[j] + 2 * k, c), weight(col0[j] + 2 * k + 1, c));
+    for (int i = threadIdx.x; i < NC * d; i += blockDim.x) sgw[i] = 0.f;
+  }
+  __syncthreads();
+  // chunk j's weights of head column c
+  auto wload = [&](int j, int c, float (&x)[8]) {
+    if constexpr (J == 1) {
+      const float4 a = sW[2 * c * slots + tt], b = sW[(2 * c + 1) * slots + tt];
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z,
+      x[7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = e & 1 ? hi(w[j][c][e >> 1]) : lo(w[j][c][e >> 1]);
+    }
+  };
+  // gW += n^T gp for chunk j: n (8 columns) times gp (NC)
+  auto add_gw = [&](int j, const float (&n)[8], const float (&gp)[NC]) {
+    if constexpr (J == 1) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gw[c][e] = fmaf(n[e], gp[c], gw[c][e]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e < nval[j]) sgw[c * d + col0[j] + e] = fmaf(n[e], gp[c], sgw[c * d + col0[j] + e]);
+    }
+  };
+
+  // lane s NC + c of each warp evaluates (stream s, column c) of the scalar stage
+  const int ls = lane / NC, lc = lane % NC;
+  const bool lval = lane < NV;
+  float* acc = sacc + team * 64;  // the team's warp 0 lanes: g_static at l, ga ta at 32 + l
+  if (wt == 0) acc[lane] = acc[32 + lane] = 0.f;
+
+  const int team_id = blockIdx.x * R + team;
+  const int nteams = gridDim.x * R;
+
+  // this thread's chunks of every input of `row` into ring stage st
+  auto issue = [&](int row, int st) {
+    uint4* base = ring + (size_t)(team * stages + st) * NSLOT * slots + tt;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (nval[j] == 0) continue;
+      uint4* dst = base + j * T;
+      const int c0 = col0[j], nv = nval[j];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        copy_chunk(dst + s * slots, in0 + ((long long)s * M + row) * d + c0, nv, vec);
+      copy_chunk(dst + NS * slots, g_b0 + (long long)row * d + c0, nv, vec);
+#pragma unroll
+      for (int t = 1; t <= NS; ++t)
+        copy_chunk(dst + (NS + t) * slots, g_car + ((long long)(t - 1) * M + row) * d + c0, nv, vec);
+      if constexpr (FUSED) copy_chunk(dst + BR * slots, in1 + (long long)row * d + c0, nv, vec);
+    }
+    cp_commit();
+  };
+  // the row's scalars, as bf16: K4's previous beta (pairs); g_beta in lane
+  // s NC + NS + 1
+  auto scalars = [&](int row, uint32_t (&bp)[NS / 2], bf16& gb) {
+    if constexpr (FUSED) {
+#pragma unroll
+      for (int s = 0; s < NS; s += 2)
+        bp[s / 2] = (uint32_t)__bfloat16_as_ushort(in2[(long long)s * M + row]) |
+                    (uint32_t)__bfloat16_as_ushort(in2[(long long)(s + 1) * M + row]) << 16;
+    }
+    gb = lval && lc == NS + 1 ? g_beta[(long long)ls * M + row] : __float2bfloat16(0.f);
+  };
+
+  int row = team_id;
+  uint32_t bprev2[NS / 2] = {};
+  bf16 gbeta_r = __float2bfloat16(0.f);
+  float gb[NS] = {};                    // K4: this thread's g_beta partials of row - nteams
+  if (row < M) {
+    if (stages == 2) issue(row, 0);
+    scalars(row, bprev2, gbeta_r);
+  }
+  for (int k = 0; row < M; ++k, row += nteams) {
+    const int next = row + nteams;
+    int st = 0;
+    if (stages == 2) {
+      st = k & 1;
+      if (next < M) issue(next, st ^ 1);
+      else cp_commit();
+      cp_wait<1>();
+    } else {
+      issue(row, 0);
+      cp_wait<0>();
+    }
+    auto bprev = [&](int s) { return s & 1 ? hi(bprev2[s / 2]) : lo(bprev2[s / 2]); };
+    // chunk j's slot i: buf[i * slots + j * T]
+    uint4* buf = ring + (size_t)(team * stages + st) * NSLOT * slots + tt;
+
+    if constexpr (FUSED) {  // r = round(carried + round(branch beta)), in place
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (nval[j] == 0) continue;
+        float br[8];
+        unpack8(buf[BR * slots + j * T], br);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          float c[8], x[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[e] = br[e] * bprev(s);
+          round8(x);
+          unpack8(buf[s * slots + j * T], c);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) c[e] += x[e];
+          buf[s * slots + j * T] = pack8(c);
+        }
+      }
+    }
+
+    // round 1: ga_s[t] = gm_t . r_s at value s NC + t, sum r_s^2 at s NC +
+    // NS + 1; K4 also the previous row's g_beta partials at NV + s
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = FUSED && i >= NV && i < NV + NS ? gb[i - NV] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (nval[j] == 0) continue;
+#pragma unroll
+      for (int h = 0; h < NS; h += 2) {  // two streams at a time: fewer registers live
+        float r[2][8];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int s = h + i;
+          unpack8(buf[s * slots + j * T], r[i]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[s * NC + NS + 1] = fmaf(r[i][e], r[i][e], v[s * NC + NS + 1]);
+        }
+#pragma unroll
+        for (int t = 0; t <= NS; ++t) {
+          float g[8];
+          unpack8(buf[(NS + t) * slots + j * T], g);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[(h + i) * NC + t] = fmaf(g[e], r[i][e], v[(h + i) * NC + t]);
+        }
+      }
+    }
+    halve<32, 16>(v, lane);
+    myred[wt * 32 + lane] = v[0];
+    team_sync(team + 1, T);
+    float tot1 = 0.f;
+    for (int i = 0; i < tw; ++i) tot1 += myred[i * 32 + lane];
+    if constexpr (FUSED) {
+      if (k > 0 && wt == 0 && lane >= NV && lane < NV + NS)
+        out2[(long long)(lane - NV) * M + row - nteams] = __float2bfloat16(tot1);
+    }
+
+    // the rms statistic in lane s NC + NS + 1, then to every lane (the sign
+    // carries var > 1e-12)
+    const float var = tot1 / d;
+    const float inv_l = rsqrtf(fmaxf(var, 1e-12f));
+    float inv[NS];  // negative where var <= 1e-12; rounded where n is formed
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      inv[s] = __shfl_sync(0xffffffffu, var > 1e-12f ? inv_l : -inv_l, s * NC + NS + 1);
+
+    // round 2: the projection n_s W, n_s = round(r_s round(inv_s))
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (nval[j] == 0) continue;
+#pragma unroll
+      for (int h = 0; h < NS; h += 2) {  // two streams at a time
+        float n[2][8];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          unpack8(buf[(h + i) * slots + j * T], n[i]);
+          const float ir = round_bf16(fabsf(inv[h + i]));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) n[i][e] *= ir;
+          round8(n[i]);
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float x[8];
+          wload(j, c, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) v[(h + i) * NC + c] = fmaf(n[i][e], x[e], v[(h + i) * NC + c]);
+        }
+      }
+    }
+    halve<32, 16>(v, lane);
+    myred[T + wt * 32 + lane] = v[0];
+    team_sync(team + 1, T);
+    float tot2 = 0.f;
+    for (int i = 0; i < tw; ++i) tot2 += myred[T + i * 32 + lane];
+
+    // the scalar stage of lane s NC + c: tanh, alpha, gp, the parameter partials
+    {
+      const float ta = tanhf(tot2);
+      const float ga = lc == NS + 1 ? __bfloat162float(gbeta_r) : tot1;
+      if (lval) {
+        const float a_scale = *p.ascale, sc = lc == NS + 1 ? *p.bscale : a_scale;
+        const float gp = round_bf16(ga * sc * (1.f - ta * ta));
+        wb[lc * NS + ls] = gp;
+        wb[NV + ls * 8 + lc] = gp;
+        if (lc <= NS)
+          wb[NV + 32 + lc * NS + ls] = round_bf16(ta * a_scale + p.sa[ls * (NS + 1) + lc]);
+        if (wt == 0) {
+          acc[lane] += ga;
+          acc[32 + lane] += ga * ta;
+        }
+      }
+      __syncwarp();
+    }
+
+    // round 3: g_n = W gp once per element; g_inv = g_n . r, gW += n^T gp;
+    // pre = g_n inv + sum_t alpha[t] gm_t (pre is g_n's registers)
+    float pre[J][NS][8];
+    float v4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (nval[j] == 0) continue;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) pre[j][s][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 g4 = *reinterpret_cast<const float4*>(wb + c * NS);
+        const float gpc[NS] = {g4.x, g4.y, g4.z, g4.w};
+        float x[8];
+        wload(j, c, x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int s = 0; s < NS; ++s) pre[j][s][e] = fmaf(gpc[s], x[e], pre[j][s][e]);
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        float r[8], n[8], gp[NC];
+        unpack8(buf[s * slots + j * T], r);
+        const float4 a = *reinterpret_cast<const float4*>(wb + NV + s * 8);
+        const float2 b = *reinterpret_cast<const float2*>(wb + NV + s * 8 + 4);
+        gp[0] = a.x, gp[1] = a.y, gp[2] = a.z, gp[3] = a.w, gp[4] = b.x, gp[5] = b.y;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v4[s] = fmaf(pre[j][s][e], r[e], v4[s]);
+          n[e] = r[e] * round_bf16(fabsf(inv[s]));
+          pre[j][s][e] *= fabsf(inv[s]);
+        }
+        round8(n);
+        add_gw(j, n, gp);
+      }
+#pragma unroll
+      for (int t = 0; t <= NS; ++t) {
+        float g[8];
+        unpack8(buf[(NS + t) * slots + j * T], g);
+        const float4 a4 = *reinterpret_cast<const float4*>(wb + NV + 32 + t * NS);
+        const float al[NS] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pre[j][s][e] = fmaf(al[s], g[e], pre[j][s][e]);
+      }
+    }
+    halve<4, 16>(v4, lane);
+    if ((lane & 7) == 0) myred[2 * T + wt * 4 + (lane >> 3)] = v4[0];
+    team_sync(team + 1, T);
+    // g_sq of stream s in lane s, then to every lane
+    float gsq[NS];
+    {
+      const int s = lane & (NS - 1);
+      float g_inv = 0.f;
+      for (int i = 0; i < tw; ++i) g_inv += myred[2 * T + i * 4 + s];
+      float x = inv[0];
+#pragma unroll
+      for (int t = 1; t < NS; ++t) x = s == t ? inv[t] : x;
+      const float iv = fabsf(x);
+      const float g = x > 0.f ? g_inv * (-0.5f) * iv * iv * iv / d : 0.f;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) gsq[t] = __shfl_sync(0xffffffffu, g, t);
+    }
+    // the next row's scalars, in flight while this row finishes
+    uint32_t bprev2_n[NS / 2] = {};
+    bf16 gbeta_n = __float2bfloat16(0.f);
+    if (next < M) scalars(next, bprev2_n, gbeta_n);
+
+    // g_r = pre + 2 r g_sq (in pre's registers), written out (K5b) or split
+    // by the depth connection (K4: g_branch = sum_s g_r_s beta_s, g_beta_s =
+    // g_r_s . branch)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) gb[s] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (nval[j] == 0) continue;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        float r[8];
+        unpack8(buf[s * slots + j * T], r);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) pre[j][s][e] += 2.f * r[e] * gsq[s];
+        store_chunk(out0 + ((long long)s * M + row) * d + col0[j], pack8(pre[j][s]), nval[j], vec);
+      }
+      if constexpr (FUSED) {
+        float br[8], gbr[8];
+        unpack8(buf[BR * slots + j * T], br);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          gbr[e] = 0.f;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) gbr[e] = fmaf(pre[j][s][e], bprev(s), gbr[e]);
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) gb[s] = fmaf(pre[j][s][e], br[e], gb[s]);
+        store_chunk(out1 + (long long)row * d + col0[j], pack8(gbr), nval[j], vec);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < NS / 2; ++s) bprev2[s] = bprev2_n[s];
+    gbeta_r = gbeta_n;
+  }
+  // K4: the last row's g_beta (the others went with the next row's round 1)
+  if constexpr (FUSED) {
+    if (team_id < M) {
+      halve<4, 16>(gb, lane);
+      if ((lane & 7) == 0) myred[3 * T + wt * 4 + (lane >> 3)] = gb[0];
+      team_sync(team + 1, T);
+      if (tt < NS) {
+        float acc = 0.f;
+        for (int i = 0; i < tw; ++i) acc += myred[3 * T + i * 4 + tt];
+        out2[(long long)tt * M + row - nteams] = __float2bfloat16(acc);
+      }
+    }
+  }
+
+  // this block's parameter-grad row: gW summed over its teams in team order,
+  // then g_static and the two scale grads
+  __syncthreads();
+  float* out = p.partials + (long long)blockIdx.x * (NC * d + n_small(NS));
+  if constexpr (J == 1) {
+    if (R == 1) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e < nval[0]) out[c * d + col0[0] + e] = gw[c][e];
+    } else {
+      float* sg = reinterpret_cast<float*>(smem_raw);  // the ring (free now) holds NC d floats
+      for (int i = 0; i < R; ++i) {
+        if (team == i) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (e < nval[0]) {
+                float* dst = sg + c * d + col0[0] + e;
+                *dst = i == 0 ? gw[c][e] : *dst + gw[c][e];
+              }
+        }
+        __syncthreads();
+      }
+      for (int i = threadIdx.x; i < NC * d; i += blockDim.x) out[i] = sg[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < NC * d; i += blockDim.x) out[i] = sgw[i];
+  }
+  // the teams' g_static (s, c) and ga * ta partials, summed in team order
+  if (threadIdx.x < NV) {
+    float a = 0.f;
+    for (int i = 0; i < R; ++i) a += sacc[i * 64 + threadIdx.x];
+    out[NC * d + threadIdx.x] = a;
+  } else if (threadIdx.x == NV) {
+    float g_as = 0.f, g_bs = 0.f;
+    for (int i = 0; i < R; ++i)
+      for (int l = 0; l < NV; ++l) {
+        const float x = sacc[i * 64 + 32 + l];
+        if (l % NC == NS + 1) g_bs += x;
+        else g_as += x;
+      }
+    out[NC * d + NV] = g_as;
+    out[NC * d + NV + 1] = g_bs;
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// shared memory of a block: the ring (several teams: d <= 512 and at least
+// 2 x 9 x 64 slots of 16 bytes, more than the NC d floats of the gW sum
+// that reuses it), one chunk a thread the f32 weights, the reductions, the
+// warps' broadcasts and, two chunks a thread, the (NC, d) gW
+inline size_t smem_bytes(bool fused, int d, int stages) {
+  const int tw = team_warps(d), r = teams(d), slots = per_thread(d) * tw * 32;
+  const size_t nslot = fused ? 2 * NS + 2 : 2 * NS + 1;
+  const size_t ring = (size_t)r * stages * nslot * slots * sizeof(uint4);
+  const size_t weights = per_thread(d) == 1 ? (size_t)NC * 2 * slots * sizeof(float4) : 0;
+  return ring + weights +
+         ((size_t)r * 4 * tw * 32 + (size_t)r * tw * BCAST + (size_t)r * 64) * sizeof(float) +
+         (per_thread(d) > 1 ? (size_t)NC * d * sizeof(float) : 0);
+}
+
+// the widest piece (8, 4, 2 or 1 columns) every row of every tensor read or
+// written in chunks is aligned to
+inline int vec_width(const HcBwdParams& p, bool fused) {
+  uintptr_t a = (uintptr_t)p.in0 | (uintptr_t)p.g_b0 | (uintptr_t)p.g_car | (uintptr_t)p.out0;
+  if (fused) a |= (uintptr_t)p.in1 | (uintptr_t)p.out1;
+  int v = 8;
+  while (v > 1 && (p.d % v != 0 || a % (2 * v) != 0)) v >>= 1;
+  return v;
+}
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <bool FUSED, int J>
+cudaError_t launch(const HcBwdParams& p, int blocks, float* params_out, cudaStream_t stream) {
+  auto kernel = hc_bwd_sm90_kernel<FUSED, J>;
+  // set once, outside any CUDA-graph capture that later launches replay
+  static bool configured = false;
+  cudaError_t err;
+  if (!configured) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int stages = smem_bytes(FUSED, p.d, 2) <= MAX_SMEM ? 2 : 1;
+  const size_t smem = smem_bytes(FUSED, p.d, stages);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int threads = block_warps(p.d) * 32;
+  // blocks an SM holds at this width, asked once per width (the launches
+  // of one width repeat, and may be captured in a CUDA graph)
+  static int known_d[16], known_blocks[16], nknown = 0;
+  int per_sm = 0;
+  for (int i = 0; i < nknown; ++i)
+    if (known_d[i] == p.d) per_sm = known_blocks[i];
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    if (nknown < 16) known_d[nknown] = p.d, known_blocks[nknown++] = per_sm;
+  }
+  const long long rows = (p.m + teams(p.d) - 1) / teams(p.d);
+  const int grid = (int)std::max(1LL, std::min({(long long)blocks, (long long)per_sm * sm_count(), rows}));
+  kernel<<<grid, threads, smem, stream>>>(p, team_warps(p.d), stages, vec_width(p, FUSED));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int np = NC * p.d + n_small(NS);
+  hc_param_reduce_kernel<<<(np + 255) / 256, 256, 0, stream>>>(p.partials, grid, np, params_out);
+  return cudaGetLastError();
+}
+
+// bf16 at 4 streams: block_warps(d) warps a block; `blocks` the partial
+// rows the wrapper allocated (the grid is at most that)
+inline int bwd_run(const HcBwdParams& p, bool fused, int blocks, void* params_out,
+                   void* stream) {
+  if (p.d < 1 || block_warps(p.d) * 32 > MAX_THREADS || blocks < 1 || blocks > MAX_BLOCKS ||
+      p.m < 0 || p.m >= (1LL << 31) - (1LL << 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(params_out);
+  if (per_thread(p.d) == 1)
+    return (int)(fused ? launch<true, 1>(p, blocks, out, st) : launch<false, 1>(p, blocks, out, st));
+  return (int)(fused ? launch<true, 2>(p, blocks, out, st) : launch<false, 2>(p, blocks, out, st));
+}
+
+}  // namespace hc_sm90
+}  // namespace

@@ -8,15 +8,19 @@ Replace the TPU kernels ``_width_kernel`` (K5, driven by ``_width_pallas``),
 ``_width_bwd_kernel`` (K5b, driven by ``_width_bwd_pallas``) and
 ``_width_fused_bwd_kernel`` (K4, driven by ``_width_fused_bwd_pallas``), and
 their ``_save`` bodies. The forward kernels live in ``csrc/hyper_conn.cu``,
-the adjoints in ``csrc/hyper_conn_bwd.cuh`` (built as
-``hyper_conn_bwd.cu`` and ``hyper_conn_bwd_save.cu``): all bandwidth
-bound; one warp holds one row of every stream in registers (streamed in
-chunks when the row is wider than the register tile), so each input is read
-once and each output written once, and K3 / K4 form the previous branch's
-depth connection ``carried + branch * beta`` in registers instead of device
-memory. The adjoints port the hand-derived chain rule of the JAX package's
-``_width_bwd_core``; their parameter grads are per-block partial sums
-reduced in a fixed order (the same result every run). `_Width` (K5 + K5b)
+the adjoints in ``csrc/hyper_conn_bwd.cu``: all bandwidth bound, each
+input read once and each output written once, and K3 / K4 form the previous
+branch's depth connection ``carried + branch * beta`` on chip instead of in
+device memory. The forward kernels and the templates of
+``csrc/hyper_conn_bwd.cuh`` (f32, bf16 at 2, 3 and 5-8 streams, the save
+variants) give one warp one row of every stream in registers (streamed in
+chunks when the row is wider than the register tile); the recomputing
+adjoints on bf16 at 4 streams run the Hopper design of
+``csrc/hyper_conn_bwd_sm90.cuh`` (a team of warps a row, 8 columns a
+thread, a cp.async ring; the C entry points choose it). The adjoints port
+the hand-derived chain rule of the JAX package's ``_width_bwd_core``; their
+parameter grads are per-block partial sums reduced in a fixed order (the
+same result every run). `_Width` (K5 + K5b)
 and `_WidthFused` (K3 + K4) are the ``torch.autograd.Function`` s. They take
 any stream count from 2 to 8 and any width from 1 to `max_dim` (s) (2901
 at 8 streams, 4840 at 4).
@@ -65,6 +69,26 @@ def _bwd_warps(s, d):
     8) as per-warp partials fit beside the weights."""
     nc = s + 2
     return max(1, min(8, (_MAX_SMEM_FLOATS - nc * d) // (nc * d + _n_small(s))))
+
+
+# blocks of the adjoint templates: up to two per SM of the H100's 132
+_BWD_MAX_BLOCKS = 264
+# partial rows the Hopper design of the recomputing adjoints takes (bf16, 4
+# streams; csrc/hyper_conn_bwd_sm90.cuh::MAX_BLOCKS): it launches at most
+# that many blocks and sets its own warps a block
+_SM90_MAX_BLOCKS = 1056
+
+
+def _bwd_geometry(s, m, d, dtype, save):
+    """``(warps, blocks)`` of an adjoint launch: the blocks are the partial
+    rows allocated for the parameter grads. The recomputing adjoints on bf16
+    at 4 streams run the Hopper design, which takes no warps (0 is passed);
+    the rest the templates of csrc/hyper_conn_bwd.cuh (as the C entry points
+    choose)."""
+    if dtype == torch.bfloat16 and s == 4 and not save:
+        return 0, max(1, min(m, _SM90_MAX_BLOCKS))
+    warps = _bwd_warps(s, d)
+    return warps, max(1, min(-(-m // warps), _BWD_MAX_BLOCKS))
 
 
 def width_connection_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
@@ -244,10 +268,6 @@ def _launch(name, streams_in, params, s, m, d, dtype, device, save_state):
     return (outs, state) if save_state else outs
 
 
-# blocks of the adjoint kernels: up to two per SM of the H100's 132
-_BWD_MAX_BLOCKS = 264
-
-
 def _checked_state(name, state, s, m, device):
     ta, inv = state
     for t, label, shape in ((ta, 'ta', (s, m, s + 2)), (inv, 'inv', (s, m))):
@@ -265,8 +285,7 @@ def _launch_bwd(name, streams_in, grads_in, params, s, m, d, dtype, device, outs
                                                      d, dtype, device)
     nc = s + 2
     n_param = nc * d + _n_small(s)
-    warps = _bwd_warps(s, d)
-    blocks = max(1, min(-(-m // warps), _BWD_MAX_BLOCKS))
+    warps, blocks = _bwd_geometry(s, m, d, dtype, state is not None)
     partials = torch.empty((blocks, n_param), dtype=torch.float32, device=device)
     row = torch.empty((n_param,), dtype=torch.float32, device=device)
     saved = ()

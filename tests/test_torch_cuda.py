@@ -415,9 +415,37 @@ def test_width_save_variants(dev, s, d, dtype):
         assert _cuda.launch_counts[name + '_bwd_save'] == before[name + '_bwd_save'] + 1
         _close_grads(got, bplain(*ins, *params, *grads, state=(ta, inv)), dtype)
         recompute = bwd(*ins, *params, *grads)
-        for a, b in zip(got, recompute):
-            torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
-                                       atol=1e-5 * float(b.float().abs().max()) + 1e-12)
+        _close_save_recompute(got, recompute, dtype, s)
+        if dtype == torch.bfloat16 and s == 4:
+            # the check refuses K5b / K4 with row 0 left out (its incoming
+            # grads zero), on the parameter grads alone
+            drop = tuple(g.clone() for g in grads)
+            drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
+            dropped = bwd(*ins, *params, *drop)
+            with pytest.raises(AssertionError):
+                _close_save_recompute(got[-6:], dropped[-6:], dtype, s)
+
+
+def _close_save_recompute(save, recompute, dtype, s):
+    """K5bs / K4s against K5b / K4: 1e-5 relative plus 1e-5 of the largest
+    |ref| where both run one template (f32, bf16 at other stream counts).
+    bf16 at 4 streams, where K5b / K4 run the Hopper design and sum in
+    another order: the bf16 stream grads at one bf16 ulp (2**-7 relative
+    plus 1e-5 of the largest |ref|) and each f32 parameter grad on its own,
+    the static ones at 1e-5 as above, the dynamic weights and scales at
+    3e-4 of the largest |ref| (they sum products with gp, rounded to bf16,
+    which another order flips by one ulp in a few rows)."""
+    if dtype == torch.bfloat16 and s == 4:
+        for i, (a, b) in enumerate(zip(save[-6:], recompute[-6:])):
+            a, b = a.float(), b.float()
+            tol = 1e-5 if i < 2 else 3e-4
+            torch.testing.assert_close(a, b, rtol=1e-5 if i < 2 else 0,
+                                       atol=tol * float(b.abs().max()) + 1e-12)
+        save, recompute = save[:-6], recompute[:-6]
+    for a, b in zip(save, recompute):
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, rtol=2 ** -7 if dtype == torch.bfloat16 and s == 4
+                                   else 1e-5, atol=1e-5 * float(b.abs().max()) + 1e-12)
 
 
 def test_width_kernels_reject_other_geometries(dev):
@@ -426,6 +454,88 @@ def test_width_kernels_reject_other_geometries(dev):
         ins, params, _ = _hc_args(dev, torch.bfloat16, s, 16, d, False, seed=0)
         with pytest.raises(ValueError, match='streams|width'):
             hck.width_connection(*ins, *params)
+
+
+def _width_bwd_pair(dev, m, d, fused, seed, zero_row=True):
+    """The Hopper K5b / K4 (bf16, 4 streams) and its plain version at (4, m,
+    d), with one all-zero stream row where m allows (the rms clamp)."""
+    s, dtype = 4, torch.bfloat16
+    if zero_row and m > 5:
+        ins, params, grads = _hc_args(dev, dtype, s, m, d, fused, seed)
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+        params = (torch.eye(s, s + 1, device=dev) + rnd(s, s + 1, scale=0.1),
+                  1.0 + rnd(s, scale=0.1), rnd(d, s + 1, scale=0.05),
+                  torch.tensor(0.5, device=dev), rnd(d, scale=0.05),
+                  torch.tensor(0.5, device=dev))
+        ins = ([rnd(s, m, d), rnd(m, d), rnd(s, m, scale=0.5)] if fused else [rnd(s, m, d)])
+        ins = [t.to(dtype) for t in ins]
+        grads = (rnd(m, d).to(dtype), rnd(s, m, d).to(dtype), rnd(s, m).to(dtype))
+    bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+    bplain = (hck.width_connection_fused_backward_plain if fused
+              else hck.width_connection_backward_plain)
+    return (lambda: bwd(*ins, *params, *grads)), (lambda: bplain(*ins, *params, *grads))
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('d', [1, 7, 100, 250, 256, 512, 576, 1000, 1024, 1152, 2048, 4840])
+def test_width_bwd_sm90_every_width(dev, d, fused):
+    """The Hopper K5b / K4 against the plain versions at widths from 1 to
+    max_dim(4) (odd widths copy 2-byte pieces, 250 4-byte and 100 8-byte
+    ones, both ending in a part chunk; 1000 leaves 3 of the team's 128
+    threads idle, 2048 is the widest one-chunk row, 4840 two chunks a
+    thread), with a zero row; the launch counted once."""
+    name = 'hc_width_fused_bwd' if fused else 'hc_width_bwd'
+    run, plain = _width_bwd_pair(dev, 700, d, fused, seed=d)
+    before = _cuda.launch_counts[name]
+    got = run()
+    assert _cuda.launch_counts[name] == before + 1
+    _close_grads(got, plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('m,d', [(16819, 1024), (16819, 1152), (16819, 512), (1, 1024),
+                                 (1, 7), (1, 4840)])
+def test_width_bwd_sm90_rows(dev, m, d, fused):
+    """The Hopper K5b / K4 at a ragged training M (16819 rows over a grid
+    that does not divide them) and at M = 1, against the plain versions."""
+    run, plain = _width_bwd_pair(dev, m, d, fused, seed=m + d)
+    _close_grads(run(), plain(), torch.bfloat16)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('d', [256, 1024, 1152, 4840])
+def test_width_bwd_sm90_bit_equal(dev, d, fused):
+    """Two calls of the Hopper K5b / K4 give the same bits: the parameter
+    grads are per-block rows summed in block order, no float atomics."""
+    run, _ = _width_bwd_pair(dev, 16896 if d <= 1152 else 2000, d, fused, seed=7)
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_width_bwd_sm90_zero_rows(dev):
+    """Every stream of many rows zero (var <= 1e-12 on each): the Hopper
+    adjoints take the clamp branch as the plain versions do."""
+    for fused in (False, True):
+        g = torch.Generator(device=dev).manual_seed(11)
+        s, m, d = 4, 3000, 1024
+        rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+        params = (torch.eye(s, s + 1, device=dev) + rnd(s, s + 1, scale=0.1),
+                  1.0 + rnd(s, scale=0.1), rnd(d, s + 1, scale=0.05),
+                  torch.tensor(0.5, device=dev), rnd(d, scale=0.05), torch.tensor(0.5, device=dev))
+        carried = rnd(s, m, d)
+        carried[:, ::3] = 0.0
+        ins = [carried, rnd(m, d), rnd(s, m, scale=0.5)] if fused else [carried]
+        if fused:
+            ins[1][::3] = 0.0
+        ins = [t.to(torch.bfloat16) for t in ins]
+        grads = (rnd(m, d).to(torch.bfloat16), rnd(s, m, d).to(torch.bfloat16),
+                 rnd(s, m).to(torch.bfloat16))
+        bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+        bplain = (hck.width_connection_fused_backward_plain if fused
+                  else hck.width_connection_backward_plain)
+        _close_grads(bwd(*ins, *params, *grads), bplain(*ins, *params, *grads), torch.bfloat16)
 
 
 def test_mel_kernel_160_mels_n_fft_1000(dev):
