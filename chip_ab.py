@@ -3,15 +3,18 @@
 
     python3 chip_ab.py OTHER_CHECKOUT      # from this checkout's root; one CUDA card
 
-Builds K11 (csrc/mel.cu), K5b / K4 (the hyper-connection adjoints), K8 /
-K9 (flash_attention_bhnd.cu and its wide-head source) and K1 / K2 / K10
+Builds K11 (csrc/mel.cu), K5 / K3 (the hyper-connection forwards,
+hyper_conn.cu with hyper_conn_save.cu), K5b / K4 (the adjoints), K8 / K9
+(flash_attention_bhnd.cu and its wide-head source) and K1 / K2 / K10
 (flash_attention.cu, flash_attention_bwd.cu) from both checkouts' sources
 with nvcc into build/ (every nvcc at once), and times each pair in turns
 (other, this, this, other) as device time per call, 100 calls captured in a
 CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
-frequency tiles as its wrapper splits it), K5b / K4 at the training shapes
-(4 streams, 16896 rows, widths 256, 512, 576, 1024 and 1152, bf16), each
-checkout at the launch geometry its own wrapper computes, K8 at the DiT sampler's and training shapes (1 and 16, 16
+frequency tiles as its wrapper splits it), K5 / K3 at the training shapes
+(4 streams, 16896 rows, widths 256, 512, 576, 1024 and 1152, bf16), the
+sampler's (1056 rows at 256, 512, 576 and 1152) and the duration
+predictor's (314 rows at 256 and 512), K5b / K4 at the training shapes,
+each checkout at the launch geometry its own wrapper computes, K8 at the DiT sampler's and training shapes (1 and 16, 16
 heads, 1056, 72; bf16, softclamp 50; dropout 0.1 at 16) and K9 at the
 training shape, its launch alone and with the wrapper's PyTorch work
 (delta, the dq fill and cast); K1 gated at the flagship sampler's shape (1,
@@ -100,10 +103,11 @@ def main():
                  (root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu'],
                   f'{tmp}/flash_{tag}.so'),
                  (root, ['flash_attention.cu', 'flash_attention_bwd.cu'],
-                  f'{tmp}/packed_{tag}.so')]
+                  f'{tmp}/packed_{tag}.so'),
+                 (root, ['hyper_conn.cu', 'hyper_conn_save.cu'], f'{tmp}/fwd_{tag}.so')]
     built = build(jobs)
     for i, (tag, _) in enumerate(roots):
-        libs[tag] = tuple(built[4 * i:4 * i + 4])
+        libs[tag] = tuple(built[5 * i:5 * i + 5])
     g = torch.Generator(device=dev).manual_seed(0)
     # K11 at the prompt: 282 frames, split over frequency tiles as the wrapper does
     spec = MelSpec(mode='pallas').to(dev)
@@ -173,6 +177,34 @@ def main():
             if err:
                 raise RuntimeError(f'{name} failed to launch: cudaError {err}')
         call.tensors = (partials, row, outs)
+        return call
+
+    # K5 / K3 at (4, m, d) bf16: the streams (K3: carried, branch and the
+    # previous beta), the parameters and the outputs, one set per shape
+    fwd_inputs = {}
+
+    def fwd(lib, fused, m, d):
+        if (m, d) not in fwd_inputs:
+            fwd_inputs[m, d] = dict(
+                ins=[rnd(s, m, d).to(bf), rnd(m, d).to(bf), rnd(s, m, scale=0.5).to(bf)],
+                params=[torch.eye(s, s + 1, device=dev), torch.ones(s, device=dev),
+                        rnd(d, s + 1, scale=0.05), rnd(d, scale=0.05),
+                        torch.tensor(0.5, device=dev), torch.tensor(0.5, device=dev)])
+        t = fwd_inputs[m, d]
+        outs = [torch.empty(m, d, dtype=bf, device=dev), torch.empty(s, m, d, dtype=bf, device=dev),
+                torch.empty(s, m, dtype=bf, device=dev)]
+        name = 'e2_hc_width_fused' if fused else 'e2_hc_width'
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        ins = t['ins'] if fused else t['ins'][:1]
+        args = [P(x.data_ptr()) for x in (*ins, *t['params'], *outs)] + [P(None), P(None)]
+
+        def call():
+            err = fn(*args, ctypes.c_int(s), ctypes.c_longlong(m), ctypes.c_int(d),
+                     ctypes.c_int(1), P(stream()))
+            if err:
+                raise RuntimeError(f'{name} failed to launch: cudaError {err}')
+        call.tensors = outs
         return call
 
     # K8 / K9 on (b, h, n, dh) views of one packed projection, as the model has them
@@ -318,6 +350,14 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip()
     for label, make in (('K11 prompt', lambda tag: mel(libs[tag][0])),
+                        *((f'{k} (4,{rows},{d}) bf16',
+                           lambda tag, rows=rows, d=d, fused=k == 'K3': fwd(libs[tag][4], fused,
+                                                                          rows, d))
+                          for rows, d in ((16896, 256), (16896, 512), (16896, 576),
+                                          (16896, 1024), (16896, 1152), (1056, 512),
+                                          (1056, 256), (1056, 576), (1056, 1152), (314, 512),
+                                          (314, 256))
+                          for k in ('K5', 'K3')),
                         *((f'{k} (4,16896,{d}) bf16',
                            lambda tag, d=d, fused=k == 'K4': bwd(libs[tag][1], tag, fused, d))
                           for d in (256, 512, 576, 1024, 1152) for k in ('K5b', 'K4')),

@@ -16,13 +16,18 @@ exit code and no result line:
    and 12, zero-padded), K3 / K5
    (hyper-connection width connection, depth-fused and plain) and their
    adjoints K4 / K5b (also at 2, 3 and 8 streams and widths 32 to 2048; the
-   Hopper design at 4 bf16 streams also at widths 1 to 4840 with a zero row,
-   a ragged M of 16819 with two calls bit for bit, and M = 1), the
-   save-state variants K3s / K5s (outputs bit for bit K3 / K5's, and the
-   saved tanh and rms reciprocal) and K4s / K5bs (also against K4 / K5b:
-   1e-5 where both run one template; bf16 at 4 streams, where K4 / K5b run
-   the Hopper design, the bf16 stream grads at one bf16 ulp and the six
-   f32 parameter grads as one vector at 1e-3 relative L2),
+   Hopper designs at 4 bf16 streams also at widths 1 to 4840 with a zero row,
+   a ragged M of 16819 with two calls bit for bit, and M = 1; there K3s /
+   K5s's outputs must equal K3 / K5's bit for bit, and a forward case beyond
+   its tolerance takes `alpha_tol` only where its line shows alpha rounding
+   flips), the save-state variants K3s / K5s (outputs bit for bit K3 / K5's,
+   and the saved tanh and rms reciprocal) and K4s / K5bs (against K4 / K5b
+   at 1e-5 where both run one template; at bf16 and 4 streams, where they
+   run two designs, K4s / K5bs and K4 / K5b each against the f64 reference
+   of hyper_conn_kernel.width_backward_reference: the bf16 input grads at
+   one bf16 ulp of it or of an alternative rounding of a point that f32
+   sums may land on either side of, each f32 parameter grad at its limit,
+   and two planted faults that must fail),
    K6 (GEGLU) and its backward K7, K11 (the fused log-mel frontend; also at
    160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
    stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
@@ -55,9 +60,11 @@ exit code and no result line:
    The build's `ptxas` lines give the registers and spills of the Hopper
    designs (csrc/flash_attention_sm90.cuh: bf16 K1 / K2 and K8 / K9;
    csrc/hyper_conn_bwd_sm90.cuh: bf16 K4 / K5b at 4 streams, built in
-   hyper_conn_bwd.cu) and of the save variants' templates
-   (hyper_conn_bwd_save.cu). K4 / K5b are timed at the flagship's, the
-   paper's and DiT's training widths (512, 1024, 1152). Then
+   hyper_conn_bwd.cu; csrc/hyper_conn_sm90.cuh: bf16 K3 / K5 and K3s / K5s
+   at 4 streams, built in hyper_conn.cu and hyper_conn_save.cu) and of the
+   save adjoints' templates (hyper_conn_bwd_save.cu). K3 / K5 and K4 / K5b
+   are timed at the flagship's, the paper's and DiT's training widths (512,
+   1024, 1152). Then
    `hc save A/B` lines: the hyper-connection forward and adjoint,
    recomputing and saving, and the pairs' sums, at the training shape for widths 512, 1024 and 1152; and
    the `yardstick` line: K8 / K9 without softclamp and dropout beside
@@ -268,25 +275,49 @@ def compare(out, ref, atol, rtol, scaled=False):
 # the parameter grads of K5b / K4 (the last six outputs), in order
 HC_PARAM_GRADS = ('static_alpha', 'static_beta', 'dyn_alpha_w', 'dyn_alpha_scale',
                   'dyn_beta_w', 'dyn_beta_scale')
-# K5bs / K4s against the Hopper K5b / K4, each parameter grad on its own:
-# the static grads at 1e-5 max|ref| + 1e-5|ref|; the dynamic weights and
-# scales, which sum products with gp (rounded to bf16, so another order
-# flips a few gp by an ulp), at 3e-4 max|ref|
+# K5b / K4 / K5bs / K4s at bf16 and 4 streams against the f64 reference
+# (hyper_conn_kernel.width_backward_reference), each parameter grad on its
+# own. The static grads sum ga = gm . r (f32 sums, no bf16 rounding point):
+# only f32 summation error, held at 1e-5 max|ref| + 1e-5|ref|. The dynamic
+# weights sum n^T gp over every row, and a few tens of gp a case round the
+# other way in f32 (each moves a column by |n| ulp(gp), ~3e-5 of max|ref|);
+# the scales sum ga ta, where a recomputing kernel's inv that rounds the
+# other way moves a row's ta: both at 3e-4 max|ref|, where a few such flips
+# that happen to add read about a third of the limit (PERF.md §6); a lower
+# limit would leave too little margin over them.
 HC_GP_GRAD_LIMIT = 3e-4
 
 
 def hc_param_xcheck(got, ref):
-    """(text, ok) of the six parameter grads ``got`` against ``ref`` at the
-    limits above; the text gives each grad's worst |err| over its limit."""
+    """(text, ok, worst) of the six parameter grads ``got`` against ``ref``
+    (f64) at the limits above; the text gives each grad's worst |err| over
+    its limit."""
     ratios = []
     for name, o, r in zip(HC_PARAM_GRADS, got[-6:], ref[-6:]):
-        o, r = o.float(), r.float()
+        o, r = o.double(), r.double()
+        err, amax = (o - r).abs(), float(r.abs().max())
         if name.startswith('static'):
-            ratios.append(compare(o, r, 1e-5, 1e-5, scaled=True)[1])
+            ratios.append(float((err / (1e-5 * amax + 1e-5 * r.abs() + 1e-300)).max()))
         else:
-            ratios.append(float((o - r).abs().max()) / (HC_GP_GRAD_LIMIT * float(r.abs().max())))
+            ratios.append(float(err.max()) / (HC_GP_GRAD_LIMIT * amax + 1e-300))
     text = ', '.join(f'{n} {x:.3f}' for n, x in zip(HC_PARAM_GRADS, ratios))
-    return text, max(ratios) <= 1.0
+    return text, max(ratios) <= 1.0, max(ratios)
+
+
+def hc_f64_check(hck, fused, args, got, state):
+    """(text, ok, worst) of one K5b / K4 / K5bs / K4s output ``got`` against
+    the f64 reference of ``args``: its input grads at one bf16 ulp of the
+    reference or of one of its alternatives (a rounding point that f32 sums
+    may land on either side of; `hck.reference_ratios`), its parameter
+    grads at `hc_param_xcheck`'s limits."""
+    n_in = 3 if fused else 1
+    ref, alts = hck.width_backward_reference(fused, *args, state=state)
+    stream = hck.reference_ratios(got[:n_in], ref[:n_in], alts)
+    ptext, pok, pworst = hc_param_xcheck(got, ref)
+    names = ('g_carried', 'g_branch', 'g_beta') if fused else ('g_residuals',)
+    text = (', '.join(f'{n} {x:.3f}' for n, x in zip(names, stream)) + f' ({len(alts)} '
+            f'alternatives); {ptext}')
+    return text, pok and max(stream) <= 1.0, max(max(stream), pworst)
 
 
 # -- phase 3: kernels -----------------------------------------------------------
@@ -410,28 +441,53 @@ def kernel_cases(torch, dev):
             return tol[dtype]
         return (1e-2 + 2 ** -7 * max(float(t.abs().max()) for t in ins), 1e-2)
 
-    def hc_case(label, s, m, d, dtype, fused, train=False, timed=False, any_width=False):
+    def hc_case(label, s, m, d, dtype, fused, train=False, timed=False, any_width=False,
+                zero_row=False, bit_equal=False):
+        """K3 / K5 against the plain version. ``zero_row`` puts row 5's rms
+        statistic on its clamp; ``bit_equal`` also holds two calls bit for
+        bit. At bf16 and 4 streams (the Hopper design) K5s / K3s's outputs
+        must equal K5 / K3's bit for bit, and a case beyond the tolerance
+        may take `alpha_tol` only where it shows alpha rounding flips: the
+        alphas from the kernel's saved tanh against the plain version's."""
         params = hc_params(s, d)
         es = esize(dtype)
         out_bytes = ((s + 1) * m * d + s * m) * es
-        if fused:
-            carried, branch, beta = randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype), \
-                randn(s, m, dtype=dtype, scale=0.5)
-            run = lambda: hck.width_connection_fused(carried, branch, beta, *params)
-            plain = lambda: hck.width_connection_fused_plain(carried, branch, beta, *params)
-            in_bytes = ((s + 1) * m * d + s * m) * es
+        if zero_row:
+            ins = hc_inputs(s, m, d, dtype, fused)
+        elif fused:
+            ins = (randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype),
+                   randn(s, m, dtype=dtype, scale=0.5))
         else:
-            res = randn(s, m, d, dtype=dtype)
-            run = lambda: hck.width_connection(res, *params)
-            plain = lambda: hck.width_connection_plain(res, *params)
-            in_bytes = s * m * d * es
-        ins = (carried, branch) if fused else (res,)
-        cases.append(dict(
-            kernel='K3' if fused else 'K5', label=label, run=run, plain=plain, train=train,
-            timed=timed,
-            tol=alpha_tol(ins, dtype) if any_width else tol[dtype], nbytes=in_bytes + out_bytes,
+            ins = (randn(s, m, d, dtype=dtype),)
+        fn = hck.width_connection_fused if fused else hck.width_connection
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        plain_fn = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+        in_bytes = (((s + 1) * m * d + s * m) if fused else s * m * d) * es
+        case = dict(
+            kernel='K3' if fused else 'K5', label=label, run=lambda: fn(*ins, *params),
+            plain=lambda: plain_fn(*ins, *params), train=train, timed=timed,
+            tol=alpha_tol(ins[:2], dtype) if any_width else tol[dtype],
+            nbytes=in_bytes + out_bytes,
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
-            peak=PEAK_F32_FLOPS))        # the kernel's arithmetic is f32 FMA
+            peak=PEAK_F32_FLOPS)        # the kernel's arithmetic is f32 FMA
+        if dtype == bf16 and s == 4:
+            def flips():
+                _, (ta, _) = fwd(*ins, *params, save_state=True)
+                _, (pta, _) = plain_fn(*ins, *params, save_state=True)
+                affine = lambda t: (t[..., :s + 1] * params[3] + params[0][:, None]).to(bf16)
+                return int((affine(ta) != affine(pta)).sum())
+
+            def extra():
+                out = fn(*ins, *params)
+                saved = all(torch.equal(a, b)
+                            for a, b in zip(fwd(*ins, *params, save_state=True)[0], out))
+                again = all(torch.equal(a, b) for a, b in zip(fn(*ins, *params), out))
+                text = f'; {"K3s" if fused else "K5s"} outputs bit-equal: {saved}'
+                if bit_equal:
+                    text += f'; two calls bit-equal: {again}'
+                return text, saved and (again or not bit_equal)
+            case.update(extra=extra, flips=flips, flip_tol=alpha_tol(ins[:2], dtype))
+        cases.append(case)
 
     def hc_bwd_case(label, s, m, d, dtype, fused, timed=False, zero_row=False, bit_equal=False):
         """K4 / K5b against the plain adjoint; ``zero_row`` puts the rms
@@ -519,9 +575,11 @@ def kernel_cases(torch, dev):
 
     def hc_bwd_save_case(label, s, m, d, dtype, fused, timed=False):
         """K5bs / K4s from K5s / K3s's state against the plain save adjoint
-        (K4 / K5b's limits); beside it, against K5b / K4: 1e-5 max|ref| +
-        1e-5|ref| where one template runs both, else as `hc_param_xcheck`
-        and the stream grads at one bf16 ulp."""
+        (K4 / K5b's limits); beside it, at bf16 and 4 streams (two designs,
+        two summation orders), K5bs / K4s and K5b / K4 each against the f64
+        reference (`hc_f64_check`), with two planted faults that must fail
+        it, and the direct comparison of the two printed; elsewhere (one
+        template) K5bs / K4s against K5b / K4 at 1e-5 max|ref| + 1e-5|ref|."""
         params, es = hc_params(s, d), esize(dtype)
         ins = hc_inputs(s, m, d, dtype, fused)
         grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
@@ -534,26 +592,31 @@ def kernel_cases(torch, dev):
         def extra():
             got, rec = bwd(*ins, *params, *grads, state=state), bwd(*ins, *params, *grads)
             if dtype == bf16 and s == 4:
-                # K5b / K4 run the Hopper design there and sum in another
-                # order: the bf16 stream grads at one bf16 ulp, each
-                # parameter grad at its limit (hc_param_xcheck); two planted
-                # faults must fail those limits: row 0 left out (K5b / K4
-                # with row 0's incoming grads zero) and dyn_beta_scale's
-                # grad 30% off. Beside it, unchecked, the plain version
-                # (f32, a third order) against K5bs / K4s at the same limits
-                text, ok = hc_param_xcheck(got, rec)
-                _, w_str = compare(got[:-6], rec[:-6], 1e-5, 2 ** -7, scaled=True)
+                # planted faults, each must fail: row 0 left out (the
+                # kernel run with row 0's incoming grads zero) and
+                # dyn_beta_scale's grad x0.7
                 drop = tuple(g.clone() for g in grads)
                 drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
-                t_drop, ok_drop = hc_param_xcheck(got, bwd(*ins, *params, *drop))
-                _, ok_scale = hc_param_xcheck(got, (*rec[:-1], rec[-1] * 0.7))
-                t_plain, _ = hc_param_xcheck(bplain(*ins, *params, *grads, state=state), got)
-                return (f'; against {"K4" if fused else "K5b"} (Hopper design): parameter '
-                        f'grads, ratio to limit: {text}; stream grads worst ratio {w_str:.3f} '
-                        f'(|err| <= 1e-5 max|ref| + 2^-7|ref|); planted faults fail: row 0 '
-                        f'left out {not ok_drop} ({t_drop}), dyn_beta_scale grad x0.7 '
-                        f'{not ok_scale}; plain version against K5bs / K4s: {t_plain}'), \
-                    ok and w_str <= 1.0 and not ok_drop and not ok_scale
+                text, ok = '', True
+                args = (*ins, *params, *grads)
+                for name, out, st in ((('K4s' if fused else 'K5bs'), got, state),
+                                      (('K4' if fused else 'K5b'), rec, None)):
+                    t_ok, ok_k, _ = hc_f64_check(hck, fused, args, out, st)
+                    t_drop, ok_drop, w_drop = hc_f64_check(
+                        hck, fused, args, bwd(*ins, *params, *drop, state=st), st)
+                    _, ok_scale, w_scale = hc_f64_check(hck, fused, args,
+                                                        (*out[:-1], out[-1] * 0.7), st)
+                    text += (f'; {name} against f64: {t_ok}; planted faults fail: row 0 '
+                             f'left out {not ok_drop} (worst ratio {w_drop:.3f}: {t_drop}), '
+                             f'dyn_beta_scale grad x0.7 {not ok_scale} (worst ratio '
+                             f'{w_scale:.3f})')
+                    ok = ok and ok_k and not ok_drop and not ok_scale
+                # the two designs directly, printed only: they sum in other orders
+                t_dir, _, _ = hc_param_xcheck(got, rec)
+                _, w_dir = compare(got[:-6], rec[:-6], 1e-5, 2 ** -7, scaled=True)
+                return (text + f'; {"K4s" if fused else "K5bs"} against '
+                        f'{"K4" if fused else "K5b"} (unchecked): stream grads {w_dir:.3f} of '
+                        f'one ulp, {t_dir}'), ok
             _, worst = compare(got, rec, 1e-5, 1e-5, scaled=True)
             return (f'; against {"K4" if fused else "K5b"}: worst ratio {worst:.3f} '
                     f'(|err| <= 1e-5 max|ref| + 1e-5|ref|)'), worst <= 1.0
@@ -791,6 +854,8 @@ def kernel_cases(torch, dev):
         hc_case(f'{tag} duration predictor text (4,{PREDICTOR_N},256) bf16', 4, PREDICTOR_N,
                 256, bf16, fused)
         hc_case(f'{tag} train (4,{M},512) bf16', 4, M, 512, bf16, fused, train=True)
+        hc_case(f'{tag} paper train (4,{M},1024) bf16', 4, M, 1024, bf16, fused, timed=True)
+        hc_case(f'{tag} DiT train (4,{M},1152) bf16', 4, M, 1152, bf16, fused, timed=True)
         hc_bwd_case(f'{tag} train speech (4,{M},512) bf16', 4, M, 512, bf16, fused)
         hc_bwd_case(f'{tag} train text (4,{M},256) bf16', 4, M, 256, bf16, fused)
         hc_bwd_case(f'{tag} ragged M={M - 77} d=512 bf16', 4, M - 77, 512, bf16, fused)
@@ -804,10 +869,18 @@ def kernel_cases(torch, dev):
                     timed=True)
         hc_bwd_case(f'{tag} DiT train text (4,{M},576) bf16', 4, M, 576, bf16, fused)
         hc_bwd_case(f'{tag} f32 M=333 d=1152', 4, 333, 1152, f32, fused)
-    # the Hopper K5b / K4 (bf16, 4 streams) at every width from 1 to
-    # max_dim(4) with a zero row, a ragged M (and two calls bit for bit), M = 1
+    # the Hopper K5 / K3 and K5b / K4 (bf16, 4 streams) at every width from
+    # 1 to max_dim(4) with a zero row, a ragged M (and two calls bit for
+    # bit), M = 1
     for fused in (False, True):
         tag = 'fused' if fused else 'plain'
+        for d in (1, 7, 100, 250, 1000, 2048, 4840):
+            hc_case(f'{tag} M=2000 d={d} bf16 zero row', 4, 2000, d, bf16, fused, zero_row=True)
+        for d in (1024, 1152):
+            hc_case(f'{tag} ragged M={M - 77} d={d} bf16 zero row', 4, M - 77, d, bf16, fused,
+                    zero_row=True, bit_equal=True)
+        for d in (7, 1024, 4840):
+            hc_case(f'{tag} M=1 d={d} bf16', 4, 1, d, bf16, fused)
         for d in (1, 7, 256, 512, 576, 1000, 1024, 1152, 2048, 4840):
             hc_bwd_case(f'{tag} M=2000 d={d} bf16 zero row', 4, 2000, d, bf16, fused,
                         zero_row=True)
@@ -1039,12 +1112,21 @@ def phase_kernels(torch, dev):
         scaled = case.get('scaled', False)
         out = case['run']()
         torch.cuda.synchronize()
-        err, worst = compare(out, case['plain'](), atol, rtol, scaled)
+        ref_out = case['plain']()
+        err, worst = compare(out, ref_out, atol, rtol, scaled)
         rec = records.setdefault(kname, dict(max_abs_err=0.0))
         rec['max_abs_err'] = max(rec['max_abs_err'], err)
         abs_term = f'{atol:g} max|ref|' if scaled else f'{atol:g}'
         line = (f'kernel {kname} {label}: max_abs_err={err:.3e} '
                 f'(tolerance |err| <= {abs_term} + {rtol:g}|ref|, worst ratio {worst:.3f})')
+        if worst > 1.0 and 'flips' in case:
+            n_flips = case['flips']()
+            if n_flips:
+                atol, rtol = case['flip_tol']
+                _, worst = compare(out, ref_out, atol, rtol, scaled)
+                line += (f'; {n_flips} alpha rounding flips (the kernel\'s saved tanh against '
+                         f'the plain version\'s): alpha_tol |err| <= {atol:.4g} + {rtol:g}|ref|, '
+                         f'worst ratio {worst:.3f}')
         separated = True
         if 'against' in case:
             what, against = case['against']
@@ -1083,7 +1165,7 @@ def phase_kernels(torch, dev):
             if 'kernel_only_ms' in timed:
                 line += f' kernel_only_ms={timed["kernel_only_ms"]:.5f}'
         log(line)
-        del out
+        del out, ref_out
         if worst > 1.0:
             raise AssertionError(f'{kname} {label}: kernel disagrees with its plain version')
         if not extra_ok:
@@ -1946,7 +2028,8 @@ def main() -> int:
     _cuda.lib()
     for source, marker in (('flash_attention.cu', '4sm90'), ('flash_attention_bwd.cu', '4sm90'),
                            ('flash_attention_bhnd.cu', '4sm90'), ('hyper_conn_bwd.cu', 'kernel'),
-                           ('hyper_conn_bwd_save.cu', 'kernel')):
+                           ('hyper_conn_bwd_save.cu', 'kernel'), ('hyper_conn.cu', 'sm90'),
+                           ('hyper_conn_save.cu', 'sm90')):
         for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, marker):
             log(f'ptxas {source} {name}: {regs} registers, {spill_st} bytes spill stores, '
                 f'{spill_ld} bytes spill loads')

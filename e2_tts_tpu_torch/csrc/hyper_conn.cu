@@ -1,7 +1,9 @@
-// K5 and K3: the hyper-connection width connection. The device code, its
-// design and what bounds it are in hyper_conn.cuh; the save-state variants
-// K5s / K3s are built from the same templates in hyper_conn_save.cu.
-#include "hyper_conn.cuh"
+// K5 and K3: the hyper-connection width connection. The entry points choose
+// the design from the dtype and the stream count (`width_run`): bf16 at 4
+// streams runs the Hopper design of hyper_conn_sm90.cuh, everything else the
+// templates of hyper_conn.cuh. The save-state variants K5s / K3s are the same
+// designs' SAVE flag, built in hyper_conn_save.cu.
+#include "hyper_conn_sm90.cuh"
 
 // K5s / K3s (hyper_conn_save.cu); params points at hyper_conn.cuh's HcParams
 int e2_hc_width_save_run(const void* params, int s, int fused, int dtype, void* stream);
@@ -11,7 +13,7 @@ namespace {
 int run(const HcParams& p, int s, bool fused, int dtype, void* stream) {
   if ((p.ta == nullptr) != (p.inv == nullptr)) return (int)cudaErrorInvalidValue;
   if (p.ta != nullptr) return e2_hc_width_save_run(&p, s, fused, dtype, stream);
-  return fwd_run<false>(p, s, fused, dtype, stream);
+  return width_run<false>(p, s, fused, dtype, stream);
 }
 
 }  // namespace

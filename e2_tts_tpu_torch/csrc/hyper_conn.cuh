@@ -22,26 +22,24 @@
 // value for g_n * inv and inv^3). Their public outputs are the same
 // instructions on the same values: bit-identical to K5 / K3.
 //
-// Any stream count s from 2 to 8 (a template argument) and any width d. One
-// warp owns one row of all s streams; a register tile holds V values per
-// lane per stream, columns 32 i + lane. At the widths of the configurations
-// the repo runs, with 4 bf16 streams (256, 512, 576, 1024, 1152), the tile
-// is exactly the row (FULL): d is a compile-time constant, every input is
-// read once and stays in registers. Every other case runs one small
-// streaming tile (V = 8, or 4 for f32 and more than 4 streams) over a
-// run-time d, masked past d: each stream is read once for its rms
-// statistic, once for its projection and once for the mix (the re-reads hit
-// L1 / L2). Only these tiles are built, which keeps the build short.
+// These templates run f32 and bf16 at 2, 3 and 5-8 streams; bf16 at 4
+// streams, the count every configuration of the repo runs, takes the Hopper
+// design of hyper_conn_sm90.cuh (`width_run` there chooses). Any stream count
+// s from 2 to 8 (a template argument) and any width d: one warp owns one row
+// of all s streams and streams it in chunks of V values per lane per stream
+// (V = 8, or 4 for f32 and more than 4 streams), columns 32 i + lane, masked
+// past d: each stream is read once for its rms statistic, once for its
+// projection (unless the row is one chunk) and once for the mix (the
+// re-reads hit L1 / L2).
 //
 // The save-state instantiations are built in hyper_conn_save.cu, the others
 // in hyper_conn.cu (one nvcc each, in parallel).
 //
 // What bounds it: bytes. Per row it reads s*d (K3: s*d + d + s) values and
 // writes (s+1)*d + s, against ~(s+2)*d*s*2 + (s+1)*s*d*2 flops: ~10
-// FLOP/byte, far below the H100's ridge. The design reads every input once
-// and writes every output once (resident rows); the reductions are warp
-// shuffles, and the (d, s+2) weights sit in shared memory for the whole
-// block. Simple first: scalar (2- or 4-byte) loads and stores.
+// FLOP/byte, far below the H100's ridge. The reductions are warp shuffles,
+// and the (d, s+2) weights sit in shared memory for the whole block. Simple
+// first: scalar (2- or 4-byte) loads and stores.
 #pragma once
 
 #include <type_traits>
@@ -73,14 +71,12 @@ struct HcParams {
   int d;
 };
 
-template <typename T, int NS, int V, bool FUSED, bool SAVE, bool FULL>
+template <typename T, int NS, int V, bool FUSED, bool SAVE>
 __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
   constexpr int NC = NS + 2;  // alpha columns 0..NS, beta at NS+1
   constexpr int CW = 32 * V;  // columns per chunk
   extern __shared__ float sW[];  // (d, NC): the weights, rounded to T
-  // FULL: d is exactly the tile, a compile-time constant, and the row stays
-  // in registers; else a run-time d, masked and streamed in chunks
-  const int d = FULL ? CW : p.d;
+  const int d = p.d;
   for (int i = threadIdx.x; i < d * NC; i += THREADS) {
     const int col = i / NC, c = i % NC;
     const float w = c <= NS ? p.aw[col * (NS + 1) + c] : p.bw[col];
@@ -91,7 +87,7 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
   const float a_scale = *p.ascale, b_scale = *p.bscale;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long M = p.m;
-  const int nch = FULL ? 1 : (d + CW - 1) / CW;
+  const int nch = (d + CW - 1) / CW;
   const T* in0 = static_cast<const T*>(p.in0);
   const T* in1 = static_cast<const T*>(p.in1);
   const T* in2 = static_cast<const T*>(p.in2);
@@ -119,7 +115,7 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int col = ch * CW + i * 32 + lane;
-        const bool ok = FULL || col < d;
+        const bool ok = col < d;
         const float br = FUSED && ok ? e2::to_float<T>(in1[row * d + col]) : 0.f;
 #pragma unroll
         for (int s = 0; s < NS; ++s) r[s][i] = ok ? stream_at(s, col, br) : 0.f;
@@ -134,7 +130,6 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
         r[s][i] = ok ? stream_at(s, col, br) : 0.f;
       }
     };
-    if constexpr (FULL) load_all(0);
 
     // per stream: the rms statistic, then the projection, its tanh, alpha
     // and beta (a streamed row is re-read for each)
@@ -143,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
     for (int s = 0; s < NS; ++s) {
       float sq = 0.f;
       for (int ch = 0; ch < nch; ++ch) {
-        if constexpr (!FULL) load_stream(s, ch);
+        load_stream(s, ch);
 #pragma unroll
         for (int i = 0; i < V; ++i) sq = fmaf(r[s][i], r[s][i], sq);
       }
@@ -153,13 +148,11 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) proj[c] = 0.f;
       for (int ch = 0; ch < nch; ++ch) {
-        if constexpr (!FULL) {
-          if (nch > 1) load_stream(s, ch);
-        }
+        if (nch > 1) load_stream(s, ch);
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           const int col = ch * CW + i * 32 + lane;
-          if (FULL || col < d) {
+          if (col < d) {
             const float nv = e2::round_to<T>(r[s][i] * inv_r);
             const float* w = sW + col * NC;
 #pragma unroll
@@ -183,14 +176,14 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
     }
 
     for (int ch = 0; ch < nch; ++ch) {
-      if constexpr (!FULL) load_all(ch);
+      load_all(ch);
 #pragma unroll
       for (int t = 0; t <= NS; ++t) {
         T* dst = t == 0 ? out_branch + row * d : out_carried + ((t - 1) * M + row) * d;
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           const int col = ch * CW + i * 32 + lane;
-          if (FULL || col < d) {
+          if (col < d) {
             float acc = 0.f;
 #pragma unroll
             for (int s = 0; s < NS; ++s) acc = fmaf(alpha[s][t], r[s][i], acc);
@@ -202,11 +195,12 @@ __global__ void __launch_bounds__(THREADS) hc_width_kernel(HcParams p) {
   }
 }
 
-template <typename T, int NS, int V, bool FUSED, bool SAVE, bool FULL>
+template <typename T, int NS, bool FUSED, bool SAVE>
 cudaError_t launch(const HcParams& p, cudaStream_t stream) {
+  constexpr int V = std::is_same<T, float>::value || NS > 4 ? 4 : 8;
   const size_t smem = (size_t)p.d * (NS + 2) * sizeof(float);
-  if (smem > MAX_SMEM || (FULL && p.d != 32 * V)) return cudaErrorInvalidValue;
-  auto kernel = hc_width_kernel<T, NS, V, FUSED, SAVE, FULL>;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  auto kernel = hc_width_kernel<T, NS, V, FUSED, SAVE>;
   // set once, outside any CUDA-graph capture that later launches replay
   static bool configured = false;
   if (!configured) {
@@ -222,43 +216,24 @@ cudaError_t launch(const HcParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the register tile: for 4 bf16 streams an exact tile at the widths of the
-// configurations the repo runs (the flagship's 256 / 512, DiT-XL's 576 /
-// 1152, the E2-TTS paper's 1024); every other case (other widths, other
-// stream counts, f32, the checking dtype) one small streaming tile, which
-// keeps the build short
-template <typename T, int NS, bool FUSED, bool SAVE>
-cudaError_t dispatch_v(const HcParams& p, cudaStream_t st) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  if constexpr (!kF32 && NS == 4) {
-    switch (p.d) {
-      case 256: return launch<T, 4, 8, FUSED, SAVE, true>(p, st);
-      case 512: return launch<T, 4, 16, FUSED, SAVE, true>(p, st);
-      case 576: return launch<T, 4, 18, FUSED, SAVE, true>(p, st);
-      case 1024: return launch<T, 4, 32, FUSED, SAVE, true>(p, st);
-      case 1152: return launch<T, 4, 36, FUSED, SAVE, true>(p, st);
-      default: break;
-    }
-  }
-  constexpr int V = kF32 || NS > 4 ? 4 : 8;
-  return launch<T, NS, V, FUSED, SAVE, false>(p, st);
-}
-
 template <typename T, bool FUSED, bool SAVE>
 cudaError_t dispatch_s(const HcParams& p, int s, cudaStream_t st) {
   switch (s) {
-    case 2: return dispatch_v<T, 2, FUSED, SAVE>(p, st);
-    case 3: return dispatch_v<T, 3, FUSED, SAVE>(p, st);
-    case 4: return dispatch_v<T, 4, FUSED, SAVE>(p, st);
-    case 5: return dispatch_v<T, 5, FUSED, SAVE>(p, st);
-    case 6: return dispatch_v<T, 6, FUSED, SAVE>(p, st);
-    case 7: return dispatch_v<T, 7, FUSED, SAVE>(p, st);
-    case 8: return dispatch_v<T, 8, FUSED, SAVE>(p, st);
+    case 2: return launch<T, 2, FUSED, SAVE>(p, st);
+    case 3: return launch<T, 3, FUSED, SAVE>(p, st);
+    case 4:  // bf16 at 4 streams runs hyper_conn_sm90.cuh
+      if constexpr (std::is_same<T, float>::value) return launch<T, 4, FUSED, SAVE>(p, st);
+      return cudaErrorInvalidValue;
+    case 5: return launch<T, 5, FUSED, SAVE>(p, st);
+    case 6: return launch<T, 6, FUSED, SAVE>(p, st);
+    case 7: return launch<T, 7, FUSED, SAVE>(p, st);
+    case 8: return launch<T, 8, FUSED, SAVE>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// every (dtype, fused) variant with the SAVE flag of this translation unit
+// the templates: every (dtype, fused) variant with the SAVE flag of this
+// translation unit but bf16 at 4 streams
 template <bool SAVE>
 int fwd_run(const HcParams& p, int s, bool fused, int dtype, void* stream) {
   if (p.d < 1) return (int)cudaErrorInvalidValue;

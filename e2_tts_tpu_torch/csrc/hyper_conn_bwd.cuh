@@ -33,10 +33,10 @@
 // code.
 //
 // Any stream count s from 2 to 8 (a template argument) and any width d: a
-// warp owns a row, a register tile holds V values per lane per stream. The
-// tiles are the forward's (hyper_conn.cuh): exact (FULL, the row resident,
-// d a compile-time constant) at the widths the repo's configurations run
-// with 4 bf16 streams, one small streaming tile otherwise, masked past d
+// warp owns a row, a register tile holds V values per lane per stream: exact
+// (FULL, the row resident, d a compile-time constant) at the widths the
+// repo's configurations run with 4 bf16 streams, one small streaming tile
+// otherwise (V = 8, or 4 for f32 and more than 4 streams), masked past d
 // and re-read once per pass (rms statistic, projection, mix adjoint,
 // back-projection, residual grad) from L1 / L2. Three sources build them, one
 // nvcc each, in parallel: bf16 at 4 streams saving (hyper_conn_bwd_save.cu),
@@ -430,7 +430,7 @@ cudaError_t launch_bwd(const HcBwdParams& p, int blocks, int warps, float* param
   return cudaGetLastError();
 }
 
-// the register tile, as the forward's (csrc/hyper_conn.cuh)
+// the register tile: exact at the configurations' widths for 4 bf16 streams
 template <typename T, int NS, bool FUSED, bool SAVE>
 cudaError_t bwd_dispatch_v(const HcBwdParams& p, int blocks, int warps, float* out,
                            cudaStream_t st) {

@@ -11,13 +11,14 @@ their ``_save`` bodies. The forward kernels live in ``csrc/hyper_conn.cu``,
 the adjoints in ``csrc/hyper_conn_bwd.cu``: all bandwidth bound, each
 input read once and each output written once, and K3 / K4 form the previous
 branch's depth connection ``carried + branch * beta`` on chip instead of in
-device memory. The forward kernels and the templates of
-``csrc/hyper_conn_bwd.cuh`` (f32, bf16 at 2, 3 and 5-8 streams, the save
-variants) give one warp one row of every stream in registers (streamed in
-chunks when the row is wider than the register tile); the recomputing
-adjoints on bf16 at 4 streams run the Hopper design of
-``csrc/hyper_conn_bwd_sm90.cuh`` (a team of warps a row, 8 columns a
-thread, a cp.async ring; the C entry points choose it). The adjoints port
+device memory. On bf16 at 4 streams (every configuration of the repo) the
+forwards with their save variants and the recomputing adjoints run Hopper
+designs (``csrc/hyper_conn_sm90.cuh``, ``csrc/hyper_conn_bwd_sm90.cuh``: a
+team of warps a row, 8 columns a thread, a cp.async ring; the forwards'
+projection on the tensor cores); the templates of ``csrc/hyper_conn.cuh`` /
+``hyper_conn_bwd.cuh`` (f32, bf16 at 2, 3 and 5-8 streams, and the save
+adjoints) give one warp one row of every stream. The C entry points choose
+the design from the dtype and the stream count. The adjoints port
 the hand-derived chain rule of the JAX package's ``_width_bwd_core``; their
 parameter grads are per-block partial sums reduced in a fixed order (the
 same result every run). `_Width` (K5 + K5b)
@@ -40,7 +41,10 @@ previous ``beta`` as ``(s, M)`` — the layout K3/K5 write — where the JAX
 API took its transpose.
 
 The wrappers take the plain PyTorch versions for CPU tensors and launch the
-kernels for CUDA tensors; there is no other route.
+kernels for CUDA tensors; there is no other route. The plain adjoints also
+run in f64 (``acc=``): `width_backward_reference` is that reference with the
+alternatives f32 sums may legitimately round to, which the card's checks
+hold the adjoints against; nothing on a kernel path calls it.
 """
 
 from __future__ import annotations
@@ -127,43 +131,55 @@ def width_connection_fused_plain(carried, branch, beta, *params, save_state=Fals
                                   save_state=save_state)
 
 
-def _packed_params(params, s, dt):
+def _packed_params(params, s, dt, acc=torch.float32):
     """The beta-folded packs of the JAX kernels: weights (d, s+2) rounded to
-    the compute dtype, statics (s, s+2), per-column scales (s+2,)."""
-    sa, sb, aw, ascale, bw, bscale = (p.float() for p in params)
-    w = torch.cat((aw, bw[:, None]), dim=1).to(dt).float()
+    the compute dtype, statics (s, s+2), per-column scales (s+2,), in
+    ``acc``."""
+    sa, sb, aw, ascale, bw, bscale = (p.to(acc) for p in params)
+    w = torch.cat((aw, bw[:, None]), dim=1).to(dt).to(acc)
     sa_p = torch.cat((sa, sb[:, None]), dim=1)
     scale_row = torch.cat((ascale.reshape(1).expand(s + 1), bscale.reshape(1)))
     return w, sa_p, scale_row
 
 
-def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state=None):
+def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state=None,
+                         acc=torch.float32, rounding=None):
     """The hand-derived adjoint of `_width_bwd_core` on streams ``r (s, M,
-    d)``: returns the f32 residual grads (s, M, d) and the six parameter
-    grads (f32). With ``state = (ta, inv)`` (the save-state path) the tanh
+    d)``: returns the residual grads (s, M, d) and the six parameter grads,
+    all in ``acc``. With ``state = (ta, inv)`` (the save-state path) the tanh
     and the unrounded rms reciprocal come from the forward, and the clamp
-    test is ``inv < 1e6``, as the reference's."""
+    test is ``inv < 1e6``, as the reference's. ``acc`` is the dtype of every
+    sum and every elementwise step: f32 as the kernels, or f64 for a
+    reference with no f32 rounding of its own. The compute-dtype roundings
+    (``inv``, ``normed``, ``alpha``, ``gp``) stay where the kernels have
+    them; ``rounding(name, x, nearest)``, where given, picks the value of
+    the ``inv``, ``alpha`` and ``gp`` points (`width_backward_reference`)."""
     dt = r.dtype
     s, _, d = r.shape
-    w, sa_p, scale_row = _packed_params(params, s, dt)
-    rf = r.float()
+
+    def rnd(name, x):
+        nearest = x.to(dt).to(acc)
+        return nearest if rounding is None else rounding(name, x, nearest)
+
+    w, sa_p, scale_row = _packed_params(params, s, dt, acc)
+    rf = r.to(acc)
     if state is None:
         var = (rf * rf).sum(-1) / d
         inv = torch.rsqrt(torch.clamp(var, min=1e-12))
         var_ok = var > 1e-12
-        normed = (r * inv[..., None].to(dt)).float()
+        normed = (rf * rnd('inv', inv)[..., None]).to(dt).to(acc)
         ta = torch.tanh(torch.einsum('smd,dc->smc', normed, w))      # (s, M, s+2)
     else:
-        ta, inv = (t.float() for t in state)
+        ta, inv = (t.to(acc) for t in state)
         var_ok = inv < 1e6
-        normed = (r * inv[..., None].to(dt)).float()
-    alpha = (ta * scale_row + sa_p[:, None, :]).to(dt).float()
+        normed = (rf * inv[..., None].to(dt).to(acc)).to(dt).to(acc)
+    alpha = rnd('alpha', ta * scale_row + sa_p[:, None, :])
 
-    gm = torch.cat((g_branch_in[None], g_carried)).float()            # (s+1, M, d)
+    gm = torch.cat((g_branch_in[None], g_carried)).to(acc)            # (s+1, M, d)
     ga = torch.cat((torch.einsum('tmd,smd->smt', gm, rf),
-                    g_beta.float()[..., None]), dim=-1)               # (s, M, s+2)
+                    g_beta.to(acc)[..., None]), dim=-1)               # (s, M, s+2)
     g_mix = torch.einsum('smt,tmd->smd', alpha[..., :s + 1], gm)
-    g_p = (ga * scale_row * (1.0 - ta * ta)).to(dt).float()
+    g_p = rnd('gp', ga * scale_row * (1.0 - ta * ta))
     gt = ga * ta
     g_static = ga.sum(1)                                              # (s, s+2)
     g_n = torch.einsum('smc,dc->smd', g_p, w)
@@ -176,34 +192,141 @@ def _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state=None):
     return g_r, grads
 
 
+def _out_dtype(dt, acc):
+    """The input grads' dtype: the inputs' for the kernels' plain version
+    (f32 sums), ``acc`` itself, unrounded, for a wider reference."""
+    return dt if acc == torch.float32 else acc
+
+
 def width_connection_backward_plain(residuals, static_alpha, static_beta, dyn_alpha_w,
                                     dyn_alpha_scale, dyn_beta_w, dyn_beta_scale,
-                                    g_branch_in, g_carried, g_beta, *, state=None):
+                                    g_branch_in, g_carried, g_beta, *, state=None,
+                                    acc=torch.float32, rounding=None):
     """Plain PyTorch version of K5b (K5bs with ``state = (ta, inv)``):
-    returns ``(g_residuals, *param_grads)`` in the order of the
-    parameters."""
+    returns ``(g_residuals, *param_grads)`` in the order of the parameters.
+    ``acc=torch.float64`` gives the f64 reference of `_width_adjoint_plain`,
+    with every grad in f64 (``rounding`` as there)."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
     g_r, grads = _width_adjoint_plain(residuals, params, g_branch_in, g_carried, g_beta,
-                                      state)
-    return (g_r.to(residuals.dtype), *grads)
+                                      state, acc, rounding)
+    return (g_r.to(_out_dtype(residuals.dtype, acc)), *grads)
 
 
 def width_connection_fused_backward_plain(carried, branch, beta, static_alpha, static_beta,
                                           dyn_alpha_w, dyn_alpha_scale, dyn_beta_w,
                                           dyn_beta_scale, g_branch_in, g_carried, g_beta, *,
-                                          state=None):
+                                          state=None, acc=torch.float32, rounding=None):
     """Plain PyTorch version of K4 (K4s with ``state = (ta, inv)``): returns
     ``(g_carried, g_branch, g_beta, *param_grads)`` for the inputs ``carried
-    (s, M, d), branch (M, d), beta (s, M)``."""
+    (s, M, d), branch (M, d), beta (s, M)``; ``acc`` and ``rounding`` as
+    `width_connection_backward_plain`."""
     params = (static_alpha, static_beta, dyn_alpha_w, dyn_alpha_scale,
               dyn_beta_w, dyn_beta_scale)
-    dt = carried.dtype
     r = _depth_connection(carried, branch, beta)
-    g_r, grads = _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state)
-    g_branch = (g_r * beta.float()[..., None]).sum(0)
-    g_beta_prev = (g_r * branch.float()[None]).sum(-1)
-    return (g_r.to(dt), g_branch.to(branch.dtype), g_beta_prev.to(beta.dtype), *grads)
+    g_r, grads = _width_adjoint_plain(r, params, g_branch_in, g_carried, g_beta, state, acc,
+                                      rounding)
+    g_branch = (g_r * beta.to(acc)[..., None]).sum(0)
+    g_beta_prev = (g_r * branch.to(acc)[None]).sum(-1)
+    return (g_r.to(_out_dtype(carried.dtype, acc)), g_branch.to(_out_dtype(branch.dtype, acc)),
+            g_beta_prev.to(_out_dtype(beta.dtype, acc)), *grads)
+
+
+# A rounding point whose f64 value lies within this fraction of its magnitude
+# of a bf16 rounding midpoint may round either way in a kernel that sums in
+# f32: its sums of a few thousand terms carry ~1e-7 of relative error, its
+# rsqrtf and tanhf two f32 ulps; 2**-16 leaves a margin of ~50.
+_EITHER_WAY = 2.0 ** -16
+_MAX_ALTERNATIVES = 8
+
+
+def _other_bf16(x, nearest):
+    """The bf16 neighbour of ``nearest`` on the side of ``x`` (x's dtype):
+    one step of the bf16 magnitude bits, outward where |x| > |nearest|."""
+    bits = nearest.to(torch.bfloat16).view(torch.int16)
+    step = torch.where(x.abs() > nearest.abs(), 1, -1).to(torch.int16)
+    return (bits + step).view(torch.bfloat16).to(x.dtype)
+
+
+def width_backward_reference(fused, *args, state=None):
+    """The f64 reference of K4 (``fused``; ``args`` as
+    `width_connection_fused_backward_plain` takes them) or K5b (as
+    `width_connection_backward_plain`), of K4s / K5bs with the forward's
+    ``state``, and the other results a kernel that sums in f32 may
+    legitimately give: ``(ref, alts)``.
+
+    ``ref`` rounds to nearest at every rounding point. A point whose f64
+    value lies within ``_EITHER_WAY`` of its magnitude of a bf16 midpoint
+    (``gp``, ``alpha`` and, where the kernel computes it, ``inv``) may round
+    either way in f32. Alternative k rounds the k-th such point of each row
+    the other way, and ``alts[k]`` is its input grads less ``ref``'s; a row's
+    alternatives add (the grads are linear in alpha and gp). The parameter
+    grads, sums over every row, stay ``ref``'s: their limits allow for
+    these points. For BF16 streams only."""
+    plain = width_connection_fused_backward_plain if fused else width_connection_backward_plain
+    n_in = 3 if fused else 1
+    s = args[0].shape[0]
+    seen = {}
+
+    def record(name, x, nearest):
+        seen[name] = (x, nearest)
+        return nearest
+
+    ref = plain(*args, state=state, acc=torch.float64, rounding=record)
+    # each point's row-major position: (M, points of the row)
+    either = {}
+    for name, (x, nearest) in seen.items():
+        if name == 'inv' and state is not None:
+            continue                      # the kernel rounds the forward's own value
+        mid = (nearest + _other_bf16(x, nearest)) / 2
+        amb = (x - mid).abs() <= _EITHER_WAY * x.abs()
+        if name == 'alpha':
+            amb[..., s + 1] = False       # beta's column: not used by the adjoint
+        either[name] = amb
+    rows = torch.cat([a.movedim(1, 0).reshape(a.shape[1], -1) for a in either.values()], dim=1)
+    rank = rows.cumsum(1) - 1
+    count = int(rows.sum(1).max()) if rows.numel() else 0
+    if count > _MAX_ALTERNATIVES:
+        raise ValueError(f'{count} rounding points of one row within {_EITHER_WAY:g} of a '
+                         'bf16 midpoint')
+    alts = []
+    for k in range(count):
+        pick = (rows & (rank == k)).reshape(rows.shape[0], -1)
+        flips, start = {}, 0
+        for name, a in either.items():
+            n = a[:, 0].numel()
+            flips[name] = pick[:, start:start + n].reshape(a.movedim(1, 0).shape).movedim(0, 1)
+            start += n
+
+        def other_way(name, x, nearest):
+            if name not in flips:
+                return nearest
+            return torch.where(flips[name], _other_bf16(x, nearest), nearest)
+
+        alt = plain(*args, state=state, acc=torch.float64, rounding=other_way)
+        alts.append(tuple(a - b for a, b in zip(alt[:n_in], ref[:n_in])))
+    return ref, alts
+
+
+def reference_ratios(got, ref, alts, atol=1e-5, rtol=2.0 ** -7):
+    """Each input grad of ``got`` against `width_backward_reference`'s ``(ref,
+    alts)``: the worst over its elements of |got - ref'| / (atol max|ref| +
+    rtol |ref'|), ref' the nearest of ``ref`` plus any sum of the
+    alternatives (one bf16 ulp at the defaults)."""
+    ratios = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = g.to(r.dtype)
+        a = atol * float(r.abs().max())
+        best = None
+        for pick in range(1 << len(alts)):
+            cand = r
+            for k, alt in enumerate(alts):
+                if pick >> k & 1:
+                    cand = cand + alt[i]
+            ratio = (g - cand).abs() / (a + rtol * cand.abs() + 1e-300)
+            best = ratio if best is None else torch.minimum(best, ratio)
+        ratios.append(float(best.max()))
+    return ratios
 
 
 def _f32(t):

@@ -388,8 +388,9 @@ def test_width_save_variants(dev, s, d, dtype):
     """K5s / K3s write the same public outputs as K5 / K3, bit for bit, and a
     state that matches the plain version's (inv 1e-6 relative; ta, the tanh
     of a d-term sum, 1e-5 absolute in f32); K5bs / K4s from that state match
-    the plain save adjoint and the recomputing K5b / K4 (a zero row
-    included)."""
+    the plain save adjoint and (where one template runs both) the
+    recomputing K5b / K4, a zero row included. At bf16 and 4 streams each
+    of K5bs / K4s and K5b / K4 is held against the f64 reference instead."""
     for fused in (False, True):
         ins, params, grads = _hc_args(dev, dtype, s, 900, d, fused, seed=s + d)
         fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
@@ -415,37 +416,49 @@ def test_width_save_variants(dev, s, d, dtype):
         assert _cuda.launch_counts[name + '_bwd_save'] == before[name + '_bwd_save'] + 1
         _close_grads(got, bplain(*ins, *params, *grads, state=(ta, inv)), dtype)
         recompute = bwd(*ins, *params, *grads)
-        _close_save_recompute(got, recompute, dtype, s)
         if dtype == torch.bfloat16 and s == 4:
-            # the check refuses K5b / K4 with row 0 left out (its incoming
-            # grads zero), on the parameter grads alone
+            # two designs, two summation orders: each kernel on its own
+            # against the f64 reference, and two planted faults must fail it:
+            # row 0 left out (its incoming grads zero), dyn_beta_scale x0.7
+            args = (*ins, *params, *grads)
             drop = tuple(g.clone() for g in grads)
             drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
-            dropped = bwd(*ins, *params, *drop)
-            with pytest.raises(AssertionError):
-                _close_save_recompute(got[-6:], dropped[-6:], dtype, s)
+            for out, st in ((got, (ta, inv)), (recompute, None)):
+                _hold_against_f64(fused, args, out, st)
+                with pytest.raises(AssertionError):
+                    _hold_against_f64(fused, args, bwd(*ins, *params, *drop, state=st), st)
+                with pytest.raises(AssertionError):
+                    _hold_against_f64(fused, args, (*out[:-1], out[-1] * 0.7), st)
+        else:
+            _close_save_recompute(got, recompute)
 
 
-def _close_save_recompute(save, recompute, dtype, s):
-    """K5bs / K4s against K5b / K4: 1e-5 relative plus 1e-5 of the largest
-    |ref| where both run one template (f32, bf16 at other stream counts).
-    bf16 at 4 streams, where K5b / K4 run the Hopper design and sum in
-    another order: the bf16 stream grads at one bf16 ulp (2**-7 relative
-    plus 1e-5 of the largest |ref|) and each f32 parameter grad on its own,
-    the static ones at 1e-5 as above, the dynamic weights and scales at
-    3e-4 of the largest |ref| (they sum products with gp, rounded to bf16,
-    which another order flips by one ulp in a few rows)."""
-    if dtype == torch.bfloat16 and s == 4:
-        for i, (a, b) in enumerate(zip(save[-6:], recompute[-6:])):
-            a, b = a.float(), b.float()
-            tol = 1e-5 if i < 2 else 3e-4
-            torch.testing.assert_close(a, b, rtol=1e-5 if i < 2 else 0,
-                                       atol=tol * float(b.abs().max()) + 1e-12)
-        save, recompute = save[:-6], recompute[:-6]
+def _close_save_recompute(save, recompute):
+    """K5bs / K4s against K5b / K4 where both run one template (f32, bf16 at
+    other stream counts): 1e-5 relative plus 1e-5 of the largest |ref|."""
     for a, b in zip(save, recompute):
         a, b = a.float(), b.float()
-        torch.testing.assert_close(a, b, rtol=2 ** -7 if dtype == torch.bfloat16 and s == 4
-                                   else 1e-5, atol=1e-5 * float(b.abs().max()) + 1e-12)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()) + 1e-12)
+
+
+def _hold_against_f64(fused, args, got, state):
+    """One of K5b / K4 / K5bs / K4s (bf16, 4 streams) against the f64
+    reference (`hck.width_backward_reference`): the bf16 input grads at one
+    bf16 ulp (2**-7 relative plus 1e-5 of the largest |ref|) of the
+    reference or of one of its alternatives, where a rounding point lies so
+    near a bf16 midpoint that f32 sums may land on either side; each f32
+    parameter grad on its own: the static ones (f32 sums with no rounding
+    point) at 1e-5 relative plus 1e-5 of the largest |ref|, the dynamic
+    weights and scales at 3e-4 of the largest |ref| (they sum products with
+    gp, and a recomputing kernel's ta, that f32 sums may round the other way
+    in a few rows)."""
+    n_in = 3 if fused else 1
+    ref, alts = hck.width_backward_reference(fused, *args, state=state)
+    assert max(hck.reference_ratios(got[:n_in], ref[:n_in], alts)) <= 1.0
+    for i, (a, b) in enumerate(zip(got[-6:], ref[-6:])):
+        tol = 1e-5 if i < 2 else 3e-4
+        torch.testing.assert_close(a.double(), b, rtol=1e-5 if i < 2 else 0,
+                                   atol=tol * float(b.abs().max()) + 1e-12)
 
 
 def test_width_kernels_reject_other_geometries(dev):
@@ -454,6 +467,69 @@ def test_width_kernels_reject_other_geometries(dev):
         ins, params, _ = _hc_args(dev, torch.bfloat16, s, 16, d, False, seed=0)
         with pytest.raises(ValueError, match='streams|width'):
             hck.width_connection(*ins, *params)
+
+
+def _close_forward(out, ref, ins, params, fused):
+    """K5 / K3 (bf16, 4 streams) against the plain version at the bf16
+    tolerance; past it only where alphas from the kernel's saved tanh round
+    otherwise than the plain version's, and then at one ulp of an alpha
+    near 1 (2**-7) times the largest |stream| more (chip_smoke's
+    `alpha_tol`)."""
+    try:
+        _close(out, ref, torch.bfloat16)
+    except AssertionError:
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        plain = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+        (_, (ta, _)), (_, (pta, _)) = (fwd(*ins, *params, save_state=True),
+                                       plain(*ins, *params, save_state=True))
+        affine = lambda t: (t[..., :5] * params[3] + params[0][:, None]).to(torch.bfloat16)
+        assert int((affine(ta) != affine(pta)).sum()) > 0
+        atol = 1e-2 + 2 ** -7 * max(float(t.abs().max()) for t in ins[:2])
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o.float(), r.float(), atol=atol, rtol=1e-2)
+
+
+def _check_width_sm90(dev, m, d, fused, seed):
+    """The Hopper K5 / K3 (bf16, 4 streams, a zero row where m > 5) against
+    the plain version, the launch counted once; K5s / K3s's outputs and a
+    second call equal the first bit for bit."""
+    if m > 5:
+        ins, params, _ = _hc_args(dev, torch.bfloat16, 4, m, d, fused, seed)
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale
+        params = (torch.eye(4, 5, device=dev) + rnd(4, 5, scale=0.1), 1.0 + rnd(4, scale=0.1),
+                  rnd(d, 5, scale=0.05), torch.tensor(0.5, device=dev), rnd(d, scale=0.05),
+                  torch.tensor(0.5, device=dev))
+        ins = [t.to(torch.bfloat16) for t in
+               ([rnd(4, m, d), rnd(m, d), rnd(4, m, scale=0.5)] if fused else [rnd(4, m, d)])]
+    fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+    plain = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+    name = 'hc_width_fused' if fused else 'hc_width'
+    before = _cuda.launch_counts[name]
+    out = fwd(*ins, *params)
+    assert _cuda.launch_counts[name] == before + 1
+    _close_forward(out, plain(*ins, *params), ins, params, fused)
+    for a, b, c in zip(out, fwd(*ins, *params), fwd(*ins, *params, save_state=True)[0]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('d', [1, 7, 100, 250, 256, 512, 576, 1000, 1024, 1152, 2048, 4840])
+def test_width_sm90_every_width(dev, d, fused):
+    """The Hopper K5 / K3 at widths from 1 to max_dim(4) (odd widths copy
+    2-byte pieces, 250 4-byte and 100 8-byte ones, both ending in a part
+    chunk; 2048 is the widest one-chunk row, 4840 two chunks a thread)."""
+    _check_width_sm90(dev, 700, d, fused, seed=d)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('m,d', [(16819, 1024), (16819, 1152), (16819, 512), (1, 1024),
+                                 (1, 7), (1, 4840)])
+def test_width_sm90_rows(dev, m, d, fused):
+    """The Hopper K5 / K3 at a ragged training M (16819 rows over a grid that
+    does not divide them) and at M = 1."""
+    _check_width_sm90(dev, m, d, fused, seed=m + d)
 
 
 def _width_bwd_pair(dev, m, d, fused, seed, zero_row=True):

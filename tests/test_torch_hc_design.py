@@ -1,14 +1,17 @@
-"""Which design the hyper-connection adjoints run, on the CPU. The C entry
+"""Which design the hyper-connection kernels run, on the CPU. The C entry
 points choose it from the dtype and the stream count: the recomputing K5b /
 K4 (hyper_conn_bwd.cu) on bf16 at 4 streams run the Hopper design
 (hyper_conn_bwd_sm90.cuh); f32, bf16 at the other stream counts and the
 save-state variants K5bs / K4s (hyper_conn_bwd_save.cu) keep the templates
-of hyper_conn_bwd.cuh. The wrappers pass no design, only the partial rows
-they allocated and, for the templates, the warps a block (the Hopper design
-sets its own). The dispatch and the checks are read off the sources; a
-recorder stands in for the kernel
-library, so no kernel runs here: the card tests (tests/test_torch_cuda.py)
-hold both designs against the plain versions."""
+of hyper_conn_bwd.cuh. The forwards K5 / K3 and their save variants K5s /
+K3s (hyper_conn.cu, hyper_conn_save.cu) on bf16 at 4 streams run the Hopper
+design of hyper_conn_sm90.cuh, everything else the templates of
+hyper_conn.cuh. The wrappers pass no design, only (for the adjoints) the
+partial rows they allocated and, for the templates, the warps a block (the
+Hopper designs set their own). The dispatch and the checks are read off the
+sources; a recorder stands in for the kernel library, so no kernel runs
+here: the card tests (tests/test_torch_cuda.py) hold both designs against
+the plain versions."""
 
 import re
 
@@ -171,3 +174,83 @@ def test_wrappers_pass_the_geometry(recorder, dtype, s, d, fused, save):
     blocks, warps, s_arg, m_arg, d_arg, code, stream = args[-7:]
     assert (s_arg, m_arg, d_arg, code, stream) == (s, m, d, _cuda.DTYPE_CODES[dtype], 0)
     assert (warps, blocks) == hck._bwd_geometry(s, m, d, dtype, save)
+
+
+def _forward_design(dtype, s: int) -> str:
+    """The design `width_run` (hyper_conn_sm90.cuh) launches for ``dtype``
+    at ``s`` streams, read off its ``if (...) return ...`` lines and its
+    final ``return``."""
+    body = _body(_source('hyper_conn_sm90.cuh'), 'int width_run(')
+    env = {'dtype': _cuda.DTYPE_CODES[dtype], 's': s}
+    for cond, target in re.findall(r'\n  if \((.*)\) return (.*);', body):
+        for name, code in CODES.items():
+            cond = cond.replace(name, code)
+        if eval(cond.replace('&&', ' and ').replace('||', ' or '), {}, env):
+            assert 'hc_sm90::fwd_run<SAVE>' in target, target
+            return 'sm90'
+    final = re.findall(r'\n  return (.*);\n?$', body + '\n')
+    assert final and final[-1].startswith('fwd_run<SAVE>(p, s, fused, dtype'), final
+    return 'template'
+
+
+@pytest.mark.parametrize('save', [False, True])
+@pytest.mark.parametrize('s', range(hck.MIN_STREAMS, hck.MAX_STREAMS + 1))
+@pytest.mark.parametrize('dtype', [BF16, F32])
+def test_forward_design(dtype, s, save):
+    """K5 / K3 and their save variants K5s / K3s on bf16 at 4 streams launch
+    the Hopper design; every other dtype and stream count keeps the
+    templates of hyper_conn.cuh. Both entry sources reach `width_run` with
+    their SAVE flag and no design argument."""
+    assert _forward_design(dtype, s) == ('sm90' if dtype == BF16 and s == 4 else 'template')
+    if save:
+        entry = _body(_source('hyper_conn_save.cu'), 'int e2_hc_width_save_run(')
+        assert 'return width_run<true>(' in entry
+    else:
+        entry = _body(_source('hyper_conn.cu'), 'int run(')
+        assert 'return width_run<false>(p, s, fused, dtype, stream);' in entry
+        assert 'return e2_hc_width_save_run(&p, s, fused, dtype, stream);' in entry
+    for name in ('e2_hc_width', 'e2_hc_width_fused'):
+        head = _source('hyper_conn.cu').split(f'extern "C" int {name}(')[1].split('{')[0]
+        assert 'design' not in head and 'warps' not in head
+
+
+def test_forward_templates_leave_bf16_at_four_streams_to_the_hopper_design():
+    """hyper_conn.cuh instantiates no bf16 4-stream template (its stream
+    dispatch launches 4 streams for f32 only) and keeps no register tile of
+    the old design; the forward and adjoint Hopper designs share one
+    geometry header."""
+    body = _body(_source('hyper_conn.cuh'), 'cudaError_t dispatch_s(')
+    case4 = body.split('case 4:')[1].split('case 5:')[0]
+    assert 'if constexpr (std::is_same<T, float>::value) return launch<T, 4,' in case4
+    assert case4.strip().endswith('return cudaErrorInvalidValue;')
+    assert 'FULL' not in _source('hyper_conn.cuh')
+    for name in ('hyper_conn_sm90.cuh', 'hyper_conn_bwd_sm90.cuh'):
+        assert '#include "hyper_conn_sm90_common.cuh"' in _source(name)
+    for src in sorted(_cuda.CSRC.glob('*.cu')):
+        includes = '#include "hyper_conn_sm90.cuh"' in src.read_text()
+        assert includes == (src.name in ('hyper_conn.cu', 'hyper_conn_save.cu'))
+
+
+@pytest.mark.parametrize('save', [False, True])
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('dtype,s,d', [(BF16, 4, 1024), (BF16, 4, 1152), (BF16, 4, 7),
+                                       (BF16, 2, 64), (F32, 4, 1024)])
+def test_forward_wrappers_pass_no_design(recorder, dtype, s, d, fused, save):
+    """The forward wrappers hand the entry points the streams, parameters
+    and outputs (ta and inv only with ``save_state``), then the stream
+    count, rows, width, dtype code and stream: no design, no geometry."""
+    m = 40
+    dev = torch.device('cpu')
+    ins = ([(torch.zeros(s, m, d, dtype=dtype), 'carried'), (torch.zeros(m, d, dtype=dtype), 'branch'),
+            (torch.zeros(s, m, dtype=dtype), 'beta')] if fused
+           else [(torch.zeros(s, m, d, dtype=dtype), 'residuals')])
+    params = (torch.zeros(s, s + 1), torch.zeros(s), torch.zeros(d, s + 1), torch.tensor(0.5),
+              torch.zeros(d), torch.tensor(0.5))
+    name = 'hc_width_fused' if fused else 'hc_width'
+    hck._launch(name, ins, params, s, m, d, dtype, dev, save)
+    ((called, args),) = recorder.calls
+    assert called == 'e2_' + name
+    assert len(args) == len(_cuda._SIGNATURES[called])
+    ta, inv, s_arg, m_arg, d_arg, code, stream = args[-7:]
+    assert (s_arg, m_arg, d_arg, code, stream) == (s, m, d, _cuda.DTYPE_CODES[dtype], 0)
+    assert (ta is None) == (inv is None) == (not save)
