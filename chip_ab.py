@@ -13,8 +13,10 @@ CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
 frequency tiles as its wrapper splits it), K5 / K3 at the training shapes
 (4 streams, 16896 rows, widths 256, 512, 576, 1024 and 1152, bf16), the
 sampler's (1056 rows at 256, 512, 576 and 1152) and the duration
-predictor's (314 rows at 256 and 512), K5b / K4 at the training shapes,
-each checkout at the launch geometry its own wrapper computes, K8 at the DiT sampler's and training shapes (1 and 16, 16
+predictor's (314 rows at 256 and 512), K5b / K4 and their save variants
+K5bs / K4s at the training shapes, each checkout at the launch geometry its
+own wrapper computes and each save adjoint from the state (ta, inv) of its
+own checkout's K5s / K3s, K8 at the DiT sampler's and training shapes (1 and 16, 16
 heads, 1056, 72; bf16, softclamp 50; dropout 0.1 at 16) and K9 at the
 training shape, its launch alone and with the wrapper's PyTorch work
 (delta, the dq fill and cast); K1 gated at the flagship sampler's shape (1,
@@ -29,6 +31,7 @@ per kernel with the card's name and power limit.
 """
 import ctypes
 import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -139,18 +142,20 @@ def main():
     bf = torch.bfloat16
     hc_inputs = {}
 
-    def geometry(tag, d):
+    def geometry(tag, d, save):
         root = dict(roots)[tag]
         spec = importlib.util.spec_from_file_location(
             f'hck_{tag}', os.path.join(root, 'e2_tts_tpu_torch', 'ops', 'hyper_conn_kernel.py'))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         if hasattr(mod, '_bwd_geometry'):
-            return mod._bwd_geometry(s, m, d, bf, False)
+            # a checkout whose geometry still depends on saving takes the flag
+            takes_save = len(inspect.signature(mod._bwd_geometry).parameters) == 5
+            return mod._bwd_geometry(s, m, d, bf, *([save] if takes_save else []))
         warps = mod._bwd_warps(s, d) if hasattr(mod, '_bwd_warps') else 8
         return warps, max(1, min(-(-m // warps), mod._BWD_MAX_BLOCKS))
 
-    def bwd(lib, tag, fused, d):
+    def bwd(lib, tag, fused, d, save=False):
         if d not in hc_inputs:
             hc_inputs[d] = dict(
                 ins=[rnd(s, m, d).to(bf), rnd(m, d).to(bf), rnd(s, m, scale=0.5).to(bf)],
@@ -159,25 +164,46 @@ def main():
                         rnd(d, s + 1, scale=0.05), rnd(d, scale=0.05),
                         torch.tensor(0.5, device=dev), torch.tensor(0.5, device=dev)])
         t = hc_inputs[d]
-        warps, blocks = geometry(tag, d)
+        warps, blocks = geometry(tag, d, save)
         np_ = (s + 2) * d + s * (s + 2) + 2
         partials = torch.empty(blocks, np_, device=dev)
         row = torch.empty(np_, device=dev)
         ins = t['ins'] if fused else t['ins'][:1]
         outs = [torch.empty_like(x) for x in ins]
         name = 'e2_hc_width_fused_bwd' if fused else 'e2_hc_width_bwd'
+        state = ()
+        if save:        # (ta, inv) from this checkout's K3s / K5s on the same inputs
+            name += '_save'
+            state = (torch.empty(s, m, s + 2, device=dev), torch.empty(s, m, device=dev))
+            fwd_save(libs[tag][4], fused, ins, t['params'], state)
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         warps_arg = [] if tag == 'other' and old_bwd else [ctypes.c_int(warps)]
-        args = [P(x.data_ptr()) for x in (*ins, *t['grads'], *t['params'], *outs, partials, row)]
+        args = [P(x.data_ptr()) for x in (*ins, *t['grads'], *t['params'], *state, *outs,
+                                          partials, row)]
 
         def call():
             err = fn(*args, ctypes.c_int(blocks), *warps_arg, ctypes.c_int(s),
                      ctypes.c_longlong(m), ctypes.c_int(d), ctypes.c_int(1), P(stream()))
             if err:
                 raise RuntimeError(f'{name} failed to launch: cudaError {err}')
-        call.tensors = (partials, row, outs)
+        call.tensors = (partials, row, outs, state)
         return call
+
+    def fwd_save(lib, fused, ins, params, state):
+        """K3s / K5s once on ``ins``: writes the state (ta, inv) a save
+        adjoint reads."""
+        m_, d = ins[0].shape[-2:]
+        outs = [torch.empty(m_, d, dtype=bf, device=dev),
+                torch.empty(s, m_, d, dtype=bf, device=dev), torch.empty(s, m_, dtype=bf, device=dev)]
+        name = 'e2_hc_width_fused' if fused else 'e2_hc_width'
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        err = fn(*(P(x.data_ptr()) for x in (*ins, *params, *outs, *state)), ctypes.c_int(s),
+                 ctypes.c_longlong(m_), ctypes.c_int(d), ctypes.c_int(1), P(stream()))
+        if err:
+            raise RuntimeError(f'{name} (saving) failed to launch: cudaError {err}')
+        torch.cuda.synchronize()
 
     # K5 / K3 at (4, m, d) bf16: the streams (K3: carried, branch and the
     # previous beta), the parameters and the outputs, one set per shape
@@ -359,8 +385,9 @@ def main():
                                           (314, 256))
                           for k in ('K5', 'K3')),
                         *((f'{k} (4,16896,{d}) bf16',
-                           lambda tag, d=d, fused=k == 'K4': bwd(libs[tag][1], tag, fused, d))
-                          for d in (256, 512, 576, 1024, 1152) for k in ('K5b', 'K4')),
+                           lambda tag, d=d, fused=k.startswith('K4'), save=k.endswith('s'):
+                           bwd(libs[tag][1], tag, fused, d, save))
+                          for d in (256, 512, 576, 1024, 1152) for k in ('K5b', 'K4', 'K5bs', 'K4s')),
                         ('K8 (1,16,1056,72) bf16 softclamp 50',
                          lambda tag: k8(tag, *sampler, 0.0)),
                         ('K8 (16,16,1056,72) bf16 softclamp 50 dropout 0.1',

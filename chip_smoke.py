@@ -22,12 +22,16 @@ exit code and no result line:
    its tolerance takes `alpha_tol` only where its line shows alpha rounding
    flips), the save-state variants K3s / K5s (outputs bit for bit K3 / K5's,
    and the saved tanh and rms reciprocal) and K4s / K5bs (against K4 / K5b
-   at 1e-5 where both run one template; at bf16 and 4 streams, where they
-   run two designs, K4s / K5bs and K4 / K5b each against the f64 reference
-   of hyper_conn_kernel.width_backward_reference: the bf16 input grads at
-   one bf16 ulp of it or of an alternative rounding of a point that f32
-   sums may land on either side of, each f32 parameter grad at its limit,
-   and two planted faults that must fail),
+   at 1e-5 where both run one template; at bf16 and 4 streams, where the
+   saved tanh and the recomputed one are sums in two orders, K4s / K5bs and
+   K4 / K5b each against the f64 reference of
+   hyper_conn_kernel.width_backward_reference: the bf16 input grads at one
+   bf16 ulp of it or of an alternative rounding of a point that f32 sums
+   may land on either side of, each f32 parameter grad at its limit, and two
+   planted faults that must fail; the Hopper K4s / K5bs also at widths 1
+   to 4840 with a zero row, a ragged M of 1923 with two calls bit for bit,
+   M = 1, and a row of rms 1e-7, whose saved inv must be exactly the clamp's
+   1e6 and whose stream grads are held against K4 / K5b's at one ulp),
    K6 (GEGLU) and its backward K7, K11 (the fused log-mel frontend; also at
    160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
    stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
@@ -59,10 +63,10 @@ exit code and no result line:
    share the work), so `bound_ms` stays bytes against tensor-core products.
    The build's `ptxas` lines give the registers and spills of the Hopper
    designs (csrc/flash_attention_sm90.cuh: bf16 K1 / K2 and K8 / K9;
-   csrc/hyper_conn_bwd_sm90.cuh: bf16 K4 / K5b at 4 streams, built in
-   hyper_conn_bwd.cu; csrc/hyper_conn_sm90.cuh: bf16 K3 / K5 and K3s / K5s
-   at 4 streams, built in hyper_conn.cu and hyper_conn_save.cu) and of the
-   save adjoints' templates (hyper_conn_bwd_save.cu). K3 / K5 and K4 / K5b
+   csrc/hyper_conn_bwd_sm90.cuh: bf16 K4 / K5b and K4s / K5bs at 4
+   streams, built in hyper_conn_bwd.cu and hyper_conn_bwd_save.cu;
+   csrc/hyper_conn_sm90.cuh: bf16 K3 / K5 and K3s / K5s at 4 streams, built
+   in hyper_conn.cu and hyper_conn_save.cu). K3 / K5 and K4 / K5b
    are timed at the flagship's, the paper's and DiT's training widths (512,
    1024, 1152). Then
    `hc save A/B` lines: the hyper-connection forward and adjoint,
@@ -118,8 +122,9 @@ exit code and no result line:
    counters stay 0 without a backward); then `E2Trainer` at depth 24, B=16 x
    1024, dropout 0.1, remat, timed steps with and without text, with
    hc_save_state off and then on (launch counters, peak memory); one CFG
-   evaluation and one train step at depth 24 under torch.profiler (traces:
-   build/profile/paper_*.json).
+   evaluation and one with-text train step each with hc_save_state off and
+   on at depth 24 under torch.profiler, with the hyper-connection adjoints'
+   device time both ways (traces: build/profile/paper_*.json).
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -573,15 +578,36 @@ def kernel_cases(torch, dev):
             flops=m * s * (2 * d + 2 * d * (s + 2) + 2 * d) + 2 * m * d * s * (s + 1),
             peak=PEAK_F32_FLOPS))
 
-    def hc_bwd_save_case(label, s, m, d, dtype, fused, timed=False):
+    def hc_bwd_save_case(label, s, m, d, dtype, fused, timed=False, zero_row=False,
+                         bit_equal=False, tiny_row=False):
         """K5bs / K4s from K5s / K3s's state against the plain save adjoint
-        (K4 / K5b's limits); beside it, at bf16 and 4 streams (two designs,
-        two summation orders), K5bs / K4s and K5b / K4 each against the f64
-        reference (`hc_f64_check`), with two planted faults that must fail
-        it, and the direct comparison of the two printed; elsewhere (one
-        template) K5bs / K4s against K5b / K4 at 1e-5 max|ref| + 1e-5|ref|."""
+        (K4 / K5b's limits); beside it, at bf16 and 4 streams (the saved ta
+        comes from the forward's tensor-core sums, the recomputed one from
+        f32 FMAs: two summation orders), K5bs / K4s and K5b / K4 each
+        against the f64 reference (`hc_f64_check`), with two planted faults
+        that must fail it, and the direct comparison of the two printed;
+        elsewhere (one template) K5bs / K4s against K5b / K4 at 1e-5
+        max|ref| + 1e-5|ref|. ``zero_row`` puts row 5's rms statistic on its
+        clamp, ``bit_equal`` also holds two calls bit for bit; ``tiny_row``
+        makes row 7's streams of rms ~1e-7 (a variance under the clamp, the
+        streams not zero): there the saved inv must be exactly the clamp's
+        1e6, so that the save path's test inv < 1e6 agrees with the
+        recomputing var > 1e-12, and the stream grads (g_residuals; K4s's
+        g_carried and g_branch) are held against K5b / K4's at one bf16 ulp
+        (1e-5 max|ref| + 2**-7|ref|). K4s's g_beta, a d-term sum that one
+        gp rounded the other way moves by more than an ulp, is printed
+        beside them: the f64 check holds it through its alternatives."""
         params, es = hc_params(s, d), esize(dtype)
-        ins = hc_inputs(s, m, d, dtype, fused)
+        if zero_row:
+            ins = hc_inputs(s, m, d, dtype, fused)
+        elif fused:
+            ins = (randn(s, m, d, dtype=dtype), randn(m, d, dtype=dtype),
+                   randn(s, m, dtype=dtype, scale=0.5))
+        else:
+            ins = (randn(s, m, d, dtype=dtype),)
+        if tiny_row:
+            for t in ins[:2]:
+                t[..., 7, :] = randn(*t[..., 7, :].shape, dtype=dtype, scale=1e-7)
         grads = (randn(m, d, dtype=dtype), randn(s, m, d, dtype=dtype), randn(s, m, dtype=dtype))
         fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
         bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
@@ -591,13 +617,31 @@ def kernel_cases(torch, dev):
 
         def extra():
             got, rec = bwd(*ins, *params, *grads, state=state), bwd(*ins, *params, *grads)
+            text, ok = '', True
+            if bit_equal:
+                same = all(torch.equal(a, b)
+                           for a, b in zip(got, bwd(*ins, *params, *grads, state=state)))
+                text, ok = f'; two calls bit-equal: {same}', same
+            if tiny_row:
+                clamped = [7] + ([5] if zero_row else [])
+                inv_c = state[1][:, clamped]
+                exact = bool((inv_c == 1e6).all())
+                n_stream = 2 if fused else 1
+                _, w_tiny = compare(got[:n_stream], rec[:n_stream], 1e-5, 2 ** -7, scaled=True)
+                text += (f'; rows {clamped} clamped: saved inv exactly 1e6 {exact} (min '
+                         f'{float(inv_c.min())!r}, max {float(inv_c.max())!r}); stream grads '
+                         f'against {"K4" if fused else "K5b"}: worst ratio {w_tiny:.3f} of one '
+                         f'ulp')
+                if fused:
+                    _, w_gb = compare(got[2:3], rec[2:3], 1e-5, 2 ** -7, scaled=True)
+                    text += f' (g_beta, unchecked: {w_gb:.3f})'
+                ok = ok and exact and w_tiny <= 1.0
             if dtype == bf16 and s == 4:
                 # planted faults, each must fail: row 0 left out (the
                 # kernel run with row 0's incoming grads zero) and
                 # dyn_beta_scale's grad x0.7
                 drop = tuple(g.clone() for g in grads)
                 drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
-                text, ok = '', True
                 args = (*ins, *params, *grads)
                 for name, out, st in ((('K4s' if fused else 'K5bs'), got, state),
                                       (('K4' if fused else 'K5b'), rec, None)):
@@ -618,8 +662,8 @@ def kernel_cases(torch, dev):
                         f'{"K4" if fused else "K5b"} (unchecked): stream grads {w_dir:.3f} of '
                         f'one ulp, {t_dir}'), ok
             _, worst = compare(got, rec, 1e-5, 1e-5, scaled=True)
-            return (f'; against {"K4" if fused else "K5b"}: worst ratio {worst:.3f} '
-                    f'(|err| <= 1e-5 max|ref| + 1e-5|ref|)'), worst <= 1.0
+            return (text + f'; against {"K4" if fused else "K5b"}: worst ratio {worst:.3f} '
+                    f'(|err| <= 1e-5 max|ref| + 1e-5|ref|)'), ok and worst <= 1.0
 
         param_bytes = ((s + 2) * d + s * (s + 2) + 2) * 4 * 2
         io_bytes = 2 * ((((s + 1) * m * d + s * m) if fused else s * m * d) * es)
@@ -896,11 +940,29 @@ def kernel_cases(torch, dev):
         tag = 'fused' if fused else 'plain'
         for d in (1024, 512, 1152):
             hc_save_case(f'{tag} train (4,{M},{d}) bf16', 4, M, d, bf16, fused, timed=True)
-            hc_bwd_save_case(f'{tag} train (4,{M},{d}) bf16', 4, M, d, bf16, fused, timed=True)
+            hc_bwd_save_case(f'{tag} train (4,{M},{d}) bf16 zero row', 4, M, d, bf16, fused,
+                             timed=True, zero_row=True)
         for s_, d, dt, label in ((4, 1024, f32, 'f32'), (2, 64, bf16, 'bf16'),
                                  (3, 100, f32, 'f32'), (8, 2048, bf16, 'bf16')):
             hc_save_case(f'{tag} s={s_} M=2000 d={d} {label}', s_, 2000, d, dt, fused)
-            hc_bwd_save_case(f'{tag} s={s_} M=1999 d={d} {label}', s_, 1999, d, dt, fused)
+            hc_bwd_save_case(f'{tag} s={s_} M=1999 d={d} {label} zero row', s_, 1999, d, dt,
+                             fused, zero_row=True)
+    # the Hopper K5bs / K4s (bf16, 4 streams) where the Hopper K5b / K4 are
+    # held, at M <= 2000: every width from 1 to max_dim(4) with a zero row, a
+    # ragged M with two calls bit for bit, M = 1; and a row of rms 1e-7 (the
+    # clamp with nonzero streams) beside a zero row
+    for fused in (False, True):
+        tag = 'fused' if fused else 'plain'
+        for d in (1, 7, 100, 250, 1000, 2048, 4840):
+            hc_bwd_save_case(f'{tag} M=2000 d={d} bf16 zero row', 4, 2000, d, bf16, fused,
+                             zero_row=True)
+        for d in (1024, 1152):
+            hc_bwd_save_case(f'{tag} ragged M=1923 d={d} bf16 zero row', 4, 1923, d, bf16,
+                             fused, zero_row=True, bit_equal=True)
+        for d in (7, 1024, 4840):
+            hc_bwd_save_case(f'{tag} M=1 d={d} bf16', 4, 1, d, bf16, fused)
+        hc_bwd_save_case(f'{tag} M=2000 d=1024 bf16 tiny row (rms 1e-7) and zero row', 4, 2000,
+                         1024, bf16, fused, zero_row=True, tiny_row=True)
     # the Hopper K5b / K4 at widths that copy 8-byte (100) and 4-byte (250)
     # pieces, each ending in a part chunk
     for fused in (False, True):
@@ -1460,7 +1522,8 @@ def phase_serve(torch, dev, smi):
 
 def profile_run(torch, run, trace_name):
     """Trace one call of ``run``; print the device-busy share, device time
-    by kernel and host time by operator (inclusive)."""
+    by kernel and host time by operator (inclusive). Returns the
+    hyper-connection kernels' ``{name: (calls, device ms)}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()
@@ -1491,16 +1554,19 @@ def profile_run(torch, run, trace_name):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f'  device {e.key[:60]:60s} calls={e.count:5d} '
             f'device_ms={e.self_device_time_total / 1e3:.3f}')
-    # the hyper-connection kernels (K3 / K5, K4 / K5b and the adjoints'
-    # partial-row sum), whatever their rank
+    # the hyper-connection kernels (K3 / K5, K4 / K5b, their save variants
+    # and the adjoints' partial-row sum), whatever their rank
+    hc = {}
     for e in sorted(events, key=lambda e: -e.self_device_time_total):
         if '::hc_' in e.key:
+            hc[e.key] = (e.count, e.self_device_time_total / 1e3)
             log(f'  hc     {e.key[:80]:80s} calls={e.count:5d} '
                 f'device_ms={e.self_device_time_total / 1e3:.3f}')
     aten = [e for e in averages if e.key.startswith('aten::')]
     for e in sorted(aten, key=lambda e: -e.cpu_time_total)[:8]:
         log(f'  host   {e.key[:60]:60s} calls={e.count:5d} '
             f'cpu_ms_inclusive={e.cpu_time_total / 1e3:.3f}')
+    return hc
 
 
 def phase_profile(torch, model, tag=''):
@@ -1995,10 +2061,19 @@ def phase_paper(torch, dev, smi):
             raise AssertionError(f'paper train launch counts {counts} != expected {expected}')
         if not finite:
             raise AssertionError('paper train loss is not finite')
+    adjoints = {}
+    for save in (False, True):
+        set_hc_save_state(model, save)
+        log(f'profile one paper train step (with text, hc_save_state {"on" if save else "off"}):')
+        hc = profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                         f'paper_train_step{"_save" if save else ""}_trace.json')
+        adj = [v for k, v in hc.items() if 'hc_bwd_sm90_kernel' in k]
+        adjoints[save] = (sum(n for n, _ in adj), sum(ms for _, ms in adj))
     set_hc_save_state(model, False)
-    log('profile one paper train step (with text, hc_save_state off):')
-    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
-                'paper_train_step_trace.json')
+    (n_off, ms_off), (n_on, ms_on) = adjoints[False], adjoints[True]
+    log(f'paper profiled with-text step, HC adjoints (hc_bwd_sm90_kernel): hc_save_state off '
+        f'(K4 + K5b) device_ms={ms_off:.3f} calls={n_off}; on (K4s + K5bs) '
+        f'device_ms={ms_on:.3f} calls={n_on} [{smi}]')
     del trainer, model
     torch.cuda.empty_cache()
     return sample_counts, train_counts[False], train_counts[True]

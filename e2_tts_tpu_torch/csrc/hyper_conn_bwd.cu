@@ -1,10 +1,11 @@
 // K5b and K4: the recomputing adjoints of the hyper-connection width
 // connection. The entry points choose the design from the dtype and the
 // stream count: bf16 at 4 streams runs the Hopper design of
-// hyper_conn_bwd_sm90.cuh (built here), everything else the templates of
-// hyper_conn_bwd.cuh (f32 in hyper_conn_bwd_f32.cu, bf16 at the other
-// stream counts in hyper_conn_bwd_streams.cu; one nvcc each, in parallel).
-// The save-state variants K5bs / K4s are in hyper_conn_bwd_save.cu.
+// hyper_conn_bwd_sm90.cuh (built here with SAVE = false), everything else
+// the templates of hyper_conn_bwd.cuh (f32 in hyper_conn_bwd_f32.cu, bf16 at
+// the other stream counts in hyper_conn_bwd_streams.cu; one nvcc each, in
+// parallel). The save-state variants K5bs / K4s are in hyper_conn_bwd_save.cu,
+// which builds the same Hopper design with SAVE = true.
 // `blocks` is the partial rows the caller allocated; `warps`, a block's
 // warps, is the templates' (the Hopper design takes block_warps(d)).
 #include "hyper_conn_bwd_sm90.cuh"
@@ -22,7 +23,7 @@ extern "C" int e2_hc_width_bwd(const void* residuals, const void* g_b0, const vo
                 static_cast<const float*>(aw), static_cast<const float*>(bw),
                 static_cast<const float*>(ascale), static_cast<const float*>(bscale),
                 nullptr, nullptr, g_res, nullptr, nullptr, static_cast<float*>(partials), m, d};
-  if (dtype == e2::kBFloat16 && s == 4) return hc_sm90::bwd_run(p, false, blocks, params_out, stream);
+  if (dtype == e2::kBFloat16 && s == 4) return hc_sm90::bwd_run<false>(p, false, blocks, params_out, stream);
   return bwd_route<false>(p, s, false, blocks, warps, params_out, dtype, stream);
 }
 
@@ -41,6 +42,6 @@ extern "C" int e2_hc_width_fused_bwd(const void* carried, const void* branch, co
                 static_cast<const float*>(ascale), static_cast<const float*>(bscale),
                 nullptr, nullptr, g_carried, g_branch, g_beta_prev,
                 static_cast<float*>(partials), m, d};
-  if (dtype == e2::kBFloat16 && s == 4) return hc_sm90::bwd_run(p, true, blocks, params_out, stream);
+  if (dtype == e2::kBFloat16 && s == 4) return hc_sm90::bwd_run<false>(p, true, blocks, params_out, stream);
   return bwd_route<false>(p, s, true, blocks, warps, params_out, dtype, stream);
 }

@@ -1,8 +1,8 @@
 // K5b and K4 (and their save-state variants K5bs and K4s): adjoints of the
 // hyper-connection width connection for the H100 (sm_90a). These templates
-// run f32, bf16 at 2, 3 and 5-8 streams and the save-state variants; the
-// recomputing K5b / K4 on bf16 at 4 streams run the design of
-// hyper_conn_bwd_sm90.cuh, which hyper_conn_bwd.cu's entry points choose.
+// run f32 and bf16 at 2, 3 and 5-8 streams; on bf16 at 4 streams all four
+// run the design of hyper_conn_bwd_sm90.cuh, which the entry points of
+// hyper_conn_bwd.cu and hyper_conn_bwd_save.cu choose.
 //
 // Replace the TPU kernels e2_tts_tpu/ops/hyper_conn_kernel.py::
 // _width_bwd_kernel (K5b, driven by _width_bwd_pallas),
@@ -33,15 +33,12 @@
 // code.
 //
 // Any stream count s from 2 to 8 (a template argument) and any width d: a
-// warp owns a row, a register tile holds V values per lane per stream: exact
-// (FULL, the row resident, d a compile-time constant) at the widths the
-// repo's configurations run with 4 bf16 streams, one small streaming tile
-// otherwise (V = 8, or 4 for f32 and more than 4 streams), masked past d
-// and re-read once per pass (rms statistic, projection, mix adjoint,
-// back-projection, residual grad) from L1 / L2. Three sources build them, one
-// nvcc each, in parallel: bf16 at 4 streams saving (hyper_conn_bwd_save.cu),
-// bf16 at the other stream counts (hyper_conn_bwd_streams.cu) and f32
-// (hyper_conn_bwd_f32.cu).
+// warp owns a row, a register tile holds V values per lane per stream (V =
+// 8 for bf16 at 2 and 3 streams, 4 for f32 and more than 4 streams), masked
+// past d and re-read once per pass (rms statistic, projection, mix adjoint,
+// back-projection, residual grad) from L1 / L2. Two sources build them, one
+// nvcc each, in parallel: bf16 at the stream counts other than 4
+// (hyper_conn_bwd_streams.cu) and f32 (hyper_conn_bwd_f32.cu).
 //
 // The TPU summed the parameter grads into an output block that its
 // sequential grid revisited. Here each warp keeps its own (s+2, d) f32
@@ -55,10 +52,9 @@
 // What bounds it: bytes. Per row K5b reads (2s+1) d + s values and writes
 // s d; K4 reads (2s+2) d + 2s and writes (s+1) d + s; the save variants read
 // s (s+3) f32 more; ~40 s d flops: far below the H100's ridge. The design
-// reads every input once from device memory when the row is resident (the
-// incoming grads a second time, from cache, in the last pass) and writes
-// every output once; reductions are warp shuffles, the weights sit in shared
-// memory. Simple first: scalar loads and stores.
+// writes every output once and re-reads a row's inputs from cache in each
+// pass; reductions are warp shuffles, the weights sit in shared memory.
+// Simple first: scalar loads and stores.
 #pragma once
 
 #include <type_traits>
@@ -103,23 +99,16 @@ inline size_t bwd_smem_bytes(int ns, int d, int warps) {
   return (nc * d + (size_t)warps * (nc * d + n_small(ns))) * sizeof(float);
 }
 
-// warps of a block: as many (up to 8) as per-warp partials fit beside the
-// weights (the wrapper, ops/hyper_conn_kernel.py::_bwd_warps, passes the same)
-__host__ __device__ constexpr int bwd_warps(int ns, int d) {
-  const int nc = ns + 2, w = (MAX_SMEM / 4 - nc * d) / (nc * d + n_small(ns));
-  return w < 1 ? 1 : (w > 8 ? 8 : w);
-}
-
-template <typename T, int NS, int V, bool FUSED, bool SAVE, bool FULL>
+// `warps`, a block's warps, comes from the wrapper
+// (ops/hyper_conn_kernel.py::_bwd_warps): as many (up to 8) as per-warp
+// partials fit beside the weights
+template <typename T, int NS, int V, bool FUSED, bool SAVE>
 __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
   constexpr int NC = NS + 2;
   constexpr int CW = 32 * V;
   constexpr int NSM = n_small(NS);
-  // FULL: the warps of a block are a compile-time constant too
-  const int warps = FULL ? bwd_warps(NS, CW) : blockDim.x >> 5;
-  // FULL: d is exactly the tile, a compile-time constant, and the row stays
-  // in registers; else a run-time d, masked and streamed in chunks
-  const int d = FULL ? CW : p.d;
+  const int warps = blockDim.x >> 5;
+  const int d = p.d;  // masked and streamed in chunks of CW columns
   extern __shared__ float smem[];
   float* sW = smem;                       // (d, NC): the weights, rounded to T
   float* sGW = smem + d * NC;             // (warps, NC, d): per-warp gW partials
@@ -137,7 +126,7 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
   float* gw = sGW + warp * NC * d;
   float* small = sSmall + warp * NSM;
   const long long M = p.m;
-  const int nch = FULL ? 1 : (d + CW - 1) / CW;
+  const int nch = (d + CW - 1) / CW;
   const T* in0 = static_cast<const T*>(p.in0);
   const T* in1 = static_cast<const T*>(p.in1);
   const T* in2 = static_cast<const T*>(p.in2);
@@ -172,7 +161,7 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int col = ch * CW + i * 32 + lane;
-        const bool ok = FULL || col < d;
+        const bool ok = col < d;
         const float br = FUSED && ok ? e2::to_float<T>(in1[row * d + col]) : 0.f;
 #pragma unroll
         for (int s = 0; s < NS; ++s) r[s][i] = ok ? stream_at(s, col, br) : 0.f;
@@ -187,7 +176,6 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
         r[s][i] = ok ? stream_at(s, col, br) : 0.f;
       }
     };
-    if constexpr (FULL) load_all(0);
 
     // the forward's intermediates: inv, its rounding, tanh of the
     // projection, alpha (columns 0..s)
@@ -204,7 +192,7 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
       } else {
         float sq = 0.f;
         for (int ch = 0; ch < nch; ++ch) {
-          if constexpr (!FULL) load_stream(s, ch);
+          load_stream(s, ch);
 #pragma unroll
           for (int i = 0; i < V; ++i) sq = fmaf(r[s][i], r[s][i], sq);
         }
@@ -216,13 +204,11 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) proj[c] = 0.f;
         for (int ch = 0; ch < nch; ++ch) {
-          if constexpr (!FULL) {
-            if (nch > 1) load_stream(s, ch);
-          }
+          if (nch > 1) load_stream(s, ch);
 #pragma unroll
           for (int i = 0; i < V; ++i) {
             const int col = ch * CW + i * 32 + lane;
-            if (FULL || col < d) {
+            if (col < d) {
               const float nv = e2::round_to<T>(r[s][i] * inv_r[s]);
               const float* w = sW + col * NC;
 #pragma unroll
@@ -240,46 +226,29 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
 
     // mix adjoint: ga[s][t] = gm_t . r_s
     float gp[NS][NC];
-    if constexpr (FULL) {
 #pragma unroll
-      for (int t = 0; t <= NS; ++t) {
-        float part[NS];
+    for (int s = 0; s < NS; ++s)
 #pragma unroll
-        for (int s = 0; s < NS; ++s) part[s] = 0.f;
+      for (int t = 0; t <= NS; ++t) gp[s][t] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      load_all(ch);
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float g = gm_at(t, i * 32 + lane);
+      for (int i = 0; i < V; ++i) {
+        const int col = ch * CW + i * 32 + lane;
+        if (col < d) {
 #pragma unroll
-          for (int s = 0; s < NS; ++s) part[s] = fmaf(g, r[s][i], part[s]);
-        }
+          for (int t = 0; t <= NS; ++t) {
+            const float g = gm_at(t, col);
 #pragma unroll
-        for (int s = 0; s < NS; ++s) gp[s][t] = e2::warp_sum(part[s]);
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int t = 0; t <= NS; ++t) gp[s][t] = 0.f;
-      for (int ch = 0; ch < nch; ++ch) {
-        load_all(ch);
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const int col = ch * CW + i * 32 + lane;
-          if (col < d) {
-#pragma unroll
-            for (int t = 0; t <= NS; ++t) {
-              const float g = gm_at(t, col);
-#pragma unroll
-              for (int s = 0; s < NS; ++s) gp[s][t] = fmaf(g, r[s][i], gp[s][t]);
-            }
+            for (int s = 0; s < NS; ++s) gp[s][t] = fmaf(g, r[s][i], gp[s][t]);
           }
         }
       }
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int t = 0; t <= NS; ++t) gp[s][t] = e2::warp_sum(gp[s][t]);
     }
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int t = 0; t <= NS; ++t) gp[s][t] = e2::warp_sum(gp[s][t]);
 #pragma unroll
     for (int s = 0; s < NS; ++s) gp[s][NS + 1] = e2::to_float<T>(g_beta[s * M + row]);
 
@@ -307,11 +276,11 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) ginv[s] = 0.f;
     for (int ch = 0; ch < nch; ++ch) {
-      if constexpr (!FULL) load_all(ch);
+      load_all(ch);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int col = ch * CW + i * 32 + lane;
-        if (FULL || col < d) {
+        if (col < d) {
           const float* w = sW + col * NC;
           float gwc[NC];
 #pragma unroll
@@ -343,11 +312,11 @@ __global__ void __launch_bounds__(256) hc_width_bwd_kernel(HcBwdParams p) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) gbeta_part[s] = 0.f;
     for (int ch = 0; ch < nch; ++ch) {
-      if constexpr (!FULL) load_all(ch);
+      load_all(ch);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int col = ch * CW + i * 32 + lane;
-        if (FULL || col < d) {
+        if (col < d) {
           float gmv[NS + 1];
 #pragma unroll
           for (int t = 0; t <= NS; ++t) gmv[t] = gm_at(t, col);
@@ -406,14 +375,13 @@ __global__ void hc_param_reduce_kernel(const float* partials, int blocks, int np
   out[j] = acc;
 }
 
-template <typename T, int NS, int V, bool FUSED, bool SAVE, bool FULL>
+template <typename T, int NS, bool FUSED, bool SAVE>
 cudaError_t launch_bwd(const HcBwdParams& p, int blocks, int warps, float* params_out,
                        cudaStream_t stream) {
+  constexpr int V = std::is_same<T, float>::value || NS > 4 ? 4 : 8;
   const size_t smem = bwd_smem_bytes(NS, p.d, warps);
-  if (warps < 1 || warps > 8 || smem > MAX_SMEM ||
-      (FULL && (p.d != 32 * V || warps != bwd_warps(NS, p.d))))
-    return cudaErrorInvalidValue;
-  auto kernel = hc_width_bwd_kernel<T, NS, V, FUSED, SAVE, FULL>;
+  if (warps < 1 || warps > 8 || smem > MAX_SMEM) return cudaErrorInvalidValue;
+  auto kernel = hc_width_bwd_kernel<T, NS, V, FUSED, SAVE>;
   // set once, outside any CUDA-graph capture that later launches replay
   static bool configured = false;
   cudaError_t err;
@@ -430,46 +398,24 @@ cudaError_t launch_bwd(const HcBwdParams& p, int blocks, int warps, float* param
   return cudaGetLastError();
 }
 
-// the register tile: exact at the configurations' widths for 4 bf16 streams
-template <typename T, int NS, bool FUSED, bool SAVE>
-cudaError_t bwd_dispatch_v(const HcBwdParams& p, int blocks, int warps, float* out,
-                           cudaStream_t st) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  if constexpr (!kF32 && NS == 4) {
-    switch (p.d) {
-      case 256: return launch_bwd<T, 4, 8, FUSED, SAVE, true>(p, blocks, warps, out, st);
-      case 512: return launch_bwd<T, 4, 16, FUSED, SAVE, true>(p, blocks, warps, out, st);
-      case 576: return launch_bwd<T, 4, 18, FUSED, SAVE, true>(p, blocks, warps, out, st);
-      case 1024: return launch_bwd<T, 4, 32, FUSED, SAVE, true>(p, blocks, warps, out, st);
-      case 1152: return launch_bwd<T, 4, 36, FUSED, SAVE, true>(p, blocks, warps, out, st);
-      default: break;
-    }
-  }
-  constexpr int V = kF32 || NS > 4 ? 4 : 8;
-  return launch_bwd<T, NS, V, FUSED, SAVE, false>(p, blocks, warps, out, st);
-}
-
 // which stream counts a translation unit builds
-enum class Streams { kAll, kOnly4, kNot4 };
+enum class Streams { kAll, kNot4 };
 
 template <typename T, bool FUSED, bool SAVE, Streams SET>
 cudaError_t bwd_dispatch_s(const HcBwdParams& p, int s, int blocks, int warps, float* out,
                            cudaStream_t st) {
-  if constexpr (SET != Streams::kNot4) {
-    if (s == 4) return bwd_dispatch_v<T, 4, FUSED, SAVE>(p, blocks, warps, out, st);
+  if constexpr (SET == Streams::kAll) {
+    if (s == 4) return launch_bwd<T, 4, FUSED, SAVE>(p, blocks, warps, out, st);
   }
-  if constexpr (SET != Streams::kOnly4) {
-    switch (s) {
-      case 2: return bwd_dispatch_v<T, 2, FUSED, SAVE>(p, blocks, warps, out, st);
-      case 3: return bwd_dispatch_v<T, 3, FUSED, SAVE>(p, blocks, warps, out, st);
-      case 5: return bwd_dispatch_v<T, 5, FUSED, SAVE>(p, blocks, warps, out, st);
-      case 6: return bwd_dispatch_v<T, 6, FUSED, SAVE>(p, blocks, warps, out, st);
-      case 7: return bwd_dispatch_v<T, 7, FUSED, SAVE>(p, blocks, warps, out, st);
-      case 8: return bwd_dispatch_v<T, 8, FUSED, SAVE>(p, blocks, warps, out, st);
-      default: break;
-    }
+  switch (s) {
+    case 2: return launch_bwd<T, 2, FUSED, SAVE>(p, blocks, warps, out, st);
+    case 3: return launch_bwd<T, 3, FUSED, SAVE>(p, blocks, warps, out, st);
+    case 5: return launch_bwd<T, 5, FUSED, SAVE>(p, blocks, warps, out, st);
+    case 6: return launch_bwd<T, 6, FUSED, SAVE>(p, blocks, warps, out, st);
+    case 7: return launch_bwd<T, 7, FUSED, SAVE>(p, blocks, warps, out, st);
+    case 8: return launch_bwd<T, 8, FUSED, SAVE>(p, blocks, warps, out, st);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 // both fused variants of one dtype, SAVE flag and set of stream counts
@@ -495,17 +441,11 @@ int e2_hc_bwd_f32_run(const void* params, int save, int s, int fused, int blocks
 
 namespace {
 
-// the save variants' bf16 at 4 streams here (the recomputing adjoints take
-// hyper_conn_bwd_sm90.cuh there, from hyper_conn_bwd.cu's entry points); the
-// rest where it is built
+// what the entry points do not send to hyper_conn_bwd_sm90.cuh (bf16 at 4
+// streams): the templates, where they are built
 template <bool SAVE>
 int bwd_route(const HcBwdParams& p, int s, bool fused, int blocks, int warps, void* params_out,
               int dtype, void* stream) {
-  if constexpr (SAVE) {
-    if (dtype == e2::kBFloat16 && s == 4)
-      return bwd_run<__nv_bfloat16, true, Streams::kOnly4>(p, s, fused, blocks, warps,
-                                                            params_out, stream);
-  }
   if (dtype == e2::kBFloat16)
     return e2_hc_bwd_streams_run(&p, SAVE, s, fused, blocks, warps, params_out, stream);
   if (dtype == e2::kFloat32)

@@ -1,11 +1,13 @@
-// K5b and K4 for Hopper: the recomputing adjoints of the hyper-connection
-// width connection on bf16 streams at 4 streams, the count every
-// configuration of the repo runs, at any width from 1 to 5120. They port the
-// chain rule of e2_tts_tpu/ops/hyper_conn_kernel.py::_width_bwd_core and
-// ::_fused_bwd_epilogue (the math is written out in hyper_conn_bwd.cuh,
-// whose templates keep f32, the other stream counts and the save-state
-// variants K5bs / K4s); hyper_conn_bwd.cu's entry points choose this design
-// from the dtype and the stream count.
+// K5b and K4 for Hopper, and with the SAVE flag their save-state variants
+// K5bs and K4s: the adjoints of the hyper-connection width connection on
+// bf16 streams at 4 streams, the count every configuration of the repo runs,
+// at any width from 1 to 5120. They port the chain rule of
+// e2_tts_tpu/ops/hyper_conn_kernel.py::_width_bwd_core and
+// ::_fused_bwd_epilogue, and the save path's state reads (the math is
+// written out in hyper_conn_bwd.cuh, whose templates keep f32 and the other
+// stream counts); the entry points of hyper_conn_bwd.cu (SAVE = false) and
+// hyper_conn_bwd_save.cu (SAVE = true) choose this design from the dtype and
+// the stream count.
 //
 // What bounds them: bytes (per row K5b moves 13 d bf16 values, K4 15 d + 12)
 // and, close behind, the f32 arithmetic: ~36 FMAs per element and stream, a
@@ -30,13 +32,18 @@
 //    once; K4 forms r = round(carried + round(branch beta)) once, in place
 //    in its ring slots.
 //  - Three reductions a row over the team: (rms statistic, mix adjoint;
-//    K4 also the previous row's g_beta), projection, rms adjoint. A warp
+//    K4 also the previous row's g_beta), projection, rms adjoint; two with
+//    SAVE, which reads the forward's tanh (ta, (s, M, s+2) f32) and
+//    unrounded rms reciprocal (inv, (s, M) f32) instead of the statistic and
+//    the projection. Those 28 values a row are plain loads, issued with the
+//    next row's other scalars while this row finishes. A warp
 //    reduce-scatters its 24-28 partials in 31 shuffles (lane l ends with
 //    value l), the team's warps meet in shared memory, and each lane of
 //    every warp sums the warps' values in the same order. Lane s (s+2) + c
 //    then evaluates the row's rms reciprocal (c = s+1), tanh, alpha and gp
 //    for its (stream, column) once for the warp, and hands them on by
-//    shuffles or as vectors in shared memory.
+//    shuffles or as vectors in shared memory. The sign of inv carries the
+//    clamp test: var > 1e-12, or with SAVE the reference's inv < 1e6.
 //  - W gp is formed once per element. The weights (rounded to bf16, kept
 //    as f32) sit in shared memory, which the block's teams share; gW = n^T
 //    gp accumulates in each thread's registers for its own columns. The
@@ -66,8 +73,10 @@ constexpr int MAX_REGS = 168;             // three warps of a quadrant's 16K reg
 // ---------------------------------------------------------------- kernel
 
 // One block: `teams(d)` teams of `tw` warps; team i walks rows blockIdx.x *
-// teams + i + k * gridDim.x * teams. J chunks of 8 columns a thread.
-template <bool FUSED, int J>
+// teams + i + k * gridDim.x * teams. J chunks of 8 columns a thread. SAVE
+// (K5bs / K4s) reads the forward's ta and inv instead of the rms statistic,
+// the projection and the tanh: two team reductions a row instead of three.
+template <bool FUSED, bool SAVE, int J>
 __global__ void __maxnreg__(MAX_REGS)
     hc_bwd_sm90_kernel(HcBwdParams p, int tw, int stages, int vec) {
   constexpr int NSLOT = FUSED ? 2 * NS + 2 : 2 * NS + 1;  // streams, grads, branch
@@ -196,25 +205,34 @@ __global__ void __maxnreg__(MAX_REGS)
     }
     cp_commit();
   };
-  // the row's scalars, as bf16: K4's previous beta (pairs); g_beta in lane
-  // s NC + NS + 1
-  auto scalars = [&](int row, uint32_t (&bp)[NS / 2], bf16& gb) {
+  // the row's scalars: K4's previous beta (bf16 pairs); g_beta (bf16) in
+  // lane s NC + NS + 1; SAVE, the saved ta of (s, c) in lane s NC + c and
+  // the saved inv of stream s in lane s (f32)
+  struct Scalars {
+    uint32_t bp[NS / 2];
+    bf16 gb;
+    float ta, inv;
+  };
+  auto scalars = [&](int row, Scalars& x) {
     if constexpr (FUSED) {
 #pragma unroll
       for (int s = 0; s < NS; s += 2)
-        bp[s / 2] = (uint32_t)__bfloat16_as_ushort(in2[(long long)s * M + row]) |
-                    (uint32_t)__bfloat16_as_ushort(in2[(long long)(s + 1) * M + row]) << 16;
+        x.bp[s / 2] = (uint32_t)__bfloat16_as_ushort(in2[(long long)s * M + row]) |
+                      (uint32_t)__bfloat16_as_ushort(in2[(long long)(s + 1) * M + row]) << 16;
     }
-    gb = lval && lc == NS + 1 ? g_beta[(long long)ls * M + row] : __float2bfloat16(0.f);
+    x.gb = lval && lc == NS + 1 ? g_beta[(long long)ls * M + row] : __float2bfloat16(0.f);
+    if constexpr (SAVE) {
+      x.ta = lval ? p.ta[((long long)ls * M + row) * NC + lc] : 0.f;
+      x.inv = lane < NS ? p.inv[(long long)lane * M + row] : 1.f;
+    }
   };
 
   int row = team_id;
-  uint32_t bprev2[NS / 2] = {};
-  bf16 gbeta_r = __float2bfloat16(0.f);
+  Scalars sc_r = {};
   float gb[NS] = {};                    // K4: this thread's g_beta partials of row - nteams
   if (row < M) {
     if (stages == 2) issue(row, 0);
-    scalars(row, bprev2, gbeta_r);
+    scalars(row, sc_r);
   }
   for (int k = 0; row < M; ++k, row += nteams) {
     const int next = row + nteams;
@@ -228,7 +246,7 @@ __global__ void __maxnreg__(MAX_REGS)
       issue(row, 0);
       cp_wait<0>();
     }
-    auto bprev = [&](int s) { return s & 1 ? hi(bprev2[s / 2]) : lo(bprev2[s / 2]); };
+    auto bprev = [&](int s) { return s & 1 ? hi(sc_r.bp[s / 2]) : lo(sc_r.bp[s / 2]); };
     // chunk j's slot i: buf[i * slots + j * T]
     uint4* buf = ring + (size_t)(team * stages + st) * NSLOT * slots + tt;
 
@@ -253,7 +271,7 @@ __global__ void __maxnreg__(MAX_REGS)
     }
 
     // round 1: ga_s[t] = gm_t . r_s at value s NC + t, sum r_s^2 at s NC +
-    // NS + 1; K4 also the previous row's g_beta partials at NV + s
+    // NS + 1 (not SAVE); K4 also the previous row's g_beta partials at NV + s
     float v[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) v[i] = FUSED && i >= NV && i < NV + NS ? gb[i - NV] : 0.f;
@@ -267,8 +285,11 @@ __global__ void __maxnreg__(MAX_REGS)
         for (int i = 0; i < 2; ++i) {
           const int s = h + i;
           unpack8(buf[s * slots + j * T], r[i]);
+          if constexpr (!SAVE) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[s * NC + NS + 1] = fmaf(r[i][e], r[i][e], v[s * NC + NS + 1]);
+            for (int e = 0; e < 8; ++e)
+              v[s * NC + NS + 1] = fmaf(r[i][e], r[i][e], v[s * NC + NS + 1]);
+          }
         }
 #pragma unroll
         for (int t = 0; t <= NS; ++t) {
@@ -291,53 +312,64 @@ __global__ void __maxnreg__(MAX_REGS)
         out2[(long long)(lane - NV) * M + row - nteams] = __float2bfloat16(tot1);
     }
 
-    // the rms statistic in lane s NC + NS + 1, then to every lane (the sign
-    // carries var > 1e-12)
-    const float var = tot1 / d;
-    const float inv_l = rsqrtf(fmaxf(var, 1e-12f));
-    float inv[NS];  // negative where var <= 1e-12; rounded where n is formed
+    // the rms reciprocal of every stream in every lane: recomputed from the
+    // statistic in lane s NC + NS + 1 (the sign carries var > 1e-12) or,
+    // SAVE, the forward's from lane s (the sign carries the reference's
+    // test inv < 1e6)
+    float inv[NS];  // negative where the clamp holds; rounded where n is formed
+    if constexpr (SAVE) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
-      inv[s] = __shfl_sync(0xffffffffu, var > 1e-12f ? inv_l : -inv_l, s * NC + NS + 1);
+      for (int s = 0; s < NS; ++s)
+        inv[s] = __shfl_sync(0xffffffffu, sc_r.inv < 1e6f ? sc_r.inv : -sc_r.inv, s);
+    } else {
+      const float var = tot1 / d;
+      const float inv_l = rsqrtf(fmaxf(var, 1e-12f));
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        inv[s] = __shfl_sync(0xffffffffu, var > 1e-12f ? inv_l : -inv_l, s * NC + NS + 1);
+    }
 
-    // round 2: the projection n_s W, n_s = round(r_s round(inv_s))
+    // round 2 (not SAVE): the projection n_s W, n_s = round(r_s round(inv_s))
+    float tot2 = 0.f;
+    if constexpr (!SAVE) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) v[i] = 0.f;
+      for (int i = 0; i < 32; ++i) v[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (nval[j] == 0) continue;
+      for (int j = 0; j < J; ++j) {
+        if (nval[j] == 0) continue;
 #pragma unroll
-      for (int h = 0; h < NS; h += 2) {  // two streams at a time
-        float n[2][8];
+        for (int h = 0; h < NS; h += 2) {  // two streams at a time
+          float n[2][8];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          unpack8(buf[(h + i) * slots + j * T], n[i]);
-          const float ir = round_bf16(fabsf(inv[h + i]));
+          for (int i = 0; i < 2; ++i) {
+            unpack8(buf[(h + i) * slots + j * T], n[i]);
+            const float ir = round_bf16(fabsf(inv[h + i]));
 #pragma unroll
-          for (int e = 0; e < 8; ++e) n[i][e] *= ir;
-          round8(n[i]);
-        }
+            for (int e = 0; e < 8; ++e) n[i][e] *= ir;
+            round8(n[i]);
+          }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          float x[8];
-          wload(j, c, x);
+          for (int c = 0; c < NC; ++c) {
+            float x[8];
+            wload(j, c, x);
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
+            for (int e = 0; e < 8; ++e)
 #pragma unroll
-            for (int i = 0; i < 2; ++i) v[(h + i) * NC + c] = fmaf(n[i][e], x[e], v[(h + i) * NC + c]);
+              for (int i = 0; i < 2; ++i) v[(h + i) * NC + c] = fmaf(n[i][e], x[e], v[(h + i) * NC + c]);
+          }
         }
       }
+      halve<32, 16>(v, lane);
+      myred[T + wt * 32 + lane] = v[0];
+      team_sync(team + 1, T);
+      for (int i = 0; i < tw; ++i) tot2 += myred[T + i * 32 + lane];
     }
-    halve<32, 16>(v, lane);
-    myred[T + wt * 32 + lane] = v[0];
-    team_sync(team + 1, T);
-    float tot2 = 0.f;
-    for (int i = 0; i < tw; ++i) tot2 += myred[T + i * 32 + lane];
 
-    // the scalar stage of lane s NC + c: tanh, alpha, gp, the parameter partials
+    // the scalar stage of lane s NC + c: tanh (or the saved one), alpha, gp,
+    // the parameter partials
     {
-      const float ta = tanhf(tot2);
-      const float ga = lc == NS + 1 ? __bfloat162float(gbeta_r) : tot1;
+      const float ta = SAVE ? sc_r.ta : tanhf(tot2);
+      const float ga = lc == NS + 1 ? __bfloat162float(sc_r.gb) : tot1;
       if (lval) {
         const float a_scale = *p.ascale, sc = lc == NS + 1 ? *p.bscale : a_scale;
         const float gp = round_bf16(ga * sc * (1.f - ta * ta));
@@ -421,9 +453,8 @@ __global__ void __maxnreg__(MAX_REGS)
       for (int t = 0; t < NS; ++t) gsq[t] = __shfl_sync(0xffffffffu, g, t);
     }
     // the next row's scalars, in flight while this row finishes
-    uint32_t bprev2_n[NS / 2] = {};
-    bf16 gbeta_n = __float2bfloat16(0.f);
-    if (next < M) scalars(next, bprev2_n, gbeta_n);
+    Scalars sc_n = {};
+    if (next < M) scalars(next, sc_n);
 
     // g_r = pre + 2 r g_sq (in pre's registers), written out (K5b) or split
     // by the depth connection (K4: g_branch = sum_s g_r_s beta_s, g_beta_s =
@@ -457,9 +488,7 @@ __global__ void __maxnreg__(MAX_REGS)
         store_chunk(out1 + (long long)row * d + col0[j], pack8(gbr), nval[j], vec);
       }
     }
-#pragma unroll
-    for (int s = 0; s < NS / 2; ++s) bprev2[s] = bprev2_n[s];
-    gbeta_r = gbeta_n;
+    sc_r = sc_n;
   }
   // K4: the last row's g_beta (the others went with the next row's round 1)
   if constexpr (FUSED) {
@@ -550,9 +579,9 @@ inline int vec_width(const HcBwdParams& p, bool fused) {
   return v;
 }
 
-template <bool FUSED, int J>
+template <bool FUSED, bool SAVE, int J>
 cudaError_t launch(const HcBwdParams& p, int blocks, float* params_out, cudaStream_t stream) {
-  auto kernel = hc_bwd_sm90_kernel<FUSED, J>;
+  auto kernel = hc_bwd_sm90_kernel<FUSED, SAVE, J>;
   // set once, outside any CUDA-graph capture that later launches replay
   static bool configured = false;
   cudaError_t err;
@@ -587,8 +616,10 @@ cudaError_t launch(const HcBwdParams& p, int blocks, float* params_out, cudaStre
   return cudaGetLastError();
 }
 
-// bf16 at 4 streams: block_warps(d) warps a block; `blocks` the partial
-// rows the wrapper allocated (the grid is at most that)
+// bf16 at 4 streams, K5b / K4 or (SAVE) K5bs / K4s: block_warps(d) warps a
+// block; `blocks` the partial rows the wrapper allocated (the grid is at
+// most that)
+template <bool SAVE>
 inline int bwd_run(const HcBwdParams& p, bool fused, int blocks, void* params_out,
                    void* stream) {
   if (p.d < 1 || block_warps(p.d) * 32 > MAX_THREADS || blocks < 1 || blocks > MAX_BLOCKS ||
@@ -597,8 +628,10 @@ inline int bwd_run(const HcBwdParams& p, bool fused, int blocks, void* params_ou
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(params_out);
   if (per_thread(p.d) == 1)
-    return (int)(fused ? launch<true, 1>(p, blocks, out, st) : launch<false, 1>(p, blocks, out, st));
-  return (int)(fused ? launch<true, 2>(p, blocks, out, st) : launch<false, 2>(p, blocks, out, st));
+    return (int)(fused ? launch<true, SAVE, 1>(p, blocks, out, st)
+                       : launch<false, SAVE, 1>(p, blocks, out, st));
+  return (int)(fused ? launch<true, SAVE, 2>(p, blocks, out, st)
+                     : launch<false, SAVE, 2>(p, blocks, out, st));
 }
 
 }  // namespace hc_sm90

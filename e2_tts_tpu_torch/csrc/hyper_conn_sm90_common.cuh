@@ -1,6 +1,7 @@
 // What the Hopper designs of the hyper-connection width connection share: the
-// forward K5 / K3 (hyper_conn_sm90.cuh) and the recomputing adjoints K5b / K4
-// (hyper_conn_bwd_sm90.cuh), both on bf16 at 4 streams. A team of warps owns
+// forward K5 / K3 (hyper_conn_sm90.cuh) and the adjoints K5b / K4 with their
+// save variants K5bs / K4s (hyper_conn_bwd_sm90.cuh), both on bf16 at 4
+// streams. A team of warps owns
 // a row, one 8-column chunk a thread (two past d = 2048); both take the team
 // geometry below, so a row's rms statistic sums in the same order in both
 // (K3s / K5s save, by construction, the inv that K4 / K5b recompute). Here: the

@@ -12,13 +12,13 @@ the adjoints in ``csrc/hyper_conn_bwd.cu``: all bandwidth bound, each
 input read once and each output written once, and K3 / K4 form the previous
 branch's depth connection ``carried + branch * beta`` on chip instead of in
 device memory. On bf16 at 4 streams (every configuration of the repo) the
-forwards with their save variants and the recomputing adjoints run Hopper
-designs (``csrc/hyper_conn_sm90.cuh``, ``csrc/hyper_conn_bwd_sm90.cuh``: a
-team of warps a row, 8 columns a thread, a cp.async ring; the forwards'
-projection on the tensor cores); the templates of ``csrc/hyper_conn.cuh`` /
-``hyper_conn_bwd.cuh`` (f32, bf16 at 2, 3 and 5-8 streams, and the save
-adjoints) give one warp one row of every stream. The C entry points choose
-the design from the dtype and the stream count. The adjoints port
+forwards and the adjoints, with their save variants, run Hopper designs
+(``csrc/hyper_conn_sm90.cuh``, ``csrc/hyper_conn_bwd_sm90.cuh``: a team of
+warps a row, 8 columns a thread, a cp.async ring; the forwards' projection
+on the tensor cores); the templates of ``csrc/hyper_conn.cuh`` /
+``hyper_conn_bwd.cuh`` (f32, bf16 at 2, 3 and 5-8 streams) give one warp
+one row of every stream. The C entry points choose the design from the
+dtype and the stream count. The adjoints port
 the hand-derived chain rule of the JAX package's ``_width_bwd_core``; their
 parameter grads are per-block partial sums reduced in a fixed order (the
 same result every run). `_Width` (K5 + K5b)
@@ -77,19 +77,19 @@ def _bwd_warps(s, d):
 
 # blocks of the adjoint templates: up to two per SM of the H100's 132
 _BWD_MAX_BLOCKS = 264
-# partial rows the Hopper design of the recomputing adjoints takes (bf16, 4
-# streams; csrc/hyper_conn_bwd_sm90.cuh::MAX_BLOCKS): it launches at most
-# that many blocks and sets its own warps a block
+# partial rows the Hopper design of the adjoints takes (bf16, 4 streams;
+# csrc/hyper_conn_bwd_sm90.cuh::MAX_BLOCKS): it launches at most that many
+# blocks and sets its own warps a block
 _SM90_MAX_BLOCKS = 1056
 
 
-def _bwd_geometry(s, m, d, dtype, save):
-    """``(warps, blocks)`` of an adjoint launch: the blocks are the partial
-    rows allocated for the parameter grads. The recomputing adjoints on bf16
-    at 4 streams run the Hopper design, which takes no warps (0 is passed);
-    the rest the templates of csrc/hyper_conn_bwd.cuh (as the C entry points
-    choose)."""
-    if dtype == torch.bfloat16 and s == 4 and not save:
+def _bwd_geometry(s, m, d, dtype):
+    """``(warps, blocks)`` of an adjoint launch (K5b / K4 and their save
+    variants alike): the blocks are the partial rows allocated for the
+    parameter grads. On bf16 at 4 streams the adjoints run the Hopper
+    design, which takes no warps (0 is passed); the rest the templates of
+    csrc/hyper_conn_bwd.cuh (as the C entry points choose)."""
+    if dtype == torch.bfloat16 and s == 4:
         return 0, max(1, min(m, _SM90_MAX_BLOCKS))
     warps = _bwd_warps(s, d)
     return warps, max(1, min(-(-m // warps), _BWD_MAX_BLOCKS))
@@ -408,7 +408,7 @@ def _launch_bwd(name, streams_in, grads_in, params, s, m, d, dtype, device, outs
                                                      d, dtype, device)
     nc = s + 2
     n_param = nc * d + _n_small(s)
-    warps, blocks = _bwd_geometry(s, m, d, dtype, state is not None)
+    warps, blocks = _bwd_geometry(s, m, d, dtype)
     partials = torch.empty((blocks, n_param), dtype=torch.float32, device=device)
     row = torch.empty((n_param,), dtype=torch.float32, device=device)
     saved = ()

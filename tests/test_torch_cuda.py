@@ -433,6 +433,31 @@ def test_width_save_variants(dev, s, d, dtype):
             _close_save_recompute(got, recompute)
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_width_save_keeps_the_clamp_on_tiny_rows(dev, dtype):
+    """A row of rms 1e-7 (variance under the 1e-12 clamp, streams not zero)
+    and a zero row: K5s / K3s save inv = exactly 1e6 there, the value the
+    reference saves, so that K5bs / K4s's test inv < 1e6 agrees with the
+    recomputing var > 1e-12; their stream grads then match K5b / K4's (one
+    bf16 ulp at 4 bf16 streams, where the saved and recomputed tanh are sums
+    in two orders; 1e-5 in f32, one template)."""
+    s, m, d = 4, 600, 1024
+    for fused in (False, True):
+        ins, params, grads = _hc_args(dev, dtype, s, m, d, fused, seed=41)
+        for t in ins[:2]:
+            t[..., 7, :] *= 1e-7
+        fwd = hck.width_connection_fused_forward if fused else hck.width_connection_forward
+        bwd = hck.width_connection_fused_backward if fused else hck.width_connection_backward
+        _, (ta, inv) = fwd(*ins, *params, save_state=True)
+        assert float(ins[0][:, 7].float().abs().max()) > 0
+        assert bool((inv[:, [5, 7]] == 1e6).all()), inv[:, [5, 7]]
+        got, rec = bwd(*ins, *params, *grads, state=(ta, inv)), bwd(*ins, *params, *grads)
+        for a, b in zip(got[:2 if fused else 1], rec):
+            a, b = a.float(), b.float()
+            rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(a, b, rtol=rtol, atol=1e-5 * float(b.abs().max()))
+
+
 def _close_save_recompute(save, recompute):
     """K5bs / K4s against K5b / K4 where both run one template (f32, bf16 at
     other stream counts): 1e-5 relative plus 1e-5 of the largest |ref|."""

@@ -1,9 +1,9 @@
 """Which design the hyper-connection kernels run, on the CPU. The C entry
-points choose it from the dtype and the stream count: the recomputing K5b /
-K4 (hyper_conn_bwd.cu) on bf16 at 4 streams run the Hopper design
-(hyper_conn_bwd_sm90.cuh); f32, bf16 at the other stream counts and the
-save-state variants K5bs / K4s (hyper_conn_bwd_save.cu) keep the templates
-of hyper_conn_bwd.cuh. The forwards K5 / K3 and their save variants K5s /
+points choose it from the dtype and the stream count: the adjoints K5b / K4
+(hyper_conn_bwd.cu) and their save-state variants K5bs / K4s
+(hyper_conn_bwd_save.cu) on bf16 at 4 streams run the Hopper design
+(hyper_conn_bwd_sm90.cuh, its SAVE flag false and true); f32 and bf16 at the
+other stream counts keep the templates of hyper_conn_bwd.cuh. The forwards K5 / K3 and their save variants K5s /
 K3s (hyper_conn.cu, hyper_conn_save.cu) on bf16 at 4 streams run the Hopper
 design of hyper_conn_sm90.cuh, everything else the templates of
 hyper_conn.cuh. The wrappers pass no design, only (for the adjoints) the
@@ -58,16 +58,12 @@ def _design(entry: str, dtype, s: int) -> str:
     return 'template'
 
 
-def _route(save: bool, dtype, s: int) -> str:
+def _route(dtype) -> str:
     """What hyper_conn_bwd.cuh's bwd_route<SAVE> runs: a template
-    instantiation of this source, of the other-stream-count source or of the
-    f32 source; never the Hopper design."""
+    instantiation of the other-stream-count source or of the f32 source;
+    never the Hopper design, and no template of its own."""
     body = _body(_source('hyper_conn_bwd.cuh'), 'int bwd_route(')
-    assert 'hc_sm90' not in body
-    if save and dtype == BF16 and s == 4:
-        assert ('if constexpr (SAVE) {\n    if (dtype == e2::kBFloat16 && s == 4)\n'
-                '      return bwd_run<__nv_bfloat16, true, Streams::kOnly4>') in body
-        return 'template, bf16 at 4 streams'
+    assert 'hc_sm90' not in body and 'bwd_run<' not in body
     if dtype == BF16:
         assert 'if (dtype == e2::kBFloat16)\n    return e2_hc_bwd_streams_run(' in body
         return 'template, bf16 at other stream counts'
@@ -79,35 +75,49 @@ def _route(save: bool, dtype, s: int) -> str:
 @pytest.mark.parametrize('dtype', [BF16, F32])
 @pytest.mark.parametrize('name', ENTRY_POINTS)
 def test_adjoint_design(name, dtype, s):
-    """The recomputing K5b / K4 on bf16 at 4 streams launch the Hopper
-    design; every other dtype, stream count and both save variants keep the
+    """K5b / K4 and their save variants K5bs / K4s on bf16 at 4 streams
+    launch the Hopper design; every other dtype and stream count keeps the
     templates of hyper_conn_bwd.cuh."""
     entry = _body(_source(ENTRY_POINTS[name]), f'extern "C" int {name}(')
-    save = name.endswith('_save')
-    sm90 = dtype == BF16 and s == 4 and not save
+    sm90 = dtype == BF16 and s == 4
     design = _design(entry, dtype, s)
     assert design == ('sm90' if sm90 else 'template')
     if not sm90:
-        assert _route(save, dtype, s).startswith('template')
+        assert _route(dtype).startswith('template')
     assert 'design' not in entry.split(')')[0]           # no design argument
 
 
 def test_only_the_recomputing_source_builds_the_hopper_design():
-    """hyper_conn_bwd.cu alone includes the Hopper design; the template
-    sources keep hyper_conn_bwd.cuh."""
+    """Exactly the two adjoint entry sources include the Hopper design, each
+    instantiating only its own SAVE flag (hyper_conn_bwd.cu false,
+    hyper_conn_bwd_save.cu true); the template sources keep
+    hyper_conn_bwd.cuh and build no bf16 template at 4 streams, and
+    bwd_route instantiates none (the save variants' old bf16 4-stream
+    route is gone)."""
+    own = {'hyper_conn_bwd.cu': 'false', 'hyper_conn_bwd_save.cu': 'true'}
     for src in sorted(_cuda.CSRC.glob('*.cu')):
         text = src.read_text()
-        assert ('#include "hyper_conn_bwd_sm90.cuh"' in text) == (src.name == 'hyper_conn_bwd.cu')
-    for name in ('hyper_conn_bwd_save.cu', 'hyper_conn_bwd_streams.cu', 'hyper_conn_bwd_f32.cu'):
+        assert ('#include "hyper_conn_bwd_sm90.cuh"' in text) == (src.name in own)
+        flags = re.findall(r'hc_sm90::bwd_run<(\w+)>', text)
+        assert flags == ([own[src.name]] * 2 if src.name in own else []), (src.name, flags)
+    for name in ('hyper_conn_bwd_streams.cu', 'hyper_conn_bwd_f32.cu'):
         assert '#include "hyper_conn_bwd.cuh"' in _source(name)
+    assert 'Streams::kNot4' in _source('hyper_conn_bwd_streams.cu')
+    assert 'bwd_run<__nv_bfloat16' not in _source('hyper_conn_bwd_f32.cu')
+    header = _source('hyper_conn_bwd.cuh')
+    assert 'enum class Streams { kAll, kNot4 };' in header
+    route = _body(header, 'int bwd_route(')
+    assert 'if constexpr (SAVE)' not in route and 's == 4' not in route
+    assert 'bwd_run<' not in route and 'Streams::' not in route
 
 
 @pytest.mark.parametrize('m', [1, 700, 1056, 16819, 100_000])
 def test_wrapper_partial_rows_are_what_the_c_side_takes(m):
     """The Hopper entry sets its own warps a block (block_warps(d), no
     warps argument) and takes 1 <= blocks <= MAX_BLOCKS partial rows: the
-    wrapper allocates min(M, MAX_BLOCKS) for recomputing bf16 at 4 streams,
-    and the templates keep their own geometry."""
+    wrapper allocates min(M, MAX_BLOCKS) for bf16 at 4 streams (the save
+    variants too: the geometry does not depend on the saved state), and the
+    f32 templates keep their own geometry."""
     src = _source('hyper_conn_bwd_sm90.cuh')
     (max_blocks,) = re.findall(r'constexpr int MAX_BLOCKS = (\d+);', src)
     run = _body(src, 'inline int bwd_run(')
@@ -117,11 +127,10 @@ def test_wrapper_partial_rows_are_what_the_c_side_takes(m):
     assert 'blocks < 1' in check and 'blocks > MAX_BLOCKS' in check
     assert hck._SM90_MAX_BLOCKS == int(max_blocks)
     for d in (1, 1024, 1152, 4840):
-        assert hck._bwd_geometry(4, m, d, BF16, False) == (0, min(m, int(max_blocks)))
-        for dtype, save in ((BF16, True), (F32, False), (F32, True)):
-            warps = hck._bwd_warps(4, d)
-            assert hck._bwd_geometry(4, m, d, dtype, save) == (
-                warps, max(1, min(-(-m // warps), hck._BWD_MAX_BLOCKS)))
+        assert hck._bwd_geometry(4, m, d, BF16) == (0, min(m, int(max_blocks)))
+        warps = hck._bwd_warps(4, d)
+        assert hck._bwd_geometry(4, m, d, F32) == (
+            warps, max(1, min(-(-m // warps), hck._BWD_MAX_BLOCKS)))
 
 
 class _Recorder:
@@ -152,9 +161,9 @@ def recorder(monkeypatch):
                                        (BF16, 2, 64), (F32, 4, 1024)])
 def test_wrappers_pass_the_geometry(recorder, dtype, s, d, fused, save):
     """The adjoint wrappers hand the entry points the dtype code, the
-    stream count and the (warps, blocks) of `_bwd_geometry` (warps 0 for
-    the Hopper design of recomputing bf16 at 4 streams), and no design
-    argument."""
+    stream count and the (warps, blocks) of `_bwd_geometry` (warps 0 and
+    min(M, 1056) partial rows for the Hopper design of bf16 at 4 streams,
+    saving or not), and no design argument."""
     m = 40
     dev = torch.device('cpu')
     ins = ([(torch.zeros(s, m, d, dtype=dtype), 'carried'), (torch.zeros(m, d, dtype=dtype), 'branch'),
@@ -173,7 +182,9 @@ def test_wrappers_pass_the_geometry(recorder, dtype, s, d, fused, save):
     assert len(args) == len(_cuda._SIGNATURES[called])
     blocks, warps, s_arg, m_arg, d_arg, code, stream = args[-7:]
     assert (s_arg, m_arg, d_arg, code, stream) == (s, m, d, _cuda.DTYPE_CODES[dtype], 0)
-    assert (warps, blocks) == hck._bwd_geometry(s, m, d, dtype, save)
+    assert (warps, blocks) == hck._bwd_geometry(s, m, d, dtype)
+    if dtype == BF16 and s == 4:
+        assert (warps, blocks) == (0, min(m, hck._SM90_MAX_BLOCKS))
 
 
 def _forward_design(dtype, s: int) -> str:

@@ -170,3 +170,37 @@ def test_reference_set_holds_an_f32_adjoint_and_refuses_faults(fused, save):
     drop[0][0], drop[1][:, 0], drop[2][:, 0] = 0, 0, 0
     dropped = _plain(fused)(*tin, *tp, *drop, state=state)
     assert max(hck.reference_ratios(dropped[:len(tin)], ref[:len(tin)], alts)) > 3.0
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('fused', [False, True], ids=['K5b', 'K4'])
+def test_save_adjoint_matches_recompute_on_tiny_and_zero_rows(fused, dtype):
+    """A row of rms 1e-7 (its variance 1e-14, under the clamp, but its
+    streams not zero) and a zero row: the plain save adjoint, from the
+    plain forward's state, equals the recomputing plain adjoint. The state
+    holds inv = rsqrt(1e-12) = 1e6 exactly there, so the save path's test
+    inv < 1e6 agrees with the recomputing var > 1e-12; a saved inv one f32
+    step under 1e6 would add 2 r g_sq on the tiny row, which this test must
+    see."""
+    s, m, d = 4, 12, 64
+    inputs, gouts, params = _case(s, m, d, seed=23, fused=fused)
+    inputs[0][:, 7] *= 1e-7                   # row 7: rms ~1e-7; row 3 is zero
+    if fused:
+        inputs[1][7] = 0.0
+    tin = [_t(a).to(dtype) for a in inputs]
+    tg = [_t(g).to(dtype) for g in gouts]
+    tp = [torch.as_tensor(p) for p in params]
+    fwd = hck.width_connection_fused_plain if fused else hck.width_connection_plain
+    _, (ta, inv) = fwd(*tin, *tp, save_state=True)
+    assert float(inv[:, 7].min()) == float(inv[:, 3].min()) == 1e6
+    assert float(tin[0][:, 7].float().abs().max()) > 0
+    rec = _plain(fused)(*tin, *tp, *tg)
+    save = _plain(fused)(*tin, *tp, *tg, state=(ta, inv))
+    for a, b in zip(save, rec):
+        assert torch.equal(a, b)
+    # the fault the test guards against: inv one f32 step under the clamp
+    below = inv.clone()
+    below[:, 7] = torch.nextafter(torch.tensor(1e6), torch.tensor(0.0))
+    off = _plain(fused)(*tin, *tp, *tg, state=(ta, below))
+    assert not torch.equal(off[0][:, 7], rec[0][:, 7])
+    assert torch.equal(off[0][:, :7], rec[0][:, :7])
