@@ -5,9 +5,10 @@
 
 Builds K11 (csrc/mel.cu), K5 / K3 (the hyper-connection forwards,
 hyper_conn.cu with hyper_conn_save.cu), K5b / K4 (the adjoints), K8 / K9
-(flash_attention_bhnd.cu and its wide-head source) and K1 / K2 / K10
-(flash_attention.cu, flash_attention_bwd.cu) from both checkouts' sources
-with nvcc into build/ (every nvcc at once), and times each pair in turns
+(flash_attention_bhnd.cu and its wide-head source), K1 / K2 / K10
+(flash_attention.cu, flash_attention_bwd.cu) and K6 / K7 (geglu.cu) from
+both checkouts' sources with nvcc into build/ (every nvcc at once), and
+times each pair in turns
 (other, this, this, other) as device time per call, 100 calls captured in a
 CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
 frequency tiles as its wrapper splits it), K5 / K3 at the training shapes
@@ -23,7 +24,12 @@ training shape, its launch alone and with the wrapper's PyTorch work
 1056, 8 x 64) and at the paper's heads (16, 1056, 16 x 64) with dropout
 0.1, and K2 with its wrapper's work (K10, the dq fill and cast, the gate
 grad) at the flagship's and the paper's training shapes (16, 1056, 8 x 64
-and 16 x 64), gated, dropout 0.1, softclamp 50. The other checkout's
+and 16 x 64), gated, dropout 0.1, softclamp 50; K6 and K7 (bf16, through
+their C entry points) at the sampler's (1, 1056, 2 x 1408 / 2 x 704), the
+flagship's training (16, 1056, 2 x 1408 / 2 x 704), the paper's speech
+(16, 1056, 2 x 2752) and DiT's (16, 1056, 2 x 3072 / 2 x 1536) shapes,
+dropout 0.1 at B = 16, and at (16, 1056, 2 x 1408) without dropout (the
+cost of the hash). The other checkout's
 adjoint may predate the warps argument (it then ran 8 warps a block); its K8 / K9 may take a `design` argument (it is passed as 1, the
 Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
 design, K2 gating do itself and K10 writing delta alone). Prints one line
@@ -107,10 +113,12 @@ def main():
                   f'{tmp}/flash_{tag}.so'),
                  (root, ['flash_attention.cu', 'flash_attention_bwd.cu'],
                   f'{tmp}/packed_{tag}.so'),
-                 (root, ['hyper_conn.cu', 'hyper_conn_save.cu'], f'{tmp}/fwd_{tag}.so')]
+                 (root, ['hyper_conn.cu', 'hyper_conn_save.cu'], f'{tmp}/fwd_{tag}.so'),
+                 (root, ['geglu.cu'], f'{tmp}/geglu_{tag}.so')]
     built = build(jobs)
+    per_root = len(jobs) // len(roots)
     for i, (tag, _) in enumerate(roots):
-        libs[tag] = tuple(built[5 * i:5 * i + 5])
+        libs[tag] = tuple(built[per_root * i:per_root * (i + 1)])
     g = torch.Generator(device=dev).manual_seed(0)
     # K11 at the prompt: 282 frames, split over frequency tiles as the wrapper does
     spec = MelSpec(mode='pallas').to(dev)
@@ -370,6 +378,33 @@ def main():
         call.tensors = (q, k, v, gate, out, lse, dout, delta, do_g, dq, dk, dv)
         return call
 
+    # K6 / K7 on (b, 1056, 2 inner) bf16, one set of inputs a shape
+    geglu_inputs = {}
+
+    def geglu(tag, kind, b, inner, rate):
+        if (b, inner) not in geglu_inputs:
+            geglu_inputs[b, inner] = (
+                torch.randn(b, 1056, 2 * inner, generator=g, device=dev).to(bf),
+                torch.randn(b, 1056, inner, generator=g, device=dev).to(bf))
+        h2, gout = geglu_inputs[b, inner]
+        common = [I(b), I(1056), I(inner), F(1.0 / (1.0 - rate) if rate else 1.0), U(1234),
+                  U(keep_threshold(rate)), I(int(rate > 0)), I(1)]
+        lib = libs[tag][5]
+        if kind == 'K6':
+            fn, out = lib.e2_geglu_fwd, torch.empty_like(gout)
+            args = [P(h2.data_ptr()), P(out.data_ptr())] + common
+        else:
+            fn, out = lib.e2_geglu_bwd, torch.empty_like(h2)
+            args = [P(h2.data_ptr()), P(gout.data_ptr()), P(out.data_ptr())] + common
+        fn.restype = ctypes.c_int
+
+        def call():
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'{kind} failed to launch: cudaError {err}')
+        call.tensors = (h2, gout, out)
+        return call
+
     sampler, train = flash_inputs(1), flash_inputs(16)
     flagship_sampler, flagship_train = packed_inputs(1, 8), packed_inputs(16, 8)
     paper_train = packed_inputs(16, 16)
@@ -405,7 +440,15 @@ def main():
                          lambda tag: k2(tag, *flagship_train, 0.1)),
                         ('K2 with its wrapper\'s K10, dq fill and cast, gate grad (16,1056,16x64) '
                          'bf16 gated softclamp 50 dropout 0.1',
-                         lambda tag: k2(tag, *paper_train, 0.1))):
+                         lambda tag: k2(tag, *paper_train, 0.1)),
+                        *((f'{k} ({b},1056,2x{inner}) bf16' + (' dropout 0.1' if rate else ''),
+                           lambda tag, k=k, b=b, inner=inner, rate=rate: geglu(tag, k, b, inner,
+                                                                               rate))
+                          for b, inner, rate in ((1, 1408, 0.0), (1, 704, 0.0), (16, 1408, 0.1),
+                                                 (16, 704, 0.1), (16, 2752, 0.1),
+                                                 (16, 3072, 0.1), (16, 1536, 0.1),
+                                                 (16, 1408, 0.0))
+                          for k in ('K6', 'K7'))):
         times = {tag: [] for tag in ('other', 'this')}
         for tag in ('other', 'this', 'this', 'other'):
             times[tag].append(graph_ms(make(tag), 20 if label[:2] in ('K9', 'K2') else 100))

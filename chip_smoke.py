@@ -32,7 +32,11 @@ exit code and no result line:
    to 4840 with a zero row, a ragged M of 1923 with two calls bit for bit,
    M = 1, and a row of rms 1e-7, whose saved inv must be exactly the clamp's
    1e6 and whose stream grads are held against K4 / K5b's at one ulp),
-   K6 (GEGLU) and its backward K7, K11 (the fused log-mel frontend; also at
+   K6 (GEGLU) and its backward K7 (also at the paper's and DiT's training
+   widths, 2752 / 1408 and 3072 / 1536, and on both designs of
+   csrc/geglu.cu: the vector design at every width of the repo, the scalar
+   one at inner 100 and on views one element into their storage; each
+   label names the design), K11 (the fused log-mel frontend; also at
    160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
    stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
    at a 3-s prompt), at the duration predictor's (B=1, the prompt's 282
@@ -66,7 +70,9 @@ exit code and no result line:
    csrc/hyper_conn_bwd_sm90.cuh: bf16 K4 / K5b and K4s / K5bs at 4
    streams, built in hyper_conn_bwd.cu and hyper_conn_bwd_save.cu;
    csrc/hyper_conn_sm90.cuh: bf16 K3 / K5 and K3s / K5s at 4 streams, built
-   in hyper_conn.cu and hyper_conn_save.cu). K3 / K5 and K4 / K5b
+   in hyper_conn.cu and hyper_conn_save.cu; csrc/geglu.cu: K6 / K7, both
+   designs), and `sass` lines the SASS instructions of each K6 / K7 kernel
+   (cuobjdump; per element for the vector design). K3 / K5 and K4 / K5b
    are timed at the flagship's, the paper's and DiT's training widths (512,
    1024, 1152). Then
    `hc save A/B` lines: the hyper-connection forward and adjoint,
@@ -100,7 +106,9 @@ exit code and no result line:
    in-memory dataset of 32 random (100, 1024) mels, B=16 (two steps, also
    the warm-up), then timed `train_step`s with and without text, with the
    launch counters checked against the model's structure; then one step
-   under torch.profiler (trace: build/profile/train_step_trace.json).
+   under torch.profiler (trace: build/profile/train_step_trace.json). Each
+   profiled train step (here, in dit and in paper) also prints the GEGLU
+   kernels' device time (K6 + K7).
 7. dit     — the E2TTS at DiT-XL/2's widths (dim 1152, 16 heads x 72: every
    attention on K8 / K9; text stream 576) in bf16 with seeded random
    weights: one CFG evaluation at depth 2 against the CPU in f32; `sample`
@@ -133,7 +141,9 @@ it, one JSON object with a record per kernel. The last line is the result.
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -678,24 +688,51 @@ def kernel_cases(torch, dev):
             flops=m * s * d * (2 + 4 * (s + 2) + 4 * (s + 1) + 6) + (6 * m * s * d if fused else 0),
             peak=PEAK_F32_FLOPS))
 
-    def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False, timed=False):
-        h2 = randn(b, n, 2 * inner, dtype=dtype)
-        cases.append(dict(
-            kernel='K6', label=label, run=lambda: gk.geglu_dropout(h2, 77, rate), train=train,
-            timed=timed,
+    def geglu_operand(shape, dtype, offset):
+        """Random values of ``shape``; with ``offset`` a contiguous view one
+        element into its storage, whose data pointer is not 16-byte aligned."""
+        t = randn(math.prod(shape) + int(offset), dtype=dtype)[int(offset):].view(shape)
+        assert (t.data_ptr() % 16 != 0) == offset
+        return t
+
+    def geglu_design(inner, dtype, *operands):
+        """The design csrc/geglu.cu's entry points choose for these operands
+        (the outputs come from torch.empty: aligned)."""
+        vector = (inner % (16 // esize(dtype)) == 0
+                  and all(t.data_ptr() % 16 == 0 for t in operands))
+        return 'vector' if vector else 'scalar'
+
+    def geglu_case(label, b, n, inner, dtype, rate=0.0, train=False, timed=False,
+                   offset=False):
+        h2 = geglu_operand((b, n, 2 * inner), dtype, offset)
+        design = geglu_design(inner, dtype, h2)
+        case = dict(
+            kernel='K6', label=f'{label} [{design} design]',
+            run=lambda: gk.geglu_dropout(h2, 77, rate), train=train, timed=timed,
             plain=lambda: gk.geglu_dropout_plain(h2, 77, rate), tol=tol[dtype],
             nbytes=3 * b * n * inner * esize(dtype), flops=20 * b * n * inner,
-            peak=PEAK_F32_FLOPS))
+            peak=PEAK_F32_FLOPS)
+        if offset:      # the same values through the vector design: printed, unchecked
+            aligned = lambda: gk.geglu_dropout(h2.clone(), 77, rate)
+            case['extra'] = lambda: (f'; bit-equal to the vector design on an aligned copy: '
+                                     f'{torch.equal(case["run"](), aligned())}', True)
+        cases.append(case)
 
-    def geglu_bwd_case(label, b, n, inner, dtype, rate=0.0, timed=False):
-        h2 = randn(b, n, 2 * inner, dtype=dtype)
-        gout = randn(b, n, inner, dtype=dtype)
-        cases.append(dict(
-            kernel='K7', label=label, timed=timed,
+    def geglu_bwd_case(label, b, n, inner, dtype, rate=0.0, timed=False, offset=False):
+        h2 = geglu_operand((b, n, 2 * inner), dtype, offset)
+        gout = geglu_operand((b, n, inner), dtype, offset)
+        design = geglu_design(inner, dtype, h2, gout)
+        case = dict(
+            kernel='K7', label=f'{label} [{design} design]', timed=timed,
             run=lambda: gk.geglu_dropout_backward(h2, gout, 77, rate),
             plain=lambda: gk.geglu_dropout_backward_plain(h2, gout, 77, rate), tol=tol[dtype],
             nbytes=5 * b * n * inner * esize(dtype), flops=30 * b * n * inner,
-            peak=PEAK_F32_FLOPS))
+            peak=PEAK_F32_FLOPS)
+        if offset:      # the same values through the vector design: printed, unchecked
+            aligned = lambda: gk.geglu_dropout_backward(h2.clone(), gout.clone(), 77, rate)
+            case['extra'] = lambda: (f'; bit-equal to the vector design on an aligned copy: '
+                                     f'{torch.equal(case["run"](), aligned())}', True)
+        cases.append(case)
 
     def mel_unsplit(frames, dft_cos, dft_sin, fbanks, power):
         """K11 through its C entry point with one split: each block runs
@@ -999,11 +1036,38 @@ def kernel_cases(torch, dev):
                train=True)
     geglu_bwd_case(f'train speech ({B},1056,2x1408) bf16 dropout 0.1', B, n, 1408, bf16,
                    rate=0.1)
-    geglu_bwd_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1)
+    geglu_bwd_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1,
+                   timed=True)
     geglu_bwd_case('f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1)
     geglu_case('DiT speech (1,1056,2x3072) bf16', 1, n, 3072, bf16, timed=True)
     geglu_bwd_case(f'DiT train speech ({B},1056,2x3072) bf16 dropout 0.1', B, n, 3072, bf16,
                    rate=0.1, timed=True)
+    # the widths the paper's and DiT's training steps run (speech 2752 / 3072,
+    # text 1408 / 1536) and the flagship's text width at the training shape
+    geglu_case(f'paper train speech ({B},1056,2x2752) bf16 dropout 0.1', B, n, 2752, bf16,
+               rate=0.1, timed=True)
+    geglu_bwd_case(f'paper train speech ({B},1056,2x2752) bf16 dropout 0.1', B, n, 2752, bf16,
+                   rate=0.1, timed=True)
+    geglu_case(f'DiT train speech ({B},1056,2x3072) bf16 dropout 0.1', B, n, 3072, bf16,
+               rate=0.1, timed=True)
+    geglu_case(f'DiT train text ({B},1056,2x1536) bf16 dropout 0.1', B, n, 1536, bf16,
+               rate=0.1, timed=True)
+    geglu_bwd_case(f'DiT train text ({B},1056,2x1536) bf16 dropout 0.1', B, n, 1536, bf16,
+                   rate=0.1, timed=True)
+    geglu_case(f'train text ({B},1056,2x704) bf16 dropout 0.1', B, n, 704, bf16, rate=0.1,
+               timed=True)
+    # the scalar design: an inner that is not a multiple of the vector width,
+    # and views one element into their storage (a batch slice such as h2[1:]
+    # stays 16-byte aligned at these widths)
+    geglu_case('inner 100 (2,1056,2x100) bf16 dropout 0.1', 2, n, 100, bf16, rate=0.1)
+    geglu_bwd_case('inner 100 (2,1056,2x100) bf16 dropout 0.1', 2, n, 100, bf16, rate=0.1)
+    geglu_case('offset view (2,1056,2x1408) bf16 dropout 0.1', 2, n, 1408, bf16, rate=0.1,
+               offset=True)
+    geglu_bwd_case('offset view (2,1056,2x1408) bf16 dropout 0.1', 2, n, 1408, bf16, rate=0.1,
+                   offset=True)
+    geglu_case('offset view f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1, offset=True)
+    geglu_bwd_case('offset view f32 (2,77,2x96) dropout 0.1', 2, 77, 96, f32, rate=0.1,
+                   offset=True)
     mel_case(f'prompt (1,{PROMPT_SAMPLES}) = 282 frames power 1', 1, PROMPT_SAMPLES,
              unsplit=True)
     mel_case(f'train ({B},{TRAIN_WAVE_SAMPLES}) = {B}x1024 frames power 1', B,
@@ -1523,7 +1587,7 @@ def phase_serve(torch, dev, smi):
 def profile_run(torch, run, trace_name):
     """Trace one call of ``run``; print the device-busy share, device time
     by kernel and host time by operator (inclusive). Returns the
-    hyper-connection kernels' ``{name: (calls, device ms)}``."""
+    hyper-connection and GEGLU kernels' ``{name: (calls, device ms)}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()
@@ -1555,18 +1619,31 @@ def profile_run(torch, run, trace_name):
         log(f'  device {e.key[:60]:60s} calls={e.count:5d} '
             f'device_ms={e.self_device_time_total / 1e3:.3f}')
     # the hyper-connection kernels (K3 / K5, K4 / K5b, their save variants
-    # and the adjoints' partial-row sum), whatever their rank
-    hc = {}
+    # and the adjoints' partial-row sum) and the GEGLU kernels (K6 / K7),
+    # whatever their rank
+    kernels = {}
     for e in sorted(events, key=lambda e: -e.self_device_time_total):
-        if '::hc_' in e.key:
-            hc[e.key] = (e.count, e.self_device_time_total / 1e3)
-            log(f'  hc     {e.key[:80]:80s} calls={e.count:5d} '
-                f'device_ms={e.self_device_time_total / 1e3:.3f}')
+        for tag, marker in (('hc', '::hc_'), ('geglu', '::geglu_')):
+            if marker in e.key:
+                kernels[e.key] = (e.count, e.self_device_time_total / 1e3)
+                log(f'  {tag:6s} {e.key[:80]:80s} calls={e.count:5d} '
+                    f'device_ms={e.self_device_time_total / 1e3:.3f}')
     aten = [e for e in averages if e.key.startswith('aten::')]
     for e in sorted(aten, key=lambda e: -e.cpu_time_total)[:8]:
         log(f'  host   {e.key[:60]:60s} calls={e.count:5d} '
             f'cpu_ms_inclusive={e.cpu_time_total / 1e3:.3f}')
-    return hc
+    return kernels
+
+
+def log_geglu_profile(label, kernels, smi):
+    """The GEGLU kernels' device time in a profiled step (K6 + K7, both
+    designs), from ``profile_run``'s kernels."""
+    geglu = [(key, v) for key, v in kernels.items() if '::geglu_' in key]
+    fwd = [v for key, v in geglu if 'geglu_fwd' in key]
+    bwd = [v for key, v in geglu if 'geglu_bwd' in key]
+    log(f'{label}, GEGLU (K6 + K7) device_ms={sum(ms for _, ms in fwd + bwd):.3f} '
+        f'(K6 {sum(ms for _, ms in fwd):.3f} in {sum(c for c, _ in fwd)} calls, K7 '
+        f'{sum(ms for _, ms in bwd):.3f} in {sum(c for c, _ in bwd)} calls) [{smi}]')
 
 
 def phase_profile(torch, model, tag=''):
@@ -1779,8 +1856,9 @@ def phase_train(torch, dev, smi):
         raise AssertionError('train loss is not finite')
 
     log('profile one train step (with text):')
-    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
-                'train_step_trace.json')
+    kernels = profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                          'train_step_trace.json')
+    log_geglu_profile('flagship profiled with-text step', kernels, smi)
     return counts
 
 
@@ -1901,8 +1979,9 @@ def phase_dit(torch, dev, smi):
     if not finite:
         raise AssertionError('dit train loss is not finite')
     log('profile one dit train step (with text):')
-    profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
-                'dit_train_step_trace.json')
+    kernels = profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
+                          'dit_train_step_trace.json')
+    log_geglu_profile('dit profiled with-text step', kernels, smi)
     return sample_counts, train_counts
 
 
@@ -2069,6 +2148,8 @@ def phase_paper(torch, dev, smi):
                          f'paper_train_step{"_save" if save else ""}_trace.json')
         adj = [v for k, v in hc.items() if 'hc_bwd_sm90_kernel' in k]
         adjoints[save] = (sum(n for n, _ in adj), sum(ms for _, ms in adj))
+        log_geglu_profile(f'paper profiled with-text step (hc_save_state '
+                          f'{"on" if save else "off"})', hc, smi)
     set_hc_save_state(model, False)
     (n_off, ms_off), (n_on, ms_on) = adjoints[False], adjoints[True]
     log(f'paper profiled with-text step, HC adjoints (hc_bwd_sm90_kernel): hc_save_state off '
@@ -2077,6 +2158,38 @@ def phase_paper(torch, dev, smi):
     del trainer, model
     torch.cuda.empty_cache()
     return sample_counts, train_counts[False], train_counts[True]
+
+
+def log_geglu_sass(_cuda):
+    """The SASS instructions (NOPs left out) of each K6 / K7 kernel in the
+    built library, from cuobjdump; for the vector design also per element
+    of a thread's UNROLL vectors. A vector kernel holds one path (dropout is
+    a template flag, erff's two ranges are selects), so that is what a
+    thread with a full share of work issues."""
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), 'cuobjdump')
+    if not os.path.exists(tool):
+        log(f'sass geglu.cu: {tool} not found, not counted')
+        return
+    dump = subprocess.run([tool, '-sass', str(_cuda.BUILD_DIR / _cuda.LIB_NAME)],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    unroll = int(re.findall(r'constexpr int UNROLL = (\d+);',
+                            (_cuda.CSRC / 'geglu.cu').read_text())[0])
+    name = None
+    counts = {}
+    for line in dump.splitlines():
+        head = re.search(r'Function : (\S+)', line)
+        if head:
+            name = head.group(1) if 'geglu' in head.group(1) else None
+            continue
+        op = re.search(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)', line)
+        if name and op and op.group(1) != 'NOP':
+            counts[name] = counts.get(name, 0) + 1
+    for name, count in sorted(counts.items()):
+        line = f'sass geglu.cu {name}: {count} instructions'
+        if 'vec_kernel' in name:       # the dropout flag is in the name: Lb1 on, Lb0 off
+            elements = unroll * (8 if 'bfloat16' in name else 4)
+            line += f', {count / elements:.1f} an element ({elements} elements a thread)'
+        log(line)
 
 
 def main() -> int:
@@ -2104,10 +2217,11 @@ def main() -> int:
     for source, marker in (('flash_attention.cu', '4sm90'), ('flash_attention_bwd.cu', '4sm90'),
                            ('flash_attention_bhnd.cu', '4sm90'), ('hyper_conn_bwd.cu', 'kernel'),
                            ('hyper_conn_bwd_save.cu', 'kernel'), ('hyper_conn.cu', 'sm90'),
-                           ('hyper_conn_save.cu', 'sm90')):
+                           ('hyper_conn_save.cu', 'sm90'), ('geglu.cu', 'geglu')):
         for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, marker):
             log(f'ptxas {source} {name}: {regs} registers, {spill_st} bytes spill stores, '
                 f'{spill_ld} bytes spill loads')
+    log_geglu_sass(_cuda)
 
     records, train_records = phase_kernels(torch, dev)
     for kid in train_records:

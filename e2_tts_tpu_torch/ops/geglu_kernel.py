@@ -3,7 +3,9 @@
 
 K6 replaces the TPU kernel ``_fwd_kernel`` (driven by ``_fwd_pallas``), K7
 the TPU kernel ``_bwd_kernel`` (driven by ``_bwd_pallas``). Both CUDA
-kernels are in ``csrc/geglu.cu``: bandwidth bound, one pass each; K7
+kernels are in ``csrc/geglu.cu``: bandwidth bound, one pass each, its C
+entry points choosing a 16-byte vector design or a scalar one from the
+width and the operands' alignment (no argument here); K7
 regenerates the forward's keep bits from the seed and writes the grads of
 both halves into one ``(b, n, 2*inner)`` tensor. Unlike the TPU kernels they
 take any ``inner`` (the text FF's 704 as well as 1408) and use the exact

@@ -24,6 +24,8 @@ of the largest |ref| (see the test). K10's do_g as the dtype's outputs
 bit before the rounding).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -93,13 +95,30 @@ def test_width_kernels(dev, dtype, fused, d):
     _close(out, ref, dtype)
 
 
+def _geglu_operand(g, shape, dtype, dev, offset):
+    """Random values of ``shape``; with ``offset`` as a contiguous view one
+    element into its storage (a data pointer that is not 16-byte aligned:
+    the scalar design of csrc/geglu.cu)."""
+    numel = math.prod(shape)
+    buf = torch.randn(numel + int(offset), generator=g, device=dev).to(dtype)
+    t = buf[int(offset):].view(shape)
+    assert (t.data_ptr() % 16 != 0) == offset
+    return t
+
+
+# inner 1408 / 704 / 2752 run the vector design at an aligned base, 100 (not a
+# multiple of the vector width) and every offset view the scalar design
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('inner', [1408, 704])
+@pytest.mark.parametrize('inner', [1408, 704, 2752, 100])
 @pytest.mark.parametrize('rate', [0.0, 0.1])
-def test_geglu_kernel(dev, dtype, inner, rate):
+@pytest.mark.parametrize('offset', [False, True])
+def test_geglu_kernel(dev, dtype, inner, rate, offset):
     g = torch.Generator(device=dev).manual_seed(2)
-    h2 = torch.randn(2, 100, 2 * inner, generator=g, device=dev).to(dtype)
-    _close(gk.geglu_dropout(h2, 99, rate), gk.geglu_dropout_plain(h2, 99, rate), dtype)
+    h2 = _geglu_operand(g, (2, 100, 2 * inner), dtype, dev, offset)
+    before = _cuda.launch_counts['geglu_fwd']
+    got = gk.geglu_dropout(h2, 99, rate)
+    assert _cuda.launch_counts['geglu_fwd'] == before + 1
+    _close(got, gk.geglu_dropout_plain(h2, 99, rate), dtype)
 
 
 def _close_grads(out, ref, dtype):
@@ -160,12 +179,13 @@ def test_width_bwd_kernels(dev, dtype, fused, d):
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('inner', [1408, 704])
+@pytest.mark.parametrize('inner', [1408, 704, 2752, 100])
 @pytest.mark.parametrize('rate', [0.0, 0.1])
-def test_geglu_bwd_kernel(dev, dtype, inner, rate):
+@pytest.mark.parametrize('offset', [False, True])
+def test_geglu_bwd_kernel(dev, dtype, inner, rate, offset):
     g = torch.Generator(device=dev).manual_seed(5)
-    h2 = torch.randn(2, 100, 2 * inner, generator=g, device=dev).to(dtype)
-    gout = torch.randn(2, 100, inner, generator=g, device=dev).to(dtype)
+    h2 = _geglu_operand(g, (2, 100, 2 * inner), dtype, dev, offset)
+    gout = _geglu_operand(g, (2, 100, inner), dtype, dev, offset)
     before = _cuda.launch_counts['geglu_bwd']
     got = gk.geglu_dropout_backward(h2, gout, 99, rate)
     assert _cuda.launch_counts['geglu_bwd'] == before + 1
