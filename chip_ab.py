@@ -5,13 +5,18 @@
 
 Builds K11 (csrc/mel.cu), K5 / K3 (the hyper-connection forwards,
 hyper_conn.cu with hyper_conn_save.cu), K5b / K4 (the adjoints), K8 / K9
-(flash_attention_bhnd.cu and its wide-head source), K1 / K2 / K10
+and the probe (flash_attention_bhnd.cu, its wide-head source and, where
+the checkout has it, flash_probe.cu), K1 / K2 / K10
 (flash_attention.cu, flash_attention_bwd.cu) and K6 / K7 (geglu.cu) from
 both checkouts' sources with nvcc into build/ (every nvcc at once), and
 times each pair in turns
 (other, this, this, other) as device time per call, 100 calls captured in a
-CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames, split over
-frequency tiles as its wrapper splits it), K5 / K3 at the training shapes
+CUDA graph (K9, K2: 20): K11 at the 3-s prompt (282 frames) and at the
+training shape (16 x 1024 frames), each checkout split over frequency
+tiles as its own wrapper splits it, after a `dft` line per shape
+(`MelSpec(mode='dft')`, the plain torch frontend K11 has to beat, timed
+once); the probe in its three modes at the flagship's (16, 8, 1056, 64)
+and DiT's (16, 16, 1056, 72) training heads; K5 / K3 at the training shapes
 (4 streams, 16896 rows, widths 256, 512, 576, 1024 and 1152, bf16), the
 sampler's (1056 rows at 256, 512, 576 and 1152) and the duration
 predictor's (314 rows at 256 and 512), K5b / K4 and their save variants
@@ -109,7 +114,9 @@ def main():
             'hyper_conn_bwd.cu', 'hyper_conn_bwd_save.cu', 'hyper_conn_bwd_streams.cu',
             'hyper_conn_bwd_f32.cu']
         jobs += [(root, ['mel.cu'], f'{tmp}/mel_{tag}.so'), (root, bwd, f'{tmp}/bwd_{tag}.so'),
-                 (root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu'],
+                 (root, ['flash_attention_bhnd.cu', 'flash_attention_bhnd_wide.cu']
+                  + (['flash_probe.cu'] if os.path.exists(os.path.join(
+                      root, 'e2_tts_tpu_torch', 'csrc', 'flash_probe.cu')) else []),
                   f'{tmp}/flash_{tag}.so'),
                  (root, ['flash_attention.cu', 'flash_attention_bwd.cu'],
                   f'{tmp}/packed_{tag}.so'),
@@ -120,28 +127,45 @@ def main():
     for i, (tag, _) in enumerate(roots):
         libs[tag] = tuple(built[per_root * i:per_root * (i + 1)])
     g = torch.Generator(device=dev).manual_seed(0)
-    # K11 at the prompt: 282 frames, split over frequency tiles as the wrapper does
+    # K11 at the prompt (282 frames) and at the training shape (16 x 1024
+    # frames), each checkout split over frequency tiles as its own wrapper
+    # splits (its mel_kernel.frequency_splits)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     spec = MelSpec(mode='pallas').to(dev)
-    wave = torch.randn(1, 72000, generator=g, device=dev) * 0.1
-    frames = frame_signal(wave, 1024, 256, center=True)
-    b, t, n_fft = frames.shape
+    dft_spec = MelSpec().to(dev)
     n_freqs, n_mels = spec.fbanks.shape
-    from e2_tts_tpu_torch.ops import mel_kernel as mk
-    nsplit = mk.frequency_splits(b * t, n_freqs, torch.cuda.get_device_properties(dev)
-                                 .multi_processor_count)
-    out = torch.empty(b, t, n_mels, device=dev)
-    part = torch.empty(nsplit, b * t, n_mels, device=dev)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    mel_waves = {'prompt': torch.randn(1, 72000, generator=g, device=dev) * 0.1,
+                 'train': torch.randn(16, 1023 * 256, generator=g, device=dev) * 0.1}
 
-    def mel(lib):
-        fn = lib.e2_mel_fwd
+    def mel_splits(tag, rows):
+        root = dict(roots)[tag]
+        mspec = importlib.util.spec_from_file_location(
+            f'mk_{tag}', os.path.join(root, 'e2_tts_tpu_torch', 'ops', 'mel_kernel.py'))
+        mod = importlib.util.module_from_spec(mspec)
+        mspec.loader.exec_module(mod)
+        return mod.frequency_splits(rows, n_freqs, sms)
+
+    def mel(tag, shape):
+        fn = libs[tag][0].e2_mel_fwd
         fn.argtypes = [P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, P, P, ctypes.c_int, P, ctypes.c_int, P, P, ctypes.c_int,
                        ctypes.c_float, P]
-        return lambda: fn(frames.data_ptr(), frames.stride(0), frames.stride(1), t, b * t, n_fft,
-                          spec.dft_cos.data_ptr(), spec.dft_sin.data_ptr(), n_freqs,
-                          spec.fbanks.data_ptr(), n_mels, out.data_ptr(), part.data_ptr(),
-                          nsplit, 1.0, stream())
+        frames = frame_signal(mel_waves[shape], 1024, 256, center=True)
+        b, t, n_fft = frames.shape
+        nsplit = mel_splits(tag, b * t)
+        out = torch.empty(b, t, n_mels, device=dev)
+        part = torch.empty(nsplit, b * t, n_mels, device=dev)
+
+        def call():
+            err = fn(frames.data_ptr(), frames.stride(0), frames.stride(1), t, b * t, n_fft,
+                     spec.dft_cos.data_ptr(), spec.dft_sin.data_ptr(), n_freqs,
+                     spec.fbanks.data_ptr(), n_mels, out.data_ptr(), part.data_ptr(), nsplit,
+                     1.0, stream())
+            if err:
+                raise RuntimeError(f'e2_mel_fwd failed to launch: cudaError {err}')
+        call.tensors = (frames, out, part)
+        return call
 
     # K5b / K4 at (4, 16896, d) bf16, each checkout at its own wrapper's
     # launch geometry (warps, blocks)
@@ -410,7 +434,35 @@ def main():
     paper_train = packed_inputs(16, 16)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip()
-    for label, make in (('K11 prompt', lambda tag: mel(libs[tag][0])),
+
+    def probe(tag, x, mode):
+        fn = libs[tag][2].e2_flash_probe
+        fn.restype = ctypes.c_int
+        b, h, n, dh = x.shape
+        o = torch.empty_like(x)
+        args = [P(x.data_ptr()), st(x), P(o.data_ptr()), st(o), I(b), I(n), I(h), I(dh),
+                I(mode)]
+
+        def call():
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_probe failed to launch: cudaError {err}')
+        call.tensors = (x, o)
+        return call
+
+    probe_x = {(h, dh): (torch.randn(16, h, 1056, dh, generator=g, device=dev) * 0.25).to(bf)
+               for h, dh in ((8, 64), (16, 72))}
+    for shape, rows in (('prompt', 282), ('train', 16384)):
+        wave = mel_waves[shape]
+        print(f'dft {shape} ({rows} frames): MelSpec(mode=\'dft\')_ms='
+              f'{graph_ms(lambda: dft_spec(wave), 50):.5f} [{smi}]', flush=True)
+    for label, make in (('K11 prompt (1,72000) = 282 frames',
+                         lambda tag: mel(tag, 'prompt')),
+                        ('K11 train (16,261888) = 16x1024 frames',
+                         lambda tag: mel(tag, 'train')),
+                        *((f'probe mode {mode} (16,{h},1056,{dh}) bf16',
+                           lambda tag, mode=mode, h=h, dh=dh: probe(tag, probe_x[(h, dh)], mode))
+                          for h, dh in ((8, 64), (16, 72)) for mode in (0, 1, 2)),
                         *((f'{k} (4,{rows},{d}) bf16',
                            lambda tag, rows=rows, d=d, fused=k == 'K3': fwd(libs[tag][4], fused,
                                                                           rows, d))

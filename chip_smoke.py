@@ -36,18 +36,24 @@ exit code and no result line:
    widths, 2752 / 1408 and 3072 / 1536, and on both designs of
    csrc/geglu.cu: the vector design at every width of the repo, the scalar
    one at inner 100 and on views one element into their storage; each
-   label names the design), K11 (the fused log-mel frontend; also at
-   160 mels and n_fft 1000), one LASER `attention`, and the probe (K8
-   stripped to its products, modes 0-2). Forward kernels at the sampler's shapes (B=1; K11
+   label names the design), K11 (the fused log-mel frontend on split-TF32
+   tensor-core products; also at 160 mels and n_fft 1000, at n_fft 1002
+   (4-byte frame copies, a part-filled last k8 step) and on the tone prompt:
+   a 220-Hz tone, noise and a digitally silent last 30%, the wave of
+   tests/test_torch_mel_design.py, on which a build of csrc/mel.cu with one
+   TF32 product a product, started beside the main build, must fail the
+   check that the kernel passes), one LASER `attention`, and the
+   probe (K8's Hopper kernel with the softmax's pieces compiled out, modes
+   0-2). Forward kernels at the sampler's shapes (B=1; K11
    at a 3-s prompt), at the duration predictor's (B=1, the prompt's 282
    frames + 32 registers) and at the trainer's (B=16), the flagship's and
    DiT-XL's (16 heads x 72, widths 1152 / 576); backward kernels at the
    trainers'; each with ragged, dropout, softclamp (K1, K2, K8, K9), dim_head
    8 to 128 (K8, K9), power / window (K11) and f32 cases. K11 at the prompt
-   is also run and timed unsplit (one block per 64 rows), the design its
-   frequency split replaced. A check whose plain version leaves out a
-   feature (K1 / K2 / K8 / K9 without the softclamp, K11 at power 1 against
-   the power-2 kernel) must fail. The first case of each kernel is timed:
+   is also run and timed unsplit (each block walking every frequency tile
+   of its 32 rows), the design its frequency split replaced. A check whose
+   plain version leaves out a feature (K1 / K2 / K8 / K9 without the
+   softclamp, K11 at power 1 against the power-2 kernel) must fail. The first case of each kernel is timed:
    device time per call (100 calls captured in one CUDA graph, timed with
    CUDA events, so host dispatch is left out), its plain version's device
    time (the same way), the one PyTorch call that computes the same
@@ -71,15 +77,22 @@ exit code and no result line:
    streams, built in hyper_conn_bwd.cu and hyper_conn_bwd_save.cu;
    csrc/hyper_conn_sm90.cuh: bf16 K3 / K5 and K3s / K5s at 4 streams, built
    in hyper_conn.cu and hyper_conn_save.cu; csrc/geglu.cu: K6 / K7, both
-   designs), and `sass` lines the SASS instructions of each K6 / K7 kernel
-   (cuobjdump; per element for the vector design). K3 / K5 and K4 / K5b
+   designs; csrc/mel.cu: K11's two geometries and its summing pass;
+   csrc/flash_probe.cu: the probe), and `sass` lines the SASS
+   instructions of each K6 / K7 kernel (cuobjdump; per element for the
+   vector design). K3 / K5 and K4 / K5b
    are timed at the flagship's, the paper's and DiT's training widths (512,
    1024, 1152). Then
    `hc save A/B` lines: the hyper-connection forward and adjoint,
    recomputing and saving, and the pairs' sums, at the training shape for widths 512, 1024 and 1152; and
    the `yardstick` line: K8 / K9 without softclamp and dropout beside
    PyTorch's scaled_dot_product_attention (flash backend) at the DiT
-   training shape, which is not the same function.
+   training shape, which is not the same function; and the `probe floor`
+   lines: at the flagship's (16, 8, 1056, 64) and DiT's (16, 16, 1056, 72)
+   training heads, K8 without softclamp and dropout beside the probe's
+   three modes (products only; + exp; + the tile's max and sum) and the
+   products' bound, with whether mode 0 is at or under K8. K11's bound is
+   three TF32 products at 495 TFLOP/s (165 TFLOP/s at f32 grade).
 4. main    — the flagship E2TTS (dim 512, depth 8, 8 heads x 64, bf16) with
    seeded random weights, each perturbed by 0.02 * randn so no branch is
    dead: one CFG evaluation on the card against the same model in f32 on the
@@ -140,6 +153,7 @@ it, one JSON object with a record per kernel. The last line is the result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -193,6 +207,9 @@ PREDICTOR_N = 1 + PROMPT_SAMPLES // HOP + 32
 # H100 SXM peaks, dense (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# f32-grade products as three TF32 tensor-core products (K11's split
+# precision): the card's TF32 rate over three
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 OUT_DIR = os.path.join('build', 'profile')      # gitignored
@@ -200,6 +217,55 @@ OUT_DIR = os.path.join('build', 'profile')      # gitignored
 
 def log(msg):
     print(msg, flush=True)
+
+
+# K11's planted precision fault: csrc/mel.cu with the split's two cross
+# products taken out, so each product is one TF32 product (hi hi)
+MEL_ONE_TF32 = (('  mma(d, al, bh[0], bh[1]);\n  mma(d, ah, bl[0], bl[1]);\n', ''),)
+
+
+def start_mel_variant(_cuda, name: str, subs):
+    """Start nvcc on csrc/mel.cu with each ``(old, new)`` of ``subs``
+    replaced (each ``old`` must occur once), into build/mel_variants/.
+    Returns a function that waits for the build and returns the loaded
+    library (``e2_mel_fwd`` typed as the port's) and nvcc's output."""
+    src = (_cuda.CSRC / 'mel.cu').read_text()
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise AssertionError(f'mel variant {name}: {old!r} occurs {src.count(old)} times')
+        src = src.replace(old, new)
+    out_dir = os.path.abspath(os.path.join('build', 'mel_variants'))
+    os.makedirs(out_dir, exist_ok=True)
+    cu, so = os.path.join(out_dir, f'{name}.cu'), os.path.join(out_dir, f'{name}.so')
+    with open(cu, 'w') as f:
+        f.write(src)
+    proc = subprocess.Popen([_cuda._nvcc(), *_cuda.ARCH_FLAGS, *_cuda.NVCC_FLAGS, '-I',
+                             str(_cuda.CSRC), '-shared', cu, '-o', so],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc, mel variant {name}:\n{out[-3000:]}')
+        lib = ctypes.CDLL(so)
+        lib.e2_mel_fwd.argtypes = _cuda._SIGNATURES['e2_mel_fwd']
+        lib.e2_mel_fwd.restype = ctypes.c_int
+        return lib, out
+    return finish
+
+
+def tone_prompt(samples: int = PROMPT_SAMPLES):
+    """A 3-s prompt at 24 kHz as numpy f32, (1, samples): a 220-Hz tone at
+    0.3, noise at 0.05 (numpy seed 0) and the last 30% zeros, as in
+    tests/test_torch_mel_design.py. Around a strong tone the DFT's sums
+    cancel, and the log amplifies the quiet frames' errors: one TF32
+    product a product fails K11's limit here, not on white noise."""
+    import numpy as np
+    t = np.arange(samples) / 24000
+    wave = (0.3 * np.sin(2 * np.pi * 220 * t)
+            + 0.05 * np.random.default_rng(0).standard_normal(samples))
+    wave[int(0.7 * samples):] = 0.0
+    return wave.astype(np.float32)[None]
 
 
 def nvidia_smi_line() -> str:
@@ -337,7 +403,7 @@ def hc_f64_check(hck, fused, args, got, state):
 
 # -- phase 3: kernels -----------------------------------------------------------
 
-def kernel_cases(torch, dev):
+def kernel_cases(torch, dev, mel_one_tf32):
     """One dict per check: the kernel's wrapper (``run``), its plain version
     (``plain``), the tolerance, and the bytes and operations of the work for
     the bound. A case may carry ``against``: a description and a plain
@@ -345,7 +411,8 @@ def kernel_cases(torch, dev):
     K11: power 2), which the kernel must not match. ``train`` marks a forward case at the trainer's shape,
     timed on its own row. ``library`` is the one PyTorch call that computes
     the same function, where there is one. Inputs come from a seeded
-    generator on the card."""
+    generator on the card. ``mel_one_tf32``: the library of K11's planted
+    precision fault (`MEL_ONE_TF32`)."""
     from e2_tts_tpu_torch.ops import _cuda
     from e2_tts_tpu_torch.ops import attention as attention_op
     from e2_tts_tpu_torch.ops import flash_attention as fa
@@ -734,26 +801,29 @@ def kernel_cases(torch, dev):
                                      f'{torch.equal(case["run"](), aligned())}', True)
         cases.append(case)
 
-    def mel_unsplit(frames, dft_cos, dft_sin, fbanks, power):
-        """K11 through its C entry point with one split: each block runs
-        every frequency tile of its 64 rows, the design that the split
-        replaced for few rows. Not the wrapper, so it counts no launch."""
+    def mel_direct(lib, frames, dft_cos, dft_sin, fbanks, power, nsplit):
+        """K11's C entry point of ``lib`` with ``nsplit`` splits. Not the
+        wrapper, so it counts no launch."""
         b, t, n_fft = frames.shape
         n_freqs, n_mels = fbanks.shape
         out = torch.empty((b, t, n_mels), dtype=f32, device=dev)
-        err = _cuda.lib().e2_mel_fwd(
+        partial = (torch.empty((nsplit, b * t, n_mels), dtype=f32, device=dev)
+                   if nsplit > 1 else None)
+        err = lib.e2_mel_fwd(
             frames.data_ptr(), frames.stride(0), frames.stride(1), t, b * t, n_fft,
             dft_cos.data_ptr(), dft_sin.data_ptr(), n_freqs, fbanks.data_ptr(), n_mels,
-            out.data_ptr(), None, 1, float(power), _cuda.stream_ptr(dev))
-        _cuda.check(err, 'mel_fwd unsplit')
+            out.data_ptr(), partial.data_ptr() if partial is not None else None, nsplit,
+            float(power), _cuda.stream_ptr(dev))
+        _cuda.check(err, 'mel_fwd direct')
         return out
 
     def mel_case(label, b, nw, power=1.0, win=1024, train=False, against_power=None,
-                 unsplit=False, n_fft=1024, n_mels=100, timed=False):
+                 unsplit=False, n_fft=1024, n_mels=100, timed=False, tone=False):
         kw = dict(power=power, win_length=win, filter_length=n_fft, n_mel_channels=n_mels)
         spec = MelSpec(mode='pallas', **kw).to(dev)
         dft_spec = MelSpec(**kw).to(dev)
-        wave = torch.randn(b, nw, generator=g, device=dev) * 0.1
+        wave = (torch.from_numpy(tone_prompt(nw)).to(dev) if tone
+                else torch.randn(b, nw, generator=g, device=dev) * 0.1)
         frames = frame_signal(wave, n_fft, HOP, center=True)     # a view of the padded wave
         tables = (spec.dft_cos, spec.dft_sin, spec.fbanks)
         rows, n_freqs, n_mels = b * frames.shape[1], spec.fbanks.shape[0], spec.fbanks.shape[1]
@@ -769,12 +839,21 @@ def kernel_cases(torch, dev):
             nbytes=4 * (b * (nw + n_fft) + 2 * n_fft * n_freqs + n_freqs * n_mels
                         + rows * n_mels),
             flops=rows * (4 * n_fft * n_freqs + 2 * n_freqs * n_mels),
-            peak=PEAK_F32_FLOPS)
+            peak=PEAK_TF32X3_FLOPS)
         if against_power is not None:
             case['against'] = (f'at power {against_power:g}', lambda: mk.fused_log_mel_plain(
                 frames, *tables, against_power))
-        if unsplit:
-            case['unsplit'] = lambda: mel_unsplit(frames, *tables, power)
+        if unsplit:     # each block walks every frequency tile of its rows
+            case['unsplit'] = lambda: mel_direct(_cuda.lib(), frames, *tables, power, 1)
+        if tone:        # the planted fault, split as the wrapper splits
+            def one_tf32():
+                nsplit = mk.frequency_splits(rows, n_freqs, sms)
+                bad = mel_direct(mel_one_tf32, frames, *tables, power, nsplit)
+                err, worst = compare(bad, case['plain'](), *case['tol'], False)
+                return (f'; one TF32 product a product (csrc/mel.cu without the cross '
+                        f'products): max_abs_err={err:.3e}, worst ratio {worst:.3f} '
+                        f'(must be > 1)'), worst > 1.0
+            case['extra'] = one_tf32
         cases.append(case)
 
     def delta_case(label, b, n, heads, dh, dtype, gated=False, timed=False):
@@ -1074,6 +1153,9 @@ def kernel_cases(torch, dev):
              TRAIN_WAVE_SAMPLES, train=True)
     mel_case('power 2 prompt', 1, PROMPT_SAMPLES, power=2.0, against_power=1.0)
     mel_case('power 0.7 prompt', 1, PROMPT_SAMPLES, power=0.7)
+    mel_case('tone prompt (220 Hz + noise, last 30% zeros)', 1, PROMPT_SAMPLES, tone=True)
+    mel_case('n_fft 1002 prompt (4-byte frame copies, a part-filled k8 step)', 1,
+             PROMPT_SAMPLES, win=1002, n_fft=1002)
     mel_case('win_length 800 prompt', 1, PROMPT_SAMPLES, win=800)
     mel_case('ragged 300 rows (2,38144)', 2, 149 * HOP)
     mel_case(f'160 mels n_fft 1000 prompt (1,{PROMPT_SAMPLES})', 1, PROMPT_SAMPLES, win=1000,
@@ -1187,7 +1269,7 @@ KERNEL_INFO = {
                source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
                replaces='e2_tts_tpu/ops/flash_attention.py:421'),
     'probe': dict(name='flash_probe', route='cuda',
-                  source='e2_tts_tpu_torch/csrc/flash_attention_bhnd.cu',
+                  source='e2_tts_tpu_torch/csrc/flash_probe.cu',
                   replaces='scripts/_kernel_floor.py:18'),
     'K5s': dict(name='hc_width_save', route='cuda',
                 source='e2_tts_tpu_torch/csrc/hyper_conn_save.cu',
@@ -1229,11 +1311,11 @@ def time_case(case):
     return timed
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, mel_one_tf32):
     """Returns ``{kernel: record}`` (the first case's times, the worst error)
     and ``{kernel: record}`` of the forward kernels at the training shape."""
     records, train_records = {}, {}
-    for case in kernel_cases(torch, dev):
+    for case in kernel_cases(torch, dev, mel_one_tf32):
         kname, label, (atol, rtol) = case['kernel'], case['label'], case['tol']
         scaled = case.get('scaled', False)
         out = case['run']()
@@ -1378,6 +1460,30 @@ def time_sdpa_yardstick(torch, dev, smi):
         f'sdpa_flash_fwd_ms={sdpa_fwd:.5f} K8_ms={k8:.5f}; sdpa_flash_bwd_eager_ms='
         f'{sdpa_bwd:.5f} K9_eager_ms={k9:.5f} [{smi}]')
     del q, k, v, dout, out, lse, qg, kg, vg, sdpa_out
+    torch.cuda.empty_cache()
+
+
+def time_probe_floor(torch, dev, smi):
+    """The `probe floor` lines: at the flagship's and DiT's training heads,
+    K8 without softclamp and dropout beside the probe's three modes (the
+    same kernel with the softmax's pieces compiled out: products only, +
+    exp, + the tile's max and sum), device time in CUDA graphs, and the
+    products' bound. Mode 0 at or under K8 says the probe floors it."""
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = FRAMES + 32
+    for heads, dh in ((8, 64), (DIT['heads'], DIT['dim_head'])):
+        b = TRAIN_BATCH
+        x = (torch.randn(b, heads, n, dh, generator=g, device=dev) * 0.25).to(torch.bfloat16)
+        k8 = graph_ms(lambda: fa.flash_attention(x, x, x), 100)
+        modes = [graph_ms(lambda mode=mode: fa.flash_probe(x, mode), 100)
+                 for mode in fa.PROBE_MODES]
+        bms, by = bound_ms(2 * b * heads * n * dh * 2, 4 * b * heads * n * n * dh,
+                           PEAK_BF16_FLOPS)
+        log(f'probe floor ({b},{heads},{n},{dh}) bf16: K8_no_softclamp_no_dropout_ms={k8:.5f} '
+            + ' '.join(f'mode{mode}_ms={ms:.5f}' for mode, ms in zip(fa.PROBE_MODES, modes))
+            + f' bound_ms={bms:.5f} ({by}) mode0_at_or_under_K8={modes[0] <= k8} [{smi}]')
+        del x
     torch.cuda.empty_cache()
 
 
@@ -2210,20 +2316,23 @@ def main() -> int:
     log(f'device: nvidia-smi "{smi}" torch "{torch.cuda.get_device_name(0)}" '
         f'count={torch.cuda.device_count()} torch={torch.__version__} cuda={torch.version.cuda}')
 
+    one_tf32_build = start_mel_variant(_cuda, 'one_tf32', MEL_ONE_TF32)
     _cuda.build(force=True)
     log(f'build: nvcc sm_90a {len(list(_cuda.CSRC.glob("*.cu")))} sources '
         f'seconds={_cuda.build_seconds:.2f}')
     _cuda.lib()
+    mel_one_tf32, _ = one_tf32_build()
     for source, marker in (('flash_attention.cu', '4sm90'), ('flash_attention_bwd.cu', '4sm90'),
                            ('flash_attention_bhnd.cu', '4sm90'), ('hyper_conn_bwd.cu', 'kernel'),
                            ('hyper_conn_bwd_save.cu', 'kernel'), ('hyper_conn.cu', 'sm90'),
-                           ('hyper_conn_save.cu', 'sm90'), ('geglu.cu', 'geglu')):
+                           ('hyper_conn_save.cu', 'sm90'), ('geglu.cu', 'geglu'),
+                           ('mel.cu', 'mel'), ('flash_probe.cu', '4sm90')):
         for name, regs, spill_st, spill_ld in _cuda.ptxas_usage(source, marker):
             log(f'ptxas {source} {name}: {regs} registers, {spill_st} bytes spill stores, '
                 f'{spill_ld} bytes spill loads')
     log_geglu_sass(_cuda)
 
-    records, train_records = phase_kernels(torch, dev)
+    records, train_records = phase_kernels(torch, dev, mel_one_tf32)
     for kid in train_records:
         r, t = records[kid], train_records[kid]
         log(f'kernel {kid} at the training shape vs the sampling shape: ms={t["ms"]:.5f} '
@@ -2232,6 +2341,7 @@ def main() -> int:
             + (f' sfu_floor_ms={t["sfu_floor_ms"]:.5f}' if 'sfu_floor_ms' in t else ''))
     time_hc_save_pairs(torch, dev, smi)
     time_sdpa_yardstick(torch, dev, smi)
+    time_probe_floor(torch, dev, smi)
     sample_counts, model = phase_main(torch, dev, smi)
     phase_profile(torch, model)
     del model

@@ -1,8 +1,8 @@
 // The wmma design of the flash-attention kernels: the forward (K1 on the
-// packed (b, n, h*dh) projection, K8 on (b, h, n, dh)), the backward (K2,
-// K9) and the cost-floor probe. It runs f32 K1 / K2 / K8 / K9, bf16 K8 / K9
-// on heads wider than 128, and the probe; bf16 heads up to 128 (K1 / K2 at
-// dim_head 32, 64, 128, and K8 / K9) run the Hopper design of
+// packed (b, n, h*dh) projection, K8 on (b, h, n, dh)) and the backward
+// (K2, K9). It runs f32 K1 / K2 / K8 / K9 and bf16 K8 / K9 on heads wider
+// than 128; bf16 heads up to 128 (K1 / K2 at dim_head 32, 64, 128, and K8 /
+// K9) and the cost-floor probe run the Hopper design of
 // flash_attention_sm90.cuh, which takes this header's parameter structs.
 // On the H100 the two layouts differ only in their strides, so one
 // template serves both: every operand is addressed as base + batch * s.b +

@@ -1,5 +1,5 @@
-// K8, K9 and the cost-floor probe: flash attention on (b, h, n, dh)
-// operands for the H100 (sm_90a).
+// K8 and K9: flash attention on (b, h, n, dh) operands for the H100
+// (sm_90a).
 //
 // K8 replaces the TPU kernel e2_tts_tpu/ops/flash_attention.py::_fwd_kernel
 // (driven by _flash_forward): s = c tanh(scale q k^T / c) + bias(key mask),
@@ -31,12 +31,8 @@
 // two transcendentals a score on the special-function units. The padding of
 // dh = 72 to 80 costs 11% of the products.
 //
-// The probe replaces scripts/_kernel_floor.py::kern: K8 with the softclamp,
-// the mask, the dropout and the normalisation compiled out, at q = k = v, in
-// three modes that add the softmax's pieces one at a time: 0 the two products
-// only (acc += bf16(q k^T) v), 1 with exp, 2 with exp and the tile's max and
-// sum subtracted (s - (max + sum) per 64-key tile). It gives the redesigns of
-// K1 / K8 a floor at their own shapes.
+// The cost-floor probe is K8's Hopper forward with its PROBE flag set; its
+// entry point is in flash_probe.cu (another nvcc, in parallel).
 #include "flash_attention.cuh"
 #include "flash_attention_sm90.cuh"
 
@@ -111,114 +107,8 @@ cudaError_t dispatch_sm90_bwd(const BwdParams& p, cudaStream_t stream) {
 }
 
 bool valid_dh(int dh) { return dh >= 8 && dh <= 256 && dh % 8 == 0; }
-bool probe_dh(int dh) { return dh >= 8 && dh <= 128 && dh % 8 == 0; }
 
 Strides strides(const long long* s) { return {s[0], s[1], s[2]}; }
-
-// ------------------------------------------------------------------ probe
-
-struct ProbeParams {
-  const __nv_bfloat16* x;  // q = k = v
-  Strides xs, os;
-  __nv_bfloat16* o;
-  int n, heads, dh, mode;
-};
-
-template <int DHP>
-__global__ void __launch_bounds__(NTHREADS) flash_probe_kernel(ProbeParams p) {
-  using T = __nv_bfloat16;
-  using L = FwdLayout<T, DHP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + L::tile;
-  T* sV = sK + L::tile;
-  float* sF = reinterpret_cast<float*>(smem + L::f_off);
-  T* sP = reinterpret_cast<T*>(smem + L::p_off);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, bi = blockIdx.z;
-  const int n = p.n, dh = p.dh;
-  const T* xg = p.x + offset(p.xs, bi, h);
-
-  load_tile<T, DHP, L::LDT>(sQ, xg, p.xs.r, q0, n, dh, tid);
-  const int half = lane & 1;
-  const int row_abs = q0 + warp * 16 + (lane >> 1);
-  constexpr int OPL = DHP / 2;
-  float acc[OPL];
-#pragma unroll
-  for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
-
-  const T* sQw = sQ + warp * 16 * L::LDT;
-  float* sFw = sF + warp * 16 * L::LDF;
-  T* sPw = sP + warp * 16 * L::LDP;
-  float* srow = sFw + (lane >> 1) * L::LDS;
-  T* prow = sPw + (lane >> 1) * L::LDP;
-  const float* orow = sFw + (lane >> 1) * L::LDO + half * OPL;
-
-  const int num_kt = (n + BK - 1) / BK;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<T, DHP, L::LDT>(sK, xg, p.xs.r, k0, n, dh, tid);
-    load_tile<T, DHP, L::LDT>(sV, xg, p.xs.r, k0, n, dh, tid);
-    __syncthreads();
-
-    warp_scores<T, DHP>(sQw, sK, sFw, dh, lane);
-    __syncwarp();
-    if (p.mode == 0) {
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) prow[half * 32 + j] = __float2bfloat16(srow[half * 32 + j]);
-    } else if (p.mode == 1) {
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j)
-        prow[half * 32 + j] = __float2bfloat16(expf(srow[half * 32 + j]));
-    } else {
-      float mx = -3.0e38f, sum = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const float e = expf(srow[half * 32 + j]);
-        srow[half * 32 + j] = e;
-        mx = fmaxf(mx, e);
-        sum += e;
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j)
-        prow[half * 32 + j] = __float2bfloat16(srow[half * 32 + j] - (mx + sum));
-    }
-    __syncwarp();
-
-    warp_pv<T, DHP>(sPw, sV, sFw, dh, lane);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < OPL; ++i) acc[i] += orow[i];
-    __syncwarp();
-  }
-
-  if (row_abs < n) {
-    T* og = p.o + offset(p.os, bi, h) + (long long)row_abs * p.os.r + half * OPL;
-#pragma unroll
-    for (int i = 0; i < OPL; ++i)
-      if (half * OPL + i < dh) og[i] = __float2bfloat16(acc[i]);
-  }
-}
-
-template <int DHP>
-cudaError_t launch_probe(const ProbeParams& p, int b, cudaStream_t stream) {
-  using L = FwdLayout<__nv_bfloat16, DHP>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_probe_kernel<DHP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L::bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  dim3 grid((p.n + BQ - 1) / BQ, p.heads, b);
-  flash_probe_kernel<DHP><<<grid, NTHREADS, L::bytes, stream>>>(p);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -277,27 +167,4 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   if (dtype == e2::kBFloat16) return (int)dispatch_sm90_bwd(p, s);
   if (dtype == e2::kFloat32) return (int)dispatch_bwd_f32(p, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The probe, bf16 only: x (b, h, n, dh) with strides xs, o with strides os.
-extern "C" int e2_flash_probe(const void* x, const long long* xs, void* o, const long long* os,
-                              int b, int n, int heads, int dh, int mode, void* stream) {
-  if (!probe_dh(dh) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
-  ProbeParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.xs = strides(xs); p.os = strides(os);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.n = n; p.heads = heads; p.dh = dh; p.mode = mode;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (round16(dh)) {
-    case 16: return (int)launch_probe<16>(p, b, s);
-    case 32: return (int)launch_probe<32>(p, b, s);
-    case 48: return (int)launch_probe<48>(p, b, s);
-    case 64: return (int)launch_probe<64>(p, b, s);
-    case 80: return (int)launch_probe<80>(p, b, s);
-    case 96: return (int)launch_probe<96>(p, b, s);
-    case 112: return (int)launch_probe<112>(p, b, s);
-    case 128: return (int)launch_probe<128>(p, b, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

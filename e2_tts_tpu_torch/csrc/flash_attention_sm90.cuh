@@ -245,10 +245,17 @@ struct FwdLayout {
   static constexpr int kBlocksPerSM = DHP <= 80 ? 4 / NWG : DHP <= 112 ? 3 : 2;
 };
 
-// One block per (64 NWG query rows, head, batch row).
-template <int DHP, int NWG>
+// One block per (64 NWG query rows, head, batch row). PROBE < 0: K1 / K8.
+// PROBE 0, 1, 2: the cost-floor probe on this kernel's ring, products and
+// fragments, at q = k = v and with the softclamp, bias, dropout, online
+// softmax and normalisation compiled out: per 64-key tile p = s (0), exp(s)
+// (1, ex2.approx of s log2e), or exp(s) - (max + sum) over the tile's keys
+// (2, the row statistics by K8's quad shuffles; keys past n are zero rows,
+// s = 0, and count), o += bf16(p) v, bf16(o) out, no lse.
+template <int DHP, int NWG, int PROBE = -1>
 __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPerSM)
     flash_fwd_kernel(FwdParams p) {
+  constexpr bool K8 = PROBE < 0;
   using L = FwdLayout<DHP, NWG>;
   constexpr int ND = DHP / 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -309,72 +316,101 @@ __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPer
     wg_fence();
     scores<DHP>(s, sQ, sK + st * L::TILE);
     wg_commit();
-    // while the product runs: the bias where a key is masked or past n
-    // (kept as 16 floats: a bit set ran slower at the training shape), and
-    // the tile's keep bits (bit 4 j + e for s[4 j + e])
-    const bool biased = p.mask != nullptr || k0 + ROWS > n;
-    float kbias[16];
+    uint32_t a[4][4];
+    if constexpr (!K8) {
+      wg_wait<0>();
+      fence_regs(s);
+      if constexpr (PROBE >= 1) {
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const int key = k0 + 8 * (c >> 1) + 2 * t + (c & 1);
-      kbias[c] = 0.f;
-      if (biased && (key >= n || (p.mask != nullptr && !p.mask[(long long)bi * n + key])))
-        kbias[c] = NEG_INF;
-    }
-    fence_regs(kbias);
-    uint32_t keep = 0;
-    if (p.dropping) {
+        for (int i = 0; i < 32; ++i) s[i] = ex2(s[i] * LOG2E);
+      }
+      if constexpr (PROBE == 2) {
+        // s[i] is row (i >> 1) & 1 of this thread's pair: rows row0, row0 + 8
+        float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+          sum[(i >> 1) & 1] += s[i];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+          mx[r] += sum[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] -= mx[(i >> 1) & 1];
+      }
+      to_a_frags(s, a);
+    } else {
+      // while the product runs: the bias where a key is masked or past n
+      // (kept as 16 floats: a bit set ran slower at the training shape), and
+      // the tile's keep bits (bit 4 j + e for s[4 j + e])
+      const bool biased = p.mask != nullptr || k0 + ROWS > n;
+      float kbias[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int key = k0 + 8 * (c >> 1) + 2 * t + (c & 1);
+        kbias[c] = 0.f;
+        if (biased && (key >= n || (p.mask != nullptr && !p.mask[(long long)bi * n + key])))
+          kbias[c] = NEG_INF;
+      }
+      fence_regs(kbias);
+      uint32_t keep = 0;
+      if (p.dropping) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned key = k0 + 8 * j + 2 * t + (e & 1);
+            const unsigned u = e2::fmix32(rhash[e >> 1] + key * 0x85EBCA77u, 1);
+            keep |= (uint32_t)(u >= p.threshold) << (4 * j + e);
+          }
+        pin(keep);
+      }
+      wg_wait<0>();
+      fence_regs(s);
+
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const unsigned key = k0 + 8 * j + 2 * t + (e & 1);
-          const unsigned u = e2::fmix32(rhash[e >> 1] + key * 0x85EBCA77u, 1);
-          keep |= (uint32_t)(u >= p.threshold) << (4 * j + e);
+          float th = s[4 * j + e] * c1;
+          if (clamp) th = tanh_approx(th);
+          if (biased) th += kbias[2 * j + (e & 1)];
+          s[4 * j + e] = th;
+          mx[e >> 1] = fmaxf(mx[e >> 1], th);
         }
-      pin(keep);
-    }
-    wg_wait<0>();
-    fence_regs(s);
-
-    float mx[2] = {NEG_INF, NEG_INF};
+      float alpha[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float th = s[4 * j + e] * c1;
-        if (clamp) th = tanh_approx(th);
-        if (biased) th += kbias[2 * j + (e & 1)];
-        s[4 * j + e] = th;
-        mx[e >> 1] = fmaxf(mx[e >> 1], th);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * c2);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
-    float alpha[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * c2);
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int e = 0; e < 4; ++e) {
+          float pr = ex2(fmaf(s[4 * j + e], c2, -m[e >> 1]));
+          l[e >> 1] += pr;  // the denominator counts un-dropped probabilities
+          if (p.dropping) pr = (keep >> (4 * j + e)) & 1u ? pr * p.inv_keep : 0.f;
+          s[4 * j + e] = pr;
+        }
+      to_a_frags(s, a);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pr = ex2(fmaf(s[4 * j + e], c2, -m[e >> 1]));
-        l[e >> 1] += pr;  // the denominator counts un-dropped probabilities
-        if (p.dropping) pr = (keep >> (4 * j + e)) & 1u ? pr * p.inv_keep : 0.f;
-        s[4 * j + e] = pr;
+      for (int j = 0; j < DHP / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
-    uint32_t a[4][4];
-    to_a_frags(s, a);
-#pragma unroll
-    for (int j = 0; j < DHP / 8; ++j) {
-      o[4 * j + 0] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
     }
     fence_regs(o);
     fence_regs(a);
@@ -387,45 +423,61 @@ __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPer
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
   bf16* og = static_cast<bf16*>(p.o) + offset(p.os, bi, h);
+  if constexpr (!K8) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= n) continue;
-    const float l_fin = fmaxf(l[r], 1e-30f);
-    float inv = 1.f / l_fin;
-    if (p.gate != nullptr) {
-      const bf16* gate = static_cast<const bf16*>(p.gate);
-      inv *= 1.f / (1.f + expf(-__bfloat162float(gate[((long long)bi * n + row) * p.heads + h])));
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      bf16* orow = og + (long long)row * p.os.r;
+#pragma unroll
+      for (int j = 0; j < DHP / 8; ++j)
+        if (8 * j < dh)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+              pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
     }
-    bf16* orow = og + (long long)row * p.os.r;
+  } else {
 #pragma unroll
-    for (int j = 0; j < DHP / 8; ++j)
-      if (8 * j < dh)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    if (t == 0) p.lse[((long long)bi * p.heads + h) * n + row] = (m[r] + __log2f(l_fin)) * LN2;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= n) continue;
+      const float l_fin = fmaxf(l[r], 1e-30f);
+      float inv = 1.f / l_fin;
+      if (p.gate != nullptr) {
+        const bf16* gate = static_cast<const bf16*>(p.gate);
+        const float gl = __bfloat162float(gate[((long long)bi * n + row) * p.heads + h]);
+        inv *= 1.f / (1.f + expf(-gl));
+      }
+      bf16* orow = og + (long long)row * p.os.r;
+#pragma unroll
+      for (int j = 0; j < DHP / 8; ++j)
+        if (8 * j < dh)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+              pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (t == 0)
+        p.lse[((long long)bi * p.heads + h) * n + row] = (m[r] + __log2f(l_fin)) * LN2;
+    }
   }
 }
 
-template <int DHP, int NWG>
+template <int DHP, int NWG, int PROBE>
 cudaError_t launch_fwd_nwg(const FwdParams& p, cudaStream_t stream) {
   using L = FwdLayout<DHP, NWG>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DHP, NWG>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DHP, NWG, PROBE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((p.n + ROWS * NWG - 1) / (ROWS * NWG), p.heads, p.b);
-  flash_fwd_kernel<DHP, NWG><<<grid, THREADS * NWG, L::bytes, stream>>>(p);
+  flash_fwd_kernel<DHP, NWG, PROBE><<<grid, THREADS * NWG, L::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -442,14 +494,15 @@ inline int sm_count() {
 // Heads up to 80 wide: 128-row blocks (two warpgroups sharing the K / V
 // ring) when there are enough of them for two waves of the card (two
 // blocks an SM), else 64-row blocks, so a short sequence still spreads
-// over every SM. Wider heads: 64-row blocks.
-template <int DHP>
+// over every SM. Wider heads: 64-row blocks. The probe (PROBE >= 0) takes
+// the same choice.
+template <int DHP, int PROBE = -1>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
   if constexpr (DHP <= 80) {
     const long long wide = (long long)((p.n + 2 * ROWS - 1) / (2 * ROWS)) * p.heads * p.b;
-    if (wide >= 4LL * sm_count()) return launch_fwd_nwg<DHP, 2>(p, stream);
+    if (wide >= 4LL * sm_count()) return launch_fwd_nwg<DHP, 2, PROBE>(p, stream);
   }
-  return launch_fwd_nwg<DHP, 1>(p, stream);
+  return launch_fwd_nwg<DHP, 1, PROBE>(p, stream);
 }
 
 // --------------------------------------------------------------- backward

@@ -10,15 +10,16 @@ by ``_flash_packed_backward``), K10 the TPU kernel ``_delta_kernel`` (driven
 by ``_delta_bnh_pallas``), K2's pre-pass. K8 replaces ``_fwd_kernel``
 (``_flash_forward``), K9 the backward kernels of ``_flash_backward``, the
 probe ``scripts/_kernel_floor.py::kern``. The CUDA kernels are
-``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10)
-and ``csrc/flash_attention_bhnd.cu`` (K8, K9, the probe). The source notes
-say what bounds them on the H100 and how their designs answer. In short:
-tensor-core bound at the model's shapes. Two designs: bf16 K1/K2 and bf16
-K8/K9 on heads up to 128 run the Hopper design of
-``csrc/flash_attention_sm90.cuh`` (wgmma products on register-resident
-scores, cp.async tile rings, dq by vector reductions); f32, K8/K9 on heads
-wider than 128 and the probe the wmma templates of
-``csrc/flash_attention.cuh`` (score tiles in shared memory).
+``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10),
+``csrc/flash_attention_bhnd.cu`` (K8, K9) and ``csrc/flash_probe.cu`` (the
+probe). The source notes say what bounds them on the H100 and how their
+designs answer. In short: tensor-core bound at the model's shapes. Two
+designs: bf16 K1/K2 and bf16 K8/K9 on heads up to 128 run the Hopper design
+of ``csrc/flash_attention_sm90.cuh`` (wgmma products on register-resident
+scores, cp.async tile rings, dq by vector reductions), and the probe is
+that design's forward with its probe flag (K8 with the softmax's pieces
+compiled out); f32 and K8/K9 on heads wider than 128 run the wmma
+templates of ``csrc/flash_attention.cuh`` (score tiles in shared memory).
 The C entry points choose the design from the dtype and dim_head.
 `_FlashPacked` (K1 + K2) and `_Flash` (K8 + K9) are the
 ``torch.autograd.Function`` s.

@@ -5,13 +5,15 @@ Replaces the TPU kernel ``_mel_kernel``. Framed audio -> window-folded DFT
 (two products against the cos / sin bases) -> |.|^power -> mel filterbank
 -> ``log(max(., 1e-5))``, in one pass: the ``(rows, n_freqs)`` spectrum
 never reaches device memory. The CUDA kernel is ``csrc/mel.cu``; its source
-note says what bounds it on the H100 (the f32 FMA rate) and how its design
-answers. For few rows (a serving prompt) the wrapper splits the frequency
-tiles over several blocks per row block (`frequency_splits`, from the row
-count and the card's SM count) and allocates their scratch; such a call
-launches two CUDA kernels, the product pass and the pass that sums the
-splits and takes the log. The ``mel_fwd`` launch counter counts wrapper
-calls: one per call, split or not.
+note says what bounds it on the H100 (operations: three split-TF32
+tensor-core products a product, 165 TFLOP/s at f32 grade) and how its
+design answers. The C entry point runs one of two block geometries of that
+kernel by the row count (`GEOMETRIES`, `geometry`); for few rows (a serving
+prompt) the wrapper splits the frequency tiles over several blocks per row
+block (`frequency_splits`, from the row count and the card's SM count) and
+allocates their scratch; such a call launches two CUDA kernels, the product
+pass and the pass that sums the splits and takes the log. The ``mel_fwd``
+launch counter counts wrapper calls: one per call, split or not.
 
 `fused_log_mel` takes the frames as a strided view (``(rows, n_fft)`` or
 ``(b, frames, n_fft)``, unit last stride): `ops.mel` hands it the
@@ -52,18 +54,27 @@ def fused_log_mel_plain(frames: torch.Tensor, dft_cos: torch.Tensor, dft_sin: to
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
-ROWS_PER_BLOCK = 64      # csrc/mel.cu: BR
-BINS_PER_TILE = 64       # csrc/mel.cu: BF
+# csrc/mel.cu's two block geometries, (frame rows, frequency bins a tile),
+# and the row count from which its entry point takes the large one
+GEOMETRIES = {'small': (32, 64), 'large': (128, 64)}
+LARGE_ROWS = 1152
+
+
+def geometry(rows: int) -> str:
+    """The block geometry ``e2_mel_fwd`` runs for ``rows`` frame rows."""
+    return 'large' if rows >= LARGE_ROWS else 'small'
 
 
 def frequency_splits(rows: int, n_freqs: int, sms: int) -> int:
-    """How many blocks share a row block's frequency tiles: 1 when the row
-    blocks alone fill the card's ``sms`` SMs, else enough (at most one per
-    tile) that row blocks x splits reach about ``sms``."""
-    row_blocks = -(-rows // ROWS_PER_BLOCK)
-    if row_blocks >= sms:
-        return 1
-    return min(-(-n_freqs // BINS_PER_TILE), -(-sms // row_blocks))
+    """How many blocks share a row block's frequency tiles: each split walks
+    about ``tiles x row blocks / sms`` tiles (at least one), so that row
+    blocks x splits come near the card's ``sms`` SMs; 1 when the row blocks
+    alone fill the card."""
+    block_rows, tile_bins = GEOMETRIES[geometry(rows)]
+    row_blocks = -(-rows // block_rows)
+    tiles = -(-n_freqs // tile_bins)
+    per_split = min(tiles, max(1, (2 * tiles * row_blocks + sms) // (2 * sms)))
+    return -(-tiles // per_split)
 
 
 def _mel_cuda(frames, dft_cos, dft_sin, fbanks, power):

@@ -26,6 +26,7 @@ bit before the rounding).
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -192,21 +193,53 @@ def test_geglu_bwd_kernel(dev, dtype, inner, rate, offset):
     _close(got, gk.geglu_dropout_backward_plain(h2, gout, 99, rate), dtype)
 
 
-@pytest.mark.parametrize('case', ['prompt', 'power2', 'power0.7', 'win800', 'ragged_b2'])
+def _tone_prompt():
+    """A 3-s prompt at 24 kHz: a 220-Hz tone, noise (numpy seed 0) and the
+    last 30% zeros, the wave of tests/test_torch_mel_design.py, on which one
+    TF32 product a product fails K11's limit."""
+    t = np.arange(72000) / 24000
+    wave = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * np.random.default_rng(0).standard_normal(72000)
+    wave[50400:] = 0.0
+    return torch.from_numpy(wave.astype(np.float32))[None]
+
+
+@pytest.mark.parametrize('case', ['prompt', 'power2', 'power0.7', 'win800', 'ragged_b2',
+                                  'silent_tail', 'odd_batch_stride', 'large_2048', 'rows1',
+                                  'n_fft1002'])
 def test_mel_kernel(dev, case):
+    """K11 against its plain version: the prompt and its options (both
+    through the small geometry, split over frequency tiles), a prompt of a
+    tone and noise whose last 30% is digital silence (the DFT's sums cancel
+    around the tone and the log amplifies the quiet frames' errors), a
+    batch of two waves whose padded length is odd (a batch stride that is
+    not 16-byte aligned: 4-byte frame copies), 2 x 1024 frames (the large
+    geometry), a single frame row, and n_fft 1002 (4-byte frame copies and
+    a last k8 step of two samples)."""
     g = torch.Generator(device=dev).manual_seed(6)
     kw = dict(power2=dict(power=2.0), win800=dict(win_length=800),
+              n_fft1002=dict(filter_length=1002, win_length=1002),
               **{'power0.7': dict(power=0.7)}).get(case, {})
     spec = MelSpec(mode='pallas', **kw).to(dev)
-    b, nw = (2, 300 * 256 + 77) if case == 'ragged_b2' else (1, 72000)
-    wave = torch.randn(b, nw, generator=g, device=dev) * 0.1
-    frames = frame_signal(wave, 1024, 256, center=True)
+    n_fft = spec.dft_cos.shape[0]
+    b, nw = dict(ragged_b2=(2, 300 * 256 + 77), odd_batch_stride=(2, 72001),
+                 large_2048=(2, 1023 * 256)).get(case, (1, 72000))
+    wave = (_tone_prompt().to(dev) if case == 'silent_tail'
+            else torch.randn(b, nw, generator=g, device=dev) * 0.1)
+    frames = frame_signal(wave, n_fft, 256, center=True)
+    if case == 'odd_batch_stride':
+        assert frames.stride(0) % 4
+    if case == 'rows1':
+        frames = frames[0, :1]
+    assert mk.geometry(frames.numel() // n_fft) == ('large' if case == 'large_2048' else 'small')
     before = _cuda.launch_counts['mel_fwd']
-    got = spec(wave)
+    if case == 'rows1':
+        got = mk.fused_log_mel(frames, spec.dft_cos, spec.dft_sin, spec.fbanks, spec.power)
+    else:
+        got = spec(wave)
     assert _cuda.launch_counts['mel_fwd'] == before + 1
-    ref = mk.fused_log_mel_plain(frames, spec.dft_cos, spec.dft_sin, spec.fbanks,
-                                 spec.power).transpose(1, 2)
-    torch.testing.assert_close(got, ref, atol=2e-3, rtol=1e-3)
+    ref = mk.fused_log_mel_plain(frames, spec.dft_cos, spec.dft_sin, spec.fbanks, spec.power)
+    torch.testing.assert_close(got, ref if case == 'rows1' else ref.transpose(1, 2),
+                               atol=2e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -674,7 +707,7 @@ def test_mel_kernel_160_mels_n_fft_1000(dev):
 
 
 @pytest.mark.parametrize('mode', fa.PROBE_MODES)
-@pytest.mark.parametrize('dh', [64, 72])
+@pytest.mark.parametrize('dh', list(range(8, 129, 8)))
 def test_flash_probe_kernel(dev, mode, dh):
     g = torch.Generator(device=dev).manual_seed(6)
     x = (0.25 * torch.randn(2, 3, 150, dh, generator=g, device=dev)).to(torch.bfloat16)
@@ -685,6 +718,16 @@ def test_flash_probe_kernel(dev, mode, dh):
     # another order moves it by an ulp of that, so the absolute term scales
     # with the largest |ref|
     _close_grads((out,), (fa.flash_probe_plain(x, mode),), torch.bfloat16)
+
+
+@pytest.mark.parametrize('mode', fa.PROBE_MODES)
+@pytest.mark.parametrize('heads,dh', [(8, 64), (16, 72)])
+def test_flash_probe_kernel_training_shapes(dev, mode, heads, dh):
+    """The probe at the training shapes, where K8's launch geometry (and so
+    the probe's) takes two warpgroups a block."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (0.25 * torch.randn(16, heads, 1056, dh, generator=g, device=dev)).to(torch.bfloat16)
+    _close_grads((fa.flash_probe(x, mode),), (fa.flash_probe_plain(x, mode),), torch.bfloat16)
 
 
 def test_remat_matches_no_remat(dev):

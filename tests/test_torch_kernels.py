@@ -196,7 +196,7 @@ def test_plain_path_does_not_count_launches():
 def test_kernel_sources_exist_for_every_counter():
     names = {p.stem for p in _cuda.CSRC.glob('*.cu')}
     assert names == {'flash_attention', 'flash_attention_bwd', 'flash_attention_bhnd',
-                     'flash_attention_bhnd_wide', 'hyper_conn', 'hyper_conn_save',
+                     'flash_attention_bhnd_wide', 'flash_probe', 'hyper_conn', 'hyper_conn_save',
                      'hyper_conn_bwd', 'hyper_conn_bwd_save', 'hyper_conn_bwd_streams',
                      'hyper_conn_bwd_f32', 'geglu', 'mel'}
     assert set(_cuda.launch_counts) == set(_cuda.KERNELS)
