@@ -109,7 +109,10 @@ exit code and no result line:
    timed alone (mel frontend, duration predictor, vocoder), then a timed
    `sample` of a 3-s prompt wave with no duration (NFE 32 midpoint, CFG 1.0
    sequential): predicted duration, waveform length, seconds, RTF with the
-   vocoder, and the launch counters against the model's structure.
+   vocoder, and the launch counters against the model's structure; then
+   the request again at 2 ODE steps with ``save_to_filename`` under
+   build/serve/, the WAV read back (`load_wav`): its length and its samples
+   within 1/32767 of the returned audio.
 6. train   — one train step's loss and full grad vector at the flagship
    widths (depth 2, B=2, dropout 0, the same weights and draws): the card in
    f32 and in bf16 against the CPU in f32, and the f32 loss from a raw-wave
@@ -122,7 +125,25 @@ exit code and no result line:
    under torch.profiler (trace: build/profile/train_step_trace.json). Each
    profiled train step (here, in dit and in paper) also prints the GEGLU
    kernels' device time (K6 + K7).
-7. dit     — the E2TTS at DiT-XL/2's widths (dim 1152, 16 heads x 72: every
+7. trainer — examples/train_example.py's run at its widths: the E2TTS 512 x
+   12 and the 512 x 8 duration predictor, trained, bf16 (the trainer's
+   ``dtype``), through `HFDataset` over 24 seeded rows of audio at 16-48 kHz
+   (two outside 0.3-20 s, skipped; resampled on the host, the log-mel on
+   the card) and `E2Trainer.train`: one epoch at batch 4 with two prefetch
+   workers, accumulation 2, a checkpoint every 2 steps (build/trainer/),
+   TensorBoard when it imports, a profiler window (steps 2-4). Checks:
+   finite losses, every parameter moved (the predictor's text stream, which
+   its text-free loss never reaches, excepted by its zero ADOPT v), the
+   launch counts against the model's and the predictor's structure, the
+   trace file. Then one more micro-step (timed) leaves half a mean in the
+   accumulator and is saved (size, seconds); a trainer built from other
+   weights resumes (seconds) to that state bit for bit (model, ADOPT, EMA
+   weights and counters, predictor and its ADOPT, accumulator, generator);
+   one more step on the original and the resumed trainer gives equal
+   losses and parameters whose gap is at most 0.1 of the step in L2 norm
+   (`RESUME_STEP_TOL`); a trainer resumed without its ADOPT state must fail
+   that check.
+8. dit     — the E2TTS at DiT-XL/2's widths (dim 1152, 16 heads x 72: every
    attention on K8 / K9; text stream 576) in bf16 with seeded random
    weights: one CFG evaluation at depth 2 against the CPU in f32; `sample`
    at depth 28 (B=1, 1024 frames, NFE 32 midpoint, CFG 1.0 sequential) with
@@ -132,11 +153,11 @@ exit code and no result line:
    without text, with the launch counters (the recompute runs every
    forward kernel twice); one CFG evaluation and one train step at depth 28
    under torch.profiler (traces: build/profile/dit_*.json).
-8. tiny    — the JAX package's test geometry (dim 64, text 32, 2 heads of 16,
+9. tiny    — the JAX package's test geometry (dim 64, text 32, 2 heads of 16,
    2 streams, depth 4): one CFG evaluation bf16 on the card against f32 on
    the CPU and one train step f32 against the CPU, with the launch counts of
    K3 / K5 at 2 streams and K8 / K9 at dim_head 16.
-9. paper   — the E2-TTS paper's configuration (dim 1024, 16 heads of 64,
+10. paper  — the E2-TTS paper's configuration (dim 1024, 16 heads of 64,
    text 512; 600.7 M parameters) in bf16: at depth 2 one CFG evaluation and
    one train step (f32, bf16) against the CPU, and hc_save_state on against
    off (f32); `sample` at depth 24 with hc_save_state=True (the save
@@ -203,6 +224,28 @@ SERVE_E2TTS = dict(
     mel_spec_kwargs=dict(mode='pallas'), use_vocos=True)
 # the predictor's sequence at the 3-s prompt: 282 frames + 32 registers
 PREDICTOR_N = 1 + PROMPT_SAMPLES // HOP + 32
+
+# examples/train_example.py: E2TTS 512 x 12 in bf16 with a 512 x 8 side
+# duration predictor, here trained; batch 4 in two micro-batches a step
+TRAIN_EXAMPLE = dict(dim=512, depth=12)
+TRAIN_EXAMPLE_DP = dict(dim=512, depth=8)
+TRAINER_ROWS = 24
+TRAINER_BATCH = 4
+TRAINER_ACCUM = 2
+TRAINER_RATES = (16_000, 22_050, 24_000, 48_000)
+TRAINER_DIR = os.path.join('build', 'trainer')      # gitignored
+# a resumed trainer's next step against the original's: the forward is the
+# same (equal losses), but K2 sums dq by atomics in a run-dependent order,
+# so a bf16 grad element may round the other way. ADOPT's bounded atan2 turns
+# a small grad change into a small step change, except where a grad near 0
+# meets a second moment near 0: there its sign picks +-pi/2, and one element
+# can move by up to lr x 0.1 x pi, the step's own size (on the H100 at the
+# train_example widths the largest element gap read 0.19 of the step's
+# largest move). So the limit is on the whole step: the L2 norm of the gap
+# between the two trainers' parameters over the L2 norm of the step (the
+# original's move), at most 0.1. A trainer that lost its ADOPT state takes
+# ADOPT's first step, which moves nothing: ratio 1.
+RESUME_STEP_TOL = 0.1
 
 # H100 SXM peaks, dense (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -1687,6 +1730,19 @@ def phase_serve(torch, dev, smi):
     expected['mel_fwd'] = 1
     if counts != expected:
         raise AssertionError(f'serve launch counts {counts} != expected {expected}')
+
+    # the request again (2 ODE steps), its audio written as WAV files
+    from e2_tts_tpu_torch.utils.audio_io import load_wav
+    target = os.path.join('build', 'serve', 'serve.wav')
+    audio = model.sample(prompt, steps=2, save_to_filename=target, **sample_kw)[0].float().cpu()
+    back, sr = load_wav(os.path.join('build', 'serve', '1.serve.wav'))
+    clipped = int((audio.abs() > 1).sum())
+    err = float((torch.from_numpy(back) - audio.clamp(-1, 1)).abs().max())
+    log(f'serve save_to_filename: {len(back)} samples at {sr} Hz read back, returned '
+        f'{audio.shape[-1]}; max |file - audio| = {err:.3e} (<= 1/32767 = {1 / 32767:.3e}; '
+        f'{clipped} samples beyond [-1, 1] compared clipped)')
+    if not (len(back) == audio.shape[-1] and sr == model.sampling_rate and err <= 1 / 32767):
+        raise AssertionError('the WAV file does not hold the returned audio')
     return counts
 
 
@@ -1965,6 +2021,231 @@ def phase_train(torch, dev, smi):
     kernels = profile_run(torch, lambda: trainer.train_step(*batch, drop_text_cond=False),
                           'train_step_trace.json')
     log_geglu_profile('flagship profiled with-text step', kernels, smi)
+    return counts
+
+
+# -- phase 7: train_example.py's run through E2Trainer.train -------------------------
+
+def trainer_rows():
+    """``TRAINER_ROWS`` rows as a dataset of audio gives them: a noisy tone
+    of 0.3-8 s at 16, 22.05, 24 and 48 kHz with a transcript, two of them
+    outside 0.3-20 s (0.1 and 0.2 s), which `HFDataset` skips. Numpy seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    too_short = {5: 0.1, 16: 0.2}
+    rows = []
+    for i in range(TRAINER_ROWS):
+        sr = TRAINER_RATES[i % len(TRAINER_RATES)]
+        seconds = too_short.get(i) or rng.uniform(0.3, 8.0)
+        t = np.arange(int(seconds * sr)) / sr
+        wave = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t) + 0.05 * rng.standard_normal(
+            t.shape)
+        rows.append(dict(audio=dict(array=wave.astype(np.float32), sampling_rate=sr),
+                         transcript=' '.join(rng.choice(words, size=int(rng.integers(3, 12))))))
+    return rows
+
+
+def build_trainer(torch, dev, seed, path, **kw):
+    """`E2Trainer` over the train_example widths with weights from ``seed``
+    (perturbed as `build_e2tts` does): the 512 x 12 E2TTS and the trained
+    512 x 8 predictor, bf16 compute for both (the trainer's ``dtype``),
+    ADOPT at 7.5e-5 (no warmup, as the JAX training bench), accumulation 2."""
+    from e2_tts_tpu_torch import DurationPredictor, E2TTS, E2Trainer
+    gen = torch.Generator().manual_seed(seed)
+    model = E2TTS(transformer=dict(TRAIN_EXAMPLE), generator=gen, device='cpu')
+    dp = DurationPredictor(transformer=dict(TRAIN_EXAMPLE_DP), generator=gen, device='cpu')
+    with torch.no_grad():
+        for module in (model, dp):
+            for p in module.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return E2Trainer(model.to(dev), duration_predictor=dp.to(dev), train_duration_predictor=True,
+                     dtype=torch.bfloat16, learning_rate=7.5e-5, num_warmup_steps=0,
+                     total_steps=10_000, grad_accumulation_steps=TRAINER_ACCUM,
+                     checkpoint_path=path, seed=0, **kw)
+
+
+def trainer_state_diff(torch, a, b) -> list:
+    """What of ``b``'s state is not bit-equal to ``a``'s: the model, ADOPT,
+    the EMA's weights and counters, the predictor and its ADOPT, the
+    accumulator, the generator."""
+    diff = []
+
+    def tensors(label, x, y):
+        diff.extend(f'{label} {n}' for n in x if not torch.equal(x[n], y[n]))
+
+    def adopt(label, oa, ob):
+        sa, sb = oa.state_dict()['state'], ob.state_dict()['state']
+        if sa.keys() != sb.keys():
+            diff.append(f'{label} state keys')
+        for i in sa.keys() & sb.keys():
+            if sa[i]['step'] != sb[i]['step']:
+                diff.append(f'{label} {i} step')
+            tensors(f'{label} {i}', {k: sa[i][k] for k in 'mv'}, {k: sb[i][k] for k in 'mv'})
+
+    tensors('model', a.model.state_dict(), b.model.state_dict())
+    adopt('adopt', a.optimizer, b.optimizer)
+    tensors('ema', a.ema.ema_model.state_dict(), b.ema.ema_model.state_dict())
+    if (a.ema.step, a.ema.initted) != (b.ema.step, b.ema.initted):
+        diff.append('ema counters')
+    tensors('dp', a.duration_predictor.state_dict(), b.duration_predictor.state_dict())
+    adopt('dp adopt', a.dp_optimizer, b.dp_optimizer)
+    if a.accumulator.mini_step != b.accumulator.mini_step:
+        diff.append('accumulator mini_step')
+    tensors('accumulator', dict(enumerate(a.accumulator.grads)),
+            dict(enumerate(b.accumulator.grads)))
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        diff.append('generator')
+    return diff
+
+
+def phase_trainer(torch, dev, smi):
+    """examples/train_example.py's run at its widths through the entry
+    points a user calls: `HFDataset` over rows of audio (resampled, the
+    log-mel on the card), `E2Trainer.train` with prefetch workers, gradient
+    accumulation, the trained side predictor, checkpoints every 2 steps,
+    TensorBoard when it imports, and a profiler window; then resume checks
+    from a checkpoint written mid-accumulation."""
+    import random
+    import shutil
+
+    import numpy as np
+
+    from e2_tts_tpu_torch import native
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import HFDataset, iter_batches
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    ckpt, profile_dir = os.path.join(TRAINER_DIR, 'ckpt'), os.path.join(TRAINER_DIR, 'profile')
+    try:
+        import tensorboard  # noqa: F401
+        use_tb = True
+    except ImportError:
+        use_tb = False
+    rows = trainer_rows()
+    dataset = HFDataset(rows, device=dev)
+    log(f'trainer dataset: {len(rows)} rows at {sorted(set(TRAINER_RATES))} Hz, '
+        f'{sum(1 for r in rows if not 0.3 <= len(r["audio"]["array"]) / r["audio"]["sampling_rate"] <= 20)} '
+        f'outside 0.3-20 s; resampling: {"native" if native.load() is not None else "scipy"}; '
+        f'tensorboard: {"on" if use_tb else "off (does not import)"}')
+
+    a = build_trainer(torch, dev, 1, ckpt, use_tensorboard=use_tb,
+                      tensorboard_log_dir=os.path.join(TRAINER_DIR, 'tb'),
+                      profile_dir=profile_dir, profile_steps=(2, 4), log_step=1)
+    model, dp = a.model, a.duration_predictor
+    before = [p.detach().clone() for p in (*model.parameters(), *dp.parameters())]
+    steps = len(dataset) // TRAINER_BATCH
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = a.train(dataset, epochs=1, batch_size=TRAINER_BATCH, num_workers=2, save_step=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+
+    rng = random.Random(0)          # the trainer's text-drop coins, seed 0
+    with_text = [rng.random() >= model.cond_drop_prob for _ in range(steps)]
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    for kept in with_text:
+        for name, n in expected_train_launches(model, kept).items():
+            expected[name] += n
+        for name, n in expected_train_launches(dp, False).items():
+            expected[name] += n
+    moved = [bool((b != p.detach()).any()) for b, p in
+             zip(before, (*model.parameters(), *dp.parameters()))]
+    n_model = len(list(model.parameters()))
+    # the predictor's loss takes no text, so its text stream gets zero grads
+    # (as in JAX): ADOPT's v of such a tensor stays 0
+    unreached = [bool((a.dp_optimizer.state[p]['v'] == 0).all()) for p in dp.parameters()]
+    log(f'trainer E2Trainer.train 1 epoch, {len(dataset)} rows, B={TRAINER_BATCH}, '
+        f'accumulation {TRAINER_ACCUM}, {steps} micro-steps (with text: {with_text}): '
+        f'seconds={seconds:.3f} losses={[round(loss, 5) for _, loss in history]} '
+        f'model tensors moved={sum(moved[:n_model])}/{n_model} predictor tensors moved='
+        f'{sum(moved[n_model:])}/{len(moved) - n_model} (of the rest, {sum(unreached)} of its '
+        f'text stream, which the text-free loss never reaches, had only zero grads) '
+        f'launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+    if len(history) != steps or not all(np.isfinite(loss) for _, loss in history):
+        raise AssertionError(f'train() history bad: {history}')
+    if not (all(moved[:n_model]) and all(m != u for m, u in zip(moved[n_model:], unreached))):
+        raise AssertionError('a parameter with a grad did not move, or one without moved')
+    if counts != expected:
+        raise AssertionError(f'trainer launch counts {counts} != expected {expected}')
+    traces = os.listdir(profile_dir)
+    if traces != ['steps_2-4.trace.json']:
+        raise AssertionError(f'profiler window wrote {traces}')
+    if use_tb and not os.listdir(os.path.join(TRAINER_DIR, 'tb')):
+        raise AssertionError('no TensorBoard events written')
+    del before
+
+    # one more micro-step leaves half a mean in the accumulator; save there
+    batch = a.prepare_batch(next(iter_batches(dataset, TRAINER_BATCH, seed=7)))
+    batch = (torch.as_tensor(batch[0]).to(dev), torch.as_tensor(batch[1]).to(dev), batch[2])
+
+    def step(trainer):
+        dur = trainer.duration_step(batch[0], batch[1])
+        loss, _, _ = trainer.train_step(*batch, drop_text_cond=False)
+        return float(loss), float(dur)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(a)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    target = a.save_checkpoint(steps + 1)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(target)
+    if a.accumulator.mini_step != 1:
+        raise AssertionError('the checkpoint is not mid-accumulation')
+
+    b = build_trainer(torch, dev, 2, ckpt)
+    fresh = trainer_state_diff(torch, a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = b.resume()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    diff = trainer_state_diff(torch, a, b)
+    log(f'trainer checkpoint: {size} bytes ({size / 2 ** 30:.3f} GiB) save_s={save_s:.3f} '
+        f'load_s={load_s:.3f} (resume) step_ms={step_ms:.3f} (one micro-step: the predictor\'s '
+        f'and the model\'s, B={TRAINER_BATCH}) [{smi}]')
+    log(f'trainer resume: start step {start}, a fresh trainer differed in {len(fresh)} '
+        f'tensors and counters, the resumed one in {len(diff)} {diff[:5]}')
+    if start != steps + 1 or not fresh or diff:
+        raise AssertionError('the resumed trainer is not bit for bit the saved one')
+
+    # one more step on both (the accumulated update) and on a trainer
+    # resumed without its ADOPT state
+    c = build_trainer(torch, dev, 3, ckpt)
+    c.resume()
+    c.optimizer.state.clear()
+    p0 = [p.detach().clone() for p in a.model.parameters()]
+    losses = {label: step(t) for label, t in (('original', a), ('resumed', b),
+                                              ('adopt dropped', c))}
+
+    def gaps(t):
+        """||a - t|| / ||a's move||, both over every model parameter; the
+        largest element gap over the largest move; the elements that differ."""
+        pairs = list(zip(a.model.parameters(), t.model.parameters(), p0))
+        sq = lambda x: float(x.double().square().sum())
+        gap = math.sqrt(sum(sq(p.detach() - q.detach()) for p, q, _ in pairs))
+        move = math.sqrt(sum(sq(p.detach() - r) for p, _, r in pairs))
+        gap_max = max(float((p.detach() - q.detach()).abs().max()) for p, q, _ in pairs)
+        move_max = max(float((p.detach() - r).abs().max()) for p, _, r in pairs)
+        differ = sum(int((p.detach() != q.detach()).sum()) for p, q, _ in pairs)
+        return gap / move, gap_max / move_max, differ
+
+    numel = sum(p.numel() for p in p0)
+    (r_b, rmax_b, n_b), (r_c, rmax_c, n_c) = gaps(b), gaps(c)
+    log(f'trainer one more step, original vs resumed: losses {losses["original"]} / '
+        f'{losses["resumed"]}; ||param gap|| / ||step|| = {r_b:.3e} (<= {RESUME_STEP_TOL}), '
+        f'largest element gap {rmax_b:.3e} of the largest move, {n_b} of {numel} elements '
+        f'differ; resumed without ADOPT\'s state (planted fault, must fail): losses '
+        f'{losses["adopt dropped"]}, ratio {r_c:.3e}, largest {rmax_c:.3e}, {n_c} differ')
+    if losses['resumed'] != losses['original'] or not r_b <= RESUME_STEP_TOL:
+        raise AssertionError('the resumed trainer does not continue the original run')
+    if r_c <= RESUME_STEP_TOL:
+        raise AssertionError('the check passed a trainer that lost its ADOPT state')
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     return counts
 
 
@@ -2350,6 +2631,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_check(torch, dev)
     train_counts = phase_train(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_trainer(torch, dev, smi)
     torch.cuda.empty_cache()
     dit_sample_counts, dit_train_counts = phase_dit(torch, dev, smi)
     torch.cuda.empty_cache()

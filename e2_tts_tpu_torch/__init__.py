@@ -6,12 +6,17 @@ reference. The layout mirrors the JAX package (`models/`, `ops/`, `text/`,
 `utils/`, `training/`, `vocoder/`) so each module has an obvious
 counterpart. The port covers zero-shot serving from a raw waveform
 (`E2TTS.sample`: the mel frontend `MelSpec`, the `DurationPredictor` when no
-duration is given, the sampler, the `Vocos` vocoder), the trainer
-(`E2TTS.forward`'s flow-matching loss on mels or raw waves, `E2Trainer`
-with ADOPT, clip and EMA), the dual-stream `Transformer`, and the ten
-kernels on those paths: packed flash attention forward and backward with
-the backward's delta pre-pass, the two hyper-connection width connections
-and GEGLU, each forward and backward, and the fused log-mel frontend.
+duration is given, the sampler, the `Vocos` vocoder, WAV files), the
+training stack (`E2TTS.forward`'s flow-matching loss on mels or raw waves;
+`E2Trainer` with ADOPT, clip, EMA, gradient accumulation, the duration
+predictor's side loss or its own training, atomic checkpoints with
+auto-resume, TensorBoard and a profiler window; `HFDataset` with
+resampling, and background prefetch), the dual-stream `Transformer`, and
+the kernels on those paths: packed and (b, h, n, dh) flash attention
+forward and backward with the backward's delta pre-pass, the two
+hyper-connection width connections (and their save-state variants) and
+GEGLU, each forward and backward, and the fused log-mel frontend. Meshes,
+FSDP and sequence parallelism are not ported.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.
@@ -28,6 +33,7 @@ _EXPORTS = {
     'E2Trainer': 'e2_tts_tpu_torch.training.trainer',
     'EMA': 'e2_tts_tpu_torch.training.ema',
     'Adopt': 'e2_tts_tpu_torch.training.adopt',
+    'HFDataset': 'e2_tts_tpu_torch.training.data',
 }
 
 __all__ = list(_EXPORTS)

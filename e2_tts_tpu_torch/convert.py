@@ -9,7 +9,11 @@ predictor, a `DurationPredictor`, a `Transformer`, ...). `load_jax_vocos
 live outside the E2TTS state. `map_jax_tree(flat, targets)`
 does the renaming and relayout for any tree with the parameters' paths
 (weights, grads, ADOPT moments, EMA weights) and returns port name ->
-array. The port never imports JAX: the caller builds the dict.
+array. `load_jax_train_state(trainer, tree)` carries a JAX training state
+(model, ``nnx.Optimizer`` over clip + ADOPT, with or without
+optax.MultiSteps, EMA, step, and the trained duration predictor's pair)
+into an `E2Trainer`. The port never imports JAX: the caller builds the
+dicts.
 
 Layout rules:
 - a linear ``kernel (in, out)`` becomes ``weight (out, in)``;
@@ -36,6 +40,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from e2_tts_tpu_torch.utils.helpers import exists
 
 
 def _is_rng_path(key: str) -> bool:
@@ -111,3 +117,89 @@ def load_jax_vocos(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
             key = key[:-len('scale')] + 'weight'
         renamed[key] = value
     load_jax_params(model, renamed)
+
+
+def _adopt_from_jax(optimizer, module, flat: dict, accumulator=None) -> None:
+    """Fill `Adopt`'s state over ``module``'s parameters from the flat
+    state of an ``nnx.Optimizer`` over ``chain(clip, adopt(schedule))``,
+    wrapped in optax.MultiSteps when ``accumulator`` is given: ADOPT's
+    ``m``, ``v`` and ``count`` at ``opt_state[.inner_opt_state].1.0``, the
+    schedule's ``count`` at ``.1.1``; with MultiSteps also ``acc_grads``,
+    ``mini_step`` and ``gradient_step``. The optimizer's own ``step`` (its
+    count of update calls) has no counterpart and is dropped."""
+    rest = {k: v for k, v in flat.items() if k != 'step'}
+    inner = 'opt_state.inner_opt_state.' if exists(accumulator) else 'opt_state.'
+
+    def take(prefix: str) -> dict:
+        sub = {k[len(prefix):]: rest.pop(k) for k in [k for k in rest if k.startswith(prefix)]}
+        if not sub:
+            raise ValueError(f'map_jax_tree: the optimizer tree has no {prefix!r}')
+        return sub
+
+    def scalar(key: str) -> int:
+        if key not in rest:
+            raise ValueError(f'map_jax_tree: the optimizer tree has no {key!r}')
+        return int(np.asarray(rest.pop(key)))
+
+    params = dict(module.named_parameters())
+    targets = {name: tuple(p.shape) for name, p in params.items()}
+    m = map_jax_tree(take(inner + '1.0.m.'), targets)
+    v = map_jax_tree(take(inner + '1.0.v.'), targets)
+    count, schedule_count = scalar(inner + '1.0.count'), scalar(inner + '1.1.count')
+    if count != schedule_count:
+        raise ValueError(f'ADOPT counted {count} updates and its schedule {schedule_count}: '
+                         'the port keeps one count for both')
+    if exists(accumulator):
+        acc = map_jax_tree(take('opt_state.acc_grads.'), targets)
+        mini_step, gradient_step = scalar('opt_state.mini_step'), scalar('opt_state.gradient_step')
+        if gradient_step != count or not 0 <= mini_step < accumulator.every_k:
+            raise ValueError(f'MultiSteps state (mini_step {mini_step}, gradient_step '
+                             f'{gradient_step}) does not fit {count} ADOPT updates at k = '
+                             f'{accumulator.every_k}')
+    if rest:
+        raise ValueError(f'map_jax_tree: unused JAX optimizer arrays {sorted(rest)}')
+
+    as_param = lambda arr, p: torch.from_numpy(np.array(arr, copy=True)).to(p)
+    optimizer.state.clear()
+    for name, p in params.items():
+        optimizer.state[p] = dict(step=count, m=as_param(m[name], p), v=as_param(v[name], p))
+    if exists(accumulator):
+        accumulator.load_state_dict(dict(
+            grads=[as_param(acc[name], p) for name, p in params.items()], mini_step=mini_step))
+
+
+def load_jax_train_state(trainer, tree: dict) -> int:
+    """Carry a JAX training state into ``trainer`` (an `E2Trainer` whose
+    optimizer is built: pass ``total_steps=``) in place; returns the global
+    step. ``tree`` holds ``model``, ``opt`` and ``ema`` (each the flat
+    ``nnx.state`` of the JAX model, its ``nnx.Optimizer`` and its `EMA`, as
+    dotted path -> numpy array), ``step``, and, when the trainer trains its
+    duration predictor, ``duration_predictor`` and ``dp_opt``. The trainer's
+    ``grad_accumulation_steps`` must be the MultiSteps k of the JAX
+    optimizer (1 without MultiSteps). Strict as `map_jax_tree`: an unused or
+    a missing array raises. The JAX PRNG key has no counterpart: `train`
+    seeds the generator from ``seed + step`` when no saved state exists."""
+    if not exists(trainer.optimizer):
+        raise RuntimeError('build the trainer\'s optimizer first (total_steps=)')
+    dp_keys = {'duration_predictor', 'dp_opt'} if trainer.train_duration_predictor else set()
+    want = {'model', 'opt', 'ema', 'step'} | dp_keys
+    if set(tree) != want:
+        raise ValueError(f'load_jax_train_state: the tree has {sorted(tree)}, the trainer '
+                         f'takes {sorted(want)}')
+    load_jax_params(trainer.model, tree['model'])
+    _adopt_from_jax(trainer.optimizer, trainer.model, tree['opt'], trainer.accumulator)
+
+    ema = dict(tree['ema'])
+    counters = {k: ema.pop(k, None) for k in ('step', 'step_initted')}
+    if any(v is None for v in counters.values()):
+        raise ValueError('map_jax_tree: the EMA tree has no step / step_initted')
+    load_jax_params(trainer.ema.ema_model,
+                    {k[len('ema_model.'):] if k.startswith('ema_model.') else k: v
+                     for k, v in ema.items()})
+    trainer.ema.step = int(np.asarray(counters['step']))
+    trainer.ema.initted = bool(np.asarray(counters['step_initted']))
+
+    if dp_keys:
+        load_jax_params(trainer.duration_predictor, tree['duration_predictor'])
+        _adopt_from_jax(trainer.dp_optimizer, trainer.duration_predictor, tree['dp_opt'])
+    return int(np.asarray(tree['step']))

@@ -24,15 +24,19 @@ duration predictor. ``use_vocos=True`` decodes the sampled mels to
 waveforms with the port's own `Vocos` (the JAX package's
 ``vocos_backend='jax'``), which stays out of this module's parameters.
 
+``save_to_filename`` writes each decoded waveform as a 16-bit mono WAV
+``{i + 1}.{name}`` beside the path, as the JAX package does.
+
 The port covers the flagship form (``concat_cond=False``). Not ported yet
 (each raises): the external torch ``vocos`` package
-(``vocos_backend='torch'``), ``save_to_filename``, ``concat_cond``,
-interpolated text and the frequency axis.
+(``vocos_backend='torch'``), ``concat_cond``, interpolated text and the
+frequency axis.
 """
 
 from __future__ import annotations
 
 from collections import namedtuple
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.mel import MelSpec, as_mel, db_to_amplitude
 from e2_tts_tpu_torch.ops.ode import odeint
 from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer, tokenize_batch
+from e2_tts_tpu_torch.utils.audio_io import save_wav
 from e2_tts_tpu_torch.utils.helpers import default, exists, resolve_device, round_up_to_multiple
 from e2_tts_tpu_torch.utils.masking import lens_to_mask, mask_from_frac_lengths
 from e2_tts_tpu_torch.utils.tensor import project
@@ -325,22 +330,39 @@ class E2TTS(nn.Module):
         ``use_vocos`` a list of per-sample waveforms of ``(duration - 1) *
         hop`` samples. Without ``duration`` the duration predictor sets it.
         ``noise`` replaces the initial state drawn from ``generator``; it
-        has the padded generation shape ``(b, padded length, num_channels)``."""
-        if exists(save_to_filename):
-            _not_ported('save_to_filename (audio file output)')
+        has the padded generation shape ``(b, padded length, num_channels)``.
+        ``save_to_filename`` also writes each waveform as ``{i + 1}.{name}``
+        beside the path (16-bit mono WAV; it needs a vocoder)."""
         if exists(vocoder) and self.use_vocos:
             raise ValueError('`use_vocos` should not be on when passing a custom `vocoder`')
+        if exists(save_to_filename) and not (exists(vocoder) or self.use_vocos):
+            raise ValueError('`save_to_filename` needs audio: pass `vocoder=` or build the '
+                             'model with `use_vocos=True`')
         was_training = self.training
         self.eval()
         try:
-            return self._sample(cond, text=text, lens=lens, duration=duration, steps=steps,
-                                cfg_strength=cfg_strength, cfg_null_model=cfg_null_model,
-                                max_duration=max_duration, vocoder=vocoder,
-                                return_raw_output=return_raw_output, noise=noise,
-                                generator=generator, duration_bucket=duration_bucket,
-                                batched_cfg=batched_cfg)
+            out = self._sample(cond, text=text, lens=lens, duration=duration, steps=steps,
+                               cfg_strength=cfg_strength, cfg_null_model=cfg_null_model,
+                               max_duration=max_duration, vocoder=vocoder,
+                               return_raw_output=return_raw_output, noise=noise,
+                               generator=generator, duration_bucket=duration_bucket,
+                               batched_cfg=batched_cfg)
         finally:
             self.train(was_training)
+        if exists(save_to_filename) and not return_raw_output:
+            self._save_audio(out, save_to_filename)
+        return out
+
+    def _save_audio(self, audio, filename: str):
+        """Each waveform of the batch as 16-bit mono WAV ``{i + 1}.{name}``
+        beside ``filename`` (its directory made if missing), at the model's
+        sampling rate."""
+        path = Path(filename)
+        path.parent.mkdir(exist_ok=True, parents=True)
+        for ind, one in enumerate(audio):
+            if isinstance(one, torch.Tensor):
+                one = one.detach().float().cpu().numpy()
+            save_wav(str(path.parent / f'{ind + 1}.{path.name}'), one, self.sampling_rate)
 
     def _sample(self, cond, *, text, lens, duration, steps, cfg_strength, cfg_null_model,
                 max_duration, vocoder, return_raw_output, noise, generator,

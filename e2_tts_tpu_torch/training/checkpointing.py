@@ -1,0 +1,116 @@
+"""Checkpoint and resume (counterpart of e2_tts_tpu/training/checkpointing.py).
+
+A checkpoint is one ``torch.save`` payload in a directory, as the JAX
+package's orbax checkpoint is one pytree in a directory:
+
+- ``model``: the model's ``state_dict``;
+- ``opt``: the optimizer's ``state_dict`` (ADOPT's ``m``, ``v`` and
+  per-parameter ``step``) without its callables: `Adopt`'s ``lr`` is a
+  schedule, a pure function of the step, which neither pickles nor loads
+  under ``weights_only``, so a load takes it back from the live optimizer;
+- ``ema``: the EMA model's weights and its ``step`` and ``initted`` counters
+  (without them a resumed run copies where it should blend and loses its
+  velocity teacher);
+- ``step``: the global step;
+- ``generator``: the trainer's ``torch.Generator`` state, in place of the
+  JAX train loop's PRNG key;
+- when present: ``duration_predictor``, ``dp_opt`` and ``accumulation`` (the
+  gradient accumulator's partial mean and its micro-step).
+
+A save writes a temporary file in the directory and moves it over the
+checkpoint with ``os.replace``, so a reader sees the old checkpoint or the
+new one, never a part of either. A load reads with ``weights_only=True``.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import torch
+
+from e2_tts_tpu_torch.utils.helpers import exists
+
+CHECKPOINT_FILE = 'checkpoint.pt'
+
+
+def _optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer.state_dict()`` with every callable hyperparameter (a
+    learning-rate schedule) left out of its parameter groups."""
+    state = optimizer.state_dict()
+    state['param_groups'] = [{k: v for k, v in group.items() if not callable(v)}
+                             for group in state['param_groups']]
+    return state
+
+
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """`_optimizer_state`'s inverse: the callables come from the live
+    optimizer's groups."""
+    groups = [dict(saved, **{k: v for k, v in live.items() if callable(v)})
+              for saved, live in zip(state['param_groups'], optimizer.param_groups)]
+    optimizer.load_state_dict(dict(state, param_groups=groups))
+
+
+def save_checkpoint(path: str, *, model, optimizer=None, ema=None, step: int = 0,
+                    duration_predictor=None, dp_optimizer=None, generator=None,
+                    accumulator=None) -> str:
+    """Write the checkpoint into the directory ``path``, atomically
+    replacing any previous one; returns the file's path."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    payload = dict(model=model.state_dict(), step=int(step))
+    if exists(optimizer):
+        payload['opt'] = _optimizer_state(optimizer)
+    if exists(ema):
+        payload['ema'] = ema.state_dict()
+    if exists(duration_predictor):
+        payload['duration_predictor'] = duration_predictor.state_dict()
+    if exists(dp_optimizer):
+        payload['dp_opt'] = _optimizer_state(dp_optimizer)
+    if exists(generator):
+        payload['generator'] = generator.get_state()
+    if exists(accumulator):
+        payload['accumulation'] = accumulator.state_dict()
+
+    fd, tmp = tempfile.mkstemp(prefix=f'.{CHECKPOINT_FILE}.', dir=path)
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        target = os.path.join(path, CHECKPOINT_FILE)
+        os.replace(tmp, target)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return target
+
+
+def load_checkpoint(path: str, *, model, optimizer=None, ema=None, duration_predictor=None,
+                    dp_optimizer=None, accumulator=None, map_location=None):
+    """Restore in place; returns ``(step, generator state)``: ``(0, None)``
+    for a missing or empty directory, the state None for a checkpoint
+    without one. A directory that holds other files but no checkpoint
+    raises, as the JAX package's does: it may hold a partial or foreign
+    state."""
+    path = os.path.abspath(path)
+    if not os.path.exists(path) or not os.listdir(path):
+        return 0, None
+    target = os.path.join(path, CHECKPOINT_FILE)
+    if not os.path.isfile(target):
+        raise FileNotFoundError(f'{path} is not empty but holds no {CHECKPOINT_FILE}: '
+                                f'{sorted(os.listdir(path))}')
+    payload = torch.load(target, map_location=map_location, weights_only=True)
+
+    model.load_state_dict(payload['model'])
+    for obj, key in ((optimizer, 'opt'), (dp_optimizer, 'dp_opt')):
+        if exists(obj) and key in payload:
+            _load_optimizer_state(obj, payload[key])
+    for obj, key in ((ema, 'ema'), (duration_predictor, 'duration_predictor'),
+                     (accumulator, 'accumulation')):
+        if exists(obj) and key in payload:
+            obj.load_state_dict(payload[key])
+    generator_state = payload.get('generator')
+    if exists(generator_state):
+        generator_state = generator_state.cpu()
+    return int(payload['step']), generator_state

@@ -9,13 +9,15 @@ inv_gamma)^-power`` clamped to ``[min_value, beta]`` and evaluated at the
 counter + 1 (ema-pytorch increments before computing it). Only
 ``nn.Parameter``s are blended; buffers (the fixed RandomFourierEmbed
 frequencies) stay as copied. `update_model_with_ema` is Switch-EMA
-(arXiv 2402.09240).
+(arXiv 2402.09240). `state_dict` holds the weights and the counters, as the
+JAX EMA's state holds its ``step`` and ``step_initted`` buffers.
 """
 
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -51,11 +53,26 @@ class EMA:
         """One EMA tick (call once per optimizer step)."""
         step = self.step
         if step % self.update_every == 0:
-            d = 0.0 if step <= self.update_after_step else self._decay_at(step + 1)
+            d = np.float32(0.0 if step <= self.update_after_step else self._decay_at(step + 1))
+            # the blend's two weights rounded to f32 as the JAX package's are
+            # (1 - d taken in f32, not in double): on a weight of ~10 the
+            # other rounding of 1 - d moves the blend by an ulp or two
+            d, keep = float(d), float(np.float32(1.0) - d)
             for e, o in zip(self.ema_model.parameters(), model.parameters()):
-                e.copy_((e.float() * d + o.float() * (1.0 - d)).to(e.dtype))
+                e.copy_((e.float() * d + o.float() * keep).to(e.dtype))
             self.initted = True
         self.step = step + 1
+
+    def state_dict(self) -> dict:
+        """The EMA weights and both counters: the counters are plain
+        attributes, so a checkpoint of the weights alone would restart the
+        warmup (copies, not blends) and the velocity teacher's gate."""
+        return dict(model=self.ema_model.state_dict(), step=self.step, initted=self.initted)
+
+    def load_state_dict(self, state: dict):
+        self.ema_model.load_state_dict(state['model'])
+        self.step = int(state['step'])
+        self.initted = bool(state['initted'])
 
     @torch.no_grad()
     def update_model_with_ema(self, model: nn.Module):

@@ -8,13 +8,30 @@ through the port's kernels (K2, K4, K5b, K7 and PyTorch's autograd for the
 rest), a global-norm clip with optax's formula, ADOPT with a linear warmup
 -> linear decay schedule, then the EMA tick. The text-drop coin is a host
 ``random.Random(seed)`` draw per step, as in the JAX trainer; every other
-draw of a step (span, x0, t, dropout seeds) comes from the trainer's
-``torch.Generator``.
+draw of a step (span, x0, t, dropout seeds, the duration predictor's
+prefix) comes from the trainer's ``torch.Generator``.
 
-Not ported yet (each raises NotImplementedError): training the duration
-predictor in the trainer, gradient accumulation, meshes / FSDP / sequence
-parallelism, TensorBoard, the profiler hook, data prefetch workers,
-checkpoint save and resume.
+Gradient accumulation is optax.MultiSteps over the clip and ADOPT: the
+grads of ``grad_accumulation_steps`` micro-batches are averaged, and clip
+plus ADOPT act on the mean once every k calls, so ADOPT's step (and the
+schedule) counts updates; the EMA still ticks on every micro-step, and the
+global step, ``save_step`` and the ``'lr'`` tag count micro-steps. With a
+``duration_predictor`` each step also takes its loss on the batch (no text)
+and logs it as ``'duration loss'``; with ``train_duration_predictor=True``
+that loss is optimised by its own clip + ADOPT on the same schedule,
+stepping on every micro-step (the JAX trainer's ``dp_tx`` has no
+MultiSteps).
+
+`train` resumes from the checkpoint in ``checkpoint_path`` when there is
+one (training/checkpointing.py) and saves every ``save_step`` steps. Its
+resume semantics are the JAX trainer's: the epoch loop starts again at
+epoch 0 with the same per-epoch shuffles, so the batches an interrupted
+epoch already consumed are not skipped, and the text-drop coin's
+``random.Random(seed)`` is seeded anew at every `train`; the generator takes
+the saved state, or ``seed + start step`` without one.
+
+Not ported (each raises NotImplementedError): device meshes, FSDP and
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -27,8 +44,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from e2_tts_tpu_torch.training import checkpointing
 from e2_tts_tpu_torch.training.adopt import Adopt
-from e2_tts_tpu_torch.training.data import iter_batches
+from e2_tts_tpu_torch.training.data import iter_batches, prefetch
 from e2_tts_tpu_torch.training.ema import EMA
 from e2_tts_tpu_torch.utils.helpers import default, exists
 
@@ -71,6 +89,54 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+def _grads(params: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each parameter's grad, a zero one where the step did not reach it
+    (the text stream when the text is dropped): in JAX such a grad is
+    zero, and ADOPT still decays its moments."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+class GradientAccumulator:
+    """optax.MultiSteps' accumulation (``use_grad_mean=True``): the running
+    mean of each parameter's grad by Welford's update ``acc + (g - acc) /
+    (n + 1)``, emitted and reset every ``every_k`` calls."""
+
+    def __init__(self, params, every_k: int):
+        self.every_k = int(every_k)
+        self.grads = [torch.zeros_like(p) for p in params]
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def add(self, grads: list[torch.Tensor]) -> bool:
+        """Fold one micro-step's grads into the mean; True when this call
+        completes the k-th, and ``self.grads`` then holds the mean."""
+        n = self.mini_step
+        for acc, g in zip(self.grads, grads):
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.every_k
+        return self.mini_step == 0
+
+    @torch.no_grad()
+    def reset(self):
+        for acc in self.grads:
+            acc.zero_()
+
+    def state_dict(self) -> dict:
+        return dict(grads=list(self.grads), mini_step=self.mini_step)
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        if len(state['grads']) != len(self.grads):
+            raise ValueError(f'{len(state["grads"])} accumulated grads for '
+                             f'{len(self.grads)} parameters')
+        for acc, saved in zip(self.grads, state['grads']):
+            acc.copy_(saved)
+        self.mini_step = int(state['mini_step'])
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
 
@@ -107,38 +173,45 @@ class E2Trainer:
         """``optimizer``: a ready optimizer over ``model``'s parameters
         (default: `Adopt` on the warmup/decay schedule). ``total_steps``
         fixes the schedule's horizon; None derives it from the dataset at
-        `train`. ``dtype`` sets the compute dtype of every submodule
-        (parameters stay f32). The trainer runs on the model's device."""
-        for flag, what in ((exists(duration_predictor) or train_duration_predictor,
-                            'training the duration predictor in E2Trainer'),
-                           (grad_accumulation_steps > 1, 'gradient accumulation'),
-                           (exists(mesh), 'a device mesh'),
+        `train`. ``dtype`` sets the compute dtype of every submodule of the
+        model and of the duration predictor (parameters stay f32).
+        ``profile_dir``: a torch.profiler Chrome trace of the global steps
+        in ``[profile_steps[0], profile_steps[1])`` is written there. The
+        trainer runs on the model's device."""
+        for flag, what in ((exists(mesh), 'a device mesh'),
                            (param_sharding != 'replicated', f'param_sharding={param_sharding!r}'),
-                           (sequence_parallel > 1, 'sequence parallelism'),
-                           (use_tensorboard, 'TensorBoard logging'),
-                           (exists(profile_dir), 'the profiler hook (profile_dir)')):
+                           (sequence_parallel > 1, 'sequence parallelism')):
             if flag:
                 _not_ported(what)
+        if grad_accumulation_steps < 1:
+            raise ValueError(f'grad_accumulation_steps must be >= 1, got {grad_accumulation_steps}')
         if exists(log_file):
             logger.addHandler(logging.FileHandler(log_file))
 
         if exists(dtype):
-            for module in model.modules():
-                if 'dtype' in vars(module):
-                    module.dtype = dtype
+            for module in filter(exists, (model, duration_predictor)):
+                for sub in module.modules():
+                    if 'dtype' in vars(sub):
+                        sub.dtype = dtype
 
         self.model = model
         self.device = model.device
+        self.duration_predictor = duration_predictor
+        self.train_duration_predictor = train_duration_predictor and exists(duration_predictor)
         self.need_velocity_consistent_loss = model.velocity_consistency_weight > 0.0
         self.ema = EMA(model, **ema_kwargs)
         self.use_switch_ema = use_switch_ema
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
         self.target_sample_rate = sample_rate
+        self.grad_accumulation_steps = grad_accumulation_steps
+        self.accumulator = (GradientAccumulator(model.parameters(), grad_accumulation_steps)
+                            if grad_accumulation_steps > 1 else None)
         self.learning_rate = learning_rate
         self._user_optimizer = optimizer
         self.schedule = None
         self.optimizer = None
+        self.dp_optimizer = None
         if exists(total_steps):
             self._build_optimizer(total_steps)
 
@@ -146,12 +219,28 @@ class E2Trainer:
         self.seed = seed
         self.log_step = max(int(log_step), 1)
         self.generator = torch.Generator().manual_seed(seed)
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
+
+        self.writer = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.writer = SummaryWriter(log_dir=tensorboard_log_dir)
+            except ImportError:
+                logger.warning('tensorboard unavailable; scalar logging disabled')
 
     def _build_optimizer(self, total_steps: int):
         self.schedule = linear_warmup_decay_schedule(
             self.learning_rate, self.num_warmup_steps, total_steps)
         self.optimizer = default(self._user_optimizer,
                                  Adopt(self.model.parameters(), lr=self.schedule))
+        self.dp_optimizer = (Adopt(self.duration_predictor.parameters(), lr=self.schedule)
+                             if self.train_duration_predictor else None)
+
+    def _as_device(self, t, dtype):
+        return torch.as_tensor(t, dtype=dtype).to(self.device)
 
     # -- one step --------------------------------------------------------------
 
@@ -174,89 +263,209 @@ class E2Trainer:
 
     def train_step(self, mel, mel_lens, text_ids, drop_text_cond: bool, *,
                    times=None, noise=None, rand_span_mask=None):
-        """One optimizer step on a batch: ``mel (b, n, num_channels)``,
+        """One micro-step on a batch: ``mel (b, n, num_channels)``,
         ``mel_lens (b,)``, ``text_ids (b, nt)`` (-1 padded). Loss, backward,
-        clip, ADOPT, EMA tick. ``times``, ``noise`` and ``rand_span_mask``
-        replace the step's draws (see `E2TTS.forward`). Returns ``(loss,
-        cond, pred_data)``, detached, with no host sync."""
+        then clip and ADOPT (on the accumulated mean, every
+        ``grad_accumulation_steps``-th call), then the EMA tick. ``times``,
+        ``noise`` and ``rand_span_mask`` replace the step's draws (see
+        `E2TTS.forward`). Returns ``(loss, cond, pred_data)``, detached, with
+        no host sync."""
         if not exists(self.optimizer):
             raise RuntimeError('the optimizer is built at train() or from total_steps=')
         model = self.model
         model.train()
-        as_tensor = lambda t, dtype: torch.as_tensor(t, dtype=dtype).to(self.device)
         teacher = (self.ema.ema_model
                    if self.need_velocity_consistent_loss and self.ema.initted else None)
         self.optimizer.zero_grad(set_to_none=True)
-        out = model(as_tensor(mel, torch.float32), text=as_tensor(text_ids, torch.long),
-                    lens=as_tensor(mel_lens, torch.long), times=times, noise=noise,
+        out = model(self._as_device(mel, torch.float32),
+                    text=self._as_device(text_ids, torch.long),
+                    lens=self._as_device(mel_lens, torch.long), times=times, noise=noise,
                     rand_span_mask=rand_span_mask, drop_text_cond=drop_text_cond,
                     velocity_consistency_model=teacher, generator=self.generator)
         out.loss.backward()
-        # a parameter the step did not reach (the text stream when the text is
-        # dropped) has a zero grad, as in JAX: ADOPT still decays its moments
         params = list(model.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in params], self.max_grad_norm)
-        self.optimizer.step()
+        grads = _grads(params)
+        acc = self.accumulator
+        if acc is None or acc.add(grads):
+            if exists(acc):             # the optimizer acts on the mean
+                for p, mean in zip(params, acc.grads):
+                    p.grad = mean
+            clip_by_global_norm_([p.grad for p in params], self.max_grad_norm)
+            self.optimizer.step()
+            if exists(acc):
+                self.optimizer.zero_grad(set_to_none=True)
+                acc.reset()
         self.ema.update(model)
         return out.loss.detach(), out.cond, out.pred_data.detach()
 
-    # -- train loop --------------------------------------------------------------
+    def duration_step(self, mel, mel_lens, *, rand_frac=None) -> torch.Tensor:
+        """The duration predictor's loss on a batch without text (``mel (b,
+        n, d)``, ``mel_lens (b,)``): with ``train_duration_predictor`` one
+        step of its own (backward, clip, ADOPT), else under no_grad. The
+        random prefix ``rand_frac (b,)`` is drawn from the trainer's
+        generator unless given. Returns the loss, detached."""
+        dp = self.duration_predictor
+        if not exists(dp):
+            raise RuntimeError('the trainer has no duration predictor')
+        mel = self._as_device(mel, torch.float32)
+        lens = self._as_device(mel_lens, torch.long)
+        if not self.train_duration_predictor:
+            with torch.no_grad():
+                return dp(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
+                          generator=self.generator)
+        if not exists(self.dp_optimizer):
+            raise RuntimeError('the optimizer is built at train() or from total_steps=')
+        self.dp_optimizer.zero_grad(set_to_none=True)
+        loss = dp(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
+                  generator=self.generator)
+        loss.backward()
+        clip_by_global_norm_(_grads(list(dp.parameters())), self.max_grad_norm)
+        self.dp_optimizer.step()
+        return loss.detach()
+
+    # -- checkpoints (JAX trainer.py:251-265) -------------------------------------
+
+    def save_checkpoint(self, step: int) -> str:
+        """Everything `train` needs to continue from ``step``, in
+        ``checkpoint_path``; returns the file's path."""
+        trained_dp = self.train_duration_predictor
+        return checkpointing.save_checkpoint(
+            self.checkpoint_path, model=self.model, optimizer=self.optimizer, ema=self.ema,
+            step=step, duration_predictor=self.duration_predictor if trained_dp else None,
+            dp_optimizer=self.dp_optimizer, generator=self.generator,
+            accumulator=self.accumulator)
 
     def load_checkpoint(self):
-        """(start step, saved state): a run starts at step 0 when there is no
-        checkpoint; resuming from one is not ported yet."""
-        if os.path.exists(self.checkpoint_path):
-            _not_ported(f'resuming from the checkpoint at {self.checkpoint_path!r}')
-        return 0, None
+        """Restore from ``checkpoint_path`` in place; returns ``(step,
+        generator state)``, ``(0, None)`` when there is no checkpoint. The
+        generator is not touched here: `train` sets it."""
+        trained_dp = self.train_duration_predictor
+        return checkpointing.load_checkpoint(
+            self.checkpoint_path, model=self.model, optimizer=self.optimizer, ema=self.ema,
+            duration_predictor=self.duration_predictor if trained_dp else None,
+            dp_optimizer=self.dp_optimizer, accumulator=self.accumulator,
+            map_location=self.device)
+
+    def resume(self) -> int:
+        """What `train` does first: restore the checkpoint, if there is one,
+        and set the generator to its saved state, or to ``seed + step``
+        without one (JAX trainer.py:318-320). Returns the step to start
+        from."""
+        start_step, generator_state = self.load_checkpoint()
+        if exists(generator_state):
+            self.generator.set_state(generator_state)
+        else:
+            self.generator.manual_seed(self.seed + start_step)
+        return start_step
+
+    # -- tracing and logging ----------------------------------------------------
+
+    def _maybe_profile(self, global_step: int):
+        """A torch.profiler trace of the steps in ``profile_steps``, written
+        as a Chrome trace into ``profile_dir`` when the window closes."""
+        if not exists(self.profile_dir):
+            return
+        start, stop = self.profile_steps
+        if global_step == start and not exists(self._profiler):
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif global_step >= stop and exists(self._profiler):
+            self._stop_profile(global_step)
+
+    def _stop_profile(self, global_step: int):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._profiler.export_chrome_trace(os.path.join(
+            self.profile_dir, f'steps_{self.profile_steps[0]}-{global_step}.trace.json'))
+        self._profiler = None
+
+    def _log_scalar(self, tag, value, step):
+        if exists(self.writer):
+            self.writer.add_scalar(tag, float(value), step)
+
+    def _log_figure(self, tag, mel, step):
+        if not exists(self.writer):
+            return
+        try:
+            from e2_tts_tpu_torch.utils.plotting import plot_spectrogram
+            self.writer.add_figure(tag, plot_spectrogram(mel), step)
+        except ImportError:
+            pass
+
+    # -- train loop (JAX trainer.py:299-452) --------------------------------------
 
     def train(self, train_dataset, epochs: int, batch_size: int, num_workers: int = 0,
               save_step: int = 1000, frame_bucket: int = 64) -> list[tuple[int, float]]:
         """Train over ``train_dataset`` (items ``dict(mel_spec=(d, n),
-        text=str)``) for ``epochs``; logs the loss every ``log_step`` steps
-        and returns ``[(step, loss), ...]``. A run that would reach
-        ``save_step`` raises before it starts: checkpoints are not ported
-        yet."""
-        if num_workers > 0:
-            _not_ported('prefetch workers (num_workers > 0)')
+        text=str)``) for ``epochs``, resuming from ``checkpoint_path`` and
+        saving there every ``save_step`` global steps. ``num_workers > 0``
+        collates batches ahead in a background thread. Logs the loss every
+        ``log_step`` steps and returns ``[(step, loss), ...]`` of this
+        call."""
         model = self.model
         rng = random.Random(self.seed)
-        steps_per_epoch = len(train_dataset) // batch_size
-        if steps_per_epoch * epochs >= save_step:
-            _not_ported(f'checkpoint saving (this run reaches save_step={save_step})')
+        steps_per_epoch = max(len(train_dataset) // batch_size, 1)
         if not exists(self.optimizer):
-            self._build_optimizer(max(max(steps_per_epoch, 1) * epochs,
-                                      self.num_warmup_steps + 1))
-        global_step, _ = self.load_checkpoint()
+            self._build_optimizer(max(steps_per_epoch * epochs, self.num_warmup_steps + 1))
 
+        global_step = self.resume()
         history = []
         for epoch in range(epochs):
             model.train()
-            pending = []
+            pending = []            # (step, loss, duration loss), device tensors
+            epoch_losses = []
 
             def flush():
-                for step, loss in pending:
+                for step, loss, dur_loss in pending:
                     loss = float(loss)
                     logger.info(f'step {step + 1}: loss = {loss:.4f}')
                     history.append((step, loss))
+                    epoch_losses.append(loss)
+                    self._log_scalar('loss', loss, step)
+                    if exists(dur_loss):
+                        self._log_scalar('duration loss', dur_loss, step)
+                    self._log_scalar('lr', self.schedule(step), step)
                 pending.clear()
 
-            for batch in iter_batches(train_dataset, batch_size, shuffle=True,
-                                      seed=self.seed + epoch, frame_bucket=frame_bucket):
+            batches = iter_batches(train_dataset, batch_size, shuffle=True,
+                                   seed=self.seed + epoch, frame_bucket=frame_bucket)
+            if num_workers > 0:
+                batches = prefetch(batches, size=max(2, num_workers))
+            for batch in batches:
+                mel, mel_lens, text_ids = self.prepare_batch(batch)
+                mel = self._as_device(mel, torch.float32)
+                mel_lens = self._as_device(mel_lens, torch.long)
+                dur_loss = (self.duration_step(mel, mel_lens)
+                            if exists(self.duration_predictor) else None)
+                self._maybe_profile(global_step)
                 drop_text_cond = rng.random() < model.cond_drop_prob
-                loss, _, _ = self.train_step(*self.prepare_batch(batch), drop_text_cond)
-                pending.append((global_step, loss))
+                loss, cond, pred_data = self.train_step(mel, mel_lens, text_ids, drop_text_cond)
+                pending.append((global_step, loss, dur_loss))
                 global_step += 1
                 if len(pending) >= self.log_step:
                     flush()
+                if global_step % save_step == 0:
+                    flush()
+                    self.save_checkpoint(global_step)
+                    self._log_figure('mel/target', mel[0].cpu().numpy(), global_step)
+                    self._log_figure('mel/mask', cond[0].float().cpu().numpy(), global_step)
+                    self._log_figure('mel/prediction', pred_data[0].float().cpu().numpy(),
+                                     global_step)
             flush()
-            epoch_losses = [loss for step, loss in history[-steps_per_epoch:]]
             if epoch_losses:
-                logger.info(f'epoch {epoch + 1}/{epochs} - average loss = '
-                            f'{sum(epoch_losses) / len(epoch_losses):.4f}')
+                avg = sum(epoch_losses) / len(epoch_losses)
+                logger.info(f'epoch {epoch + 1}/{epochs} - average loss = {avg:.4f}')
+                self._log_scalar('epoch average loss', avg, epoch)
 
+        if exists(self._profiler):
+            self._stop_profile(global_step)
         if self.use_switch_ema:
             self.ema.update_model_with_ema(model)
+        if exists(self.writer):
+            self.writer.close()
         return history

@@ -43,3 +43,33 @@ def perturb(module, seed: int = 0, scale: float = 0.02):
 
 def to_np(x):
     return np.asarray(x.detach().cpu().float().numpy() if hasattr(x, 'detach') else x)
+
+
+def perturb_np(module, seed: int = 0, scale: float = 0.02):
+    """`perturb`'s noise added in numpy, in f32: the same sums without a JAX
+    compile per parameter shape (~4 s of a fresh process here)."""
+    rng = np.random.default_rng(seed)
+    state = jax.tree.map(
+        lambda a: jnp.asarray(np.asarray(a) + np.float32(scale)
+                              * rng.standard_normal(a.shape).astype(np.float32)),
+        nnx.state(module, nnx.Param))
+    nnx.update(module, state)
+    return module
+
+
+def flat_values(state) -> dict:
+    """An ``nnx.State`` (of parameters, grads, ...) as dotted path -> numpy
+    array."""
+    return {'.'.join(map(str, path)): np.asarray(var.get_value() if hasattr(var, 'get_value')
+                                                 else var)
+            for path, var in nnx.to_flat_state(state)}
+
+
+def assert_params_close(jax_flat: dict, module, label: str, atol: float = 1e-6):
+    """Every parameter of the port's ``module`` within ``atol`` of the JAX
+    tree ``jax_flat`` (mapped by `convert.map_jax_tree`)."""
+    from e2_tts_tpu_torch.convert import map_jax_tree
+    mapped = map_jax_tree(jax_flat, {n: tuple(p.shape) for n, p in module.named_parameters()})
+    for name, t in module.named_parameters():
+        np.testing.assert_allclose(t.detach().numpy(), mapped[name], rtol=0, atol=atol,
+                                   err_msg=f'{label} {name}')

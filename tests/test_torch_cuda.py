@@ -959,3 +959,66 @@ def test_flash_packed_sm90_keep_bits(dev, gated):
     _, _, dv, _ = fa.flash_attention_packed_backward(zeros, zeros, eye, None, out, lse, eye,
                                                      **kw)
     assert torch.equal(heads_of(dv) > 0, keep.transpose(-1, -2))
+
+
+# -- the training stack's checkpoints on the card ------------------------------------------
+
+def test_trainer_resume_round_trip(dev, tmp_path):
+    """At the port's test width (SMALL_TF) with dropout 0.1, a trained
+    duration predictor and accumulation 2 on the card: `train` saves after
+    three micro-steps (mid-accumulation); a trainer built from other weights
+    resumes to the same state bit for bit (CUDA tensors, the CPU generator),
+    then one more step on both gives equal losses and a parameter gap of at
+    most 0.1 of the step in L2 norm (K2's dq atomics sum in a run-dependent
+    order; chip_smoke.py's RESUME_STEP_TOL gives the reason)."""
+    from e2_tts_tpu_torch.models.duration import DurationPredictor
+    from e2_tts_tpu_torch.training.data import ArrayDataset
+    from e2_tts_tpu_torch.training.trainer import E2Trainer
+
+    cfg = dict(dim=128, depth=2, heads=4, dim_head=32, num_registers=4, max_seq_len=256,
+               kernel_size=7, dropout=0.1)
+
+    def trainer(seed):
+        gen = torch.Generator().manual_seed(seed)
+        model = E2TTS(transformer=dict(cfg), generator=gen, device=dev)
+        dp = DurationPredictor(transformer=dict(cfg), generator=gen, device=dev)
+        return E2Trainer(model, duration_predictor=dp, train_duration_predictor=True,
+                         dtype=torch.bfloat16, learning_rate=1e-3, num_warmup_steps=0,
+                         total_steps=100, grad_accumulation_steps=2,
+                         checkpoint_path=str(tmp_path / 'ckpt'))
+
+    rng = np.random.default_rng(0)
+    mels = [rng.standard_normal((100, 90 - 7 * (i % 4))).astype(np.float32) for i in range(12)]
+    a = trainer(1)
+    a.train(ArrayDataset(mels, ['hello there', 'ok'] * 6), epochs=1, batch_size=4, save_step=3)
+    b = trainer(2)
+    assert b.resume() == 3
+    for x, y in ((a.model, b.model), (a.ema.ema_model, b.ema.ema_model),
+                 (a.duration_predictor, b.duration_predictor)):
+        sx, sy = x.state_dict(), y.state_dict()
+        assert all(torch.equal(sx[n], sy[n]) for n in sx)
+    for oa, ob in ((a.optimizer, b.optimizer), (a.dp_optimizer, b.dp_optimizer)):
+        sa, sb = oa.state_dict()['state'], ob.state_dict()['state']
+        assert sa.keys() == sb.keys() and all(
+            sa[i]['step'] == sb[i]['step'] and torch.equal(sa[i]['m'], sb[i]['m'])
+            and torch.equal(sa[i]['v'], sb[i]['v']) for i in sa)
+    assert (b.ema.step, b.ema.initted, b.accumulator.mini_step) == (
+        a.ema.step, a.ema.initted, a.accumulator.mini_step) == (3, True, 1)
+    assert all(torch.equal(x, y) for x, y in zip(a.accumulator.grads, b.accumulator.grads))
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+    mel = torch.from_numpy(np.stack([m[:, :64].T for m in mels[:4]])).to(dev)
+    lens = torch.full((4,), 64, device=dev)
+    text = a.prepare_batch(dict(mel=np.zeros((4, 100, 64)), mel_lengths=None,
+                                text=['hello there', 'ok'] * 2))[2]
+    p0 = [p.detach().clone() for p in a.model.parameters()]
+    losses = []
+    for t in (a, b):
+        t.duration_step(mel, lens)
+        losses.append(float(t.train_step(mel, lens, text, drop_text_cond=False)[0]))
+    assert losses[0] == losses[1]
+    sq = lambda x: float(x.double().square().sum())
+    move = math.sqrt(sum(sq(p.detach() - q) for p, q in zip(a.model.parameters(), p0)))
+    gap = math.sqrt(sum(sq(p.detach() - q.detach())
+                        for p, q in zip(a.model.parameters(), b.model.parameters())))
+    assert move > 0 and gap <= 0.1 * move

@@ -292,7 +292,7 @@ def test_sample_generator_is_deterministic(e2tts_pair):
 
 def test_unported_paths_raise(e2tts_pair):
     _, p = e2tts_pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='save_to_filename'):      # audio files need a vocoder
         p.sample(torch.zeros(1, 8, 100), text=['hi'], duration=16, save_to_filename='a.wav')
     with pytest.raises(ValueError):
         p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration, no predictor
