@@ -53,7 +53,9 @@ exit code and no result line:
    is also run and timed unsplit (each block walking every frequency tile
    of its 32 rows), the design its frequency split replaced. A check whose
    plain version leaves out a feature (K1 / K2 / K8 / K9 without the
-   softclamp, K11 at power 1 against the power-2 kernel) must fail. The first case of each kernel is timed:
+   softclamp, K11 at power 1 against the power-2 kernel) or has a fault (K1 /
+   K8 across a few tokens with the softmax scale 5% off) must fail. The
+   first case of each kernel is timed:
    device time per call (100 calls captured in one CUDA graph, timed with
    CUDA events, so host dispatch is left out), its plain version's device
    time (the same way), the one PyTorch call that computes the same
@@ -167,6 +169,28 @@ exit code and no result line:
    evaluation and one with-text train step each with hc_save_state off and
    on at depth 24 under torch.profiler, with the hyper-connection adjoints'
    device time both ways (traces: build/profile/paper_*.json).
+11. adaptive — the adaptive ODE solvers on the flagship (sequential CFG):
+   dopri5, bosh3, fehlberg2 and adaptive_heun at atol = rtol = 1e-5 (f32,
+   depth 2, 256 frames, the 32-point grid) against a 256-step rk4 on the
+   card at `ADAPTIVE_CHECK_TOL`, and dopri5 with one b weight off by 1e-2,
+   which must fail it; dopri5's NFE at depth 2 in bf16 at the model's
+   defaults (1024 frames), which projects the depth-8 run; then one dopri5
+   `sample` at depth 8 in bf16 (at 1e-3 when the projection passes
+   `ADAPTIVE_FULL_DEPTH_S`): NFE, accepted and rejected trial steps,
+   seconds, RTF, launch counts; a NaN fails.
+12. options — the flagship widths with every option on: num_freq_tokens=2
+   (the frequency attention on K1 / K2 / K10), concat_cond,
+   interpolated_text, the FANformer input map and selective remat
+   ('dots_with_no_batch_dims_saveable'): at depth 2 one CFG evaluation bf16
+   against the CPU in f32, one train step f32 against the CPU, the policy
+   and remat=True against remat off; at depth 8 one midpoint sample (RTF,
+   launch counts) and timed `E2Trainer` steps at B=16 x 1024 with remat
+   off, True and the policy (ms a step, peak memory, launch counts).
+   The kernels phase holds K1 / K2 / K10 across 2 and 4 frequency tokens
+   (bf16 and f32, a ragged batch), times them at the flagship's frequency
+   training shape (16,896 sequences of 2 tokens) beside PyTorch's flash
+   attention, and holds K1 / K2 / K10 / K8 / K9 at 66,048 sequences, past
+   gridDim.z's 65,535, on both designs.
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -498,8 +522,25 @@ def kernel_cases(torch, dev, mel_one_tf32):
         gate = randn(b, n, heads, dtype=dtype, scale=2.0) if gated else None
         return q, k, v, mask, gate
 
+    def sdpa_views(heads, dh, *ts):
+        """(b, h, n, dh) views of packed (b, n, h*dh) tensors, as PyTorch's
+        scaled_dot_product_attention takes them."""
+        return [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in ts]
+
+    # across a few (frequency) tokens the outputs are means of a few value
+    # rows of order 1, not ~0.03 as over 1056 keys: bf16 K1 / K8 round each
+    # probability before the product (2**-9 max |v|) and the output after it
+    # (half a bf16 ulp, up to 2**-8 |o|). At max |v| <= 6 that is at most
+    # 0.56 of this limit (0.012 at |o| = 0); a plain version with its softmax
+    # scale 5% off must fail it (`scale_fault`)
+    few_tokens_tol = {bf16: (2e-2, 1e-2), f32: (1e-4, 1e-4)}
+    scale_fault = 'with its softmax scale 5% off'
+
     def attn_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                  softclamp=50.0, qk_scale=1.0, train=False, timed=False):
+                  softclamp=50.0, qk_scale=1.0, train=False, timed=False, library=False):
+        """``library``: time PyTorch's scaled_dot_product_attention beside it
+        (the same function only without mask, softclamp, gate and dropout).
+        Fewer than 8 tokens take `few_tokens_tol`."""
         q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
         D, es = heads * dh, esize(dtype)
         kw = dict(heads=heads, dropout_rate=rate, dropout_seed=1234, gate_logits=gate)
@@ -510,18 +551,44 @@ def kernel_cases(torch, dev, mel_one_tf32):
                                                   softclamp_value=softclamp, **kw),
             plain=lambda: fa.flash_attention_packed_plain(q, k, v, mask, scale=scale,
                                                           softclamp_value=softclamp, **kw),
-            tol=attn_tol[dtype],
-            nbytes=4 * b * n * D * es + b * n * heads * (es + 4) + (b * n if lens else 0),
+            tol=(few_tokens_tol if n < 8 else attn_tol)[dtype],
+            # q, k, v read, o written, lse (+ gate, mask)
+            nbytes=4 * b * n * D * es + b * n * heads * ((es if gated else 0) + 4)
+            + (b * n if lens else 0),
             flops=4 * b * heads * n * n * dh,
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
             sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
-        if qk_scale != 1.0 or softclamp != 50.0:
+        if softclamp is not None and (qk_scale != 1.0 or softclamp != 50.0):
             case['against'] = ('without softclamp', lambda: fa.flash_attention_packed_plain(
                 q, k, v, mask, scale=scale, softclamp_value=None, **kw)[0])
+        elif n < 8:
+            case['against'] = (scale_fault, lambda: fa.flash_attention_packed_plain(
+                q, k, v, mask, scale=1.05 * scale, softclamp_value=softclamp, **kw)[0])
+        if library:
+            q4, k4, v4 = sdpa_views(heads, dh, q, k, v)
+            case['library'] = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=scale)
         cases.append(case)
 
+    def sdpa_backward(heads, dh, q, k, v, dout, scale):
+        """One call of PyTorch's flash-attention backward on (b, h, n, dh)
+        views, from its own forward's output and lse (None where this
+        PyTorch does not have the op)."""
+        try:
+            q4, k4, v4, do4 = sdpa_views(heads, dh, q, k, v, dout)
+            o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
+                torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, scale=scale)
+            call = lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, False, seed, offset,
+                scale=scale)
+            call()
+            return call
+        except (RuntimeError, AttributeError) as e:
+            log(f'library: PyTorch\'s flash-attention backward not timed ({e})')
+            return None
+
     def attn_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                      softclamp=50.0, qk_scale=1.0, timed=False):
+                      softclamp=50.0, qk_scale=1.0, timed=False, library=False):
         q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
         D, es = heads * dh, esize(dtype)
         kw = dict(heads=heads, dropout_rate=rate, dropout_seed=4321, gate_logits=gate)
@@ -537,14 +604,19 @@ def kernel_cases(torch, dev, mel_one_tf32):
                 q, k, v, mask, out, lse, dout, softclamp_value=softclamp, **kw)),
             plain=lambda: bwd(softclamp),
             tol=tol[dtype],
-            # reads q, k, v, do, o, lse, gate (+ mask); writes dq, dk, dv, d gate
-            nbytes=8 * b * n * D * es + b * heads * n * 4 + 2 * b * n * heads * es
+            # reads q, k, v, do, o, lse (+ gate, mask); writes dq, dk, dv (+ d gate)
+            nbytes=8 * b * n * D * es + b * heads * n * 4 + (2 * b * n * heads * es if gated
+                                                              else 0)
             + (b * n if lens else 0),
             flops=10 * b * heads * n * n * dh,     # five n x n x dh products
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
             sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
-        if qk_scale != 1.0 or softclamp != 50.0:
+        if softclamp is not None and (qk_scale != 1.0 or softclamp != 50.0):
             case['against'] = ('without softclamp', lambda: bwd(None))
+        if library:
+            call = sdpa_backward(heads, dh, q, k, v, dout, scale)
+            if call is not None:
+                case['library'] = call
         cases.append(case)
 
     def hc_params(s, d):
@@ -958,15 +1030,18 @@ def kernel_cases(torch, dev, mel_one_tf32):
                                            softclamp_value=softclamp, **kw),
             plain=lambda: fa.flash_attention_plain(q, k, v, mask, scale=dh ** -0.5,
                                                    softclamp_value=softclamp, **kw),
-            tol=attn_tol[dtype],
+            tol=(few_tokens_tol if n < 8 else attn_tol)[dtype],
             # q, k, v read, o written (the useful dh columns), lse (+ mask)
             nbytes=4 * b * heads * n * dh * es + b * heads * n * 4 + (b * n if lens else 0),
             flops=4 * b * heads * n * n * dh,
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
             sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
-        if qk_scale != 1.0 or softclamp != 50.0:
+        if softclamp is not None and (qk_scale != 1.0 or softclamp != 50.0):
             case['against'] = ('without softclamp', lambda: fa.flash_attention_plain(
                 q, k, v, mask, scale=dh ** -0.5, softclamp_value=None, **kw)[0])
+        elif n < 8:
+            case['against'] = (scale_fault, lambda: fa.flash_attention_plain(
+                q, k, v, mask, scale=1.05 * dh ** -0.5, softclamp_value=softclamp, **kw)[0])
         cases.append(case)
 
     def bhnd_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, softclamp=50.0,
@@ -990,7 +1065,7 @@ def kernel_cases(torch, dev, mel_one_tf32):
             flops=10 * b * heads * n * n * dh,     # five n x n x dh products
             peak=PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS,
             sfu=transcendentals(b, heads, n, softclamp), sfu_rate=sfu)
-        if qk_scale != 1.0 or softclamp != 50.0:
+        if softclamp is not None and (qk_scale != 1.0 or softclamp != 50.0):
             case['against'] = ('without softclamp', lambda: bwd(None))
         if timed or not any(c['kernel'] == 'K9' for c in cases):
             # K9's launch alone: the wrapper's delta, dq fill and dq cast left out
@@ -1271,7 +1346,52 @@ def kernel_cases(torch, dev, mel_one_tf32):
         probe_case(f'mode {mode} ({B},8,1056,64) bf16', B, 8, n, 64, mode, timed=True)
         probe_case(f'mode {mode} DiT train ({B},{H},1056,{DH}) bf16', B, H, n, DH, mode,
                    timed=True)
+    freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, n)
     return cases
+
+
+# the frequency attention: each speech layer of a model with num_freq_tokens
+# f attends across the f tokens of every frame, a batch of b (n + registers)
+# sequences of f tokens (no mask, softclamp, gate or dropout; q, k and v
+# strided views of its projection). At the flagship's training batch, 16 x
+# 1056 = 16,896 sequences; at B = 16 and N = 4096 frames, 16 x 4128 = 66,048,
+# past CUDA's 65,535 blocks in gridDim.z, which the launchers split.
+FREQ_TRAIN_BATCH = TRAIN_BATCH * (FRAMES + 32)
+FREQ_BIG_BATCH = TRAIN_BATCH * (4096 + 32)
+
+
+def freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, n):
+    """K1 / K2 / K10 at f = 2 and 4 (bf16 and f32, ragged batches), timed at
+    the flagship's freq training shape beside PyTorch's flash attention
+    (the same function here), and K1 / K2 / K10 / K8 / K9 at 66,048
+    sequences, on both designs."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    fb = FREQ_TRAIN_BATCH
+    free = dict(gated=False, softclamp=None)
+    attn_case(f'freq f=2 train ({fb},2,8x64) bf16', fb, 2, 8, 64, bf16, timed=True,
+              library=True, **free)
+    attn_bwd_case(f'freq f=2 train ({fb},2,8x64) bf16', fb, 2, 8, 64, bf16, timed=True,
+                  library=True, **free)
+    delta_case(f'freq f=2 train ({fb},2,8x64) bf16', fb, 2, 8, 64, bf16, timed=True)
+    for f in (2, 4):
+        for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+            attn_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt, **free)
+            attn_bwd_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt,
+                          **free)
+            delta_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt)
+    big = FREQ_BIG_BATCH
+    for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+        attn_case(f'batch past gridDim.z ({big},2,8x64) {label}', big, 2, 8, 64, dt, **free)
+        attn_bwd_case(f'batch past gridDim.z ({big},2,8x64) {label}', big, 2, 8, 64, dt,
+                      **free)
+        delta_case(f'batch past gridDim.z ({big},2,8x64) {label}', big, 2, 8, 64, dt)
+        # freq_dim_head 8 (K8 / K9's route); 136 runs the wide template's two column chunks
+        for heads, dh in ((8, 8), (1, 136)):
+            bhnd_case(f'batch past gridDim.z ({big},{heads},2,{dh}) {label}', big, 2, heads,
+                      dh, dt, softclamp=None)
+            bhnd_bwd_case(f'batch past gridDim.z ({big},{heads},2,{dh}) {label}', big, 2,
+                          heads, dh, dt, softclamp=None)
 
 
 KERNEL_INFO = {
@@ -1549,20 +1669,36 @@ def build_e2tts(torch, device, dtype, e2tts=None, config=FLAGSHIP, **transformer
     return model.to(device)
 
 
-def expected_launches(model, steps: int, attention='flash_fwd') -> dict:
+def attention_kernels(dim_head: int) -> tuple:
+    """The forward and backward kernels' counters of an attention with
+    ``dim_head``: K1 / K2 where K1 takes the head, else K8 / K9."""
+    return (('flash_fwd', 'flash_bwd') if dim_head in (32, 64, 128) else
+            ('flash_fwd_bhnd', 'flash_bwd_bhnd'))
+
+
+def expected_launches(model, steps: int, attention='flash_fwd', evals=None) -> dict:
     """Launches of one `sample` with sequential CFG, from the model's
     structure: per speech layer K5 once (the conv branch starts a chain),
     K3 twice (attention, feedforward chained), the attention kernel once (K1,
     or K8 for heads K1 does not take), K6 once; per text layer the same again.
     The null pass runs no text stream. Midpoint makes two evaluations per
-    interval, each a cond and a null pass."""
+    interval, each a cond and a null pass (``evals``: the count of
+    evaluations, for a solver that sets its own). With the frequency axis
+    each speech layer also runs the frequency attention (K1 or K8 by its
+    head) behind one more chained connection (K3)."""
     tf = model.transformer
     cond_layers = tf.depth + tf.text_depth
     null_layers = tf.depth
     per_eval = cond_layers + null_layers
-    evals = (steps - 1) * 2
-    return {attention: per_eval * evals, 'geglu_fwd': per_eval * evals,
-            'hc_width': per_eval * evals, 'hc_width_fused': 2 * per_eval * evals}
+    evals = (steps - 1) * 2 if evals is None else evals
+    counts = {attention: per_eval * evals, 'geglu_fwd': per_eval * evals,
+              'hc_width': per_eval * evals, 'hc_width_fused': 2 * per_eval * evals}
+    if tf.has_freq_axis:
+        freq = 2 * tf.depth * evals
+        key = attention_kernels(tf.freq_dim_head)[0]
+        counts[key] = counts.get(key, 0) + freq
+        counts['hc_width_fused'] += freq
+    return counts
 
 
 def check_cfg_eval(torch, dev, model, cpu_model, label, frames=FRAMES,
@@ -1865,19 +2001,20 @@ TRAIN_CHECK_TOL = {'f32': dict(loss=1e-5, grad=1e-4), 'bf16': dict(loss=1e-3, gr
 WAVE_LOSS_TOL = 1e-4
 
 
-def check_train_vs_cpu(torch, dev, label, config, kinds=('f32', 'bf16'), depth=2, frames=512):
-    """One step's loss and grads of ``config`` at ``depth`` on the card, in
-    f32 and in bf16 (``kinds``), against the CPU's f32 step on the same
-    weights and draws (B=2, ``frames`` frames, dropout 0); returns the
-    batch."""
+def check_train_vs_cpu(torch, dev, label, config, kinds=('f32', 'bf16'), depth=2, frames=512,
+                       e2tts=None):
+    """One step's loss and grads of ``config`` (with the E2TTS keyword
+    arguments ``e2tts``) at ``depth`` on the card, in f32 and in bf16
+    (``kinds``), against the CPU's f32 step on the same weights and draws
+    (B=2, ``frames`` frames, dropout 0); returns the batch."""
     small = dict(depth=depth, dropout=0.0)
-    cpu_model = build_e2tts(torch, 'cpu', None, config=config, **small).train()
+    cpu_model = build_e2tts(torch, 'cpu', None, e2tts, config=config, **small).train()
     batch = train_check_batch(torch, cpu_model, frames)
     ref_loss, ref_grad = step_loss_and_grads(torch, cpu_model, batch)
     del cpu_model
     for kind in kinds:
         dtype = torch.bfloat16 if kind == 'bf16' else None
-        model = build_e2tts(torch, dev, dtype, config=config, **small).train()
+        model = build_e2tts(torch, dev, dtype, e2tts, config=config, **small).train()
         loss, grad = step_loss_and_grads(torch, model, batch)
         loss_rel = abs(loss - ref_loss) / abs(ref_loss)
         grad_rel = float((grad - ref_grad).norm() / ref_grad.norm())
@@ -1943,14 +2080,23 @@ def expected_train_launches(model, with_text: bool, save_state: bool = False) ->
     K4s; remat's first forward runs with grad on, so it saves too)."""
     tf = model.transformer
     layers = tf.depth + (tf.text_depth if with_text else 0)
-    fwd = layers * (2 if tf.remat else 1)
-    packed = tf.dim_head in (32, 64, 128)
-    counts = {'flash_fwd' if packed else 'flash_fwd_bhnd': fwd, 'hc_width': fwd,
-              'hc_width_fused': 2 * fwd, 'geglu_fwd': fwd}
-    counts.update({'flash_bwd' if packed else 'flash_bwd_bhnd': layers, 'hc_width_bwd': layers,
-                   'hc_width_fused_bwd': 2 * layers, 'geglu_bwd': layers})
-    if packed:
-        counts['flash_delta'] = layers
+    recompute = 2 if tf.remat else 1
+    fwd = layers * recompute
+    counts = dict(hc_width=fwd, hc_width_fused=2 * fwd, geglu_fwd=fwd, hc_width_bwd=layers,
+                  hc_width_fused_bwd=2 * layers, geglu_bwd=layers)
+    # the attention of every layer that runs; with the frequency axis, the
+    # frequency attention of every speech layer and its chained connection
+    attentions = [(tf.dim_head, layers)]
+    if tf.has_freq_axis:
+        attentions.append((tf.freq_dim_head, tf.depth))
+        counts['hc_width_fused'] += tf.depth * recompute
+        counts['hc_width_fused_bwd'] += tf.depth
+    for dim_head, n in attentions:
+        fwd_key, bwd_key = attention_kernels(dim_head)
+        counts[fwd_key] = counts.get(fwd_key, 0) + n * recompute
+        counts[bwd_key] = counts.get(bwd_key, 0) + n
+        if fwd_key == 'flash_fwd':
+            counts['flash_delta'] = counts.get('flash_delta', 0) + n
     if save_state:
         counts = {SAVE_VARIANT.get(k, k): n for k, n in counts.items()}
     return counts
@@ -2579,6 +2725,319 @@ def log_geglu_sass(_cuda):
         log(line)
 
 
+# -- phase 11: the adaptive ODE solvers ---------------------------------------------
+
+ADAPTIVE_METHODS = ('dopri5', 'bosh3', 'fehlberg2', 'adaptive_heun')
+ADAPTIVE_CHECK_FRAMES = 256
+ADAPTIVE_REF_STEPS = 256
+# rel-L2 of each method (atol = rtol = 1e-5, f32) against a 256-step rk4 over
+# the generated frames, set before the first card run from a CPU rehearsal of
+# the same check at 256 frames: the worst method, fehlberg2, read 6.7e-5, the
+# planted fault (one dopri5 b weight off by 1e-2) 7.8e-3; the limit sits
+# ~10x from each (PERF.md section 6)
+ADAPTIVE_CHECK_TOL = 7e-4
+# the full-depth run at the model's atol = rtol = 1e-5 when the depth-2
+# evaluations project it within this many seconds, else at 1e-3
+ADAPTIVE_FULL_DEPTH_S = 120.0
+ADAPTIVE_FALLBACK_TOL = 1e-3
+# the depth-2 count runs to t = 1 (on the H100: 1,519 evaluations, 7 trial
+# steps of 7 evaluations an interval, in 36.5 s) and stops early only past
+# this many seconds, three times its projection limit
+ADAPTIVE_DEPTH_RATIO = FLAGSHIP['depth'] / 2
+ADAPTIVE_PROBE_STOP_S = 3 * ADAPTIVE_FULL_DEPTH_S / ADAPTIVE_DEPTH_RATIO
+ADAPTIVE_STAGES = dict(dopri5=7, bosh3=4, fehlberg2=3, adaptive_heun=2)
+
+
+class _Stopped(Exception):
+    """A counted sample ran past its seconds."""
+
+
+def step_counts(times, stages):
+    """(accepted, rejected) trial steps of an adaptive solve from the times
+    of its evaluations: a trial evaluates every stage, the first at the
+    trial's start, and a trial was rejected when the next starts where it
+    started. Only whole trials count."""
+    starts = times[:len(times) - len(times) % stages:stages]
+    rejected = sum(a == b for a, b in zip(starts[:-1], starts[1:]))
+    return len(starts) - rejected, rejected
+
+
+def counted_sample(torch, model, prompt, stop_s=None, **kw):
+    """``model.sample(prompt, **kw)`` timed to its end (``cuda.synchronize``),
+    with the times of its vector-field evaluations (one CFG evaluation
+    each; their count is the NFE), taken by wrapping the field `sample`
+    hands to `odeint`. Past ``stop_s`` seconds it stops at the next
+    evaluation and returns None for the output."""
+    from e2_tts_tpu_torch.models import e2tts as e2tts_module
+    times, odeint = [], e2tts_module.odeint
+
+    def counted_odeint(fn, *args, **kwargs):
+        def counted(t, x):
+            if stop_s is not None and time.perf_counter() - t0 > stop_s:
+                raise _Stopped()
+            times.append(float(t))
+            return fn(t, x)
+        return odeint(counted, *args, **kwargs)
+
+    e2tts_module.odeint = counted_odeint
+    out = None
+    synchronize = torch.cuda.synchronize if model.device.type == 'cuda' else (lambda: None)
+    try:
+        synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = model.sample(prompt, **kw)
+        except _Stopped:
+            pass
+        synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        e2tts_module.odeint = odeint
+    return out, times, seconds
+
+
+def planted_dopri5_fault():
+    """dopri5's first b weight off by 1e-2, for as long as the context lasts."""
+    import contextlib
+
+    import numpy as np
+
+    from e2_tts_tpu_torch.ops import ode
+
+    @contextlib.contextmanager
+    def planted():
+        real = ode._ADAPTIVE_TABLEAUS['dopri5']
+
+        def faulty():
+            tab = real()
+            tab.b[0] = np.float32(tab.b[0] + 1e-2)
+            return tab
+        ode._ADAPTIVE_TABLEAUS['dopri5'] = faulty
+        try:
+            yield
+        finally:
+            ode._ADAPTIVE_TABLEAUS['dopri5'] = real
+    return planted()
+
+
+def adaptive_check(torch, dev, frames=ADAPTIVE_CHECK_FRAMES, ref_steps=ADAPTIVE_REF_STEPS):
+    """The four methods at atol = rtol = 1e-5 (f32, depth 2, ``frames``
+    frames, the model's 32-point grid) against a ``ref_steps``-step rk4 on
+    the same device, weights and noise, and the planted dopri5 fault, which
+    must fail the limit."""
+    model = build_e2tts(torch, dev, None, depth=2, dropout=0.0).eval()
+    g = torch.Generator().manual_seed(11)
+    prompt_frames = frames // 4
+    prompt = torch.randn(1, prompt_frames, 100, generator=g).to(dev)
+    kw = dict(text=[TEXT], duration=frames, cfg_strength=1.0,
+              noise=torch.randn(1, frames, 100, generator=g).to(dev))
+    model.odeint_kwargs = dict(method='rk4')
+    ref, times, seconds = counted_sample(torch, model, prompt, steps=ref_steps, **kw)
+    ref = ref[:, prompt_frames:].float()
+    log(f'adaptive check reference: rk4 {ref_steps} steps, f32 depth 2, {frames} frames: '
+        f'NFE={len(times)} seconds={seconds:.3f}')
+    rel = lambda out: float((out[:, prompt_frames:].float() - ref).norm() / ref.norm())
+    results = {}
+    for method in ADAPTIVE_METHODS + ('dopri5 planted fault',):
+        model.odeint_kwargs = dict(method=method.split()[0], atol=1e-5, rtol=1e-5)
+        if method == 'dopri5 planted fault':
+            with planted_dopri5_fault():
+                out, times, seconds = counted_sample(torch, model, prompt, **kw)
+        else:
+            out, times, seconds = counted_sample(torch, model, prompt, **kw)
+        results[method] = rel(out)
+        log(f'adaptive check {method} atol=rtol=1e-5 f32 depth 2: '
+            f'{trial_counts(method.split()[0], times)} seconds={seconds:.3f} '
+            f'rel_l2 vs rk4={results[method]:.3e} (limit {ADAPTIVE_CHECK_TOL:g}; '
+            f'{"must fail" if "fault" in method else "must pass"})')
+    return results
+
+
+def trial_counts(method, times):
+    accepted, rejected = step_counts(times, ADAPTIVE_STAGES[method])
+    return f'NFE={len(times)} accepted={accepted} rejected={rejected}'
+
+
+def phase_adaptive(torch, dev, smi):
+    """The adaptive solvers on the flagship (sequential CFG): the depth-2
+    check against rk4; dopri5's NFE at depth 2 in bf16 at the model's
+    defaults (atol = rtol = 1e-5, 32 grid points, 1024 frames), which
+    projects the full-depth run; then one dopri5 `sample` at depth 8 in bf16
+    (at 1e-3 if the projection passes `ADAPTIVE_FULL_DEPTH_S`) with its NFE,
+    trial steps, seconds, RTF and launch counts."""
+    from e2_tts_tpu_torch.ops import _cuda
+
+    results = adaptive_check(torch, dev)
+    bad = [m for m, r in results.items() if (r > ADAPTIVE_CHECK_TOL) != ('fault' in m)
+           or not math.isfinite(r)]
+    if bad:
+        raise AssertionError(f'adaptive check failed for {bad}: {results}')
+
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randn(1, PROMPT_FRAMES, 100, generator=g).to(dev, torch.bfloat16)
+    sample_kw = dict(text=[TEXT], duration=FRAMES, cfg_strength=1.0, steps=STEPS,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    defaults = dict(method='dopri5', atol=1e-5, rtol=1e-5)
+    warm_up = lambda m: m.sample(prompt, **dict(sample_kw, steps=2))  # allocator, cuBLAS
+    small = build_e2tts(torch, dev, torch.bfloat16, depth=2).eval()     # midpoint
+    warm_up(small)
+    small.odeint_kwargs = defaults
+    out, times, seconds = counted_sample(torch, small, prompt, stop_s=ADAPTIVE_PROBE_STOP_S,
+                                         **sample_kw)
+    del small
+    projected = seconds * ADAPTIVE_DEPTH_RATIO              # host-bound: time ~ layers
+    stopped = out is None
+    more = f' or more (stopped at t={max(times):.4f})' if stopped else ''
+    log(f'adaptive dopri5 NFE at depth 2 bf16, atol=rtol=1e-5, {STEPS} grid points, '
+        f'{FRAMES} frames: {trial_counts("dopri5", times)}{more} '
+        f'seconds={seconds:.3f} projected depth-{FLAGSHIP["depth"]} seconds={projected:.1f}'
+        f'{" or more" if stopped else ""} (limit {ADAPTIVE_FULL_DEPTH_S:g}) [{smi}]')
+    tol = 1e-5 if (not stopped and projected <= ADAPTIVE_FULL_DEPTH_S) else ADAPTIVE_FALLBACK_TOL
+
+    model = build_e2tts(torch, dev, torch.bfloat16).eval()
+    warm_up(model)
+    model.odeint_kwargs = dict(defaults, atol=tol, rtol=tol)
+    _cuda.reset_launch_counts()
+    mel, times, seconds = counted_sample(torch, model, prompt, **sample_kw)
+    counts = dict(_cuda.launch_counts)
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS, evals=len(times)))
+    log(f'adaptive dopri5 sample depth {FLAGSHIP["depth"]} bf16 B=1 frames={FRAMES} '
+        f'atol=rtol={tol:g} cfg=1.0 sequential: {trial_counts("dopri5", times)} '
+        f'seconds={seconds:.4f} '
+        f'rtf={seconds / (FRAMES / FRAMES_PER_SECOND):.5f} '
+        f'nan={bool(torch.isnan(mel).any())} launches={json.dumps(counts, sort_keys=True)} '
+        f'[{smi}]')
+    if tuple(mel.shape) != (1, FRAMES, 100) or not torch.isfinite(mel).all():
+        raise AssertionError('the adaptive sample saturated (NaN) or has a bad shape')
+    if counts != expected:
+        raise AssertionError(f'adaptive launch counts {counts} != expected {expected}')
+    del model, mel
+    torch.cuda.empty_cache()
+
+
+# -- phase 12: every backbone and model option at once ------------------------------
+
+OPTIONS_E2TTS = dict(num_freq_tokens=2, concat_cond=True, interpolated_text=True)
+OPTIONS_TF = dict(attn_fourier_embed_input=True, remat='dots_with_no_batch_dims_saveable')
+OPTIONS_REMAT_GRAD_TOL = 1e-5
+OPTIONS_TRAIN_STEPS_TIMED = 3
+
+
+def phase_options(torch, dev, smi):
+    """The flagship widths with every option on: the frequency axis (f = 2:
+    K1 / K2 / K10 also across frequency tokens), concat_cond, interpolated
+    text, the FANformer input map and selective remat. At depth 2: one CFG
+    evaluation bf16 against the CPU in f32, one train step f32 against the
+    CPU, and remat 'dots_with_no_batch_dims_saveable' against off and
+    against True (f32, dropout 0.1). At depth 8: one midpoint sample with
+    its RTF and launch counts, then timed `E2Trainer` steps at B=16 x 1024
+    with remat off, True and the policy: ms a step, peak memory, launch
+    counts. Returns the sample's and the policy's train steps' launch
+    counts."""
+    import numpy as np
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    model = build_e2tts(torch, dev, torch.bfloat16, OPTIONS_E2TTS, depth=2, **OPTIONS_TF).eval()
+    cpu_model = build_e2tts(torch, 'cpu', None, OPTIONS_E2TTS, depth=2, **OPTIONS_TF).eval()
+    check_cfg_eval(torch, dev, model, cpu_model, 'options (depth 2)')
+    del model, cpu_model
+    batch = check_train_vs_cpu(torch, dev, 'options (depth 2)', dict(FLAGSHIP, **OPTIONS_TF),
+                               kinds=('f32',), e2tts=OPTIONS_E2TTS)
+
+    results = {}
+    for remat in (False, True, OPTIONS_TF['remat']):
+        small = build_e2tts(torch, dev, None, OPTIONS_E2TTS, depth=2, dropout=0.1,
+                            **dict(OPTIONS_TF, remat=remat)).train()
+        _cuda.reset_launch_counts()
+        loss, grad = step_loss_and_grads(torch, small, batch,
+                                         generator=torch.Generator().manual_seed(7))
+        results[remat] = (loss, grad, _cuda.launch_counts['flash_fwd'])
+        del small
+    loss_off, grad_off, fwd_off = results[False]
+    for remat in (True, OPTIONS_TF['remat']):
+        loss, grad, fwd = results[remat]
+        grad_rel = float((grad - grad_off).norm() / grad_off.norm())
+        log(f'options (depth 2) remat={remat!r} vs off, f32 card, dropout 0.1, same weights, '
+            f'draws and generator: loss={loss:.7f} loss_off={loss_off:.7f} '
+            f'grad_rel_l2={grad_rel:.3e} (<= {OPTIONS_REMAT_GRAD_TOL:g}) flash_fwd launches '
+            f'{fwd} / {fwd_off}')
+        if not (loss == loss_off and grad_rel <= OPTIONS_REMAT_GRAD_TOL and fwd == 2 * fwd_off):
+            raise AssertionError(f'remat={remat!r} changes the train step')
+    torch.cuda.empty_cache()
+
+    model = build_e2tts(torch, dev, torch.bfloat16, OPTIONS_E2TTS, **OPTIONS_TF).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randn(1, PROMPT_FRAMES, 100, generator=g).to(dev, torch.bfloat16)
+    sample_kw = dict(text=[TEXT], duration=FRAMES, cfg_strength=1.0,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    model.sample(prompt, steps=2, **sample_kw)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    mel = model.sample(prompt, steps=STEPS, **sample_kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample_counts = dict(_cuda.launch_counts)
+    expected = dict.fromkeys(_cuda.KERNELS, 0)
+    expected.update(expected_launches(model, STEPS))
+    log(f'options sample depth {FLAGSHIP["depth"]} bf16 B=1 frames={FRAMES} '
+        f'NFE={2 * (STEPS - 1)} midpoint cfg=1.0 sequential: seconds={seconds:.4f} '
+        f'rtf={seconds / (FRAMES / FRAMES_PER_SECOND):.5f} params={n_params} '
+        f'launches={json.dumps(sample_counts, sort_keys=True)} [{smi}]')
+    if tuple(mel.shape) != (1, FRAMES, 100) or not torch.isfinite(mel).all():
+        raise AssertionError(f'options sample output bad: shape {tuple(mel.shape)}')
+    if sample_counts != expected:
+        raise AssertionError(f'options launch counts {sample_counts} != expected {expected}')
+    del model, mel
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    dataset = ArrayDataset(
+        [rng.standard_normal((100, FRAMES)).astype(np.float32) for _ in range(TRAIN_BATCH)],
+        [' '.join(rng.choice(words, size=12)) for _ in range(TRAIN_BATCH)])
+    train_counts = None
+    for remat in (False, True, OPTIONS_TF['remat']):
+        model = build_e2tts(torch, dev, torch.bfloat16, OPTIONS_E2TTS, dropout=0.1,
+                            **dict(OPTIONS_TF, remat=remat))
+        trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0,
+                            total_steps=10_000, seed=0)
+        step_batch = trainer.prepare_batch(next(iter_batches(dataset, TRAIN_BATCH, seed=1)))
+        trainer.train_step(*step_batch, drop_text_cond=False)    # warm-up: optimizer state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(*step_batch, drop_text_cond=False)[0]
+                  for _ in range(OPTIONS_TRAIN_STEPS_TIMED)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / OPTIONS_TRAIN_STEPS_TIMED
+        counts = dict(_cuda.launch_counts)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        log(f'options train steps remat={remat!r} depth {FLAGSHIP["depth"]} B={TRAIN_BATCH} '
+            f'frames={FRAMES} dropout 0.1 bf16 with text, {OPTIONS_TRAIN_STEPS_TIMED} steps: '
+            f'ms_per_step={ms:.3f} max_memory_allocated_gib={peak_gib:.3f} '
+            f'loss_finite={finite} last_loss={float(losses[-1]):.5f} '
+            f'launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+        expected = {k: OPTIONS_TRAIN_STEPS_TIMED * n
+                    for k, n in expected_train_launches(model, True).items()}
+        expected = {k: expected.get(k, 0) for k in _cuda.KERNELS}
+        if counts != expected:
+            raise AssertionError(f'options train launch counts {counts} != expected {expected}')
+        if not finite:
+            raise AssertionError('options train loss is not finite')
+        train_counts = counts
+        del model, trainer, step_batch
+        torch.cuda.empty_cache()
+    return sample_counts, train_counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2613,6 +3072,14 @@ def main() -> int:
                 f'{spill_ld} bytes spill loads')
     log_geglu_sass(_cuda)
 
+    phase_start = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f'phase {name} seconds={now - phase_start[0]:.1f}')
+        phase_start[0] = now
+
+    phase_done('build')
     records, train_records = phase_kernels(torch, dev, mel_one_tf32)
     for kid in train_records:
         r, t = records[kid], train_records[kid]
@@ -2623,21 +3090,34 @@ def main() -> int:
     time_hc_save_pairs(torch, dev, smi)
     time_sdpa_yardstick(torch, dev, smi)
     time_probe_floor(torch, dev, smi)
+    phase_done('kernels')
     sample_counts, model = phase_main(torch, dev, smi)
     phase_profile(torch, model)
     del model
     torch.cuda.empty_cache()
+    phase_done('main')
     serve_counts = phase_serve(torch, dev, smi)
     torch.cuda.empty_cache()
+    phase_done('serve')
     phase_train_check(torch, dev)
     train_counts = phase_train(torch, dev, smi)
     torch.cuda.empty_cache()
+    phase_done('train')
     phase_trainer(torch, dev, smi)
     torch.cuda.empty_cache()
+    phase_done('trainer')
     dit_sample_counts, dit_train_counts = phase_dit(torch, dev, smi)
     torch.cuda.empty_cache()
+    phase_done('dit')
     phase_tiny(torch, dev)
+    phase_done('tiny')
     _, _, paper_save_counts = phase_paper(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_done('paper')
+    phase_adaptive(torch, dev, smi)
+    phase_done('adaptive')
+    phase_options(torch, dev, smi)
+    phase_done('options')
 
     kernels = []
     for kid, info in KERNEL_INFO.items():

@@ -24,6 +24,14 @@ Layout rules:
 - an embedding table (``embedding``) becomes ``weight``;
 - RMSNorm ``gamma``, the registers, the hyper-connection parameters and the
   RandomFourierEmbed ``weights`` buffer keep their names and layouts;
+- the options' parameters follow the same rules: with the frequency axis
+  each speech layer's ``freq_attn`` / ``freq_attn_norm`` /
+  ``freq_attn_adaln_zero`` and its fourth hyper-connection
+  (``speech_hcs.<layer>.3``), ``proj_in`` to ``dim * num_freq_tokens``;
+  ``attn_input_fourier_embed.linear``; the interpolated text embedding's
+  ``embed`` (``num_embeds`` rows), ``pos_in`` and ``pos_out``; with
+  ``concat_cond`` a ``proj_in`` from twice the mel channels and no
+  ``cond_proj_in`` on either side;
 - in the Vocos tree, ``backbone.blocks`` is ``backbone.convnext``,
   ``backbone.final_norm`` is ``backbone.final_layer_norm``, ``head.window``
   is ``head.istft.window`` and a LayerNorm ``scale`` is its ``weight`` (the

@@ -31,6 +31,7 @@
 
 #include <mma.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -52,6 +53,13 @@ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 struct Strides {
   long long b, h, r;
 };
+
+// CUDA caps gridDim.z at 65535. Each launcher puts the batch on z and
+// launches it in chunks of at most that many z-blocks; a chunk's blocks
+// read their batch row as b0 + blockIdx.z (/ SPLIT), b0 its first row. The
+// frequency attention's batch, b * (n + registers) sequences of f tokens,
+// passes 65535 at N = 4096 frames with B = 16.
+constexpr int kMaxGridZ = 65535;
 
 __device__ __forceinline__ long long offset(const Strides& s, int bi, int h) {
   return (long long)bi * s.b + (long long)h * s.h;
@@ -90,6 +98,7 @@ struct FwdParams {
   float scale, softclamp, inv_keep;
   unsigned seed, threshold;
   int dropping;
+  int b0 = 0;                 // the launch chunk's first batch row
 };
 
 template <typename T, int DHP, int SPLIT = 1>
@@ -195,7 +204,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y;
-  const int bi = blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
+  const int bi = p.b0 + blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
   const int n = p.n, dh = p.dh;
   const int c0 = split * DHP, dh_own = min(DHP, dh - c0);  // this block's output columns
   const T* qg = static_cast<const T*>(p.q) + offset(p.qs, bi, h);
@@ -317,9 +326,15 @@ cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + BQ - 1) / BQ, p.heads, p.b * SPLIT);
-  flash_fwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(p);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < p.b; b0 += kMaxGridZ / SPLIT) {
+    FwdParams chunk = p;
+    chunk.b0 = b0;
+    dim3 grid((p.n + BQ - 1) / BQ, p.heads, std::min(p.b - b0, kMaxGridZ / SPLIT) * SPLIT);
+    flash_fwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // --------------------------------------------------------------- backward
@@ -342,6 +357,7 @@ struct BwdParams {
   float scale, softclamp, inv_keep;
   unsigned seed, threshold;
   int dropping;
+  int b0 = 0;                 // the launch chunk's first batch row
 };
 
 template <typename T, int DHP>
@@ -515,7 +531,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * BK, h = blockIdx.y;
-  const int bi = blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
+  const int bi = p.b0 + blockIdx.z / SPLIT, split = blockIdx.z % SPLIT;
   const int n = p.n, H = p.heads, dh = p.dh;
   const int c0 = split * DHP, dh_own = min(DHP, dh - c0);  // this block's grad columns
   const T* qg = static_cast<const T*>(p.q) + offset(p.qs, bi, h);
@@ -655,9 +671,15 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + BK - 1) / BK, p.heads, p.b * SPLIT);
-  flash_bwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(p);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < p.b; b0 += kMaxGridZ / SPLIT) {
+    BwdParams chunk = p;
+    chunk.b0 = b0;
+    dim3 grid((p.n + BK - 1) / BK, p.heads, std::min(p.b - b0, kMaxGridZ / SPLIT) * SPLIT);
+    flash_bwd_kernel<T, DHP, SPLIT><<<grid, NTHREADS, L::bytes, stream>>>(chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPer
   bf16* sK = reinterpret_cast<bf16*>(smem) + NWG * L::TILE;  // stage st at sK + st * TILE
   bf16* sV = sK + 2 * L::TILE;
 
-  const int q0 = blockIdx.x * ROWS * NWG + wg * ROWS, h = blockIdx.y, bi = blockIdx.z;
+  const int q0 = blockIdx.x * ROWS * NWG + wg * ROWS, h = blockIdx.y, bi = p.b0 + blockIdx.z;
   const int n = p.n, dh = p.dh;
   const bf16* qg = static_cast<const bf16*>(p.q) + offset(p.qs, bi, h);
   const bf16* kg = static_cast<const bf16*>(p.k) + offset(p.ks, bi, h);
@@ -476,9 +476,15 @@ cudaError_t launch_fwd_nwg(const FwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + ROWS * NWG - 1) / (ROWS * NWG), p.heads, p.b);
-  flash_fwd_kernel<DHP, NWG, PROBE><<<grid, THREADS * NWG, L::bytes, stream>>>(p);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < p.b; b0 += kMaxGridZ) {   // z chunks: flash_attention.cuh
+    FwdParams chunk = p;
+    chunk.b0 = b0;
+    dim3 grid((p.n + ROWS * NWG - 1) / (ROWS * NWG), p.heads, std::min(p.b - b0, kMaxGridZ));
+    flash_fwd_kernel<DHP, NWG, PROBE><<<grid, THREADS * NWG, L::bytes, stream>>>(chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 inline int sm_count() {
@@ -543,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, BwdLayout<DHP>::kBlocksPerSM)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, bi = blockIdx.z;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, bi = p.b0 + blockIdx.z;
   const int n = p.n, H = p.heads, dh = p.dh;
   const bf16* qg = static_cast<const bf16*>(p.q) + offset(p.qs, bi, h);
   const bf16* kg = static_cast<const bf16*>(p.k) + offset(p.ks, bi, h);
@@ -749,9 +755,15 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + ROWS - 1) / ROWS, p.heads, p.b);
-  flash_bwd_kernel<DHP><<<grid, THREADS, L::bytes, stream>>>(p);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < p.b; b0 += kMaxGridZ) {   // z chunks: flash_attention.cuh
+    BwdParams chunk = p;
+    chunk.b0 = b0;
+    dim3 grid((p.n + ROWS - 1) / ROWS, p.heads, std::min(p.b - b0, kMaxGridZ));
+    flash_bwd_kernel<DHP><<<grid, THREADS, L::bytes, stream>>>(chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace sm90

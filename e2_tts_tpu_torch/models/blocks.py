@@ -31,6 +31,7 @@ from e2_tts_tpu_torch.utils.helpers import (
     default, divisible_by, exists, round_up_to_multiple,
 )
 from e2_tts_tpu_torch.utils.masking import pad_to_length
+from e2_tts_tpu_torch.utils.tensor import masked_interpolate_1d
 
 # std of a unit normal truncated to [-2, 2]: lecun-normal divides by it
 _TRUNC_STD = 0.87962566103423978
@@ -156,6 +157,26 @@ class RandomFourierEmbed(nn.Module):
         return torch.cat((xf, freqs.sin(), freqs.cos()), dim=-1)
 
 
+class LinearFourierEmbed(nn.Module):
+    """FANformer pre-attention map (arXiv 2502.21309): a bias-free linear to
+    ``int(p * dim)`` fourier features, sent out as their sin and cos, plus
+    the rest of the width as is."""
+
+    def __init__(self, dim: int, p: float = 0.5, *, dtype=None, generator=None):
+        super().__init__()
+        assert p <= 1.0
+        dim_fourier = int(p * dim)
+        dim_rest = dim - dim_fourier * 2
+        self.dim_fourier = dim_fourier
+        self.linear = Linear(dim, dim_fourier + dim_rest, bias=False, dtype=dtype,
+                             generator=generator)
+
+    def forward(self, x):
+        hiddens = self.linear(x)
+        fourier, rest = hiddens[..., :self.dim_fourier], hiddens[..., self.dim_fourier:]
+        return torch.cat((fourier.sin(), fourier.cos(), rest), dim=-1)
+
+
 class CharacterEmbed(nn.Module):
     """ids + 1 (0 = filler), truncate / right-pad to the mel length, embed."""
 
@@ -172,6 +193,42 @@ class CharacterEmbed(nn.Module):
         text = pad_to_length(text[:, :max_seq_len], max_seq_len, value=0)
         out = self.embed(text.clamp(min=0))
         return cast(out, self.dtype) if exists(self.dtype) else out
+
+
+class InterpolatedCharacterEmbed(nn.Module):
+    """Text embeddings resampled to each sample's audio length (bilinear,
+    `masked_interpolate_1d`), plus an MLP over the interpolated absolute
+    text position ``i * text_len / max(audio_len - 1, 1)``. Text ids are
+    -1-padded; the table has ``num_embeds`` rows (no filler row). The audio
+    length is ``mask``'s count, else ``max_seq_len``; frames outside the
+    mask are zero."""
+
+    def __init__(self, dim: int, num_embeds: int = 256, *, dtype=None, generator=None):
+        super().__init__()
+        self.dim = dim
+        self.dtype = dtype
+        self.embed = nn.Embedding(num_embeds, dim)
+        with torch.no_grad():
+            self.embed.weight.normal_(0.0, num_embeds ** -0.5, generator=generator)
+        self.pos_in = Linear(1, dim, dtype=dtype, generator=generator)
+        self.pos_out = Linear(dim, dim, dtype=dtype, generator=generator)
+
+    def forward(self, text: torch.Tensor, max_seq_len: int, mask=None):
+        src_lens = (text >= 0).sum(dim=-1)            # pads are a suffix
+        tgt_lens = (mask.sum(dim=-1) if exists(mask) else
+                    torch.full_like(src_lens, max_seq_len))
+        embeds = self.embed(text.clamp(min=0))        # pads read id 0, never gathered
+        if exists(self.dtype):
+            embeds = cast(embeds, self.dtype)
+        interp = masked_interpolate_1d(embeds, src_lens, tgt_lens, max_seq_len)
+
+        i = torch.arange(max_seq_len, dtype=torch.float32, device=text.device)[None, :]
+        denom = torch.clamp(tgt_lens.float() - 1.0, min=1.0)[:, None]
+        abs_pos = i * (src_lens.float()[:, None] / denom)
+        out = interp + self.pos_out(F.silu(self.pos_in(abs_pos[..., None])))
+        if exists(mask):
+            out = torch.where(mask[..., None], out, 0.0)
+        return out
 
 
 # multistream glue -----------------------------------------------------------

@@ -5,7 +5,9 @@ the dual-stream `Transformer` without time conditioning; the embedding is
 pooled by a masked mean and read out by an HL-Gauss head (softplus
 regression by default). For the loss the model sees a random prefix of each
 sample: everything at or beyond ``int(rand_frac * len)`` is masked, and the
-target is the full length.
+target is the full length. With ``num_freq_tokens > 1`` each frame is
+projected to that many tokens for a backbone with the frequency axis, and
+the tokens are averaged before pooling.
 """
 
 from __future__ import annotations
@@ -41,23 +43,29 @@ class DurationPredictor(nn.Module):
         """``generator`` draws the initial weights and stays the default
         source of the random prefix of `forward`."""
         super().__init__()
-        if num_freq_tokens > 1:
-            raise NotImplementedError('the frequency axis (num_freq_tokens > 1) is not '
-                                      'ported to e2_tts_tpu_torch yet')
+        if num_freq_tokens < 1:
+            raise ValueError(f'num_freq_tokens must be positive, got {num_freq_tokens}')
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.num_freq_tokens = num_freq_tokens
+        self.has_freq_axis = num_freq_tokens > 1
         if isinstance(transformer, dict):
+            transformer = dict(transformer)
+            transformer.setdefault('has_freq_axis', self.has_freq_axis)
             transformer = Transformer(**transformer, cond_on_time=False, dtype=dtype,
                                       generator=generator, device=device)
         if transformer.cond_on_time:
             raise ValueError('the duration predictor takes a transformer with cond_on_time=False')
+        if transformer.has_freq_axis != self.has_freq_axis:
+            raise ValueError('the transformer needs has_freq_axis iff num_freq_tokens > 1')
         self.transformer = transformer
         self.dim = dim = transformer.dim
 
         self.mel_spec = MelSpec(**mel_spec_kwargs)
         self.num_channels = default(num_channels, self.mel_spec.n_mel_channels)
-        self.proj_in = Linear(self.num_channels, dim, dtype=dtype, generator=generator)
+        self.proj_in = Linear(self.num_channels, dim * num_freq_tokens, dtype=dtype,
+                              generator=generator)
         self.tokenizer, text_num_embeds = resolve_tokenizer(tokenizer, text_num_embeds)
         self.embed_text = CharacterEmbed(transformer.dim_text, num_embeds=text_num_embeds,
                                          dtype=dtype, generator=generator)
@@ -83,6 +91,8 @@ class DurationPredictor(nn.Module):
         x = as_mel(self.mel_spec, x.to(device), self.num_channels)
         batch, seq_len = x.shape[0], x.shape[1]
         x = self.proj_in(x)
+        if self.has_freq_axis:                       # (b, f, n, dim)
+            x = x.reshape(batch, seq_len, self.num_freq_tokens, self.dim).transpose(1, 2)
 
         text = tokenize_batch(self.tokenizer, text, batch, device)
         text_embed = self.embed_text(text, seq_len) if exists(text) else None
@@ -104,6 +114,8 @@ class DurationPredictor(nn.Module):
 
         embed = self.transformer(x, mask=mask, text_embed=text_embed,
                                  generator=default(generator, self.generator))
+        if self.has_freq_axis:
+            embed = embed.mean(dim=1)
         pooled = maybe_masked_mean(embed, mask)
         if not return_loss:
             return self.hl_gauss_layer(pooled)

@@ -27,10 +27,15 @@ waveforms with the port's own `Vocos` (the JAX package's
 ``save_to_filename`` writes each decoded waveform as a 16-bit mono WAV
 ``{i + 1}.{name}`` beside the path, as the JAX package does.
 
-The port covers the flagship form (``concat_cond=False``). Not ported yet
-(each raises): the external torch ``vocos`` package
-(``vocos_backend='torch'``), ``concat_cond``, interpolated text and the
-frequency axis.
+Options, as in the JAX package: ``num_freq_tokens > 1`` projects each
+frame to ``num_freq_tokens`` tokens for a backbone with the frequency axis
+and averages them before the prediction head; ``concat_cond`` concatenates
+the condition to the input before one projection (no ``cond_proj_in``);
+``interpolated_text`` resamples the text embeddings to each sample's
+length (`InterpolatedCharacterEmbed`). The sampler takes
+``odeint_kwargs``' method, ``atol`` and ``rtol`` (ops/ode.py: fixed-grid or
+adaptive). The external torch ``vocos`` package (``vocos_backend='torch'``)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from e2_tts_tpu_torch.models.blocks import CharacterEmbed, Linear
+from e2_tts_tpu_torch.models.blocks import CharacterEmbed, InterpolatedCharacterEmbed, Linear
 from e2_tts_tpu_torch.models.duration import DurationPredictor
 from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.mel import MelSpec, as_mel, db_to_amplitude
@@ -66,10 +71,6 @@ def masked_mse(pred, target, span_mask):
     err = torch.where(span_mask[..., None], err, 0.0)
     denom = torch.clamp(span_mask.float().sum() * pred.shape[-1], min=1.0)
     return err.sum() / denom
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
 
 
 class _StaticBox:
@@ -112,22 +113,26 @@ class E2TTS(nn.Module):
         the JAX package's option, of which the port has only ``'jax'``, its
         own on-device Vocos."""
         super().__init__()
-        for flag, what in ((num_freq_tokens > 1, 'the frequency axis (num_freq_tokens > 1)'),
-                           (concat_cond, 'concat_cond'),
-                           (interpolated_text, 'interpolated_text'),
-                           (use_vocos and vocos_backend == 'torch',
-                            "the torch `vocos` package (vocos_backend='torch')")):
-            if flag:
-                _not_ported(what)
+        if use_vocos and vocos_backend == 'torch':
+            raise NotImplementedError("the torch `vocos` package (vocos_backend='torch') is "
+                                      'not ported to e2_tts_tpu_torch')
+        if num_freq_tokens < 1:
+            raise ValueError(f'num_freq_tokens must be positive, got {num_freq_tokens}')
         if vocos_backend not in ('jax', 'torch'):
             raise ValueError(f"vocos_backend must be 'jax' or 'torch', got {vocos_backend!r}")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
+        self.num_freq_tokens = num_freq_tokens
+        self.has_freq_axis = num_freq_tokens > 1
         if isinstance(transformer, dict):
+            transformer = dict(transformer)
+            transformer.setdefault('has_freq_axis', self.has_freq_axis)
             transformer = Transformer(**transformer, dtype=dtype, generator=generator,
                                       device=device)
+        if transformer.has_freq_axis != self.has_freq_axis:
+            raise ValueError('the transformer needs has_freq_axis iff num_freq_tokens > 1')
         self.transformer = transformer
         if isinstance(duration_predictor, dict):
             duration_predictor = DurationPredictor(**duration_predictor, dtype=dtype,
@@ -140,14 +145,20 @@ class E2TTS(nn.Module):
         self.num_channels = num_channels = default(num_channels, self.mel_spec.n_mel_channels)
         self.sampling_rate = default(sampling_rate, self.mel_spec.sampling_rate)
 
-        self.proj_in = Linear(num_channels, dim, dtype=dtype, generator=generator)
-        self.cond_proj_in = Linear(num_channels, dim, dtype=dtype, generator=generator)
+        # the condition: concatenated to the input before one projection, or
+        # projected on its own and added
+        self.concat_cond = concat_cond
+        self.proj_in = Linear(num_channels * (2 if concat_cond else 1), dim * num_freq_tokens,
+                              dtype=dtype, generator=generator)
+        self.cond_proj_in = None if concat_cond else Linear(
+            num_channels, dim * num_freq_tokens, dtype=dtype, generator=generator)
         self.to_pred = Linear(dim, num_channels, dtype=dtype, generator=generator)
 
         self.tokenizer, text_num_embeds = resolve_tokenizer(tokenizer, text_num_embeds)
         self.cond_drop_prob = cond_drop_prob
-        self.embed_text = CharacterEmbed(self.dim_text, num_embeds=text_num_embeds,
-                                         dtype=dtype, generator=generator)
+        embed_cls = InterpolatedCharacterEmbed if interpolated_text else CharacterEmbed
+        self.embed_text = embed_cls(self.dim_text, num_embeds=text_num_embeds, dtype=dtype,
+                                    generator=generator)
         self.frac_lengths_mask = tuple(frac_lengths_mask)
         self.velocity_consistency_weight = velocity_consistency_weight
         self.generator = generator
@@ -166,6 +177,22 @@ class E2TTS(nn.Module):
 
     def _as_mel(self, inp: torch.Tensor) -> torch.Tensor:
         return as_mel(self.mel_spec, inp, self.num_channels)
+
+    def _project_input(self, x, cond):
+        """The projected input ``(b, n, dim)``, or with the frequency axis
+        ``(b, f, n, dim)``."""
+        if self.concat_cond:
+            x = self.proj_in(torch.cat((cond, x), dim=-1))
+        else:
+            x = self.proj_in(x) + self.cond_proj_in(cond)
+        if not self.has_freq_axis:
+            return x
+        b, n, _ = x.shape
+        return x.reshape(b, n, self.num_freq_tokens, self.dim).transpose(1, 2)
+
+    def _head(self, embed):
+        """The prediction head, after the mean over frequency tokens."""
+        return self.to_pred(embed.mean(dim=1) if self.has_freq_axis else embed)
 
     def forward(self, inp: torch.Tensor, *, text=None, times=None, lens=None,
                 noise=None, rand_span_mask=None, velocity_consistency_model=None,
@@ -265,13 +292,13 @@ class E2TTS(nn.Module):
             drop_text_cond = self.training and float(torch.rand(
                 (), generator=generator, device=generator.device)) < self.cond_drop_prob
 
-        x = self.proj_in(x) + self.cond_proj_in(cond)
+        x = self._project_input(x, cond)
         text_embed = None
         if exists(text) and not drop_text_cond:
             text_embed = self.embed_text(text, seq_len, mask=mask)
 
-        pred = self.to_pred(self.transformer(x, times=times, mask=mask, text_embed=text_embed,
-                                             generator=generator))
+        pred = self._head(self.transformer(x, times=times, mask=mask, text_embed=text_embed,
+                                           generator=generator))
         return (pred, drop_text_cond) if return_drop_text_cond else pred
 
     def _cfg_batched_preds(self, x, cond, times, *, text, mask):
@@ -279,13 +306,13 @@ class E2TTS(nn.Module):
         half gates the text->audio cross-condition adds to zero, which is
         exactly a pass with no text conditioning."""
         seq_len, batch = x.shape[-2], x.shape[0]
-        x = self.proj_in(x) + self.cond_proj_in(cond)
+        x = self._project_input(x, cond)
         text_embed = self.embed_text(text, seq_len, mask=mask)
         dup = lambda t: torch.cat((t, t), dim=0) if exists(t) else None
         gate = torch.cat((torch.ones(batch), torch.zeros(batch))).to(x.device)
         embed = self.transformer(dup(x), times=dup(times), mask=dup(mask),
                                  text_embed=dup(text_embed), text_cond_gate=gate)
-        pred2 = self.to_pred(embed)
+        pred2 = self._head(embed)
         return pred2[:batch], pred2[batch:]
 
     def cfg_transformer_with_pred_head(self, x, cond, times, *, text=None, mask=None,
@@ -420,7 +447,9 @@ class E2TTS(nn.Module):
                 cfg_null_model=cfg_null_model, batched_cfg=batched_cfg)
 
         t = np.linspace(0.0, 1.0, steps, dtype=np.float32)
-        sampled = odeint(fn, y0, t, method=self.odeint_kwargs.get('method', 'midpoint'))
+        kw = self.odeint_kwargs
+        sampled = odeint(fn, y0, t, method=kw.get('method', 'midpoint'), atol=kw.get('atol'),
+                         rtol=kw.get('rtol'))
         out = torch.where(cond_mask, cond, sampled)[:, :tmax]
 
         if exists(return_raw_output) and return_raw_output:

@@ -21,12 +21,30 @@ JAX package).
 
 ``remat=True`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nnx.remat``): a layer
-keeps only its inputs, at the cost of a second forward. Its dropout seeds
-are drawn before the layer and handed in, so the recompute draws the
-forward's masks.
+keeps only its inputs, at the cost of a second forward. ``remat`` given the
+name of an argument-free ``jax.checkpoint_policies`` policy is selective
+remat (`checkpoint_policy`): the layer is checkpointed under
+``torch.utils.checkpoint.create_selective_checkpoint_contexts``, which
+keeps the outputs the policy saves and recomputes the rest. A "dot" is
+``aten.mm`` / ``addmm`` / ``bmm`` / ``baddbmm``, one with no batch dims
+``mm`` / ``addmm``. The hand kernels run through ctypes, outside the
+dispatcher, so every policy recomputes them, as JAX recomputes a
+``pallas_call`` under a dots policy. A layer's dropout seeds are drawn
+before the layer and handed in, so any recompute draws the forward's
+masks.
 
-Not ported yet (each raises): the frequency axis, ``scan_layers``, ``remat``
-given a ``jax.checkpoint_policies`` name, the FANformer input embedding.
+With ``has_freq_axis`` the input is ``(b, f, n, d)``: ``f`` frequency
+tokens a frame. The stack runs on the ``(b f)`` folded batch (text, mask,
+text gate and time condition repeated), and each speech layer adds, between
+its attention and its feedforward, attention across the ``f`` tokens of
+each frame (`SpeechLayer.freq_attn`: no softclamp, gate, dropout or
+learned value mix, rotary over f) behind a fourth hyper-connection, which
+joins the layer's depth-fused chain (one K5 launch, then one K3 launch for
+each later connection). ``attn_fourier_embed_input`` maps the speech
+attention's normed input through `LinearFourierEmbed`.
+
+``scan_layers`` is an XLA compile-time mode of the JAX package and raises
+here.
 """
 
 from __future__ import annotations
@@ -36,11 +54,13 @@ from functools import partial
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from e2_tts_tpu_torch.models.blocks import (
     AdaLNZero, AdaptiveRMSNorm, Attention, DepthwiseConv, FeedForward, Identity, Linear,
-    RandomFourierEmbed, RMSNorm, TextAudioCrossCondition, cast, draw_seed,
+    LinearFourierEmbed, RandomFourierEmbed, RMSNorm, TextAudioCrossCondition, cast, draw_seed,
 )
 from e2_tts_tpu_torch.models.hyper_connections import (
     HyperConnection, expand_stream, materialize, reduce_stream,
@@ -49,12 +69,48 @@ from e2_tts_tpu_torch.ops.rotary import rotary_tables
 from e2_tts_tpu_torch.utils.helpers import default, divisible_by, exists, resolve_device
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = _DOTS + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+# the argument-free jax.checkpoint_policies, by name: which ops' outputs a
+# layer keeps (None: every op's)
+_SAVED_OPS = {
+    'everything_saveable': None,
+    'nothing_saveable': (),
+    'dots_saveable': _BATCHED_DOTS,
+    'checkpoint_dots': _BATCHED_DOTS,
+    'dots_with_no_batch_dims_saveable': _DOTS,
+    'checkpoint_dots_with_no_batch_dims': _DOTS,
+}
+
+
+def checkpoint_policy(name: str):
+    """The selective-checkpoint policy function of a ``jax.checkpoint_policies``
+    name: MUST_SAVE for the ops it saves, PREFER_RECOMPUTE for the rest. The
+    module's factories (``save_only_these_names`` and the like) build a
+    policy from arguments, so their bare names raise here (JAX takes them
+    and fails at the first grad)."""
+    if name not in _SAVED_OPS:
+        raise ValueError(f'remat={name!r} is not an argument-free jax.checkpoint_policies '
+                         f'policy; the port takes {sorted(_SAVED_OPS)}, e.g. '
+                         f"'dots_with_no_batch_dims_saveable'")
+    saved = _SAVED_OPS[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        keep = saved is None or op in saved
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
 class SpeechLayer(nn.Module):
-    """Per-layer speech-stream modules."""
+    """Per-layer speech-stream modules; with ``has_freq_axis`` also the
+    attention across frequency tokens, its norm and its gate."""
 
     def __init__(self, *, dim, heads, dim_head, ff_mult, kernel_size, dropout,
-                 is_first_block, is_later_half, cond_on_time, attn_kwargs, ff_kwargs,
-                 dtype, generator):
+                 is_first_block, is_later_half, has_freq_axis, freq_heads, freq_dim_head,
+                 cond_on_time, attn_fourier_embed_input, attn_fourier_embed_input_frac,
+                 attn_kwargs, ff_kwargs, dtype, generator):
         super().__init__()
         norm = (lambda: AdaptiveRMSNorm(dim, dtype=dtype)) if cond_on_time else (
             lambda: RMSNorm(dim))
@@ -64,6 +120,10 @@ class SpeechLayer(nn.Module):
         self.conv = DepthwiseConv(dim, kernel_size=kernel_size, dtype=dtype,
                                   generator=generator)
         self.attn_norm = norm()
+        self.attn_input_fourier_embed = (
+            LinearFourierEmbed(dim, p=attn_fourier_embed_input_frac, dtype=dtype,
+                               generator=generator)
+            if attn_fourier_embed_input else Identity())
         self.attn = Attention(dim, heads=heads, dim_head=dim_head, dropout=dropout,
                               learned_value_residual_mix=not is_first_block,
                               dtype=dtype, generator=generator, **attn_kwargs)
@@ -72,6 +132,12 @@ class SpeechLayer(nn.Module):
         self.ff = FeedForward(dim, mult=ff_mult, dropout=dropout, dtype=dtype,
                               generator=generator, **ff_kwargs)
         self.ff_adaln_zero = gate()
+        self.freq_attn_norm = self.freq_attn = self.freq_attn_adaln_zero = None
+        if has_freq_axis:
+            self.freq_attn_norm = norm()
+            self.freq_attn = Attention(dim, heads=freq_heads, dim_head=freq_dim_head,
+                                       dtype=dtype, generator=generator)
+            self.freq_attn_adaln_zero = gate()
 
 
 class TextLayer(nn.Module):
@@ -110,6 +176,8 @@ class Transformer(nn.Module):
         text_dim_head: int | None = None,
         text_ff_mult: int | None = None,
         has_freq_axis: bool = False,
+        freq_heads: int | None = None,
+        freq_dim_head: int | None = None,
         cond_on_time: bool = True,
         abs_pos_emb: bool = True,
         max_seq_len: int = 8192,
@@ -119,6 +187,7 @@ class Transformer(nn.Module):
         attn_laser: bool = False,
         attn_laser_softclamp_value: float = 15.0,
         attn_fourier_embed_input: bool = False,
+        attn_fourier_embed_input_frac: float = 0.25,
         num_residual_streams: int = 4,
         hc_save_state: bool = False,
         attn_kwargs: dict = dict(gate_value_heads=True, softclamp_logits=True),
@@ -130,12 +199,10 @@ class Transformer(nn.Module):
         device=None,
     ):
         super().__init__()
-        for flag, what in ((has_freq_axis, 'the frequency axis (has_freq_axis)'),
-                           (scan_layers, 'scan_layers'),
-                           (isinstance(remat, str), f'remat={remat!r} (a checkpoint policy)'),
-                           (attn_fourier_embed_input, 'attn_fourier_embed_input')):
-            if flag:
-                raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
+        if scan_layers:
+            raise NotImplementedError('scan_layers is an XLA compile-time mode of the JAX '
+                                      'package; e2_tts_tpu_torch unrolls the layers')
+        self.checkpoint_policy = checkpoint_policy(remat) if isinstance(remat, str) else None
         if not divisible_by(depth, 2):
             raise ValueError('depth needs to be even')
         device = resolve_device(device)
@@ -145,7 +212,8 @@ class Transformer(nn.Module):
         self.dim = dim
         self.depth = depth
         self.dropout = dropout
-        self.remat = bool(remat)
+        self.remat = remat if isinstance(remat, str) else bool(remat)
+        self.has_freq_axis = has_freq_axis
         self.max_seq_len = max_seq_len
         self.num_registers = num_registers
         self.dtype = dtype
@@ -160,6 +228,8 @@ class Transformer(nn.Module):
         self.text_depth = text_depth
         self.dim_head = dim_head
         self.text_dim_head = text_dim_head
+        freq_heads = default(freq_heads, heads)
+        self.freq_dim_head = freq_dim_head = default(freq_dim_head, dim_head)
         self.cond_on_time = cond_on_time
 
         self.abs_pos_emb = None
@@ -183,14 +253,14 @@ class Transformer(nn.Module):
                       ff_kwargs=dict(ff_kwargs), dtype=dtype, generator=generator)
         self.speech_layers = nn.ModuleList()
         self.text_layers = nn.ModuleList()     # one per layer < text_depth
-        self.speech_hcs = nn.ModuleList()      # per layer: [conv, attn, ff]
+        self.speech_hcs = nn.ModuleList()      # per layer: [conv, attn, ff, (freq)]
         self.text_hcs = nn.ModuleList()        # per text layer: [conv, attn, ff]
         hc_index = 0                           # branch counter, in creation order
 
-        def make_hcs(d):
+        def make_hcs(d, count):
             nonlocal hc_index
             hcs = nn.ModuleList()
-            for _ in range(3):
+            for _ in range(count):
                 hcs.append(HyperConnection(d, num_residual_streams, hc_index,
                                            save_state=hc_save_state))
                 hc_index += 1
@@ -200,25 +270,29 @@ class Transformer(nn.Module):
             self.speech_layers.append(SpeechLayer(
                 dim=dim, heads=heads, dim_head=dim_head, ff_mult=ff_mult,
                 kernel_size=kernel_size, dropout=dropout, is_first_block=ind == 0,
-                is_later_half=ind >= depth // 2, cond_on_time=cond_on_time, **common))
-            self.speech_hcs.append(make_hcs(dim))
+                is_later_half=ind >= depth // 2, has_freq_axis=has_freq_axis,
+                freq_heads=freq_heads, freq_dim_head=freq_dim_head, cond_on_time=cond_on_time,
+                attn_fourier_embed_input=attn_fourier_embed_input,
+                attn_fourier_embed_input_frac=attn_fourier_embed_input_frac, **common))
+            self.speech_hcs.append(make_hcs(dim, 3 + int(has_freq_axis)))
             if ind < text_depth:
                 self.text_layers.append(TextLayer(
                     dim=dim, dim_text=dim_text, heads=text_heads, dim_head=text_dim_head,
                     ff_mult=text_ff_mult, kernel_size=kernel_size, dropout=dropout,
                     is_first_block=ind == 0, is_last_text_layer=ind == text_depth - 1,
                     **common))
-                self.text_hcs.append(make_hcs(dim_text))
+                self.text_hcs.append(make_hcs(dim_text, 3))
 
         self.final_norm = RMSNorm(dim)
         self.to(device)
 
-    def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, cond,
-               attn_v, text_v, text_gate, *, push_skip, seeds):
+    def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, freq_rotary, cond,
+               freq_cond, attn_v, text_v, freq_v, text_gate, *, push_skip, seeds, orig_batch):
         """One layer; ``seeds`` are its dropout seeds in the order the
         branches run (text attention, text feedforward, attention,
-        feedforward), empty without dropout. Returns plain tensors (or
-        None), never lazy streams, so it can be checkpointed."""
+        feedforward; the frequency attention has no dropout), empty without
+        dropout. Returns plain tensors (or None), never lazy streams, so it
+        can be checkpointed."""
         sl = self.speech_layers[ind]
         seeds = iter(seeds)
 
@@ -248,35 +322,58 @@ class Transformer(nn.Module):
         if exists(skip):
             x = sl.skip_proj(torch.cat((x, skip), dim=-1))
 
-        conv_hc, attn_hc, ff_hc = self.speech_hcs[ind]
+        conv_hc, attn_hc, ff_hc = self.speech_hcs[ind][:3]
         b_in, add_residual = conv_hc(x)
         x = add_residual(sl.conv(b_in, mask=mask))
 
         b_in, add_residual = attn_hc(x)
-        attn_out, values = sl.attn(sl.attn_norm(b_in, condition=cond), rotary_pos_emb=rotary,
-                                   mask=mask, value_residual=attn_v, dropout_seed=next(seeds, None))
+        h = sl.attn_input_fourier_embed(sl.attn_norm(b_in, condition=cond))
+        attn_out, values = sl.attn(h, rotary_pos_emb=rotary, mask=mask, value_residual=attn_v,
+                                   dropout_seed=next(seeds, None))
         x = add_residual(sl.attn_adaln_zero(attn_out, condition=cond))
         attn_v = default(attn_v, values)
+
+        if self.has_freq_axis:
+            # attention across the f tokens of each frame: (b f) n d -> (b n) f d
+            b_in, add_residual = self.speech_hcs[ind][3](x)
+            bf, n, d = b_in.shape
+            f = bf // orig_batch
+            h = b_in.reshape(orig_batch, f, n, d).transpose(1, 2).reshape(orig_batch * n, f, d)
+            f_out, f_values = sl.freq_attn(sl.freq_attn_norm(h, condition=freq_cond),
+                                           rotary_pos_emb=freq_rotary, value_residual=freq_v)
+            f_out = sl.freq_attn_adaln_zero(f_out, condition=freq_cond)
+            f_out = f_out.reshape(orig_batch, n, f, d).transpose(1, 2).reshape(bf, n, d)
+            x = add_residual(f_out)
+            freq_v = default(freq_v, f_values)
 
         b_in, add_residual = ff_hc(x)
         ff_out = sl.ff(sl.ff_norm(b_in, condition=cond), dropout_seed=next(seeds, None))
         x = add_residual(sl.ff_adaln_zero(ff_out, condition=cond))
 
-        return materialize(x), text_embed, skip_out, attn_v, text_v
+        return materialize(x), text_embed, skip_out, attn_v, text_v, freq_v
 
     def forward(self, x, times=None, mask=None, text_embed=None, text_cond_gate=None,
                 generator: torch.Generator | None = None):
-        """``x (b, n, dim)``, ``times (b,)`` or scalar (given iff the model is
-        conditioned on time), ``mask (b, n)`` bool,
-        ``text_embed (b, n, dim_text)``; ``text_cond_gate (b,)`` scales each
-        sample's text->audio adds (0 = a text-free pass). ``generator``
-        draws the dropout seeds in training mode. Returns ``(b, n, dim)``."""
-        if x.ndim != 3:
-            raise NotImplementedError('the frequency axis (4-dim input) is not ported yet')
+        """``x (b, n, dim)``, or ``(b, f, n, dim)`` with ``has_freq_axis``;
+        ``times (b,)`` or scalar (given iff the model is conditioned on
+        time), ``mask (b, n)`` bool, ``text_embed (b, n, dim_text)``;
+        ``text_cond_gate (b,)`` scales each sample's text->audio adds (0 = a
+        text-free pass). ``generator`` draws the dropout seeds in training
+        mode. Returns the input's shape with ``dim`` features."""
+        if (x.ndim == 4) != self.has_freq_axis:
+            raise ValueError('`has_freq_axis` must be set iff passing a 4-dim (b f n d) tensor')
         if exists(self.dtype):
             x = cast(x, self.dtype)
             if exists(text_embed):
                 text_embed = cast(text_embed, self.dtype)
+
+        orig_batch = x.shape[0]
+        freq_len = 1
+        if self.has_freq_axis:                       # fold: (b f) n d
+            freq_len = x.shape[1]
+            x = x.reshape(orig_batch * freq_len, *x.shape[2:])
+            repeat = lambda t: t.repeat_interleave(freq_len, dim=0) if exists(t) else None
+            text_embed, mask, text_cond_gate = map(repeat, (text_embed, mask, text_cond_gate))
 
         text_gate = text_cond_gate[None, :, None, None] if exists(text_cond_gate) else None
         batch, seq_len = x.shape[0], x.shape[1]
@@ -294,19 +391,24 @@ class Transformer(nn.Module):
             mask = F.pad(mask, (r, 0), value=True)
         packed_len = x.shape[1]
 
-        cond = None
+        cond = freq_cond = None
         if exists(times):
             if times.ndim == 0:
-                times = times.expand(batch)
+                times = times.expand(orig_batch)
             cond = cast(F.silu(self.time_mlp(self.time_fourier(times))), x.dtype)
+            if self.has_freq_axis:
+                freq_cond = cond.repeat_interleave(packed_len, dim=0)     # (b n), d
+                cond = cond.repeat_interleave(freq_len, dim=0)            # (b f), d
 
         rotary = rotary_tables(packed_len, self.dim_head, device=x.device)
-        text_rotary = None
+        text_rotary = freq_rotary = None
         if exists(text_embed):
             text_rotary = rotary_tables(packed_len, self.text_dim_head, device=x.device)
             text_registers = cast(self.text_registers, text_embed.dtype)[None]
             text_embed = torch.cat(
                 (text_registers.expand(batch, r, self.dim_text), text_embed), dim=1)
+        if self.has_freq_axis:
+            freq_rotary = rotary_tables(freq_len, self.freq_dim_head, device=x.device)
 
         s = self.num_residual_streams
         x = expand_stream(x, s)
@@ -314,24 +416,30 @@ class Transformer(nn.Module):
             text_embed = expand_stream(text_embed, s)
 
         dropping = self.training and self.dropout > 0.0
-        remat = self.remat and torch.is_grad_enabled()
+        remat = bool(self.remat) and torch.is_grad_enabled()
+        checkpoint_kw = dict(use_reentrant=False, preserve_rng_state=False)
+        if exists(self.checkpoint_policy):
+            checkpoint_kw['context_fn'] = partial(create_selective_checkpoint_contexts,
+                                                  self.checkpoint_policy)
         skips = []
-        attn_v = text_v = None
+        attn_v = text_v = freq_v = None
         for ind in range(self.depth):
             is_first_half = ind + 1 <= self.depth // 2
             skip_in = None if is_first_half else skips.pop()
             branches = 4 if exists(text_embed) and ind < self.text_depth else 2
             seeds = tuple(draw_seed(generator) for _ in range(branches)) if dropping else ()
-            layer = partial(self._layer, ind, push_skip=is_first_half, seeds=seeds)
-            args = (x, text_embed, skip_in, mask, rotary, text_rotary, cond, attn_v, text_v,
-                    text_gate)
+            layer = partial(self._layer, ind, push_skip=is_first_half, seeds=seeds,
+                            orig_batch=orig_batch)
+            args = (x, text_embed, skip_in, mask, rotary, text_rotary, freq_rotary, cond,
+                    freq_cond, attn_v, text_v, freq_v, text_gate)
             # nothing in a layer reads torch's global generators: no RNG state to keep
-            x, text_embed, skip_out, attn_v, text_v = (
-                checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
-                if remat else layer(*args))
+            x, text_embed, skip_out, attn_v, text_v, freq_v = (
+                checkpoint(layer, *args, **checkpoint_kw) if remat else layer(*args))
             if is_first_half:
                 skips.append(skip_out)
         assert len(skips) == 0
 
         x = reduce_stream(x[:, :, r:, :])
+        if self.has_freq_axis:
+            x = x.reshape(orig_batch, freq_len, *x.shape[1:])
         return self.final_norm(x)

@@ -1022,3 +1022,56 @@ def test_trainer_resume_round_trip(dev, tmp_path):
     gap = math.sqrt(sum(sq(p.detach() - q.detach())
                         for p, q in zip(a.model.parameters(), b.model.parameters())))
     assert move > 0 and gap <= 0.1 * move
+
+
+def _close_few_tokens(out, ref, dtype):
+    """Attention over a few tokens: outputs are means of a few value rows of
+    order 1, and bf16 kernels round each probability before the product
+    (2**-9 max |v|) and the output after it (up to 2**-8 |o|): 2e-2 + 1e-2
+    |ref| in bf16, `TOL` in f32."""
+    tol = dict(atol=2e-2, rtol=1e-2) if dtype == torch.bfloat16 else TOL[dtype]
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.float(), r.float(), **tol)
+
+
+# the frequency attention: a batch of b (n + registers) sequences of f tokens,
+# no mask, softclamp, gate or dropout, q / k / v views of one projection;
+# 66,048 sequences (B = 16 at N = 4096 frames) pass gridDim.z's 65,535
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,f', [(1037, 2), (1037, 4), (66_048, 2)])
+def test_flash_kernels_across_frequency_tokens(dev, dtype, b, f):
+    g = torch.Generator(device=dev).manual_seed(21)
+    h, dh = 8, 64
+    qkv = torch.randn(b, f, 3 * h * dh, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.split(h * dh, dim=-1)
+    kw = dict(heads=h, softclamp_value=None)
+    before = dict(_cuda.launch_counts)
+    out, lse = fa.flash_attention_packed(q, k, v, return_lse=True, **kw)
+    _close_few_tokens((out, lse), fa.flash_attention_packed_plain(q, k, v, scale=dh ** -0.5,
+                                                                  **kw), dtype)
+    with pytest.raises(AssertionError):             # the limit sees a 5% scale fault
+        _close_few_tokens((out,), fa.flash_attention_packed_plain(
+            q, k, v, scale=1.05 * dh ** -0.5, **kw), dtype)
+    dout = torch.randn(b, f, h * dh, generator=g, device=dev).to(dtype)
+    got = fa.flash_attention_packed_backward(q, k, v, None, out, lse, dout, **kw)[:3]
+    ref = fa.flash_attention_packed_backward_plain(q, k, v, None, out, lse, dout,
+                                                   scale=dh ** -0.5, **kw)[:3]
+    _close_grads(got, ref, dtype)
+    for name in ('flash_fwd', 'flash_bwd', 'flash_delta'):
+        assert _cuda.launch_counts[name] == before[name] + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('heads,dh', [(8, 8), (1, 136)])
+def test_bhnd_kernels_past_grid_z(dev, dtype, heads, dh):
+    """K8 / K9 at 66,048 sequences of 2 tokens: dh 8 (the JAX tests'
+    freq_dim_head) and 136 (the wide template's two column chunks)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, n = 66_048, 2
+    q, k, v, dout = (torch.randn(b, heads, n, dh, generator=g, device=dev).to(dtype)
+                     for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, softclamp_value=None)
+    _close_few_tokens((out, lse), fa.flash_attention_plain(q, k, v, scale=dh ** -0.5), dtype)
+    got = fa.flash_attention_backward(q, k, v, None, out, lse, dout, softclamp_value=None)
+    _close_grads(got, fa.flash_attention_backward_plain(q, k, v, None, out, lse, dout,
+                                                        scale=dh ** -0.5), dtype)

@@ -298,16 +298,23 @@ def test_unported_paths_raise(e2tts_pair):
         p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration, no predictor
     with pytest.raises(ValueError, match='more than 512'):
         p(torch.zeros(1, 512), text=['hi'])                           # wave too short to centre
-    for kw in (dict(concat_cond=True), dict(use_vocos=True, vocos_backend='torch'),
-               dict(num_freq_tokens=2), dict(interpolated_text=True),
-               dict(tokenizer='phoneme_en')):
+    for kw in (dict(use_vocos=True, vocos_backend='torch'), dict(tokenizer='phoneme_en')):
         with pytest.raises(NotImplementedError):
             E2TTS(transformer=dict(SMALL_TF), device='cpu', **kw)
     with pytest.raises(NotImplementedError):
-        DurationPredictor(transformer=dict(SMALL_TF), num_freq_tokens=2, device='cpu')
-    for kw in (dict(scan_layers=True), dict(remat='dots_with_no_batch_dims_saveable')):
-        with pytest.raises(NotImplementedError):
-            Transformer(**SMALL_TF, device='cpu', **kw)
+        Transformer(**SMALL_TF, device='cpu', scan_layers=True)
+    # the options ported since build (their parity: tests/test_torch_options*.py)
+    dim = SMALL_TF['dim']
+    assert E2TTS(transformer=dict(SMALL_TF), device='cpu', concat_cond=True) \
+        .proj_in.weight.shape == (dim, 200)
+    freq = E2TTS(transformer=dict(SMALL_TF), device='cpu', num_freq_tokens=2)
+    assert freq.transformer.has_freq_axis and freq.proj_in.weight.shape == (2 * dim, 100)
+    assert isinstance(E2TTS(transformer=dict(SMALL_TF), device='cpu', interpolated_text=True)
+                      .embed_text, blocks.InterpolatedCharacterEmbed)
+    assert DurationPredictor(transformer=dict(SMALL_TF), num_freq_tokens=2,
+                             device='cpu').transformer.has_freq_axis
+    assert Transformer(**SMALL_TF, device='cpu', remat='dots_with_no_batch_dims_saveable') \
+        .remat == 'dots_with_no_batch_dims_saveable'
 
 
 # -- weight bridge and entry points ------------------------------------------------

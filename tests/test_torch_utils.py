@@ -86,10 +86,13 @@ def test_fixed_grid_ode_matches_jax(method):
 
 
 def test_ode_keeps_state_dtype_and_raises_on_adaptive():
+    """Every method keeps the state's dtype (the adaptive ones, ported since
+    build, no longer raise: tests/test_torch_ode_adaptive.py); an unknown
+    method raises."""
     y0 = torch.ones(3, dtype=torch.bfloat16)
-    out = ode.odeint(lambda s, y: -y, y0, [0.0, 0.5, 1.0])
-    assert out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        ode.odeint(lambda s, y: y, y0, [0.0, 1.0], method='dopri5')
+    for method, expected in (('midpoint', 0.625 ** 2), ('dopri5', np.exp(-1.0))):
+        out = ode.odeint(lambda s, y: -y, y0, [0.0, 0.5, 1.0], method=method)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(out.float().numpy(), expected, rtol=1e-2)
     with pytest.raises(ValueError):
         ode.odeint(lambda s, y: y, y0, [0.0, 1.0], method='bogus')
