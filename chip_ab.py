@@ -37,7 +37,9 @@ dropout 0.1 at B = 16, and at (16, 1056, 2 x 1408) without dropout (the
 cost of the hash). The other checkout's
 adjoint may predate the warps argument (it then ran 8 warps a block); its K8 / K9 may take a `design` argument (it is passed as 1, the
 Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
-design, K2 gating do itself and K10 writing delta alone). Prints one line
+design, K2 gating do itself and K10 writing delta alone); its K1 / K2 / K8 /
+K9 may predate the dropout hash's batch offset `hash_b0` (this one gets 0).
+Prints one line
 per kernel with the card's name and power limit.
 """
 import ctypes
@@ -105,6 +107,9 @@ def main():
     # K8 / K9 entry points that take the design as an argument
     has_design = {tag: 'int design' in csrc_text(root, 'flash_attention_bhnd.cu')
                   for tag, root in roots}
+    # K1 / K2 / K8 / K9 entry points that take hash_b0 (before the dtype)
+    has_hash_b0 = {tag: 'int hash_b0' in csrc_text(root, 'flash_attention.cu')
+                   for tag, root in roots}
     # K10 gating do into do_g for K2 (K1 / K2 on the Hopper design)
     packed_sm90 = {tag: 'void* dout_g' in csrc_text(root, 'flash_attention_bwd.cu')
                    for tag, root in roots}
@@ -277,11 +282,11 @@ def main():
         q, k, v = (to(qkv[..., i * h * dh:(i + 1) * h * dh]) for i in range(3))
         return q, k, v
 
-    def flash_common(q, rate):
+    def flash_common(tag, q, rate):
         b, h, n, dh = q.shape
         return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
                 F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
-                I(int(rate > 0)), I(1)]
+                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + [I(1)]
 
     def k8(tag, q, k, v, rate):
         fn = libs[tag][2].e2_flash_fwd_bhnd
@@ -291,7 +296,7 @@ def main():
         lse = torch.empty((b * h, n), device=dev)
         design = [I(1)] if has_design[tag] else []
         args = [P(t.data_ptr()) for t in (q, k, v)] + [st(q), st(k), st(v), P(None),
-                P(o.data_ptr()), st(o), P(lse.data_ptr())] + flash_common(q, rate) + design
+                P(o.data_ptr()), st(o), P(lse.data_ptr())] + flash_common(tag, q, rate) + design
 
         def call():
             err = fn(*args, P(stream()))
@@ -314,7 +319,7 @@ def main():
         args = ([P(t.data_ptr()) for t in (q, k, v, dout)] + [st(q), st(k), st(v), st(dout),
                 P(None), P(lse.data_ptr()), P(delta.data_ptr()), st(delta), P(dq.data_ptr()),
                 st(dq), P(dk.data_ptr()), st(dk), P(dv.data_ptr()), st(dv)]
-                + flash_common(q, rate) + design)
+                + flash_common(tag, q, rate) + design)
 
         def call():
             if wrapper:
@@ -334,12 +339,12 @@ def main():
         gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(bf)
         return (*qkv.split(h * dh, dim=-1), gate, h)
 
-    def packed_common(q, h, rate):
+    def packed_common(tag, q, h, rate):
         b, n, D = q.shape
         dh = D // h
         return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
                 F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
-                I(int(rate > 0)), I(1)]
+                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + [I(1)]
 
     def qkv_strides(q, k, v):
         return [LL(t.stride(i)) for t in (q, k, v) for i in (0, 1)]
@@ -352,7 +357,7 @@ def main():
         lse = torch.empty((b * h, n), device=dev)
         args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v)
                 + [P(None), P(gate.data_ptr()), P(o.data_ptr()), P(lse.data_ptr())]
-                + packed_common(q, h, rate))
+                + packed_common(tag, q, h, rate))
 
         def call():
             err = fn(*args, P(stream()))
@@ -387,7 +392,7 @@ def main():
         delta_args += [LL(b * n), I(h), I(dh), I(1)]
         args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v) + bwd_args
                 + [P(lse.data_ptr()), P(delta.data_ptr()), P(dq.data_ptr()), P(dk.data_ptr()),
-                   P(dv.data_ptr())] + packed_common(q, h, rate))
+                   P(dv.data_ptr())] + packed_common(tag, q, h, rate))
 
         def call():
             err = delta_fn(*delta_args, P(stream()))

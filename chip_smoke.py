@@ -191,6 +191,21 @@ exit code and no result line:
    training shape (16,896 sequences of 2 tokens) beside PyTorch's flash
    attention, and holds K1 / K2 / K10 / K8 / K9 at 66,048 sequences, past
    gridDim.z's 65,535, on both designs.
+13. distributed — data parallelism (e2_tts_tpu_torch/parallel): (a) K1 / K2
+   (8 heads x 64) and K8 / K9 (16 x 72), bf16 and f32, dropout 0.1, a key
+   mask, softclamp 50, launched on rows [2, 4) of a 4 x 1056 batch with
+   ``hash_b0 = 2`` against one launch of all four rows: out, lse, dk and dv
+   bit for bit, dq (atomics) at the backward tolerance, each half against
+   its plain version at the same offset, and the half at offset 0 (a
+   planted fault) must fail; (b) `E2Trainer` over a real NCCL process group
+   of one rank (the card is one GPU, and NCCL takes one rank a device),
+   started by `maybe_initialize_distributed` from a file rendezvous under
+   build/: `param_sharding='replicated'` (DDP) and 'fsdp' (FSDP2) two steps
+   at depth 2 in f32 against the single-device trainer (`DIST_LOSS_TOL`,
+   `DIST_PARAM_TOL`), then at the flagship's width (bf16, dropout 0.1, B=16
+   x 1024, with text) ms a step and peak memory, one device against DDP
+   against FSDP2, with the launch counters checked; the group is stopped at
+   the end.
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -3038,6 +3053,215 @@ def phase_options(torch, dev, smi):
     return sample_counts, train_counts
 
 
+# -- phase 13: distributed ---------------------------------------------------------
+
+# the train-correctness limits of PERF.md section 2: one step's loss, and the
+# parameters after two steps (relative L2 over all of them)
+DIST_LOSS_TOL = 1e-5
+DIST_PARAM_TOL = 1e-4
+DIST_TRAIN_STEPS_TIMED = 5
+# a launch of rows [B, 2B) with hash_b0 = B against one of all 2B rows: out,
+# lse, dk and dv are the same arithmetic on the same inputs (bit for bit);
+# dq is summed by atomics in an order that changes between launches, so it
+# takes the kernels' backward tolerance (`compare(..., scaled=True)`)
+HASH_B0_CASES = (('K1 / K2', True, 8, 64), ('K8 / K9', False, 16, 72))
+
+
+def hash_b0_check(torch, dev):
+    """(a) of the distributed phase: K1 / K2 (packed, heads of 64) and K8 / K9
+    ((b, h, n, dh), heads of 72), bf16 (the Hopper design) and f32 (the wmma
+    templates), dropout 0.1, softclamp 50, a key mask, at 2 x 2 rows of 1056:
+    rows [2, 4) launched with ``hash_b0 = 2`` against one launch of all four
+    rows; each half against its plain version at the same offset; and the
+    planted fault, rows [2, 4) at offset 0, which must fail."""
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, n, rate, seed = 2, 1056, 0.1, 1234
+    lens = torch.tensor([n, 700, 1000, 333], device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    for label, packed, heads, dh in HASH_B0_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (2 * b, n, heads * dh) if packed else (2 * b, heads, n, dh)
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed)
+            if packed:
+                gate = (2 * torch.randn(2 * b, n, heads, generator=g, device=dev)).to(dtype)
+                fwd = lambda q, k, v, m, gt=None, **o: fa.flash_attention_packed(
+                    q, k, v, m, heads=heads, gate_logits=gt, return_lse=True, **kw, **o)
+                bwd = lambda q, k, v, m, out, lse, do, gt=None, **o: \
+                    fa.flash_attention_packed_backward(q, k, v, m, out, lse, do, heads=heads,
+                                                       gate_logits=gt, **kw, **o)[:3]
+                plain = lambda q, k, v, m, gt=None, **o: fa.flash_attention_packed_plain(
+                    q, k, v, m, heads=heads, scale=dh ** -0.5, gate_logits=gt, **kw, **o)
+            else:
+                gate = None
+                fwd = lambda q, k, v, m, gt=None, **o: fa.flash_attention(
+                    q, k, v, m, return_lse=True, **kw, **o)
+                bwd = lambda q, k, v, m, out, lse, do, gt=None, **o: \
+                    fa.flash_attention_backward(q, k, v, m, out, lse, do, **kw, **o)
+                plain = lambda q, k, v, m, gt=None, **o: fa.flash_attention_plain(
+                    q, k, v, m, scale=dh ** -0.5, **kw, **o)
+            half = lambda t: None if t is None else t[b:]
+            args = (q, k, v, mask, gate)
+            out, lse = fwd(q, k, v, mask, gate)
+            grads = bwd(q, k, v, mask, out, lse, do, gate)
+            results = {}
+            for offset in (b, 0):                     # 0: the planted fault
+                o2, l2 = fwd(*map(half, args[:4]), half(gate), hash_b0=offset)
+                g2 = bwd(*map(half, args[:4]), o2, l2, half(do), half(gate), hash_b0=offset)
+                results[offset] = (o2, l2, g2)
+            torch.cuda.synchronize()
+            o2, l2, g2 = results[b]
+            bits = dict(out=torch.equal(o2, out[b:]), lse=torch.equal(l2, lse[b * heads:]),
+                        dk=torch.equal(g2[1], grads[1][b:]), dv=torch.equal(g2[2], grads[2][b:]))
+            dq_err, dq_worst = compare(g2[0], grads[0][b:], *(1e-2, 1e-2) if dtype == torch.bfloat16
+                                       else (1e-4, 1e-4), scaled=True)
+            ref_o, ref_l = plain(*map(half, args[:4]), half(gate), hash_b0=b)
+            fwd_tol = (1e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+            p_err, p_worst = compare((o2,), (ref_o,), *fwd_tol)
+            f_err, f_worst = compare((results[0][0],), (out[b:],), *fwd_tol)
+            fault_bits = torch.equal(results[0][0], out[b:])
+            name = f'{label} {str(dtype).split(".")[1]} dh {dh}'
+            log(f'distributed hash_b0 {name} rows [{b}, {2 * b}) at hash_b0={b} vs one launch '
+                f'of {2 * b} rows (dropout {rate}, mask, softclamp 50): bit-equal '
+                f'{json.dumps(bits)} dq max_abs_err={dq_err:.3e} worst/limit={dq_worst:.3f}; '
+                f'vs plain at hash_b0={b}: out max_abs_err={p_err:.3e} '
+                f'worst/limit={p_worst:.3f}; planted hash_b0=0: out bit-equal={fault_bits} '
+                f'max_abs_err={f_err:.3e} worst/limit={f_worst:.3f} (must exceed 1)')
+            if not (all(bits.values()) and dq_worst <= 1.0 and p_worst <= 1.0):
+                raise AssertionError(f'{name}: hash_b0 launch differs from the whole batch')
+            if fault_bits or f_worst <= 1.0:
+                raise AssertionError(f'{name}: the planted offset-0 fault passed the check')
+            del q, k, v, do, out, lse, grads, results
+
+
+def dist_params(torch, model):
+    """Every parameter of ``model`` (FSDP-sharded or not) as one f32 vector
+    on the CPU."""
+    from e2_tts_tpu_torch.parallel.fsdp import gather_full
+    return torch.cat([gather_full(p.detach()).float().flatten().cpu()
+                      for p in model.parameters()])
+
+
+def phase_distributed(torch, dev, smi):
+    """(a) `hash_b0_check`; (b) `E2Trainer` over a real NCCL process group
+    of one rank (the card is one GPU, and NCCL takes one rank a device),
+    started by `maybe_initialize_distributed` from a file rendezvous under
+    build/: at depth 2 in f32 (dropout 0.1, B=8 x 512 ragged, the same
+    weights and generator) `param_sharding='replicated'` (DDP) and 'fsdp'
+    (FSDP2) two steps (with text, text dropped) against the single-device
+    trainer at `DIST_LOSS_TOL` / `DIST_PARAM_TOL`; then at the flagship's
+    full width (bf16, dropout 0.1, B=16 x 1024) ms a step, single device
+    against DDP against FSDP2, and peak memory, with the launch counts of
+    the timed steps. The process group is stopped at the end. Returns the
+    FSDP2 steps' launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.parallel.mesh import make_mesh
+    from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    hash_b0_check(torch, dev)
+
+    store = os.path.abspath(os.path.join('build', 'dist_store'))
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    if not maybe_initialize_distributed(init_method=f'file://{store}', world_size=1, rank=0,
+                                        timeout=120):
+        raise AssertionError('no process group')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not NCCL')
+        mesh = make_mesh()
+        rng = np.random.default_rng(3)
+        words = TEXT.split()
+
+        def dataset(count, frames, ragged):
+            lengths = rng.integers(frames // 2, frames + 1, count) if ragged else [frames] * count
+            return ArrayDataset([rng.standard_normal((100, f)).astype(np.float32)
+                                 for f in lengths],
+                                [' '.join(rng.choice(words, size=12)) for _ in range(count)])
+
+        check_set = dataset(8, 512, ragged=True)
+        runs = {}
+        for sharding in (None, 'replicated', 'fsdp'):
+            model = build_e2tts(torch, dev, None, depth=2, dropout=0.1)
+            trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0,
+                                total_steps=10_000, seed=0,
+                                **(dict(mesh=mesh, param_sharding=sharding) if sharding
+                                   else {}))
+            batch = trainer.prepare_batch(next(iter_batches(check_set, 8, seed=1)))
+            losses = [float(trainer.train_step(*batch, drop_text_cond=drop)[0])
+                      for drop in (False, True)]
+            runs[sharding] = (losses, dist_params(torch, model))
+            del model, trainer
+            torch.cuda.empty_cache()
+        ref_losses, ref_params = runs[None]
+        for sharding in ('replicated', 'fsdp'):
+            losses, params = runs[sharding]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            param_rel = float((params - ref_params).norm() / ref_params.norm())
+            log(f'distributed check {sharding} (NCCL, world 1) vs one device: depth 2 f32 '
+                f'dropout 0.1 B=8 x <=512 ragged, with text then text dropped: losses={losses} '
+                f'single={ref_losses} loss_rel={loss_rel:.3e} (<= {DIST_LOSS_TOL:g}) '
+                f'param_rel_l2 after two steps={param_rel:.3e} (<= {DIST_PARAM_TOL:g})')
+            if not (loss_rel <= DIST_LOSS_TOL and param_rel <= DIST_PARAM_TOL):
+                raise AssertionError(f'{sharding} trainer disagrees with the single device')
+        del runs
+
+        train_set = dataset(TRAIN_BATCH, FRAMES, ragged=False)
+        ms, fsdp_counts = {}, None
+        for sharding in (None, 'replicated', 'fsdp'):
+            model = build_e2tts(torch, dev, torch.bfloat16, dropout=0.1)
+            trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0,
+                                total_steps=10_000, seed=0,
+                                **(dict(mesh=mesh, param_sharding=sharding) if sharding
+                                   else {}))
+            batch = trainer.prepare_batch(next(iter_batches(train_set, TRAIN_BATCH, seed=1)))
+            trainer.train_step(*batch, drop_text_cond=False)      # warm-up: optimizer state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [trainer.train_step(*batch, drop_text_cond=False)[0]
+                      for _ in range(DIST_TRAIN_STEPS_TIMED)]
+            torch.cuda.synchronize()
+            ms[sharding] = (time.perf_counter() - t0) * 1e3 / DIST_TRAIN_STEPS_TIMED
+            counts = dict(_cuda.launch_counts)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            finite = bool(torch.isfinite(torch.stack(losses)).all())
+            name = sharding or 'one device'
+            log(f'distributed train steps {name} (world 1) flagship depth '
+                f'{FLAGSHIP["depth"]} bf16 B={TRAIN_BATCH} frames={FRAMES} dropout 0.1 with '
+                f'text, {DIST_TRAIN_STEPS_TIMED} steps: ms_per_step={ms[sharding]:.3f} '
+                f'max_memory_allocated_gib={peak_gib:.3f} loss_finite={finite} '
+                f'last_loss={float(losses[-1]):.5f} '
+                f'launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+            expected = {k: DIST_TRAIN_STEPS_TIMED * n
+                        for k, n in expected_train_launches(model, True).items()}
+            expected = {k: expected.get(k, 0) for k in _cuda.KERNELS}
+            if counts != expected or not finite:
+                raise AssertionError(f'{name} train steps: launch counts {counts} != '
+                                     f'{expected}, or a loss not finite')
+            if sharding == 'fsdp':
+                fsdp_counts = counts
+            del model, trainer, batch
+            torch.cuda.empty_cache()
+        log(f'distributed world-1 step cost: ddp/one_device={ms["replicated"] / ms[None]:.4f} '
+            f'fsdp/one_device={ms["fsdp"] / ms[None]:.4f} [{smi}]')
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return fsdp_counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3118,6 +3342,8 @@ def main() -> int:
     phase_done('adaptive')
     phase_options(torch, dev, smi)
     phase_done('options')
+    phase_distributed(torch, dev, smi)
+    phase_done('distributed')
 
     kernels = []
     for kid, info in KERNEL_INFO.items():

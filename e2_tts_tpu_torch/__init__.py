@@ -15,8 +15,9 @@ resampling, and background prefetch), the dual-stream `Transformer`, and
 the kernels on those paths: packed and (b, h, n, dh) flash attention
 forward and backward with the backward's delta pre-pass, the two
 hyper-connection width connections (and their save-state variants) and
-GEGLU, each forward and backward, and the fused log-mel frontend. Meshes,
-FSDP and sequence parallelism are not ported.
+GEGLU, each forward and backward, and the fused log-mel frontend. Data
+parallelism (`parallel/`: DDP or FSDP2 over torch.distributed, a step of
+the global batch) is ported; sequence and tensor parallelism are not.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.

@@ -49,6 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from e2_tts_tpu_torch.parallel.fsdp import is_sharded
 from e2_tts_tpu_torch.utils.helpers import exists
 
 
@@ -100,7 +101,12 @@ def map_jax_tree(flat: dict[str, np.ndarray], targets: dict[str, tuple]) -> dict
 
 def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
     """Copy the JAX state ``flat`` into ``model``'s parameters and
-    persistent buffers in place (strict)."""
+    persistent buffers in place (strict). Load before sharding: a model
+    that FSDP already sharded (`parallel.fsdp.shard_module_fsdp`, as an
+    `E2Trainer` with ``param_sharding='fsdp'`` does) raises."""
+    if is_sharded(model):
+        raise ValueError('load_jax_params takes an unsharded model: load the JAX weights '
+                         'first, then shard it (build the trainer after the load)')
     targets = model.state_dict(keep_vars=True)
     mapped = map_jax_tree(flat, {name: t.shape for name, t in targets.items()})
     with torch.no_grad():
@@ -186,7 +192,13 @@ def load_jax_train_state(trainer, tree: dict) -> int:
     ``grad_accumulation_steps`` must be the MultiSteps k of the JAX
     optimizer (1 without MultiSteps). Strict as `map_jax_tree`: an unused or
     a missing array raises. The JAX PRNG key has no counterpart: `train`
-    seeds the generator from ``seed + step`` when no saved state exists."""
+    seeds the generator from ``seed + step`` when no saved state exists.
+    It loads before sharding, so a trainer whose model FSDP sharded
+    (``param_sharding='fsdp'``) raises: load into a single-device trainer,
+    save its checkpoint and let the sharded trainer resume from it
+    (checkpoints move between world sizes)."""
+    if is_sharded(trainer.model):
+        raise ValueError('load_jax_train_state takes a trainer with an unsharded model')
     if not exists(trainer.optimizer):
         raise RuntimeError('build the trainer\'s optimizer first (total_steps=)')
     dp_keys = {'duration_predictor', 'dp_opt'} if trainer.train_duration_predictor else set()

@@ -58,7 +58,9 @@ struct Strides {
 // launches it in chunks of at most that many z-blocks; a chunk's blocks
 // read their batch row as b0 + blockIdx.z (/ SPLIT), b0 its first row. The
 // frequency attention's batch, b * (n + registers) sequences of f tokens,
-// passes 65535 at N = 4096 frames with B = 16.
+// passes 65535 at N = 4096 frames with B = 16. b0 is a memory offset only:
+// the dropout hash takes the row's place in the global batch, hash_b0 + bi
+// (hash_b0 the caller's: a data-parallel rank's first row), never b0 alone.
 constexpr int kMaxGridZ = 65535;
 
 __device__ __forceinline__ long long offset(const Strides& s, int bi, int h) {
@@ -99,6 +101,8 @@ struct FwdParams {
   unsigned seed, threshold;
   int dropping;
   int b0 = 0;                 // the launch chunk's first batch row
+  int hash_b0 = 0;            // the first row's place in the global batch: the
+                              // dropout hash reads head (hash_b0 + bi) * heads + h
 };
 
 template <typename T, int DHP, int SPLIT = 1>
@@ -227,7 +231,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
   for (int i = 0; i < OPL; ++i) acc[i] = 0.f;
   float m_i = NEG_INF, l_i = 0.f;
 
-  const unsigned hseed = e2::fmix32(p.seed ^ ((unsigned)(bi * p.heads + h) * 0x27D4EB2Fu), 2);
+  const unsigned hseed =
+      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.heads + h) * 0x27D4EB2Fu), 2);
   float* sFw = sF + warp * 16 * L::LDF;
   T* sPw = sP + warp * 16 * L::LDP;
   float* srow = sFw + (lane >> 1) * L::LDS;
@@ -358,6 +363,8 @@ struct BwdParams {
   unsigned seed, threshold;
   int dropping;
   int b0 = 0;                 // the launch chunk's first batch row
+  int hash_b0 = 0;            // the first row's place in the global batch: the
+                              // dropout hash reads head (hash_b0 + bi) * heads + h
 };
 
 template <typename T, int DHP>
@@ -505,7 +512,7 @@ __device__ __forceinline__ void store_rows(WarpAcc<T, DHP>& acc, float* stage, T
 //   s  = scale * q k^T;  th = tanh(s / c);  s = c * th  (softclamp c, jac = 1 - th^2)
 //   p  = exp(s + bias[key] - lse[row])
 //   dp = do v^T  (a gated layer's do arrives gated: K10 writes it)
-//   ks = keep(seed, b*heads + h, row, key) / (1 - rate)  (the forward's bits)
+//   ks = keep(seed, (hash_b0 + b)*heads + h, row, key) / (1 - rate)  (the forward's bits)
 //   ds = p * (ks * dp - delta[row]) * jac * scale,  p_drop = p * ks
 //   dv += p_drop^T do,  dk += ds^T q,  dq += ds k
 // p_drop and ds are rounded to T before the three products, as the TPU
@@ -555,7 +562,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
   dk_acc.zero();
   dv_acc.zero();
 
-  const unsigned hseed = e2::fmix32(p.seed ^ ((unsigned)(bi * H + h) * 0x27D4EB2Fu), 2);
+  const unsigned hseed =
+      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * H + h) * 0x27D4EB2Fu), 2);
   const T* sKw = sK + warp * 16 * L::LDT;
   const T* sVw = sV + warp * 16 * L::LDT;
   float* sFw = sF + warp * L::FW;

@@ -11,7 +11,10 @@ Conventions, as in the JAX package:
   transformer draws each layer's seeds (`draw_seed`) and hands them to
   `Attention` / `FeedForward.forward` as ``dropout_seed``; torch's global
   generator is never used, so a training run repeats from its own
-  generator.
+  generator. Their ``batch_offset`` is the first row's place in the
+  global batch (a data-parallel rank's offset), so a rank draws the bits a
+  single device draws for its rows: the attention kernels take it as
+  ``hash_b0``, and the GEGLU folds it into its seed (`fold_batch_offset`).
 - `load_jax_params` (convert.py) maps a JAX model's parameters onto these
   modules one to one; the names below mirror the JAX attribute paths.
 """
@@ -25,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.ops.attention import attention_packed
+from e2_tts_tpu_torch.ops.dropout import fold_batch_offset
 from e2_tts_tpu_torch.ops.geglu_kernel import geglu_dropout
 from e2_tts_tpu_torch.ops.rotary import apply_rotary_packed
 from e2_tts_tpu_torch.utils.helpers import (
@@ -308,12 +312,15 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(inner, dim, dtype=dtype, generator=generator)
         self.dropout_rate = dropout
 
-    def forward(self, x, dropout_seed: int | None = None):
+    def forward(self, x, dropout_seed: int | None = None, batch_offset: int = 0):
+        """``batch_offset``: ``x``'s first row in the global batch; K6 hashes
+        (row, frame, column), so the offset folds into the seed."""
         h = self.proj_in(x)
         rate = self.dropout_rate if self.training else 0.0
         if rate > 0.0 and dropout_seed is None:
             raise ValueError('dropout in training mode needs a dropout_seed')
-        return self.proj_out(geglu_dropout(h, dropout_seed if rate > 0.0 else 0, rate))
+        seed = fold_batch_offset(dropout_seed, batch_offset) if rate > 0.0 else 0
+        return self.proj_out(geglu_dropout(h, seed, rate))
 
 
 # attention ------------------------------------------------------------------
@@ -362,7 +369,7 @@ class Attention(nn.Module):
             if learned_value_residual_mix else None)
 
     def forward(self, x, rotary_pos_emb=None, mask=None, value_residual=None,
-                dropout_seed: int | None = None):
+                dropout_seed: int | None = None, batch_offset: int = 0):
         b, n, _ = x.shape
         h, inner = self.heads, self.inner
 
@@ -389,5 +396,5 @@ class Attention(nn.Module):
             laser=self.laser, laser_softclamp_value=self.laser_softclamp_value,
             dropout_rate=self.dropout_rate if training else 0.0,
             dropout_seed=dropout_seed if training else None,
-            gate_logits=gate_logits)
+            gate_logits=gate_logits, hash_b0=batch_offset)
         return self.to_out(out), orig_values

@@ -7,7 +7,10 @@ regression by default). For the loss the model sees a random prefix of each
 sample: everything at or beyond ``int(rand_frac * len)`` is masked, and the
 target is the full length. With ``num_freq_tokens > 1`` each frame is
 projected to that many tokens for a backbone with the frequency axis, and
-the tokens are averaged before pooling.
+the tokens are averaged before pooling. A data-parallel rank passes its
+rows' place in the global batch (`forward`): the prefix draw is the global
+one sliced, the dropout bits are its rows', and its loss is its term of
+the global batch mean.
 """
 
 from __future__ import annotations
@@ -81,12 +84,20 @@ class DurationPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, *, text=None, lens=None, return_loss: bool = True,
                 rand_frac: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, batch_offset: int = 0,
+                global_batch: int | None = None) -> torch.Tensor:
         """``x``: mel ``(b, n, num_channels)`` or raw wave ``(b, nw)``.
         Returns the predicted frame counts ``(b,)`` (f32) or, with
         ``return_loss``, the loss against ``lens`` (default: the full
         length). ``rand_frac (b,)`` in [0, 1) sets the prefix; otherwise it
-        is drawn from ``generator`` (default: the model's)."""
+        is drawn from ``generator`` (default: the model's).
+
+        ``x`` as rows ``[batch_offset, batch_offset + b)`` of a global batch
+        of ``global_batch`` (a data-parallel rank's): the prefix draw is made
+        at the global size and sliced, and the loss, a mean over the batch
+        of per-sample terms (the pooling is per sample), is this rank's
+        term of the global mean, ``b / global_batch`` of its own mean: the
+        terms sum over the ranks to the global loss with no collective."""
         device = self.device
         x = as_mel(self.mel_spec, x.to(device), self.num_channels)
         batch, seq_len = x.shape[0], x.shape[1]
@@ -103,20 +114,27 @@ class DurationPredictor(nn.Module):
         mask = lens_to_mask(lens, length=seq_len)
 
         # train on a random prefix: predict the full duration from a truncated view
+        total = default(global_batch, batch)
+        if not 0 <= batch_offset <= total - batch:
+            raise ValueError(f'rows [{batch_offset}, {batch_offset + batch}) are not in a '
+                             f'global batch of {total}')
         if return_loss:
             if not exists(rand_frac):
                 generator = default(generator, self.generator)
-                rand_frac = torch.rand((batch,), generator=generator, device=generator.device)
+                rand_frac = torch.rand((total,), generator=generator, device=generator.device)
+                rand_frac = rand_frac[batch_offset:batch_offset + batch]
             rand_frac = rand_frac.to(device=device, dtype=torch.float32)
             rand_index = (rand_frac * lens.float()).to(lens.dtype)
             seq = torch.arange(seq_len, device=device, dtype=lens.dtype)
             mask = mask & (seq[None, :] < rand_index[:, None])
 
         embed = self.transformer(x, mask=mask, text_embed=text_embed,
-                                 generator=default(generator, self.generator))
+                                 generator=default(generator, self.generator),
+                                 batch_offset=batch_offset)
         if self.has_freq_axis:
             embed = embed.mean(dim=1)
         pooled = maybe_masked_mean(embed, mask)
         if not return_loss:
             return self.hl_gauss_layer(pooled)
-        return self.hl_gauss_layer(pooled, lens.float())
+        loss = self.hl_gauss_layer(pooled, lens.float())
+        return loss * (batch / total) if total > batch else loss

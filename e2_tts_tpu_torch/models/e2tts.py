@@ -8,7 +8,10 @@ predicts the flow x1 - x0; the MSE is restricted to the span. An optional
 velocity-consistency term holds the prediction to an EMA teacher's at
 t + delta. The draws come from a ``torch.Generator`` or are passed in
 (``times``, ``noise``, ``rand_span_mask``); the same generator draws the
-dropout seeds.
+dropout seeds. A data-parallel rank trains on rows ``[batch_offset,
+batch_offset + b)`` of a global batch of ``global_batch``: it draws the
+global batch's tensors and keeps its rows, draws the dropout bits of those
+rows, and its loss is its term of the global loss (`forward`).
 
 Inference integrates the learned velocity field from noise over a fixed
 time grid (ops/ode.py) with classifier-free guidance, APG parallel-component
@@ -45,6 +48,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -65,12 +69,24 @@ LossBreakdown = namedtuple('LossBreakdown', ['flow', 'velocity_consistency'])
 E2TTSReturn = namedtuple('E2TTS', ['loss', 'cond', 'pred_flow', 'pred_data', 'loss_breakdown'])
 
 
-def masked_mse(pred, target, span_mask):
-    """Mean squared error over the span's frames and all channels (f32)."""
+def masked_mse(pred, target, span_mask, span_count=None):
+    """Mean squared error over the span's frames and all channels (f32):
+    the error sum over ``span_count * channels``, ``span_count`` the span's
+    frame count unless given (a data-parallel rank gives the global
+    batch's)."""
     err = (pred.float() - target.float()) ** 2
     err = torch.where(span_mask[..., None], err, 0.0)
-    denom = torch.clamp(span_mask.float().sum() * pred.shape[-1], min=1.0)
+    span_count = default(span_count, span_mask.float().sum())
+    denom = torch.clamp(span_count * pred.shape[-1], min=1.0)
     return err.sum() / denom
+
+
+def global_span_count(span_mask: torch.Tensor) -> torch.Tensor:
+    """The span's frame count summed over the ranks of the default process
+    group (the data mesh spans it), without grad: the global batch's."""
+    count = span_mask.float().sum().detach()
+    dist.all_reduce(count)
+    return count
 
 
 class _StaticBox:
@@ -198,7 +214,8 @@ class E2TTS(nn.Module):
                 noise=None, rand_span_mask=None, velocity_consistency_model=None,
                 velocity_consistency_delta: float = 1e-5,
                 drop_text_cond: bool | None = None,
-                generator: torch.Generator | None = None) -> E2TTSReturn:
+                generator: torch.Generator | None = None, batch_offset: int = 0,
+                global_batch: int | None = None) -> E2TTSReturn:
         """The flow-matching loss on mels ``inp (b, n, num_channels)`` or raw
         waves ``(b, nw)``.
 
@@ -209,7 +226,18 @@ class E2TTS(nn.Module):
         without ``drop_text_cond``, the text-drop coin (probability
         ``cond_drop_prob``).
         ``velocity_consistency_model`` (an EMA teacher) adds the
-        velocity-consistency term when ``velocity_consistency_weight > 0``."""
+        velocity-consistency term when ``velocity_consistency_weight > 0``.
+
+        A data-parallel rank passes its rows' place in the global batch:
+        ``inp`` is rows ``[batch_offset, batch_offset + b)`` of a batch of
+        ``global_batch``. Each draw is then made at the global batch's size
+        and sliced to these rows, so ranks whose generators are in step
+        draw what one device draws for the whole batch; the dropout bits
+        are those of these rows. With ``global_batch > b`` the losses are
+        this rank's terms of the global ones: the error sums over the span
+        count of the whole batch (`global_span_count`, a collective over the
+        default process group), so the terms sum over the ranks to the
+        global loss, and their grads to its grad."""
         need_velocity_loss = (exists(velocity_consistency_model)
                               and self.velocity_consistency_weight > 0.0)
         device = self.device
@@ -218,6 +246,14 @@ class E2TTS(nn.Module):
         inp = self._as_mel(inp.to(device))
         batch, seq_len = inp.shape[0], inp.shape[1]
         dtype = inp.dtype
+        total = default(global_batch, batch)
+        if not 0 <= batch_offset <= total - batch:
+            raise ValueError(f'rows [{batch_offset}, {batch_offset + batch}) are not in a '
+                             f'global batch of {total}')
+        rows = slice(batch_offset, batch_offset + batch)
+
+        def rand():                   # a global (total,) draw, this rank's rows
+            return torch.rand((total,), generator=generator, device=gen_device)[rows].to(device)
 
         text = self._tokenize(text, batch)
         if not exists(lens):
@@ -228,10 +264,8 @@ class E2TTS(nn.Module):
         # random infill span
         if not exists(rand_span_mask):
             lo, hi = self.frac_lengths_mask
-            frac_lengths = (torch.rand((batch,), generator=generator, device=gen_device)
-                            * (hi - lo) + lo).to(device)
-            rand_span_mask = mask_from_frac_lengths(lens, frac_lengths, seq_len,
-                                                    generator=generator)
+            frac_lengths = rand() * (hi - lo) + lo
+            rand_span_mask = mask_from_frac_lengths(lens, frac_lengths, seq_len, rand=rand())
         rand_span_mask = rand_span_mask.to(device) & mask
 
         # flow matching: x0 noise, x1 data
@@ -239,12 +273,12 @@ class E2TTS(nn.Module):
         if exists(noise):
             x0 = noise.to(device=device, dtype=dtype)
         else:
-            x0 = torch.randn(x1.shape, generator=generator, device=gen_device,
-                             dtype=dtype).to(device)
+            x0 = torch.randn((total, *x1.shape[1:]), generator=generator, device=gen_device,
+                             dtype=dtype)[rows].to(device)
         if exists(times):
             times = times.to(device=device, dtype=torch.float32)
         else:
-            times = torch.rand((batch,), generator=generator, device=gen_device).to(device)
+            times = rand()
         t = times[:, None, None].to(dtype)
         if need_velocity_loss:
             t = t * (1.0 - velocity_consistency_delta)
@@ -257,8 +291,9 @@ class E2TTS(nn.Module):
 
         pred, did_drop_text_cond = self.transformer_with_pred_head(
             w, cond, times, text=text, mask=mask, drop_text_cond=drop_text_cond,
-            return_drop_text_cond=True, generator=generator)
+            return_drop_text_cond=True, generator=generator, batch_offset=batch_offset)
 
+        span_count = global_span_count(rand_span_mask) if total > batch else None
         velocity_loss = torch.zeros((), dtype=torch.float32, device=device)
         if need_velocity_loss:
             t_delta = t + velocity_consistency_delta
@@ -266,10 +301,10 @@ class E2TTS(nn.Module):
             with torch.no_grad():
                 ema_pred = velocity_consistency_model.transformer_with_pred_head(
                     w_delta, cond, times + velocity_consistency_delta, text=text,
-                    mask=mask, drop_text_cond=did_drop_text_cond)
-            velocity_loss = masked_mse(pred, ema_pred, rand_span_mask)
+                    mask=mask, drop_text_cond=did_drop_text_cond, batch_offset=batch_offset)
+            velocity_loss = masked_mse(pred, ema_pred, rand_span_mask, span_count)
 
-        loss = masked_mse(pred, flow, rand_span_mask)
+        loss = masked_mse(pred, flow, rand_span_mask, span_count)
         total = loss + velocity_loss * self.velocity_consistency_weight
         return E2TTSReturn(total, cond, pred, x0 + pred, LossBreakdown(loss, velocity_loss))
 
@@ -281,11 +316,12 @@ class E2TTS(nn.Module):
     def transformer_with_pred_head(self, x, cond, times, mask=None, text=None,
                                    drop_text_cond: bool | None = None,
                                    return_drop_text_cond: bool = False,
-                                   generator: torch.Generator | None = None):
+                                   generator: torch.Generator | None = None,
+                                   batch_offset: int = 0):
         """Core prediction pass; ``drop_text_cond`` defaults, while training,
         to a coin with probability ``cond_drop_prob`` drawn from ``generator``
         (default: the model's), which in training mode also draws the dropout
-        seeds."""
+        seeds, for the rows from ``batch_offset`` of the global batch."""
         seq_len = x.shape[-2]
         generator = default(generator, self.generator)
         if not exists(drop_text_cond):
@@ -298,7 +334,7 @@ class E2TTS(nn.Module):
             text_embed = self.embed_text(text, seq_len, mask=mask)
 
         pred = self._head(self.transformer(x, times=times, mask=mask, text_embed=text_embed,
-                                           generator=generator))
+                                           generator=generator, batch_offset=batch_offset))
         return (pred, drop_text_cond) if return_drop_text_cond else pred
 
     def _cfg_batched_preds(self, x, cond, times, *, text, mask):

@@ -105,7 +105,9 @@ def checkpoint_policy(name: str):
 
 class SpeechLayer(nn.Module):
     """Per-layer speech-stream modules; with ``has_freq_axis`` also the
-    attention across frequency tokens, its norm and its gate."""
+    attention across frequency tokens, its norm and its gate. Its forward is
+    the layer's speech half, so that FSDP2 (parallel/fsdp.py) gathers a
+    layer's parameters around it."""
 
     def __init__(self, *, dim, heads, dim_head, ff_mult, kernel_size, dropout,
                  is_first_block, is_later_half, has_freq_axis, freq_heads, freq_dim_head,
@@ -139,9 +141,53 @@ class SpeechLayer(nn.Module):
                                        dtype=dtype, generator=generator)
             self.freq_attn_adaln_zero = gate()
 
+    def forward(self, x, hcs, *, skip, mask, rotary, freq_rotary, cond, freq_cond,
+                value_residual, freq_value_residual, seeds, orig_batch, batch_offset):
+        """The speech half of a layer on ``x ((b f), n, dim)``: the UNet skip,
+        then the conv, attention, (frequency attention) and feedforward
+        branches behind the hyper-connections ``hcs``. ``seeds``: the
+        attention's and the feedforward's dropout seeds, or empty.
+        ``batch_offset``: ``x``'s first row in the global (folded) batch.
+        Returns ``(x, values, freq_values)``."""
+        attn_seed, ff_seed = seeds or (None, None)
+        if exists(skip):
+            x = self.skip_proj(torch.cat((x, skip), dim=-1))
+
+        conv_hc, attn_hc, ff_hc = hcs[:3]
+        b_in, add_residual = conv_hc(x)
+        x = add_residual(self.conv(b_in, mask=mask))
+
+        b_in, add_residual = attn_hc(x)
+        h = self.attn_input_fourier_embed(self.attn_norm(b_in, condition=cond))
+        attn_out, values = self.attn(h, rotary_pos_emb=rotary, mask=mask,
+                                     value_residual=value_residual, dropout_seed=attn_seed,
+                                     batch_offset=batch_offset)
+        x = add_residual(self.attn_adaln_zero(attn_out, condition=cond))
+
+        freq_values = None
+        if exists(self.freq_attn):
+            # attention across the f tokens of each frame: (b f) n d -> (b n) f d
+            b_in, add_residual = hcs[3](x)
+            bf, n, d = b_in.shape
+            f = bf // orig_batch
+            h = b_in.reshape(orig_batch, f, n, d).transpose(1, 2).reshape(orig_batch * n, f, d)
+            f_out, freq_values = self.freq_attn(
+                self.freq_attn_norm(h, condition=freq_cond), rotary_pos_emb=freq_rotary,
+                value_residual=freq_value_residual, batch_offset=batch_offset // f * n)
+            f_out = self.freq_attn_adaln_zero(f_out, condition=freq_cond)
+            f_out = f_out.reshape(orig_batch, n, f, d).transpose(1, 2).reshape(bf, n, d)
+            x = add_residual(f_out)
+
+        b_in, add_residual = ff_hc(x)
+        ff_out = self.ff(self.ff_norm(b_in, condition=cond), dropout_seed=ff_seed,
+                         batch_offset=batch_offset)
+        x = add_residual(self.ff_adaln_zero(ff_out, condition=cond))
+        return materialize(x), values, freq_values
+
 
 class TextLayer(nn.Module):
-    """Per-layer text-stream modules."""
+    """Per-layer text-stream modules; its forward is the layer's text half
+    and the cross-condition."""
 
     def __init__(self, *, dim, dim_text, heads, dim_head, ff_mult, kernel_size,
                  dropout, is_first_block, is_last_text_layer, attn_kwargs,
@@ -158,6 +204,29 @@ class TextLayer(nn.Module):
                               generator=generator, **ff_kwargs)
         self.cross_condition = TextAudioCrossCondition(
             dim, dim_text, cond_audio_to_text=not is_last_text_layer, dtype=dtype)
+
+    def forward(self, text_embed, x, hcs, *, mask, rotary, value_residual, gate, seeds,
+                batch_offset):
+        """The text half of a layer (conv, attention and feedforward behind
+        the hyper-connections ``hcs``), then the cross-condition with the
+        speech stream ``x``. ``seeds``: the attention's and the feedforward's
+        dropout seeds, or empty. Returns ``(x, text_embed, values)``."""
+        attn_seed, ff_seed = seeds or (None, None)
+        conv_hc, attn_hc, ff_hc = hcs
+        t_in, add_residual = conv_hc(text_embed)
+        text_embed = add_residual(self.conv(t_in, mask=mask))
+
+        t_in, add_residual = attn_hc(text_embed)
+        t_out, values = self.attn(self.attn_norm(t_in), rotary_pos_emb=rotary, mask=mask,
+                                  value_residual=value_residual, dropout_seed=attn_seed,
+                                  batch_offset=batch_offset)
+        text_embed = add_residual(t_out)
+
+        t_in, add_residual = ff_hc(text_embed)
+        text_embed = add_residual(self.ff(self.ff_norm(t_in), dropout_seed=ff_seed,
+                                          batch_offset=batch_offset))
+        x, text_embed = self.cross_condition(materialize(x), materialize(text_embed), gate=gate)
+        return x, text_embed, values
 
 
 class Transformer(nn.Module):
@@ -287,79 +356,45 @@ class Transformer(nn.Module):
         self.to(device)
 
     def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, freq_rotary, cond,
-               freq_cond, attn_v, text_v, freq_v, text_gate, *, push_skip, seeds, orig_batch):
-        """One layer; ``seeds`` are its dropout seeds in the order the
-        branches run (text attention, text feedforward, attention,
-        feedforward; the frequency attention has no dropout), empty without
-        dropout. Returns plain tensors (or None), never lazy streams, so it
-        can be checkpointed."""
-        sl = self.speech_layers[ind]
-        seeds = iter(seeds)
-
-        # text stream first, then cross-condition
-        if exists(text_embed) and ind < self.text_depth:
-            tl = self.text_layers[ind]
-            t_conv_hc, t_attn_hc, t_ff_hc = self.text_hcs[ind]
-
-            t_in, add_residual = t_conv_hc(text_embed)
-            text_embed = add_residual(tl.conv(t_in, mask=mask))
-
-            t_in, add_residual = t_attn_hc(text_embed)
-            t_out, t_values = tl.attn(tl.attn_norm(t_in), rotary_pos_emb=text_rotary,
-                                      mask=mask, value_residual=text_v, dropout_seed=next(seeds, None))
-            text_embed = add_residual(t_out)
+               freq_cond, attn_v, text_v, freq_v, text_gate, *, push_skip, seeds, orig_batch,
+               batch_offset):
+        """One layer: the text half and cross-condition (`TextLayer`), then
+        the speech half (`SpeechLayer`). ``seeds`` are its dropout seeds in
+        the order the branches run (text attention, text feedforward,
+        attention, feedforward; the frequency attention has no dropout),
+        empty without dropout. Returns plain tensors (or None), never lazy
+        streams, so it can be checkpointed."""
+        has_text = exists(text_embed) and ind < self.text_depth
+        text_seeds, seeds = (seeds[:2], seeds[2:]) if has_text and seeds else ((), seeds)
+        if has_text:
+            x, text_embed, t_values = self.text_layers[ind](
+                text_embed, x, self.text_hcs[ind], mask=mask, rotary=text_rotary,
+                value_residual=text_v, gate=text_gate, seeds=text_seeds,
+                batch_offset=batch_offset)
             text_v = default(text_v, t_values)
-
-            t_in, add_residual = t_ff_hc(text_embed)
-            text_embed = add_residual(tl.ff(tl.ff_norm(t_in), dropout_seed=next(seeds, None)))
-
-            x, text_embed = tl.cross_condition(
-                materialize(x), materialize(text_embed), gate=text_gate)
 
         # UNet skips on the speech stream
         x = materialize(x)
         skip_out = x if push_skip else None
-        if exists(skip):
-            x = sl.skip_proj(torch.cat((x, skip), dim=-1))
-
-        conv_hc, attn_hc, ff_hc = self.speech_hcs[ind][:3]
-        b_in, add_residual = conv_hc(x)
-        x = add_residual(sl.conv(b_in, mask=mask))
-
-        b_in, add_residual = attn_hc(x)
-        h = sl.attn_input_fourier_embed(sl.attn_norm(b_in, condition=cond))
-        attn_out, values = sl.attn(h, rotary_pos_emb=rotary, mask=mask, value_residual=attn_v,
-                                   dropout_seed=next(seeds, None))
-        x = add_residual(sl.attn_adaln_zero(attn_out, condition=cond))
+        x, values, f_values = self.speech_layers[ind](
+            x, self.speech_hcs[ind], skip=skip, mask=mask, rotary=rotary,
+            freq_rotary=freq_rotary, cond=cond, freq_cond=freq_cond, value_residual=attn_v,
+            freq_value_residual=freq_v, seeds=seeds, orig_batch=orig_batch,
+            batch_offset=batch_offset)
         attn_v = default(attn_v, values)
-
-        if self.has_freq_axis:
-            # attention across the f tokens of each frame: (b f) n d -> (b n) f d
-            b_in, add_residual = self.speech_hcs[ind][3](x)
-            bf, n, d = b_in.shape
-            f = bf // orig_batch
-            h = b_in.reshape(orig_batch, f, n, d).transpose(1, 2).reshape(orig_batch * n, f, d)
-            f_out, f_values = sl.freq_attn(sl.freq_attn_norm(h, condition=freq_cond),
-                                           rotary_pos_emb=freq_rotary, value_residual=freq_v)
-            f_out = sl.freq_attn_adaln_zero(f_out, condition=freq_cond)
-            f_out = f_out.reshape(orig_batch, n, f, d).transpose(1, 2).reshape(bf, n, d)
-            x = add_residual(f_out)
-            freq_v = default(freq_v, f_values)
-
-        b_in, add_residual = ff_hc(x)
-        ff_out = sl.ff(sl.ff_norm(b_in, condition=cond), dropout_seed=next(seeds, None))
-        x = add_residual(sl.ff_adaln_zero(ff_out, condition=cond))
-
-        return materialize(x), text_embed, skip_out, attn_v, text_v, freq_v
+        freq_v = default(freq_v, f_values)
+        return x, text_embed, skip_out, attn_v, text_v, freq_v
 
     def forward(self, x, times=None, mask=None, text_embed=None, text_cond_gate=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, batch_offset: int = 0):
         """``x (b, n, dim)``, or ``(b, f, n, dim)`` with ``has_freq_axis``;
         ``times (b,)`` or scalar (given iff the model is conditioned on
         time), ``mask (b, n)`` bool, ``text_embed (b, n, dim_text)``;
         ``text_cond_gate (b,)`` scales each sample's text->audio adds (0 = a
         text-free pass). ``generator`` draws the dropout seeds in training
-        mode. Returns the input's shape with ``dim`` features."""
+        mode; ``batch_offset`` is ``x``'s first row in the global batch (a
+        data-parallel rank's), for which the dropout bits are drawn. Returns
+        the input's shape with ``dim`` features."""
         if (x.ndim == 4) != self.has_freq_axis:
             raise ValueError('`has_freq_axis` must be set iff passing a 4-dim (b f n d) tensor')
         if exists(self.dtype):
@@ -429,7 +464,7 @@ class Transformer(nn.Module):
             branches = 4 if exists(text_embed) and ind < self.text_depth else 2
             seeds = tuple(draw_seed(generator) for _ in range(branches)) if dropping else ()
             layer = partial(self._layer, ind, push_skip=is_first_half, seeds=seeds,
-                            orig_batch=orig_batch)
+                            orig_batch=orig_batch, batch_offset=batch_offset * freq_len)
             args = (x, text_embed, skip_in, mask, rotary, text_rotary, freq_rotary, cond,
                     freq_cond, attn_v, text_v, freq_v, text_gate)
             # nothing in a layer reads torch's global generators: no RNG state to keep

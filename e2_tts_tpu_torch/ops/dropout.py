@@ -53,3 +53,12 @@ def hash_keep(shape, seed: int, rate: float, device=None) -> torch.Tensor:
         idx = torch.arange(size, dtype=torch.int64, device=device).view(view)
         ctr = (ctr + mul32(idx, PRIMES[axis])) & _M32
     return fmix32(ctr) >= keep_threshold(rate)
+
+
+def fold_batch_offset(seed: int, b0: int) -> int:
+    """The seed whose `hash_keep` over rows ``[0, b)`` of axis 0 draws the
+    bits of rows ``[b0, b0 + b)`` under ``seed``: the counter is linear in
+    the index, so the offset folds into the seed as ``seed + b0 *
+    PRIMES[0]`` (mod 2**32). A data-parallel rank holding rows from ``b0``
+    draws the global batch's bits this way, with no kernel change."""
+    return (int(seed) + int(b0) * PRIMES[0]) & _M32

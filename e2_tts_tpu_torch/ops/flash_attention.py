@@ -26,7 +26,10 @@ The C entry points choose the design from the dtype and dim_head.
 
 Semantics: tanh softclamp of the scaled logits, key-padding bias 0 / -1e30,
 softmax, post-softmax counter-hash dropout (bits identical to the JAX
-package's ``_keep_tile`` for the global head ``b * heads + h``); K1 also the
+package's ``_keep_tile`` for the global head ``(hash_b0 + b) * heads + h``:
+``hash_b0``, default 0, is the first row's place in the global batch, so a
+data-parallel rank holding rows ``[b0, b0 + B/P)`` passes ``b0`` and draws
+the bits a single device draws for those rows; it moves no memory); K1 also the
 optional per-head sigmoid output gate. The forward also returns the
 per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
 ``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
@@ -61,11 +64,13 @@ MAX_DIM_HEAD_BHND = 256                 # K8 / K9: any dim_head up to this
 MAX_DIM_HEAD_PROBE = 128                # the probe: multiples of 8 up to this
 
 
-def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float,
-                      device=None) -> torch.Tensor:
+def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float, device=None, *,
+                      hash_b0: int = 0, heads: int = 1) -> torch.Tensor:
     """Full (bh, n, n) keep mask: the bits the kernel draws for global head
-    ``bh = batch * heads + head``, absolute query row and key column."""
-    bhs = torch.arange(bh_total, dtype=torch.int64, device=device)[:, None, None]
+    ``(hash_b0 + batch) * heads + head`` (``bh = batch * heads + head``),
+    absolute query row and key column."""
+    bhs = (torch.arange(bh_total, dtype=torch.int64, device=device)
+           + int(hash_b0) * heads)[:, None, None]
     rows = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
     cols = torch.arange(n, dtype=torch.int64, device=device)[None, None, :]
     h = fmix32((int(seed) & _M32) ^ mul32(bhs, 0x27D4EB2F))
@@ -75,7 +80,7 @@ def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float,
 
 
 def _forward_core_plain(qf, kf, vf, mask, scale, softclamp_value, dropout_rate,
-                        dropout_seed):
+                        dropout_seed, hash_b0=0):
     """f32 ``(b, h, n, dh)`` q, k, v -> f32 ``o (b, h, n, dh)`` and ``lse
     (b*h, n)``: the arithmetic K1 and K8 share."""
     b, h, n, _ = qf.shape
@@ -91,8 +96,8 @@ def _forward_core_plain(qf, kf, vf, mask, scale, softclamp_value, dropout_rate,
     lse = (m + torch.log(l)).reshape(b * h, n)
     p = p / l
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate,
-                                 device=qf.device).view(b, h, n, n)
+        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate, device=qf.device,
+                                 hash_b0=hash_b0, heads=h).view(b, h, n, n)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return p @ vf, lse
 
@@ -110,22 +115,22 @@ def _merge_heads(t):
 
 def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
                                  softclamp_value=None, dropout_rate=0.0,
-                                 dropout_seed=0, gate_logits=None):
+                                 dropout_seed=0, gate_logits=None, hash_b0=0):
     """Plain PyTorch version of K1 (f32 math): returns (out, lse)."""
     o, lse = _forward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads), mask,
-        scale, softclamp_value, dropout_rate, dropout_seed)
+        scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
     if exists(gate_logits):
         o = o * torch.sigmoid(gate_logits.float()).permute(0, 2, 1)[..., None]
     return _merge_heads(o).to(q.dtype), lse
 
 
 def flash_attention_plain(q, k, v, mask=None, *, scale, softclamp_value=None,
-                          dropout_rate=0.0, dropout_seed=0):
+                          dropout_rate=0.0, dropout_seed=0, hash_b0=0):
     """Plain PyTorch version of K8 (f32 math) on ``(b, h, n, dh)``: returns
     (out, lse)."""
     o, lse = _forward_core_plain(q.float(), k.float(), v.float(), mask, scale,
-                                 softclamp_value, dropout_rate, dropout_seed)
+                                 softclamp_value, dropout_rate, dropout_seed, hash_b0)
     return o.to(q.dtype), lse
 
 
@@ -180,7 +185,7 @@ def flash_delta(out, dout, *, heads: int, gate_logits=None):
 
 
 def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp_value,
-                         dropout_rate, dropout_seed):
+                         dropout_rate, dropout_seed, hash_b0=0):
     """f32 ``(b, h, n, dh)`` q, k, v, do and ``delta (b, h, n)`` -> f32 dq,
     dk, dv: the arithmetic K2 and K9 share, with the compute dtype ``dt``'s
     rounding where the TPU kernels round."""
@@ -197,8 +202,8 @@ def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp
     p = torch.exp(s - lse.view(b, h, n, 1))
     dp = dof @ vf.transpose(-1, -2)
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate,
-                                 device=qf.device).view(b, h, n, n)
+        keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate, device=qf.device,
+                                 hash_b0=hash_b0, heads=h).view(b, h, n, n)
         keep_scaled = keep.float() * (1.0 / (1.0 - dropout_rate))
         ds = p * (keep_scaled * dp - delta_col)
         p = p * keep_scaled
@@ -214,7 +219,7 @@ def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp
 
 def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
                                           softclamp_value=None, dropout_rate=0.0,
-                                          dropout_seed=0, gate_logits=None):
+                                          dropout_seed=0, gate_logits=None, hash_b0=0):
     """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
     where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
     the last None without a gate."""
@@ -223,7 +228,7 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
     grads = _backward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
         _split_heads(do, heads), delta.permute(0, 2, 1), mask, lse, dt, scale,
-        softclamp_value, dropout_rate, dropout_seed)
+        softclamp_value, dropout_rate, dropout_seed, hash_b0)
     dq, dk, dv = (_merge_heads(g).to(dt) for g in grads)
     return dq, dk, dv, _gate_grad(delta, gate_logits)
 
@@ -237,13 +242,14 @@ def _gate_grad(delta, gate_logits):
 
 
 def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, *, scale,
-                                   softclamp_value=None, dropout_rate=0.0, dropout_seed=0):
+                                   softclamp_value=None, dropout_rate=0.0, dropout_seed=0,
+                                   hash_b0=0):
     """Plain PyTorch version of K9 on ``(b, h, n, dh)``, with K9's delta =
     rowsum(dout * out) (f32): returns ``(dq, dk, dv)``."""
     delta = (dout.float() * out.float()).sum(-1)                      # (b, h, n)
     grads = _backward_core_plain(q.float(), k.float(), v.float(), dout.float(), delta,
                                  mask, lse, q.dtype, scale, softclamp_value, dropout_rate,
-                                 dropout_seed)
+                                 dropout_seed, hash_b0)
     return tuple(g.to(q.dtype) for g in grads)
 
 
@@ -284,7 +290,7 @@ def _check_inputs(q, k, v, mask, gate_logits, heads):
 
 
 def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
-                dropout_seed, gate_logits):
+                dropout_seed, gate_logits, hash_b0=0):
     b, n, D, dh = _check_inputs(q, k, v, mask, gate_logits, heads)
     device, dtype = q.device, q.dtype
     out = torch.empty((b, n, D), dtype=dtype, device=device)
@@ -298,7 +304,7 @@ def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
         out.data_ptr(), lse.data_ptr(), b, n, heads, dh, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
         _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd')
     _cuda.count_launch('flash_fwd')
@@ -306,7 +312,7 @@ def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
 
 
 def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value,
-                    dropout_rate, dropout_seed, gate_logits):
+                    dropout_rate, dropout_seed, gate_logits, hash_b0=0):
     b, n, D, dh = _check_inputs(q, k, v, mask, gate_logits, heads)
     device, dtype = q.device, q.dtype
     for t, name in ((out, 'out'), (dout, 'dout')):
@@ -332,7 +338,7 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
         b, n, heads, dh, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
         _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_bwd')
     _cuda.count_launch('flash_bwd')
@@ -346,34 +352,41 @@ def _check_rate(dropout_rate):
     return dropout_rate
 
 
+def _check_hash_b0(hash_b0):
+    if int(hash_b0) != hash_b0 or not 0 <= hash_b0 < 2 ** 31:
+        raise ValueError(f'hash_b0 must be an int in [0, 2**31), got {hash_b0}')
+    return int(hash_b0)
+
+
 def flash_attention_packed_backward(q, k, v, mask, out, lse, dout, *, heads: int,
                                     scale=None, softclamp_value=None,
                                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                                    gate_logits=None):
+                                    gate_logits=None, hash_b0: int = 0):
     """K2 alone (the counterpart of ``_flash_packed_backward`` with the gate
     grad of ``_flash_packed_gated_bwd``): from the forward's inputs, its
     output ``out``, its ``lse`` and the output grad ``dout``, returns
     ``(dq, dk, dv, d_gate_logits)`` (the last None without a gate)."""
     scale = default(scale, (q.shape[-1] // heads) ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
+    hash_b0 = _check_hash_b0(hash_b0)
     if q.device.type == 'cpu':
         return flash_attention_packed_backward_plain(
             q, k, v, mask, out, lse, dout, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits)
+            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
     return _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value,
-                           dropout_rate, dropout_seed, gate_logits)
+                           dropout_rate, dropout_seed, gate_logits, hash_b0)
 
 
 def _flash_forward(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
-                   dropout_seed, gate_logits):
+                   dropout_seed, gate_logits, hash_b0):
     if q.device.type == 'cpu':
         return flash_attention_packed_plain(
             q, k, v, mask, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits)
+            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
     return _flash_cuda(q, k, v, mask, heads, scale, softclamp_value,
-                       dropout_rate, dropout_seed, gate_logits)
+                       dropout_rate, dropout_seed, gate_logits, hash_b0)
 
 
 class _FlashPacked(torch.autograd.Function):
@@ -383,39 +396,42 @@ class _FlashPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, gate_logits, heads, scale, softclamp_value,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, hash_b0):
         out, lse = _flash_forward(q, k, v, mask, heads, scale, softclamp_value,
-                                  dropout_rate, dropout_seed, gate_logits)
+                                  dropout_rate, dropout_seed, gate_logits, hash_b0)
         ctx.save_for_backward(q, k, v, mask, gate_logits, out, lse)
-        ctx.config = (heads, scale, softclamp_value, dropout_rate, dropout_seed)
+        ctx.config = (heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, mask, gate_logits, out, lse = ctx.saved_tensors
-        heads, scale, softclamp_value, dropout_rate, dropout_seed = ctx.config
+        heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_b0 = ctx.config
         dq, dk, dv, dgate = flash_attention_packed_backward(
             q, k, v, mask, out, lse, dout, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits)
-        return dq, dk, dv, None, dgate, None, None, None, None, None
+            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
+        return dq, dk, dv, None, dgate, None, None, None, None, None, None
 
 
 def flash_attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                            softclamp_value=None, dropout_rate: float = 0.0,
                            dropout_seed: int = 0, gate_logits=None,
-                           return_lse: bool = False):
+                           return_lse: bool = False, hash_b0: int = 0):
     """Attention on projection-layout ``q, k, v (b, n, h*dh)`` with a key
     padding ``mask (b, n)`` (True = attend) and optional per-head output
     gate logits ``(b, n, h)``. Returns ``out`` (and ``lse`` if asked);
-    differentiable in q, k, v and the gate logits (backward: K2)."""
+    differentiable in q, k, v and the gate logits (backward: K2).
+    ``hash_b0``: the first row's place in the global batch, for the
+    dropout bits."""
     b, n, D = q.shape
     dh = D // heads
     scale = default(scale, dh ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _FlashPacked.apply(q, k, v, mask, gate_logits, heads, scale,
-                                  softclamp_value, dropout_rate, dropout_seed)
+                                  softclamp_value, dropout_rate, dropout_seed,
+                                  _check_hash_b0(hash_b0))
     return (out, lse) if return_lse else out
 
 
@@ -475,13 +491,14 @@ def _bhnd_empty(b, h, n, dh, dtype, device):
     return torch.empty((b, n, h, dh), dtype=dtype, device=device).transpose(1, 2)
 
 
-def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed):
+def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
+                     hash_b0=0):
     dh = q.shape[-1]
     _check_dim_head(dh)
     if dh % 8:              # K8 on zero-padded heads, the caller's scale; pad columns dropped
         dhp = _padded_dim_head(dh)
         out, lse = _flash_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask, scale,
-                                    softclamp_value, dropout_rate, dropout_seed)
+                                    softclamp_value, dropout_rate, dropout_seed, hash_b0)
         return out[..., :dh], lse
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
@@ -494,7 +511,7 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
         mask.data_ptr() if exists(mask) else None, out.data_ptr(), st(out), lse.data_ptr(),
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
         _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd_bhnd')
     _cuda.count_launch('flash_fwd_bhnd')
@@ -502,14 +519,14 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
 
 
 def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
-                         dropout_rate, dropout_seed):
+                         dropout_rate, dropout_seed, hash_b0=0):
     dh = q.shape[-1]
     _check_dim_head(dh)
     if dh % 8:              # K9 on zero-padded heads (o, do too); pad columns dropped
         dhp = _padded_dim_head(dh)
         grads = _flash_bwd_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask,
                                      _pad_head(out, dhp), lse, _pad_head(dout, dhp), scale,
-                                     softclamp_value, dropout_rate, dropout_seed)
+                                     softclamp_value, dropout_rate, dropout_seed, hash_b0)
         return tuple(g[..., :dh] for g in grads)
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
@@ -524,12 +541,12 @@ def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
     dk = _bhnd_empty(b, h, n, dh, dtype, device)
     dv = _bhnd_empty(b, h, n, dh, dtype, device)
     launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
-                    dropout_rate, dropout_seed)
+                    dropout_rate, dropout_seed, hash_b0)
     return dq.to(dtype), dk, dv
 
 
 def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
-                    dropout_rate, dropout_seed):
+                    dropout_rate, dropout_seed, hash_b0=0):
     """K9's launch alone, on checked operands: ``delta (b, h, n)`` f32, ``dq``
     a zeroed f32 ``(b, h, n, dh)`` view, ``dk`` / ``dv`` written in place."""
     b, h, n, dh = q.shape
@@ -541,7 +558,7 @@ def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclam
         delta.data_ptr(), st(delta), dq.data_ptr(), st(dq), dk.data_ptr(), st(dk), dv.data_ptr(), st(dv),
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
         _cuda.DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device))
     _cuda.check(err, 'flash_bwd_bhnd')
     _cuda.count_launch('flash_bwd_bhnd')
@@ -549,18 +566,19 @@ def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclam
 
 def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale=None,
                              softclamp_value=None, dropout_rate: float = 0.0,
-                             dropout_seed: int = 0):
+                             dropout_seed: int = 0, hash_b0: int = 0):
     """K9 alone (the counterpart of ``_flash_backward``): from the forward's
     ``(b, h, n, dh)`` inputs, its output ``out``, its ``lse`` and the output
     grad ``dout``, returns ``(dq, dk, dv)``."""
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
+    hash_b0 = _check_hash_b0(hash_b0)
     if q.device.type == 'cpu':
         return flash_attention_backward_plain(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
     return _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
-                                dropout_rate, dropout_seed)
+                                dropout_rate, dropout_seed, hash_b0)
 
 
 class _Flash(torch.autograd.Function):
@@ -569,34 +587,36 @@ class _Flash(torch.autograd.Function):
     the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed):
+    def forward(ctx, q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
+                hash_b0):
         if q.device.type == 'cpu':
             out, lse = flash_attention_plain(
                 q, k, v, mask, scale=scale, softclamp_value=softclamp_value,
-                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
         else:
             out, lse = _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value,
-                                        dropout_rate, dropout_seed)
+                                        dropout_rate, dropout_seed, hash_b0)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.config = (scale, softclamp_value, dropout_rate, dropout_seed)
+        ctx.config = (scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        scale, softclamp_value, dropout_rate, dropout_seed = ctx.config
+        scale, softclamp_value, dropout_rate, dropout_seed, hash_b0 = ctx.config
         dq, dk, dv = flash_attention_backward(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
-        return dq, dk, dv, None, None, None, None, None
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                    return_lse: bool = False):
+                    return_lse: bool = False, hash_b0: int = 0):
     """Attention on ``q, k, v (b, h, n, dh)`` (strided views are read where
-    they lie) with a key padding ``mask (b, n)`` (True = attend). Returns
+    they lie) with a key padding ``mask (b, n)`` (True = attend), dropout
+    bits for global batch rows from ``hash_b0``. Returns
     ``out (b, h, n, dh)`` (and ``lse (b*h, n)`` if asked); differentiable in
     q, k and v (forward K8, backward K9). On the card ``out`` is a view of a
     ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous (for
@@ -608,7 +628,8 @@ def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
     a fallback."""
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
-    out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed)
+    out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
+                            _check_hash_b0(hash_b0))
     return (out, lse) if return_lse else out
 
 

@@ -1,0 +1,83 @@
+"""The data mesh (counterpart of e2_tts_tpu/parallel/mesh.py).
+
+The reference trains with DDP through Accelerate. The JAX package carries
+that as a 1-D ``data`` mesh with replicated (or FSDP-sharded, fsdp.py)
+state and batches sharded on axis 0. Here the mesh is a 1-D
+``DeviceMesh`` named ``('data',)`` over the default process group, one
+rank per device; rank r holds rows ``[r B/P, (r + 1) B/P)`` of a global
+batch of B, the rows ``jax.device_put(..., P('data'))`` gives device r.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from e2_tts_tpu_torch.utils.helpers import exists
+
+DATA_AXIS = 'data'
+
+
+def make_mesh(n: int | None = None, device=None) -> DeviceMesh:
+    """The 1-D data mesh over every rank of the default process group
+    (`multihost.maybe_initialize_distributed` starts it). ``n``, when
+    given, must be the world size: a mesh over part of the world is not
+    supported. ``device`` defaults to the backend's: CUDA for NCCL, the CPU
+    for gloo."""
+    if not dist.is_initialized():
+        raise RuntimeError('make_mesh needs a process group: call '
+                           'multihost.maybe_initialize_distributed() first')
+    world = dist.get_world_size()
+    if exists(n) and n != world:
+        raise ValueError(f'the data mesh spans the world ({world} ranks), got n={n}')
+    if exists(device):
+        device_type = torch.device(device).type
+    else:
+        device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return init_device_mesh(device_type, (world,), mesh_dim_names=(DATA_AXIS,))
+
+
+def batch_rows(batch_size: int, mesh: DeviceMesh) -> tuple[int, int]:
+    """This rank's rows ``(start, stop)`` of a global batch of
+    ``batch_size``; raises unless the mesh size divides it."""
+    n = mesh.size()
+    if batch_size % n:
+        raise ValueError(f'batch size {batch_size} must be divisible by the number of '
+                         f'ranks on the data axis ({n})')
+    per = batch_size // n
+    start = mesh.get_local_rank() * per
+    return start, start + per
+
+
+def shard_batch(batch, mesh: DeviceMesh):
+    """This rank's rows of every array (numpy or tensor; None passes) in
+    ``batch``, an array or a dict / list / tuple of them, all of one batch
+    size."""
+    sizes = set()
+
+    def walk(x, fn):
+        if isinstance(x, dict):
+            return {k: walk(v, fn) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v, fn) for v in x)
+        return x if x is None else fn(x)
+
+    walk(batch, lambda x: sizes.add(len(x)))
+    if len(sizes) > 1:
+        raise ValueError(f'the arrays of one batch differ in batch size: {sorted(sizes)}')
+    if not sizes:
+        return batch
+    start, stop = batch_rows(sizes.pop(), mesh)
+    return walk(batch, lambda x: x[start:stop])
+
+
+@torch.no_grad()
+def replicate_module(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
+    """Broadcast every parameter and buffer from the mesh's rank 0, in
+    place, so that every rank starts from the same state."""
+    group = mesh.get_group()
+    src = dist.get_global_rank(group, 0)
+    for t in (*module.parameters(), *module.buffers()):
+        dist.broadcast(t.data, src=src, group=group)
+    return module

@@ -14,6 +14,10 @@ of the eps division by default. Per step k (1-based), decay b1 / b2:
 the JAX package's optax chain ``scale_by_adopt -> add_decayed_weights(-w) ->
 scale(lr)``. ``lr`` is a float or a schedule ``step -> lr`` evaluated at the
 number of previous steps (optax's ``scale_by_schedule`` count).
+
+Elementwise throughout, so on FSDP-sharded parameters (DTensors) each rank
+updates its own shard and the moments' shards beside it, with no
+collective; the moments are DTensors placed as their parameters.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from e2_tts_tpu_torch.parallel.fsdp import local
 
 
 class Adopt(torch.optim.Optimizer):
@@ -43,7 +49,6 @@ class Adopt(torch.optim.Optimizer):
             for p in group['params']:
                 if p.grad is None:
                     continue
-                g = p.grad
                 state = self.state[p]
                 if not state:
                     state['step'] = 0
@@ -52,7 +57,7 @@ class Adopt(torch.optim.Optimizer):
                 state['step'] += 1
                 k = state['step']
                 lr = group['lr'](k - 1) if callable(group['lr']) else group['lr']
-                m, v = state['m'], state['v']
+                p, g, m, v = (local(t) for t in (p, p.grad, state['m'], state['v']))
                 # the update before the learning rate: -m, or 0 on the first step
                 if k == 1:
                     v.copy_(g * g)

@@ -20,6 +20,14 @@ package's orbax checkpoint is one pytree in a directory:
 A save writes a temporary file in the directory and moves it over the
 checkpoint with ``os.replace``, so a reader sees the old checkpoint or the
 new one, never a part of either. A load reads with ``weights_only=True``.
+
+Under a data ``mesh`` every rank calls both. A save gathers every
+FSDP-sharded tensor to its full value (a collective; `fsdp.gather_full`),
+rank 0 writes the same one-file payload as a single device does, and the
+other ranks wait at a barrier until it is in place. A load reads the file on
+every rank, and each rank copies its own part of each sharded tensor
+(`fsdp.load_full_state_dict`, `fsdp.copy_full_`), so a checkpoint moves
+between world sizes and between replicated and sharded runs unchanged.
 """
 
 from __future__ import annotations
@@ -28,7 +36,11 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
+from e2_tts_tpu_torch.parallel.fsdp import (
+    gather_full, load_full_state_dict, shard_optimizer_state_,
+)
 from e2_tts_tpu_torch.utils.helpers import exists
 
 CHECKPOINT_FILE = 'checkpoint.pt'
@@ -49,15 +61,17 @@ def _load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None
     groups = [dict(saved, **{k: v for k, v in live.items() if callable(v)})
               for saved, live in zip(state['param_groups'], optimizer.param_groups)]
     optimizer.load_state_dict(dict(state, param_groups=groups))
+    shard_optimizer_state_(optimizer)
 
 
 def save_checkpoint(path: str, *, model, optimizer=None, ema=None, step: int = 0,
                     duration_predictor=None, dp_optimizer=None, generator=None,
-                    accumulator=None) -> str:
+                    accumulator=None, mesh=None) -> str:
     """Write the checkpoint into the directory ``path``, atomically
-    replacing any previous one; returns the file's path."""
+    replacing any previous one; returns the file's path. With a data
+    ``mesh`` every rank calls it: all gather, rank 0 writes, all return
+    once the file is in place."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
     payload = dict(model=model.state_dict(), step=int(step))
     if exists(optimizer):
         payload['opt'] = _optimizer_state(optimizer)
@@ -71,19 +85,31 @@ def save_checkpoint(path: str, *, model, optimizer=None, ema=None, step: int = 0
         payload['generator'] = generator.get_state()
     if exists(accumulator):
         payload['accumulation'] = accumulator.state_dict()
+    target = os.path.join(path, CHECKPOINT_FILE)
+    if not exists(mesh):
+        _write(payload, path, target)
+        return target
+    payload = gather_full(payload)
+    if mesh.get_local_rank() == 0:
+        _write(payload, path, target)
+    dist.barrier(group=mesh.get_group())
+    return target
 
+
+def _write(payload: dict, path: str, target: str) -> None:
+    """``torch.save`` to a temporary file in ``path``, then moved over
+    ``target``."""
+    os.makedirs(path, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f'.{CHECKPOINT_FILE}.', dir=path)
     try:
         with os.fdopen(fd, 'wb') as f:
             torch.save(payload, f)
             f.flush()
             os.fsync(f.fileno())
-        target = os.path.join(path, CHECKPOINT_FILE)
         os.replace(tmp, target)
     except BaseException:
         os.unlink(tmp)
         raise
-    return target
 
 
 def load_checkpoint(path: str, *, model, optimizer=None, ema=None, duration_predictor=None,
@@ -92,7 +118,8 @@ def load_checkpoint(path: str, *, model, optimizer=None, ema=None, duration_pred
     for a missing or empty directory, the state None for a checkpoint
     without one. A directory that holds other files but no checkpoint
     raises, as the JAX package's does: it may hold a partial or foreign
-    state."""
+    state. Sharded modules and optimizers take their part of each full
+    tensor."""
     path = os.path.abspath(path)
     if not os.path.exists(path) or not os.listdir(path):
         return 0, None
@@ -102,12 +129,13 @@ def load_checkpoint(path: str, *, model, optimizer=None, ema=None, duration_pred
                                 f'{sorted(os.listdir(path))}')
     payload = torch.load(target, map_location=map_location, weights_only=True)
 
-    model.load_state_dict(payload['model'])
+    load_full_state_dict(model, payload['model'])
+    if exists(duration_predictor) and 'duration_predictor' in payload:
+        load_full_state_dict(duration_predictor, payload['duration_predictor'])
     for obj, key in ((optimizer, 'opt'), (dp_optimizer, 'dp_opt')):
         if exists(obj) and key in payload:
             _load_optimizer_state(obj, payload[key])
-    for obj, key in ((ema, 'ema'), (duration_predictor, 'duration_predictor'),
-                     (accumulator, 'accumulation')):
+    for obj, key in ((ema, 'ema'), (accumulator, 'accumulation')):
         if exists(obj) and key in payload:
             obj.load_state_dict(payload[key])
     generator_state = payload.get('generator')

@@ -11,6 +11,9 @@ counter + 1 (ema-pytorch increments before computing it). Only
 frequencies) stay as copied. `update_model_with_ema` is Switch-EMA
 (arXiv 2402.09240). `state_dict` holds the weights and the counters, as the
 JAX EMA's state holds its ``step`` and ``step_initted`` buffers.
+
+Under FSDP the trainer shards the copy as it shards the model, and the
+blend acts on each rank's local shards, with no collective.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import copy
 import numpy as np
 import torch
 import torch.nn as nn
+
+from e2_tts_tpu_torch.parallel.fsdp import load_full_state_dict, local
 
 
 class EMA:
@@ -59,6 +64,7 @@ class EMA:
             # other rounding of 1 - d moves the blend by an ulp or two
             d, keep = float(d), float(np.float32(1.0) - d)
             for e, o in zip(self.ema_model.parameters(), model.parameters()):
+                e, o = local(e), local(o)
                 e.copy_((e.float() * d + o.float() * keep).to(e.dtype))
             self.initted = True
         self.step = step + 1
@@ -70,7 +76,7 @@ class EMA:
         return dict(model=self.ema_model.state_dict(), step=self.step, initted=self.initted)
 
     def load_state_dict(self, state: dict):
-        self.ema_model.load_state_dict(state['model'])
+        load_full_state_dict(self.ema_model, state['model'])
         self.step = int(state['step'])
         self.initted = bool(state['initted'])
 
@@ -78,4 +84,4 @@ class EMA:
     def update_model_with_ema(self, model: nn.Module):
         """Switch-EMA: copy the EMA weights into the online model."""
         for e, o in zip(self.ema_model.parameters(), model.parameters()):
-            o.copy_(e)
+            local(o).copy_(local(e))

@@ -30,8 +30,37 @@ epoch already consumed are not skipped, and the text-drop coin's
 ``random.Random(seed)`` is seeded anew at every `train`; the generator takes
 the saved state, or ``seed + start step`` without one.
 
-Not ported (each raises NotImplementedError): device meshes, FSDP and
-sequence parallelism.
+Data parallelism (the JAX trainer's ``mesh`` and ``param_sharding``): with a
+data ``mesh`` (`parallel.mesh.make_mesh`; by default one over the world when
+a process group of more than one rank is up), every rank runs this loop in
+step. ``batch_size`` is the global batch; every rank draws the same
+shuffled batches, tokenizes and pads the whole batch and keeps its rows
+(`parallel.mesh.shard_batch`), and its trainer's generator and text-drop
+coin stay in step with a single device's. The model sees its rows' place
+in the global batch (``batch_offset``): its draws are the global draws'
+rows, its dropout bits those rows' bits, and its loss its term of the
+global loss, so the step is the single-device step of the global batch.
+``param_sharding='replicated'`` wraps the model (and a trained duration
+predictor) in DDP; ``'fsdp'`` shards them and the EMA copy with FSDP2
+(`parallel.fsdp`), and ADOPT, the EMA, the accumulator and the clip then
+act on each rank's shards (the clip's norm is the whole gradient's, one
+all-reduce). Each rank backpropagates its loss term times the number of
+ranks, since DDP and FSDP average the grads over the ranks. The logged loss
+is the global loss. Logs, TensorBoard, figures and the profiler run on
+rank 0 only; a checkpoint is written by rank 0 (training/checkpointing.py).
+
+The text-drop step: the coin is the same on every rank, but a dropped
+step's text stream gets no grads, which DDP's reducer by default takes for
+a fault. The DDP wrapper is built with ``find_unused_parameters=True``
+rather than reducing the grads by hand after `_grads` makes the zeros: it
+keeps DDP's bucketed all-reduce overlapping the backward, at the price of
+a walk of the autograd graph a step, and both ways give the same numbers,
+since every rank leaves out the same parameters. FSDP2 needs neither: a
+unit that takes no part in the step is not gathered or reduced, on any
+rank.
+
+Not ported: sequence parallelism (``sequence_parallel > 1`` raises
+NotImplementedError; ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -43,7 +72,15 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
+from e2_tts_tpu_torch.parallel.fsdp import (
+    average_whole_grads_, copy_full_, local, shard_module_fsdp,
+)
+from e2_tts_tpu_torch.parallel.mesh import batch_rows, make_mesh, replicate_module, shard_batch
+from e2_tts_tpu_torch.parallel.multihost import is_main_process, world_size
 from e2_tts_tpu_torch.training import checkpointing
 from e2_tts_tpu_torch.training.adopt import Adopt
 from e2_tts_tpu_torch.training.data import iter_batches, prefetch
@@ -80,11 +117,23 @@ def linear_warmup_decay_schedule(peak_lr: float, num_warmup_steps: int,
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: each grad becomes ``g / norm *
     max_norm`` when the global norm reaches ``max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``). Returns the norm; no host sync."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    ``torch.nn.utils.clip_grad_norm_``). Returns the norm; no host sync.
+    FSDP-sharded grads (DTensors) enter with their local shards' squared
+    norms summed over their mesh in one all-reduce: the norm is the whole
+    gradient's, and each rank scales its own shards."""
+    norms = torch.stack([torch.linalg.vector_norm(local(g).float()) for g in grads])
+    sharded = [isinstance(g, DTensor) for g in grads]
+    if not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        sharded = torch.tensor(sharded, device=norms.device)
+        squares = norms * norms
+        total = torch.where(sharded, squares, 0.0).sum()
+        mesh = next(g.device_mesh for g in grads if isinstance(g, DTensor))
+        dist.all_reduce(total, group=mesh.get_group())
+        norm = torch.sqrt(total + torch.where(sharded, 0.0, squares).sum())
     keep = norm < max_norm
-    for g in grads:
+    for g in map(local, grads):
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
     return norm
 
@@ -112,9 +161,10 @@ class GradientAccumulator:
     @torch.no_grad()
     def add(self, grads: list[torch.Tensor]) -> bool:
         """Fold one micro-step's grads into the mean; True when this call
-        completes the k-th, and ``self.grads`` then holds the mean."""
+        completes the k-th, and ``self.grads`` then holds the mean. Sharded
+        grads fold shard by shard."""
         n = self.mini_step
-        for acc, g in zip(self.grads, grads):
+        for acc, g in zip(map(local, self.grads), map(local, grads)):
             acc.add_((g - acc) / (n + 1))
         self.mini_step = (n + 1) % self.every_k
         return self.mini_step == 0
@@ -133,12 +183,8 @@ class GradientAccumulator:
             raise ValueError(f'{len(state["grads"])} accumulated grads for '
                              f'{len(self.grads)} parameters')
         for acc, saved in zip(self.grads, state['grads']):
-            acc.copy_(saved)
+            copy_full_(acc, saved)
         self.mini_step = int(state['mini_step'])
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f'{what} is not ported to e2_tts_tpu_torch yet')
 
 
 class E2Trainer:
@@ -176,16 +222,34 @@ class E2Trainer:
         `train`. ``dtype`` sets the compute dtype of every submodule of the
         model and of the duration predictor (parameters stay f32).
         ``profile_dir``: a torch.profiler Chrome trace of the global steps
-        in ``[profile_steps[0], profile_steps[1])`` is written there. The
-        trainer runs on the model's device."""
-        for flag, what in ((exists(mesh), 'a device mesh'),
-                           (param_sharding != 'replicated', f'param_sharding={param_sharding!r}'),
-                           (sequence_parallel > 1, 'sequence parallelism')):
-            if flag:
-                _not_ported(what)
+        in ``[profile_steps[0], profile_steps[1])`` is written there (on
+        rank 0). The trainer runs on the model's device.
+
+        ``mesh``: a 1-D data mesh (`parallel.mesh.make_mesh`); None means
+        one over the world when a process group of more than one rank is
+        up, else a single device. Under a mesh, ``param_sharding`` is
+        ``'replicated'`` (DDP) or ``'fsdp'`` (FSDP2); every rank starts from
+        rank 0's weights. Build the trainer after loading weights: FSDP
+        replaces the model's parameters, so a ready ``optimizer`` cannot be
+        taken with ``'fsdp'``."""
+        if sequence_parallel > 1:
+            raise NotImplementedError('sequence parallelism is not ported to e2_tts_tpu_torch '
+                                      'yet (ROADMAP.md queue 1 item 3, SP)')
+        if param_sharding not in ('replicated', 'fsdp'):
+            raise ValueError(f"param_sharding must be 'replicated' or 'fsdp', "
+                             f'got {param_sharding!r}')
+        if mesh is None and world_size() > 1:
+            mesh = make_mesh()
+        if exists(mesh) and not (isinstance(mesh, DeviceMesh) and mesh.ndim == 1):
+            raise TypeError(f'mesh must be a 1-D DeviceMesh (parallel.mesh.make_mesh), '
+                            f'got {mesh!r}')
+        if exists(mesh) and param_sharding == 'fsdp' and exists(optimizer):
+            raise ValueError("param_sharding='fsdp' replaces the model's parameters: let the "
+                             'trainer build its optimizer')
         if grad_accumulation_steps < 1:
             raise ValueError(f'grad_accumulation_steps must be >= 1, got {grad_accumulation_steps}')
-        if exists(log_file):
+        self.is_main = is_main_process()
+        if exists(log_file) and self.is_main:
             logger.addHandler(logging.FileHandler(log_file))
 
         if exists(dtype):
@@ -199,7 +263,17 @@ class E2Trainer:
         self.duration_predictor = duration_predictor
         self.train_duration_predictor = train_duration_predictor and exists(duration_predictor)
         self.need_velocity_consistent_loss = model.velocity_consistency_weight > 0.0
+        self.mesh = mesh
+        self.param_sharding = param_sharding
+        if exists(mesh):
+            for module in filter(exists, (model, duration_predictor)):
+                replicate_module(module, mesh)
         self.ema = EMA(model, **ema_kwargs)
+        self._model_fn = self._place(model)
+        self._dp_fn = (self._place(duration_predictor) if self.train_duration_predictor
+                       else duration_predictor)
+        if exists(mesh) and param_sharding == 'fsdp':
+            shard_module_fsdp(self.ema.ema_model, mesh)
         self.use_switch_ema = use_switch_ema
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
@@ -224,12 +298,56 @@ class E2Trainer:
         self._profiler = None
 
         self.writer = None
-        if use_tensorboard:
+        if use_tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(log_dir=tensorboard_log_dir)
             except ImportError:
                 logger.warning('tensorboard unavailable; scalar logging disabled')
+
+    def _place(self, module):
+        """The callable a step runs ``module`` through: the module itself on
+        one device or after FSDP2's in-place sharding, else its DDP
+        wrapper."""
+        if not exists(self.mesh):
+            return module
+        if self.param_sharding == 'fsdp':
+            return shard_module_fsdp(module, self.mesh)
+        from torch.nn.parallel import DistributedDataParallel
+        device_ids = [self.device.index] if self.device.type == 'cuda' else None
+        return DistributedDataParallel(module, device_ids=device_ids,
+                                       process_group=self.mesh.get_group(),
+                                       broadcast_buffers=False, find_unused_parameters=True)
+
+    def _shards(self) -> int:
+        return self.mesh.size() if exists(self.mesh) else 1
+
+    def _rows(self, *arrays):
+        """This rank's rows of the global batch's ``arrays`` (None passes)
+        and the keyword arguments that place them in it (none on one
+        device)."""
+        if not exists(self.mesh):
+            return arrays, {}
+        batch = len(arrays[0])
+        start, _ = batch_rows(batch, self.mesh)
+        return shard_batch(arrays, self.mesh), dict(batch_offset=start, global_batch=batch)
+
+    def _reduced_grads(self, params: list[torch.Tensor]) -> list[torch.Tensor]:
+        """`_grads`, then under FSDP the grads of the parameters it left
+        whole averaged over the ranks (DDP and FSDP reduce the rest)."""
+        grads = _grads(params)
+        if exists(self.mesh) and self.param_sharding == 'fsdp':
+            average_whole_grads_(params, self.mesh)
+        return grads
+
+    def _global_loss(self, term: torch.Tensor) -> torch.Tensor:
+        """The global loss from this rank's term of it (the sum over the
+        ranks), detached."""
+        term = term.detach()
+        if exists(self.mesh):
+            term = term.clone()
+            dist.all_reduce(term, group=self.mesh.get_group())
+        return term
 
     def _build_optimizer(self, total_steps: int):
         self.schedule = linear_warmup_decay_schedule(
@@ -268,23 +386,34 @@ class E2Trainer:
         then clip and ADOPT (on the accumulated mean, every
         ``grad_accumulation_steps``-th call), then the EMA tick. ``times``,
         ``noise`` and ``rand_span_mask`` replace the step's draws (see
-        `E2TTS.forward`). Returns ``(loss, cond, pred_data)``, detached, with
-        no host sync."""
+        `E2TTS.forward`). Under a mesh every rank passes the same global
+        batch (and draws) and takes its rows. Returns ``(loss, cond,
+        pred_data)``, detached, with no host sync: the global batch's loss,
+        and this rank's rows of the others."""
         if not exists(self.optimizer):
             raise RuntimeError('the optimizer is built at train() or from total_steps=')
         model = self.model
         model.train()
         teacher = (self.ema.ema_model
                    if self.need_velocity_consistent_loss and self.ema.initted else None)
+        (mel, mel_lens, text_ids, times, noise, rand_span_mask), place = self._rows(
+            mel, mel_lens, text_ids, times, noise, rand_span_mask)
         self.optimizer.zero_grad(set_to_none=True)
-        out = model(self._as_device(mel, torch.float32),
-                    text=self._as_device(text_ids, torch.long),
-                    lens=self._as_device(mel_lens, torch.long), times=times, noise=noise,
-                    rand_span_mask=rand_span_mask, drop_text_cond=drop_text_cond,
-                    velocity_consistency_model=teacher, generator=self.generator)
-        out.loss.backward()
+        out = self._model_fn(self._as_device(mel, torch.float32),
+                             text=self._as_device(text_ids, torch.long),
+                             lens=self._as_device(mel_lens, torch.long), times=times,
+                             noise=noise, rand_span_mask=rand_span_mask,
+                             drop_text_cond=drop_text_cond, velocity_consistency_model=teacher,
+                             generator=self.generator, **place)
+        # DDP and FSDP average the grads over the ranks: the loss term times
+        # their number makes that average the global loss's grad
+        (out.loss * self._shards()).backward()
+        if exists(teacher) and self.param_sharding == 'fsdp' and exists(self.mesh):
+            # FSDP2 keeps a root's parameters gathered after its forward for
+            # the backward; the teacher has none, so free them here
+            teacher.reshard()
         params = list(model.parameters())
-        grads = _grads(params)
+        grads = self._reduced_grads(params)
         acc = self.accumulator
         if acc is None or acc.add(grads):
             if exists(acc):             # the optimizer acts on the mean
@@ -296,32 +425,35 @@ class E2Trainer:
                 self.optimizer.zero_grad(set_to_none=True)
                 acc.reset()
         self.ema.update(model)
-        return out.loss.detach(), out.cond, out.pred_data.detach()
+        return self._global_loss(out.loss), out.cond, out.pred_data.detach()
 
     def duration_step(self, mel, mel_lens, *, rand_frac=None) -> torch.Tensor:
         """The duration predictor's loss on a batch without text (``mel (b,
         n, d)``, ``mel_lens (b,)``): with ``train_duration_predictor`` one
         step of its own (backward, clip, ADOPT), else under no_grad. The
         random prefix ``rand_frac (b,)`` is drawn from the trainer's
-        generator unless given. Returns the loss, detached."""
+        generator unless given. Under a mesh the batch is the global one,
+        as in `train_step`. Returns the global batch's loss, detached."""
         dp = self.duration_predictor
         if not exists(dp):
             raise RuntimeError('the trainer has no duration predictor')
+        (mel, mel_lens, rand_frac), place = self._rows(mel, mel_lens, rand_frac)
         mel = self._as_device(mel, torch.float32)
         lens = self._as_device(mel_lens, torch.long)
         if not self.train_duration_predictor:
             with torch.no_grad():
-                return dp(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
-                          generator=self.generator)
+                return self._global_loss(dp(mel, lens=lens, return_loss=True,
+                                            rand_frac=rand_frac, generator=self.generator,
+                                            **place))
         if not exists(self.dp_optimizer):
             raise RuntimeError('the optimizer is built at train() or from total_steps=')
         self.dp_optimizer.zero_grad(set_to_none=True)
-        loss = dp(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
-                  generator=self.generator)
-        loss.backward()
-        clip_by_global_norm_(_grads(list(dp.parameters())), self.max_grad_norm)
+        loss = self._dp_fn(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
+                           generator=self.generator, **place)
+        (loss * self._shards()).backward()
+        clip_by_global_norm_(self._reduced_grads(list(dp.parameters())), self.max_grad_norm)
         self.dp_optimizer.step()
-        return loss.detach()
+        return self._global_loss(loss)
 
     # -- checkpoints (JAX trainer.py:251-265) -------------------------------------
 
@@ -333,7 +465,7 @@ class E2Trainer:
             self.checkpoint_path, model=self.model, optimizer=self.optimizer, ema=self.ema,
             step=step, duration_predictor=self.duration_predictor if trained_dp else None,
             dp_optimizer=self.dp_optimizer, generator=self.generator,
-            accumulator=self.accumulator)
+            accumulator=self.accumulator, mesh=self.mesh)
 
     def load_checkpoint(self):
         """Restore from ``checkpoint_path`` in place; returns ``(step,
@@ -362,8 +494,9 @@ class E2Trainer:
 
     def _maybe_profile(self, global_step: int):
         """A torch.profiler trace of the steps in ``profile_steps``, written
-        as a Chrome trace into ``profile_dir`` when the window closes."""
-        if not exists(self.profile_dir):
+        as a Chrome trace into ``profile_dir`` when the window closes (rank
+        0 only)."""
+        if not exists(self.profile_dir) or not self.is_main:
             return
         start, stop = self.profile_steps
         if global_step == start and not exists(self._profiler):
@@ -383,6 +516,10 @@ class E2Trainer:
         self._profiler.export_chrome_trace(os.path.join(
             self.profile_dir, f'steps_{self.profile_steps[0]}-{global_step}.trace.json'))
         self._profiler = None
+
+    def _log_info(self, msg: str):
+        if self.is_main:
+            logger.info(msg)
 
     def _log_scalar(self, tag, value, step):
         if exists(self.writer):
@@ -406,8 +543,12 @@ class E2Trainer:
         saving there every ``save_step`` global steps. ``num_workers > 0``
         collates batches ahead in a background thread. Logs the loss every
         ``log_step`` steps and returns ``[(step, loss), ...]`` of this
-        call."""
+        call. Under a mesh every rank calls it; ``batch_size`` is the global
+        batch, which the data axis must divide."""
         model = self.model
+        if batch_size % self._shards():
+            raise ValueError(f'batch_size ({batch_size}) must be divisible by the number of '
+                             f'ranks on the data axis ({self._shards()})')
         rng = random.Random(self.seed)
         steps_per_epoch = max(len(train_dataset) // batch_size, 1)
         if not exists(self.optimizer):
@@ -423,7 +564,7 @@ class E2Trainer:
             def flush():
                 for step, loss, dur_loss in pending:
                     loss = float(loss)
-                    logger.info(f'step {step + 1}: loss = {loss:.4f}')
+                    self._log_info(f'step {step + 1}: loss = {loss:.4f}')
                     history.append((step, loss))
                     epoch_losses.append(loss)
                     self._log_scalar('loss', loss, step)
@@ -438,8 +579,6 @@ class E2Trainer:
                 batches = prefetch(batches, size=max(2, num_workers))
             for batch in batches:
                 mel, mel_lens, text_ids = self.prepare_batch(batch)
-                mel = self._as_device(mel, torch.float32)
-                mel_lens = self._as_device(mel_lens, torch.long)
                 dur_loss = (self.duration_step(mel, mel_lens)
                             if exists(self.duration_predictor) else None)
                 self._maybe_profile(global_step)
@@ -452,14 +591,14 @@ class E2Trainer:
                 if global_step % save_step == 0:
                     flush()
                     self.save_checkpoint(global_step)
-                    self._log_figure('mel/target', mel[0].cpu().numpy(), global_step)
+                    self._log_figure('mel/target', mel[0], global_step)
                     self._log_figure('mel/mask', cond[0].float().cpu().numpy(), global_step)
                     self._log_figure('mel/prediction', pred_data[0].float().cpu().numpy(),
                                      global_step)
             flush()
             if epoch_losses:
                 avg = sum(epoch_losses) / len(epoch_losses)
-                logger.info(f'epoch {epoch + 1}/{epochs} - average loss = {avg:.4f}')
+                self._log_info(f'epoch {epoch + 1}/{epochs} - average loss = {avg:.4f}')
                 self._log_scalar('epoch average loss', avg, epoch)
 
         if exists(self._profiler):

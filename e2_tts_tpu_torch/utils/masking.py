@@ -46,13 +46,17 @@ def mask_from_start_end_indices(start: torch.Tensor, end: torch.Tensor,
 
 
 def mask_from_frac_lengths(seq_len: torch.Tensor, frac_lengths: torch.Tensor,
-                           max_length: int, generator: torch.Generator) -> torch.Tensor:
+                           max_length: int, generator: torch.Generator | None = None,
+                           rand: torch.Tensor | None = None) -> torch.Tensor:
     """Random span mask covering ``int(frac * len)`` frames from a uniform
-    random start, per row: the JAX package's formula, with the start drawn
-    from ``generator`` (on its own device, then moved to ``seq_len``'s)."""
+    random start, per row: the JAX package's formula, with the start's
+    uniform ``rand`` drawn from ``generator`` (on its own device, then moved
+    to ``seq_len``'s) unless given."""
     lengths = (frac_lengths * seq_len.to(frac_lengths.dtype)).to(seq_len.dtype)
     max_start = seq_len - lengths
-    rand = torch.rand(frac_lengths.shape, generator=generator, device=generator.device,
-                      dtype=frac_lengths.dtype).to(seq_len.device)
+    if not exists(rand):
+        rand = torch.rand(frac_lengths.shape, generator=generator, device=generator.device,
+                          dtype=frac_lengths.dtype)
+    rand = rand.to(seq_len.device)
     start = (max_start.to(rand.dtype) * rand).to(seq_len.dtype).clamp(min=0)
     return mask_from_start_end_indices(start, start + lengths, max_length)

@@ -1,0 +1,303 @@
+"""One rank of the port's data-parallel tests (tests/test_torch_parallel*.py).
+
+    python tests/_torch_parallel_worker.py RANK WORLD STORE JOB
+
+Joins a gloo process group of WORLD ranks through the file store STORE
+(`parallel.multihost.maybe_initialize_distributed`, device='cpu'), then runs
+each task of the JSON file JOB in order and writes its results as .npz files
+into the task's ``out`` directory (the full state from rank 0, per-rank
+counts from every rank). Imports torch and the port only, never JAX: the
+test process holds the results against JAX or against the port's single
+device. The helpers that build a model and run a trainer's steps are shared
+with the tests, so both sides make them the same way.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from e2_tts_tpu_torch.models import e2tts as e2tts_module          # noqa: E402
+from e2_tts_tpu_torch.models.duration import DurationPredictor     # noqa: E402
+from e2_tts_tpu_torch.models.e2tts import E2TTS                    # noqa: E402
+from e2_tts_tpu_torch.parallel.fsdp import gather_full, local      # noqa: E402
+from e2_tts_tpu_torch.training import trainer as trainer_module    # noqa: E402
+from e2_tts_tpu_torch.training.trainer import E2Trainer            # noqa: E402
+
+LR = 1e-3
+EMA_KW = dict(update_after_step=0, update_every=1)
+
+
+def build_model(config: dict, *, seed: int = 0, velocity_weight: float = 0.0,
+                jax_state: str | None = None) -> E2TTS:
+    """The CPU E2TTS of ``config``: the JAX start state from the .npz
+    ``jax_state`` when given, else seeded weights, each perturbed by
+    0.02 N(0, 1) (no zero-initialised branch stays dead)."""
+    model = E2TTS(transformer=dict(config), velocity_consistency_weight=velocity_weight,
+                  generator=torch.Generator().manual_seed(seed), device='cpu')
+    if jax_state is None:
+        return _perturbed(model, seed)
+    from e2_tts_tpu_torch.convert import load_jax_params
+    with np.load(jax_state) as flat:
+        load_jax_params(model, dict(flat))
+    return model
+
+
+def build_predictor(config: dict, *, seed: int = 0) -> DurationPredictor:
+    """A CPU DurationPredictor of ``config`` from seeded weights, perturbed
+    as `build_model`'s."""
+    return _perturbed(DurationPredictor(transformer=dict(config), device='cpu',
+                                        generator=torch.Generator().manual_seed(seed)), seed)
+
+
+def _perturbed(module, seed: int):
+    noise = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=noise))
+    return module
+
+
+def make_trainer(model, **kw) -> E2Trainer:
+    kw = dict(dict(learning_rate=LR, num_warmup_steps=0, total_steps=100, ema_kwargs=EMA_KW),
+              **kw)
+    return E2Trainer(model, **kw)
+
+
+def full_state(trainer: E2Trainer) -> dict:
+    """Parameters, EMA weights, ADOPT's moments and the accumulator's mean
+    grads as name -> full f32 numpy array, with the EMA's and the
+    accumulator's counters (a collective under FSDP: every rank calls
+    it)."""
+    out = {}
+    params = dict(trainer.model.named_parameters())
+    ema = dict(trainer.ema.ema_model.named_parameters())
+    for name, p in params.items():
+        out[f'param.{name}'] = p
+        out[f'ema.{name}'] = ema[name]
+        state = trainer.optimizer.state.get(p, {})
+        for key in ('m', 'v'):
+            if key in state:
+                out[f'{key}.{name}'] = state[key]
+    if trainer.train_duration_predictor:
+        out.update({f'dp_param.{name}': p
+                    for name, p in trainer.duration_predictor.named_parameters()})
+    acc = trainer.accumulator
+    if acc is not None:
+        out.update({f'acc.{i}': g for i, g in enumerate(acc.grads)})
+    full = gather_full({k: v.detach() for k, v in out.items()})
+    full = {k: v.float().numpy().copy() for k, v in full.items()}   # not views of live tensors
+    full.update(ema_step=np.asarray(trainer.ema.step), ema_initted=np.asarray(trainer.ema.initted))
+    if acc is not None:
+        full['acc_step'] = np.asarray(acc.mini_step)
+    return full
+
+
+def run_steps(trainer: E2Trainer, steps: list[dict]) -> list[float]:
+    """``trainer.train_step`` on each step's global batch (``mel``, ``lens``,
+    ``text``, ``drop``, and the draws ``times`` / ``noise`` /
+    ``rand_span_mask`` when given), after the duration predictor's step when
+    the trainer has one; returns the losses (the predictor's before each)."""
+    losses = []
+    for step in steps:
+        if trainer.duration_predictor is not None:
+            losses.append(float(trainer.duration_step(step['mel'], step['lens'])))
+        draws = {k: torch.as_tensor(step[k]) for k in ('times', 'noise', 'rand_span_mask')
+                 if k in step}
+        loss, _, _ = trainer.train_step(step['mel'], step['lens'], step['text'],
+                                        drop_text_cond=bool(step['drop']), **draws)
+        losses.append(float(loss))
+    return losses
+
+
+def local_bytes(trainer: E2Trainer) -> dict:
+    """Bytes this rank holds of the parameters, the EMA copy and ADOPT's
+    moments."""
+    params = list(trainer.model.parameters())
+    nbytes = lambda ts: sum(local(t).numel() * local(t).element_size() for t in ts)
+    moments = [t for p in params for k, t in trainer.optimizer.state.get(p, {}).items()
+               if k in ('m', 'v')]
+    return dict(params=nbytes(params), ema=nbytes(trainer.ema.ema_model.parameters()),
+                adopt=nbytes(moments))
+
+
+def toy_dataset(count: int = 8):
+    """``count`` seeded (100, frames) mels of ragged lengths with texts, as
+    `E2Trainer.train` takes them."""
+    from e2_tts_tpu_torch.training.data import ArrayDataset
+    rng = np.random.default_rng(11)
+    return ArrayDataset([rng.standard_normal((100, int(n))).astype(np.float32)
+                         for n in rng.integers(20, 48, count)],
+                        [' '.join(['ab', 'cd', 'efg'][: 1 + i % 3]) for i in range(count)])
+
+
+def run_train(trainer: E2Trainer, epochs: int = 2, batch_size: int = 4) -> dict:
+    """`E2Trainer.train` over `toy_dataset`, a checkpoint every step: the
+    losses it returns and the final state."""
+    history = trainer.train(toy_dataset(), epochs=epochs, batch_size=batch_size, save_step=1)
+    return dict(losses=np.asarray([loss for _, loss in history]),
+                **{f'final.{k}': v for k, v in full_state(trainer).items()})
+
+
+def _steps(path: str) -> list[dict]:
+    with np.load(path) as f:
+        n = int(f['n'])
+        return [{k[len(f'{i}.'):]: f[k] for k in f.files if k.startswith(f'{i}.')}
+                for i in range(n)]
+
+
+def run_task(task: dict, rank: int, world: int):
+    """Build, run and record one task (see the module docstring)."""
+    out = task['out']
+    steps = _steps(task['steps']) if task.get('steps') else []
+    kw = dict(task.get('trainer', {}))
+    if task.get('resume_from'):
+        kw['checkpoint_path'] = task['resume_from']
+    elif task.get('save_to'):
+        kw['checkpoint_path'] = task['save_to']
+    fault = task.get('fault')
+    restore = []
+    if fault == 'offset0':         # every rank claims the batch's first rows
+        orig = E2Trainer._rows
+
+        def rows(self, *arrays):
+            shard, place = orig(self, *arrays)
+            return shard, dict(place, batch_offset=0)
+        E2Trainer._rows = rows
+        restore.append(lambda: setattr(E2Trainer, '_rows', orig))
+    elif fault == 'rank_mean':     # each rank's loss is its own span's mean
+        orig_count = e2tts_module.global_span_count
+        e2tts_module.global_span_count = lambda span: span.float().sum() * world
+        restore.append(lambda: setattr(e2tts_module, 'global_span_count', orig_count))
+
+    counts, norms = [], []
+    count_fn, clip_fn = e2tts_module.global_span_count, trainer_module.clip_by_global_norm_
+
+    def counting(span):
+        counts.append(float(span.float().sum()))
+        return count_fn(span)
+
+    def clipping(grads, max_norm):
+        norm = clip_fn(grads, max_norm)
+        norms.append(float(norm))
+        return norm
+    e2tts_module.global_span_count = counting
+    trainer_module.clip_by_global_norm_ = clipping
+    restore.append(lambda: setattr(e2tts_module, 'global_span_count', count_fn))
+    restore.append(lambda: setattr(trainer_module, 'clip_by_global_norm_', clip_fn))
+    try:
+        model = build_model(task['config'], seed=task.get('seed', 0),
+                            velocity_weight=task.get('velocity_weight', 0.0),
+                            jax_state=task.get('jax_state'))
+        if task.get('dp_config'):
+            kw.update(duration_predictor=build_predictor(task['dp_config'], seed=2),
+                      train_duration_predictor=True)
+        trainer = make_trainer(model, param_sharding=task['sharding'], **kw)
+        record = {}
+        if task.get('resume_from'):
+            record['resumed_step'] = trainer.resume()
+            record.update({f'resumed.{k}': v for k, v in full_state(trainer).items()})
+        if task['kind'] == 'train':
+            record.update(run_train(trainer))
+        else:
+            split = task.get('save_after')
+            losses = []
+            for i, step in enumerate(steps):
+                losses += run_steps(trainer, [step])
+                if task.get('every_step'):
+                    record.update({f'step{i}.{k}': v for k, v in full_state(trainer).items()})
+                if split is not None and i + 1 == split:
+                    trainer.save_checkpoint(i + 1)
+                    record.update({f'saved.{k}': v for k, v in full_state(trainer).items()})
+            record['losses'] = np.asarray(losses)
+            record.update({f'final.{k}': v for k, v in full_state(trainer).items()})
+        np.savez(os.path.join(out, f'rank{rank}.npz'), counts=np.asarray(counts),
+                 norms=np.asarray(norms), **local_bytes(trainer))
+        if rank == 0:
+            np.savez(os.path.join(out, 'result.npz'), **record)
+    finally:
+        for undo in reversed(restore):
+            undo()
+
+
+def write_steps(path: str, steps: list[dict]) -> str:
+    """``steps`` (dicts of arrays) as the .npz a task's ``steps`` names."""
+    flat = {f'{i}.{k}': np.asarray(v) for i, step in enumerate(steps) for k, v in step.items()}
+    np.savez(path, n=len(steps), **flat)
+    return path
+
+
+class Ranks:
+    """``world`` gloo ranks running ``tasks``, each this file in its own
+    process, over a file store under ``tmp_path`` (no port to share between
+    test workers). `join` waits for all of them until ``timeout`` seconds
+    after the start; on expiry or a failure it kills every rank and raises
+    with their output, so a hung rendezvous fails its test and never holds
+    up the run."""
+
+    def __init__(self, world: int, tasks: list[dict], tmp_path, timeout: float = 150.0):
+        job = os.path.join(tmp_path, 'job.json')
+        with open(job, 'w') as f:
+            json.dump(tasks, f)
+        env = dict(os.environ, OMP_NUM_THREADS='1')
+        env.pop('XLA_FLAGS', None)
+        self.timeout = timeout
+        self.deadline = time.monotonic() + timeout
+        self.logs = [open(os.path.join(tmp_path, f'rank{r}.log'), 'w+') for r in range(world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(r), str(world),
+             os.path.join(tmp_path, 'store'), job], stdout=log, stderr=subprocess.STDOUT,
+            env=env) for r, log in enumerate(self.logs)]
+
+    def join(self) -> None:
+        try:
+            for proc in self.procs:
+                proc.wait(timeout=max(self.deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outputs = []
+        for log in self.logs:
+            log.seek(0)
+            outputs.append(log.read())
+            log.close()
+        codes = [proc.returncode for proc in self.procs]
+        if any(codes):
+            raise RuntimeError(
+                f'ranks exited with {codes} (a killed rank: the {self.timeout:.0f}-s limit)\n'
+                + '\n'.join(f'--- rank {r}:\n{out[-3000:]}' for r, out in enumerate(outputs)))
+
+
+def main():
+    rank, world, store, job = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    torch.set_num_threads(1)
+    from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+    import torch.distributed as dist
+    assert maybe_initialize_distributed(init_method=f'file://{store}', world_size=world,
+                                        rank=rank, device='cpu', timeout=120)
+    with open(job) as f:
+        tasks = json.load(f)
+    for task in tasks:
+        os.makedirs(task['out'], exist_ok=True)
+        start = time.perf_counter()
+        run_task(task, rank, world)
+        dist.barrier()
+        print(f"task {os.path.basename(task['out'])}: {time.perf_counter() - start:.1f} s",
+              flush=True)
+    dist.destroy_process_group()
+
+
+if __name__ == '__main__':
+    main()

@@ -1075,3 +1075,48 @@ def test_bhnd_kernels_past_grid_z(dev, dtype, heads, dh):
     got = fa.flash_attention_backward(q, k, v, None, out, lse, dout, softclamp_value=None)
     _close_grads(got, fa.flash_attention_backward_plain(q, k, v, None, out, lse, dout,
                                                         scale=dh ** -0.5), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['packed', 'bhnd'])
+def test_flash_hash_b0(dev, layout, dtype):
+    """``hash_b0``: K1 / K2 (packed, heads of 64) and K8 / K9 (heads of 72)
+    launched on rows [b, 2b) with ``hash_b0 = b`` give the rows of one
+    launch over all 2b rows: out, lse, dk and dv bit for bit (the same
+    arithmetic on the same inputs), dq within the f32 atomics' order; the
+    keep bits are `dropout_keep_mask`'s at the offset (q = k = 0, v the
+    identity: o > 0 exactly where a key is kept); at offset 0 they are not."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, n, heads, rate, seed = 2, 128, 4, 0.1, 99
+    dh = 64 if layout == 'packed' else 72
+    shape = (2 * b, n, heads * dh) if layout == 'packed' else (2 * b, heads, n, dh)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    mask = torch.ones(2 * b, n, dtype=torch.bool, device=dev)
+    mask[1, 100:] = mask[3, 77:] = False
+    kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed)
+    if layout == 'packed':
+        fwd = lambda *a, **o: fa.flash_attention_packed(*a, heads=heads, return_lse=True,
+                                                        **kw, **o)
+        bwd = lambda *a, **o: fa.flash_attention_packed_backward(*a, heads=heads, **kw,
+                                                                 **o)[:3]
+    else:
+        fwd = lambda *a, **o: fa.flash_attention(*a, return_lse=True, **kw, **o)
+        bwd = lambda *a, **o: fa.flash_attention_backward(*a, **kw, **o)
+    out, lse = fwd(q, k, v, mask)
+    dq, dk, dv = bwd(q, k, v, mask, out, lse, do)
+    h = lambda t: t[b:]
+    o2, l2 = fwd(h(q), h(k), h(v), h(mask), hash_b0=b)
+    dq2, dk2, dv2 = bwd(h(q), h(k), h(v), h(mask), o2, l2, h(do), hash_b0=b)
+    assert torch.equal(o2, h(out)) and torch.equal(l2, lse[b * heads:])
+    assert torch.equal(dk2, h(dk)) and torch.equal(dv2, h(dv))
+    torch.testing.assert_close(dq2.float(), h(dq).float(), atol=1e-4 * float(dq.abs().max()),
+                               rtol=TOL[dtype]['rtol'])
+    assert not torch.equal(fwd(h(q), h(k), h(v), h(mask))[0], h(out))
+
+    if layout == 'bhnd':
+        zeros = torch.zeros(b, heads, n, dh, device=dev, dtype=dtype)
+        eye = torch.eye(n, dh, device=dev, dtype=dtype).expand(b, heads, n, dh).contiguous()
+        keep = fa.dropout_keep_mask(seed, b * heads, n, rate, device=dev, hash_b0=b,
+                                    heads=heads).view(b, heads, n, n)
+        o3 = fwd(zeros, zeros, eye, hash_b0=b)[0]
+        assert torch.equal(o3 > 0, keep[..., :dh])
