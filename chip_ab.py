@@ -38,7 +38,9 @@ cost of the hash). The other checkout's
 adjoint may predate the warps argument (it then ran 8 warps a block); its K8 / K9 may take a `design` argument (it is passed as 1, the
 Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
 design, K2 gating do itself and K10 writing delta alone); its K1 / K2 / K8 /
-K9 may predate the dropout hash's batch offset `hash_b0` (this one gets 0).
+K9 may predate the dropout hash's batch offset `hash_b0` (this one gets 0)
+and its head offset `hash_h0` of `hash_heads` (this one gets 0 of the
+launch's heads).
 Prints one line
 per kernel with the card's name and power limit.
 """
@@ -109,6 +111,9 @@ def main():
                   for tag, root in roots}
     # K1 / K2 / K8 / K9 entry points that take hash_b0 (before the dtype)
     has_hash_b0 = {tag: 'int hash_b0' in csrc_text(root, 'flash_attention.cu')
+                   for tag, root in roots}
+    # ... and hash_h0, hash_heads after it
+    has_hash_h0 = {tag: 'int hash_h0' in csrc_text(root, 'flash_attention.cu')
                    for tag, root in roots}
     # K10 gating do into do_g for K2 (K1 / K2 on the Hopper design)
     packed_sm90 = {tag: 'void* dout_g' in csrc_text(root, 'flash_attention_bwd.cu')
@@ -282,11 +287,14 @@ def main():
         q, k, v = (to(qkv[..., i * h * dh:(i + 1) * h * dh]) for i in range(3))
         return q, k, v
 
+    def hash_h0_args(tag, heads):
+        return [I(0), I(heads)] if has_hash_h0[tag] else []
+
     def flash_common(tag, q, rate):
         b, h, n, dh = q.shape
         return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
                 F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
-                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + [I(1)]
+                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + hash_h0_args(tag, h) + [I(1)]
 
     def k8(tag, q, k, v, rate):
         fn = libs[tag][2].e2_flash_fwd_bhnd
@@ -344,7 +352,7 @@ def main():
         dh = D // h
         return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
                 F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
-                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + [I(1)]
+                I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + hash_h0_args(tag, h) + [I(1)]
 
     def qkv_strides(q, k, v):
         return [LL(t.stride(i)) for t in (q, k, v) for i in (0, 1)]

@@ -191,14 +191,9 @@ exit code and no result line:
    training shape (16,896 sequences of 2 tokens) beside PyTorch's flash
    attention, and holds K1 / K2 / K10 / K8 / K9 at 66,048 sequences, past
    gridDim.z's 65,535, on both designs.
-13. distributed — data parallelism (e2_tts_tpu_torch/parallel): (a) K1 / K2
-   (8 heads x 64) and K8 / K9 (16 x 72), bf16 and f32, dropout 0.1, a key
-   mask, softclamp 50, launched on rows [2, 4) of a 4 x 1056 batch with
-   ``hash_b0 = 2`` against one launch of all four rows: out, lse, dk and dv
-   bit for bit, dq (atomics) at the backward tolerance, each half against
-   its plain version at the same offset, and the half at offset 0 (a
-   planted fault) must fail; (b) `E2Trainer` over a real NCCL process group
-   of one rank (the card is one GPU, and NCCL takes one rank a device),
+13. distributed — data parallelism (e2_tts_tpu_torch/parallel; the kernels'
+   row offset ``hash_b0`` is held in phase 14 (a)): `E2Trainer` over a real
+   NCCL process group of one rank (the card is one GPU, and NCCL takes one rank a device),
    started by `maybe_initialize_distributed` from a file rendezvous under
    build/: `param_sharding='replicated'` (DDP) and 'fsdp' (FSDP2) two steps
    at depth 2 in f32 against the single-device trainer (`DIST_LOSS_TOL`,
@@ -206,6 +201,32 @@ exit code and no result line:
    x 1024, with text) ms a step and peak memory, one device against DDP
    against FSDP2, with the launch counters checked; the group is stopped at
    the end.
+14. tensor_parallel — tensor parallelism (e2_tts_tpu_torch/parallel/tp.py):
+   (a) the dropout offsets: K1 / K2 (8 x 64, gated) and K8 / K9 (16 x 72),
+   bf16 and f32, dropout 0.1, a key mask, softclamp 50, on rows [2, 4) of a
+   4 x 1056 batch at hash_b0 = 2 and, for T = 1, 2 and 4, each rank's heads
+   [h0, h0 + H/T) at hash_h0 = h0 of hash_heads = H, against those rows
+   and heads of one launch of all of them: out, lse, dk, dv (and K2's gate
+   grad) bit for bit, dq (atomics) at the backward tolerance, each launch
+   against its plain version; the planted hash_b0 = 0 and hash_h0 = 0 must
+   fail; K6 / K7 at inner 2752 and 3072 on each rank's value and gate
+   columns under `fold_column_offset`, bit for bit, the planted unfolded
+   seed must fail; (b) one attention and one
+   feedforward at the paper's widths (1024, 16 x 64, GEGLU 2752) and DiT's
+   (1152, 16 x 72, GEGLU 3072), B = 16 x 1056, dropout 0.1, f32 and bf16,
+   cut in T = 2 and 4 shards run one after another on the card and summed,
+   against the whole layers (`TP_LAYER_TOL`); (c) `E2Trainer` on a model
+   sharded by `shard_module_tp` over (data 1, model 2): two gloo ranks on
+   the one card (rank 1 is this script with ``--tp-rank 1``; NCCL takes one
+   rank a GPU), the flagship at depth 2 in f32, dropout 0.1, two steps and
+   a 4-step midpoint sample against one device (`TP_LOSS_TOL`,
+   `TP_PARAM_TOL`, `TP_PARAM_ABS_TOL`, `TP_SAMPLE_TOL`), the ranks' samples
+   bit for bit, and the planted fault (the shared grads unsummed) must
+   exceed `TP_PARAM_ABS_TOL`; then over NCCL at world 1 the flagship at its
+   full depth, bf16, B = 16 x 1024 with text: one device, DDP, the TP
+   trainer at mesh (1, 1) and the same without its model-axis collectives,
+   `TP_COST_ROUNDS` rounds in turns: ms a step, host ms, synchronizing
+   calls, memory, the launch counters checked, and a profiled step a side.
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -213,6 +234,7 @@ it, one JSON object with a record per kernel. The last line is the result.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import math
@@ -3060,81 +3082,6 @@ def phase_options(torch, dev, smi):
 DIST_LOSS_TOL = 1e-5
 DIST_PARAM_TOL = 1e-4
 DIST_TRAIN_STEPS_TIMED = 5
-# a launch of rows [B, 2B) with hash_b0 = B against one of all 2B rows: out,
-# lse, dk and dv are the same arithmetic on the same inputs (bit for bit);
-# dq is summed by atomics in an order that changes between launches, so it
-# takes the kernels' backward tolerance (`compare(..., scaled=True)`)
-HASH_B0_CASES = (('K1 / K2', True, 8, 64), ('K8 / K9', False, 16, 72))
-
-
-def hash_b0_check(torch, dev):
-    """(a) of the distributed phase: K1 / K2 (packed, heads of 64) and K8 / K9
-    ((b, h, n, dh), heads of 72), bf16 (the Hopper design) and f32 (the wmma
-    templates), dropout 0.1, softclamp 50, a key mask, at 2 x 2 rows of 1056:
-    rows [2, 4) launched with ``hash_b0 = 2`` against one launch of all four
-    rows; each half against its plain version at the same offset; and the
-    planted fault, rows [2, 4) at offset 0, which must fail."""
-    from e2_tts_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator(device=dev).manual_seed(17)
-    b, n, rate, seed = 2, 1056, 0.1, 1234
-    lens = torch.tensor([n, 700, 1000, 333], device=dev)
-    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
-    for label, packed, heads, dh in HASH_B0_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            shape = (2 * b, n, heads * dh) if packed else (2 * b, heads, n, dh)
-            q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                           for _ in range(4))
-            kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed)
-            if packed:
-                gate = (2 * torch.randn(2 * b, n, heads, generator=g, device=dev)).to(dtype)
-                fwd = lambda q, k, v, m, gt=None, **o: fa.flash_attention_packed(
-                    q, k, v, m, heads=heads, gate_logits=gt, return_lse=True, **kw, **o)
-                bwd = lambda q, k, v, m, out, lse, do, gt=None, **o: \
-                    fa.flash_attention_packed_backward(q, k, v, m, out, lse, do, heads=heads,
-                                                       gate_logits=gt, **kw, **o)[:3]
-                plain = lambda q, k, v, m, gt=None, **o: fa.flash_attention_packed_plain(
-                    q, k, v, m, heads=heads, scale=dh ** -0.5, gate_logits=gt, **kw, **o)
-            else:
-                gate = None
-                fwd = lambda q, k, v, m, gt=None, **o: fa.flash_attention(
-                    q, k, v, m, return_lse=True, **kw, **o)
-                bwd = lambda q, k, v, m, out, lse, do, gt=None, **o: \
-                    fa.flash_attention_backward(q, k, v, m, out, lse, do, **kw, **o)
-                plain = lambda q, k, v, m, gt=None, **o: fa.flash_attention_plain(
-                    q, k, v, m, scale=dh ** -0.5, **kw, **o)
-            half = lambda t: None if t is None else t[b:]
-            args = (q, k, v, mask, gate)
-            out, lse = fwd(q, k, v, mask, gate)
-            grads = bwd(q, k, v, mask, out, lse, do, gate)
-            results = {}
-            for offset in (b, 0):                     # 0: the planted fault
-                o2, l2 = fwd(*map(half, args[:4]), half(gate), hash_b0=offset)
-                g2 = bwd(*map(half, args[:4]), o2, l2, half(do), half(gate), hash_b0=offset)
-                results[offset] = (o2, l2, g2)
-            torch.cuda.synchronize()
-            o2, l2, g2 = results[b]
-            bits = dict(out=torch.equal(o2, out[b:]), lse=torch.equal(l2, lse[b * heads:]),
-                        dk=torch.equal(g2[1], grads[1][b:]), dv=torch.equal(g2[2], grads[2][b:]))
-            dq_err, dq_worst = compare(g2[0], grads[0][b:], *(1e-2, 1e-2) if dtype == torch.bfloat16
-                                       else (1e-4, 1e-4), scaled=True)
-            ref_o, ref_l = plain(*map(half, args[:4]), half(gate), hash_b0=b)
-            fwd_tol = (1e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
-            p_err, p_worst = compare((o2,), (ref_o,), *fwd_tol)
-            f_err, f_worst = compare((results[0][0],), (out[b:],), *fwd_tol)
-            fault_bits = torch.equal(results[0][0], out[b:])
-            name = f'{label} {str(dtype).split(".")[1]} dh {dh}'
-            log(f'distributed hash_b0 {name} rows [{b}, {2 * b}) at hash_b0={b} vs one launch '
-                f'of {2 * b} rows (dropout {rate}, mask, softclamp 50): bit-equal '
-                f'{json.dumps(bits)} dq max_abs_err={dq_err:.3e} worst/limit={dq_worst:.3f}; '
-                f'vs plain at hash_b0={b}: out max_abs_err={p_err:.3e} '
-                f'worst/limit={p_worst:.3f}; planted hash_b0=0: out bit-equal={fault_bits} '
-                f'max_abs_err={f_err:.3e} worst/limit={f_worst:.3f} (must exceed 1)')
-            if not (all(bits.values()) and dq_worst <= 1.0 and p_worst <= 1.0):
-                raise AssertionError(f'{name}: hash_b0 launch differs from the whole batch')
-            if fault_bits or f_worst <= 1.0:
-                raise AssertionError(f'{name}: the planted offset-0 fault passed the check')
-            del q, k, v, do, out, lse, grads, results
 
 
 def dist_params(torch, model):
@@ -3146,8 +3093,7 @@ def dist_params(torch, model):
 
 
 def phase_distributed(torch, dev, smi):
-    """(a) `hash_b0_check`; (b) `E2Trainer` over a real NCCL process group
-    of one rank (the card is one GPU, and NCCL takes one rank a device),
+    """`E2Trainer` over a real NCCL process group of one rank (the card is one GPU, and NCCL takes one rank a device),
     started by `maybe_initialize_distributed` from a file rendezvous under
     build/: at depth 2 in f32 (dropout 0.1, B=8 x 512 ragged, the same
     weights and generator) `param_sharding='replicated'` (DDP) and 'fsdp'
@@ -3165,8 +3111,6 @@ def phase_distributed(torch, dev, smi):
     from e2_tts_tpu_torch.parallel.mesh import make_mesh
     from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
     from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
-
-    hash_b0_check(torch, dev)
 
     store = os.path.abspath(os.path.join('build', 'dist_store'))
     os.makedirs(os.path.dirname(store), exist_ok=True)
@@ -3262,6 +3206,580 @@ def phase_distributed(torch, dev, smi):
     return fsdp_counts
 
 
+# -- phase 14: tensor_parallel -------------------------------------------------------
+
+# (a) of the tensor_parallel phase, the dropout offsets a rank draws at: a
+# launch of rows [B, 2B) and heads [h0, h0 + H/T) with hash_b0 = B and
+# hash_h0 = h0 of hash_heads = H against those rows and heads of one launch
+# of all 2B rows and H heads (T = 1: every head). out, lse, dk, dv and K2's
+# gate grad are the same arithmetic on the same inputs (bit for bit); dq is
+# summed by atomics in an order that changes between launches, so it takes
+# the kernels' backward tolerance (`compare(..., scaled=True)`). Each rank's
+# launch is also held against its plain version at the same offsets. The
+# planted faults (hash_b0 = 0; hash_h0 = 0 past the first head) must lose
+# the bits and exceed the forward tolerance. K6 / K7 on a rank's value and
+# gate columns under the folded seed against those columns of one launch:
+# bit for bit; the planted unfolded seed (c0 = 0) must fail likewise
+OFFSET_CASES = (('K1 / K2', True, 8, 64), ('K8 / K9', False, 16, 72))
+OFFSET_SPLITS = (1, 2, 4)
+OFFSET_GEGLU_INNER = (2752, 3072)
+
+# (b) one attention and one feedforward cut in T shards, each run alone on
+# the card and summed, against the whole layer: the output and the input
+# grad at these relative L2 limits (f32: sums over the inner width in T
+# parts; bf16: section 2's bf16 grad limit)
+TP_LAYER_TOL = {'f32': 1e-5, 'bf16': TRAIN_CHECK_TOL['bf16']['grad']}
+TP_LAYER_CASES = (('paper', 1024, 16, 64), ('DiT', 1152, 16, 72))
+TP_LAYER_BATCH = 16
+# (c) the TP trainer on two gloo ranks of the one card against one device:
+# section 2's f32 train limits (the losses; the parameters after two steps
+# and the sample as relative L2), the sample bit for bit across the ranks.
+# Each parameter element is also held within TP_PARAM_ABS_TOL, the CPU
+# tests' limit (tests/test_torch_tp.py): a whole-model relative L2 cannot
+# see one small parameter gone wrong. On the H100 the whole-model relative
+# L2 reads 1.69e-9-1.70e-9 over a norm of 204.7 (16,968,652 parameters),
+# which bounds every element's difference below 3.5e-7.
+# The planted fault, the value-head gate's and value-residual mix's grads
+# left unsummed over the model axis (a rank's update then leaves the other
+# ranks' heads' rows where they were: up to lr / 10 * pi / 2 = 1.2e-5 on the
+# second ADOPT step, the first updates nothing), must exceed it
+TP_LOSS_TOL = DIST_LOSS_TOL
+TP_PARAM_TOL = DIST_PARAM_TOL
+TP_PARAM_ABS_TOL = 1e-6
+TP_SAMPLE_TOL = 1e-4
+TP_SAMPLE_FRAMES, TP_SAMPLE_STEPS = 256, 4
+# then the TP code's own cost at world 1 over NCCL, mesh (1, 1): the
+# flagship at its full depth (as the distributed phase times DDP and FSDP2),
+# bf16, B = 16 x 1024 with text, one device and the TP trainer side by side,
+# TP_COST_ROUNDS rounds in turns of TP_TRAIN_STEPS_TIMED steps a side (the
+# host is shared: one block a side swings 1.0-1.5x), then one profiled step a
+# side
+TP_COST_ROUNDS = 3
+TP_TRAIN_STEPS_TIMED = 5
+TP_STORE = os.path.join('build', 'tp_store')
+TP_RANK1_SAMPLE = os.path.join('build', 'tp_rank1_sample.pt')
+TP_RANK1_LOG = os.path.join('build', 'tp_rank1.log')
+TP_RANK_TIMEOUT_S = 240
+
+
+def dropout_offset_check(torch, dev):
+    """(a) of the tensor_parallel phase: K1 / K2 (packed, gated, heads of 64)
+    and K8 / K9 ((b, h, n, dh), heads of 72), bf16 (the Hopper design) and
+    f32 (the wmma templates), dropout 0.1, softclamp 50, a key mask, 2 x 2
+    rows of 1056: for each T in `OFFSET_SPLITS`, rows [2, 4) and each rank's
+    heads launched alone at ``hash_b0 = 2``, ``hash_h0 = h0`` against those
+    rows and heads of one launch of all four rows and every head, and
+    against their plain version; the planted faults at ``hash_b0 = 0`` and
+    ``hash_h0 = 0`` must fail. Then K6 / K7 at inner 2752 and 3072 on a
+    rank's value and gate columns under `fold_column_offset`, with the
+    planted unfolded seed."""
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+    from e2_tts_tpu_torch.ops import geglu_kernel as gk
+    from e2_tts_tpu_torch.ops.dropout import fold_column_offset
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    b, n, rate, seed = 2, 1056, 0.1, 1234
+    lens = torch.tensor([n, 700, 1000, 333], device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    for label, packed, heads, dh in OFFSET_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = (2 * b, n, heads * dh) if packed else (2 * b, heads, n, dh)
+            q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed)
+            if packed:
+                gate = (2 * torch.randn(2 * b, n, heads, generator=g, device=dev)).to(dtype)
+                fwd = lambda q, k, v, m, gt, hl, **o: fa.flash_attention_packed(
+                    q, k, v, m, heads=hl, gate_logits=gt, return_lse=True, **kw, **o)
+                bwd = lambda q, k, v, m, gt, out, lse, do, hl, **o: \
+                    fa.flash_attention_packed_backward(q, k, v, m, out, lse, do, heads=hl,
+                                                       gate_logits=gt, **kw, **o)
+                plain = lambda q, k, v, m, gt, hl, **o: fa.flash_attention_packed_plain(
+                    q, k, v, m, heads=hl, scale=dh ** -0.5, gate_logits=gt, **kw, **o)
+                part = lambda t, h0, hl: t[b:, ..., h0 * dh:(h0 + hl) * dh]
+            else:
+                gate = None
+                fwd = lambda q, k, v, m, gt, hl, **o: fa.flash_attention(
+                    q, k, v, m, return_lse=True, **kw, **o)
+                bwd = lambda q, k, v, m, gt, out, lse, do, hl, **o: \
+                    fa.flash_attention_backward(q, k, v, m, out, lse, do, **kw, **o)
+                plain = lambda q, k, v, m, gt, hl, **o: fa.flash_attention_plain(
+                    q, k, v, m, scale=dh ** -0.5, **kw, **o)
+                part = lambda t, h0, hl: t[b:, h0:h0 + hl]
+            out, lse = fwd(q, k, v, mask, gate, heads)
+            grads = bwd(q, k, v, mask, gate, out, lse, do, heads)
+            fwd_tol = (1e-3, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+            bwd_tol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+            name = f'{label} {str(dtype).split(".")[1]} dh {dh}'
+            for T in OFFSET_SPLITS:
+                hl = heads // T
+                bits, dq_worst, plain_worst = True, 0.0, 0.0
+                faults = {'hash_b0': [False, math.inf], 'hash_h0': [False, math.inf]}
+                for h0 in range(0, heads, hl):
+                    args = [part(t, h0, hl) for t in (q, k, v)] + [mask[b:]]
+                    gate_r = gate[b:, :, h0:h0 + hl].contiguous() if packed else None
+                    at = dict(hash_b0=b, hash_h0=h0, hash_heads=heads)
+                    o2, l2 = fwd(*args, gate_r, hl, **at)
+                    g2 = bwd(*args, gate_r, o2, l2, part(do, h0, hl), hl, **at)
+                    want = part(out, h0, hl)
+                    want_lse = lse.view(2 * b, heads, n)[b:, h0:h0 + hl].reshape(b * hl, n)
+                    bits &= (torch.equal(o2, want) and torch.equal(l2, want_lse)
+                             and torch.equal(g2[1], part(grads[1], h0, hl))
+                             and torch.equal(g2[2], part(grads[2], h0, hl))
+                             and (not packed or torch.equal(
+                                 g2[3], grads[3][b:, :, h0:h0 + hl])))
+                    dq_worst = max(dq_worst, compare(g2[0], part(grads[0], h0, hl), *bwd_tol,
+                                                     scaled=True)[1])
+                    plain_worst = max(plain_worst, compare(
+                        (o2,), (plain(*args, gate_r, hl, **at)[0],), *fwd_tol)[1])
+                    planted = dict(hash_b0=dict(at, hash_b0=0),
+                                   hash_h0=dict(at, hash_h0=0) if h0 else None)
+                    for fault, wrong in planted.items():
+                        if wrong is None:                 # hash_h0 = 0 is right here
+                            continue
+                        o3 = fwd(*args, gate_r, hl, **wrong)[0]
+                        faults[fault][0] |= torch.equal(o3, want)
+                        faults[fault][1] = min(faults[fault][1],
+                                               compare((o3,), (want,), *fwd_tol)[1])
+                torch.cuda.synchronize()
+                fault_text = '; '.join(f'planted {f}=0: bit-equal={e} least worst/limit={w:.3f}'
+                                       for f, (e, w) in faults.items() if w < math.inf)
+                log(f'tensor_parallel dropout offsets {name} T={T}: rows [{b}, {2 * b}) and each '
+                    f'rank\'s {hl} heads at hash_b0={b}, hash_h0=h0 of {heads} ({n} keys, '
+                    f'dropout {rate}, mask, softclamp 50) vs one launch: out/lse/dk/dv'
+                    f'{"/gate grad" if packed else ""} bit-equal={bits} dq worst/limit='
+                    f'{dq_worst:.3f}; vs plain: out worst/limit={plain_worst:.3f}; {fault_text} '
+                    f'(must exceed 1)')
+                if not (bits and dq_worst <= 1.0 and plain_worst <= 1.0):
+                    raise AssertionError(f'{name} T={T}: a rank\'s rows and heads differ from '
+                                         f'the whole launch\'s')
+                if any(e or w <= 1.0 for e, w in faults.values() if w < math.inf):
+                    raise AssertionError(f'{name} T={T}: a planted offset fault passed')
+            del q, k, v, do, out, lse, grads
+
+    for inner in OFFSET_GEGLU_INNER:
+        for dtype in (torch.bfloat16, torch.float32):
+            h2 = torch.randn(2 * b, n, 2 * inner, generator=g, device=dev).to(dtype)
+            gout = torch.randn(2 * b, n, inner, generator=g, device=dev).to(dtype)
+            act = gk.geglu_dropout(h2, seed, rate)
+            gh2 = gk.geglu_dropout_backward(h2, gout, seed, rate)
+            tol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+            for T in OFFSET_SPLITS[1:]:
+                c = inner // T
+                bits, fault_bits, fault_worst = True, False, math.inf
+                for c0 in range(0, inner, c):
+                    cols = lambda t: torch.cat((t[..., c0:c0 + c],
+                                                t[..., inner + c0:inner + c0 + c]), -1)
+                    h2r = cols(h2).contiguous()
+                    folded = fold_column_offset(seed, c0)
+                    bits &= torch.equal(gk.geglu_dropout(h2r, folded, rate), act[..., c0:c0 + c])
+                    bits &= torch.equal(gk.geglu_dropout_backward(
+                        h2r, gout[..., c0:c0 + c].contiguous(), folded, rate), cols(gh2))
+                    if c0:                                # the planted c0 = 0
+                        a3 = gk.geglu_dropout(h2r, seed, rate)
+                        fault_bits |= torch.equal(a3, act[..., c0:c0 + c])
+                        fault_worst = min(fault_worst,
+                                          compare((a3,), (act[..., c0:c0 + c],), *tol)[1])
+                torch.cuda.synchronize()
+                name = f'K6 / K7 {str(dtype).split(".")[1]} inner {inner}'
+                log(f'tensor_parallel column fold {name} T={T}: each rank\'s {c} value and '
+                    f'gate columns under fold_column_offset (dropout {rate}) vs one launch: '
+                    f'bit-equal={bits}; planted c0=0: bit-equal={fault_bits} least '
+                    f'worst/limit={fault_worst:.3f} (must exceed 1)')
+                if not bits:
+                    raise AssertionError(f'{name} T={T}: a rank\'s columns differ')
+                if fault_bits or fault_worst <= 1.0:
+                    raise AssertionError(f'{name} T={T}: the planted c0=0 fault passed')
+            del h2, gout, act, gh2
+
+
+def local_axis(tp, size: int, rank: int, mesh=None):
+    """A `ModelAxis` of ``size`` ranks (on ``mesh``) whose sums take
+    nothing: one rank's share computed alone, the caller summing the
+    shares; at one rank, TP's layers without their collectives."""
+    class Local(tp.ModelAxis):
+        def all_reduce(self, t):
+            return t
+    return Local(None, size, rank, mesh)
+
+
+def sharded_layer_check(torch, dev):
+    """(b) of the tensor_parallel phase: one attention (gated, softclamp 50,
+    the value-residual mix, RoPE, a key mask) and one feedforward at the
+    paper's widths (1024, 16 x 64, GEGLU 2752: K1 / K2 / K6 / K7) and DiT's
+    (1152, 16 x 72, GEGLU 3072: K8 / K9 / K6 / K7), B = 16 x 1056, dropout
+    0.1, f32 and bf16: for T = 2 and 4 each rank's shard (`tp.cut_module_tp`
+    on a copy, its model axis summing nothing) runs alone and the shards'
+    outputs and input grads are summed (the feedforward's output bias on
+    one shard only), against the whole layers at `TP_LAYER_TOL`."""
+    from e2_tts_tpu_torch.models.blocks import Attention, FeedForward
+    from e2_tts_tpu_torch.ops.rotary import rotary_tables
+    from e2_tts_tpu_torch.parallel import tp
+
+    n = FRAMES + 32
+    for label, dim, heads, dh in TP_LAYER_CASES:
+        for kind, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+            gen = torch.Generator().manual_seed(7)
+            layers = torch.nn.ModuleDict(dict(
+                attn=Attention(dim, heads, dh, dropout=0.1, gate_value_heads=True,
+                               softclamp_logits=True, learned_value_residual_mix=True,
+                               dtype=dtype, generator=gen),
+                ff=FeedForward(dim, dropout=0.1, dtype=dtype, generator=gen)))
+            with torch.no_grad():
+                for p in layers.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+            layers = layers.to(dev).train()
+            g = torch.Generator(device=dev).manual_seed(8)
+            x = torch.randn(TP_LAYER_BATCH, n, dim, generator=g, device=dev).to(dtype)
+            vr = torch.randn(TP_LAYER_BATCH, n, heads * dh, generator=g, device=dev).to(dtype)
+            w_a, w_f = (torch.randn(TP_LAYER_BATCH, n, dim, generator=g, device=dev)
+                        for _ in range(2))
+            mask = torch.arange(n, device=dev)[None, :] < torch.randint(
+                n // 2, n + 1, (TP_LAYER_BATCH, 1), generator=g, device=dev)
+            rotary = rotary_tables(n, dh, device=dev)
+
+            def run(mod, value_residual):
+                xx = x.detach().clone().requires_grad_()
+                a_out, _ = mod['attn'](xx, rotary_pos_emb=rotary, mask=mask,
+                                       value_residual=value_residual, dropout_seed=11)
+                f_out = mod['ff'](xx, dropout_seed=12)
+                ((a_out.float() * w_a).sum() + (f_out.float() * w_f).sum()).backward()
+                return a_out.detach().float(), f_out.detach().float(), xx.grad.float()
+
+            whole = run(layers, vr)
+            for T in (2, 4):
+                sums = None
+                for r in range(T):
+                    shard = copy.deepcopy(layers)
+                    tp.cut_module_tp(shard, local_axis(tp, T, r))
+                    if r:       # the bias is added once, after the sum over the ranks
+                        shard['ff'].proj_out.bias.data.zero_()
+                    cols = heads * dh // T
+                    parts = run(shard, vr[..., r * cols:(r + 1) * cols])
+                    sums = parts if sums is None else tuple(a + b for a, b in zip(sums, parts))
+                    del shard
+                rel = [float((s - w).norm() / w.norm()) for s, w in zip(sums, whole)]
+                lim = TP_LAYER_TOL[kind]
+                log(f'tensor_parallel layers {label} {kind} (dim {dim}, {heads} x {dh}, GEGLU '
+                    f'{layers["ff"].inner}, B={TP_LAYER_BATCH} x {n}, dropout 0.1) T={T} shards '
+                    f'summed vs whole: attention out rel_l2={rel[0]:.3e} feedforward out '
+                    f'rel_l2={rel[1]:.3e} input grad rel_l2={rel[2]:.3e} (<= {lim:g})')
+                if not all(r <= lim for r in rel):
+                    raise AssertionError(f'{label} {kind} T={T}: the shards\' sum differs '
+                                         f'from the whole layers')
+            del layers, x, vr, whole, sums
+            torch.cuda.empty_cache()
+
+
+def tp_check_batch():
+    """The TP check's global batch: 8 seeded mels of up to 512 frames
+    (ragged) with texts, as `E2Trainer.prepare_batch` takes a collated one;
+    the same in every process."""
+    import numpy as np
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+    rng = np.random.default_rng(5)
+    words = TEXT.split()
+    data = ArrayDataset([rng.standard_normal((100, int(f))).astype(np.float32)
+                         for f in rng.integers(256, 513, 8)],
+                        [' '.join(rng.choice(words, size=12)) for _ in range(8)])
+    return next(iter_batches(data, 8, seed=1))
+
+
+def tp_train_and_sample(torch, dev, mesh=None, sample=True):
+    """The TP check's run: the flagship at depth 2, f32, dropout 0.1 under
+    `E2Trainer` (sharded over ``mesh`` when given): two steps (with text,
+    text dropped) on `tp_check_batch`, then (``sample``) a midpoint sample
+    of `TP_SAMPLE_STEPS` steps from a seeded generator. Returns the losses,
+    every parameter as one f32 CPU vector in the single-device layout (a
+    collective under ``mesh``) and the sample (or None)."""
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.parallel import tp
+
+    model = build_e2tts(torch, dev, None, depth=2, dropout=0.1)
+    if mesh is not None:
+        tp.shard_module_tp(model, mesh)
+    trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                        seed=0, **(dict(mesh=mesh) if mesh is not None else {}))
+    batch = trainer.prepare_batch(tp_check_batch())
+    losses = [float(trainer.train_step(*batch, drop_text_cond=drop)[0]) for drop in (False, True)]
+    layouts, axis = tp.param_layouts(model), tp.tp_axis(model)
+    params = torch.cat([(tp.full_tensor(p.detach().cpu(), layouts[p], axis) if p in layouts
+                         else p.detach().cpu()).float().flatten() for p in model.parameters()])
+    if not sample:
+        return losses, params, None
+    prompt = torch.randn(1, TP_SAMPLE_FRAMES // 2, 100,
+                         generator=torch.Generator().manual_seed(2))
+    mel = model.sample(prompt.to(dev), text=[TEXT], duration=TP_SAMPLE_FRAMES,
+                       steps=TP_SAMPLE_STEPS, generator=torch.Generator().manual_seed(1))
+    return losses, params, mel.float().cpu()
+
+
+def tp_rank(torch, dev, rank: int):
+    """Rank ``rank`` of the two gloo ranks on the one card: the TP check's
+    run on mesh (1, 2), then the planted fault's (the trainer's
+    `sum_shared_grads_` a no-op: the value-head gate's and the
+    value-residual mix's grads unsummed) without the sample; rank 1 saves its sample for rank 0 to
+    compare. Returns both runs' results and leaves the group stopped."""
+    import torch.distributed as dist
+
+    from e2_tts_tpu_torch.parallel import tp
+    from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+    from e2_tts_tpu_torch.training import trainer
+
+    store = os.path.abspath(TP_STORE)
+    if not maybe_initialize_distributed(init_method=f'file://{store}', world_size=2, rank=rank,
+                                        device='cpu', timeout=TP_RANK_TIMEOUT_S):
+        raise AssertionError('no process group')
+    shared_sum = trainer.sum_shared_grads_
+    try:
+        mesh = tp.make_2d_mesh(1, 2)
+        results = tp_train_and_sample(torch, dev, mesh)
+        if rank == 1:
+            torch.save(results[2], TP_RANK1_SAMPLE)
+        trainer.sum_shared_grads_ = lambda params, axis: None
+        fault = tp_train_and_sample(torch, dev, mesh, sample=False)
+        dist.barrier()
+    finally:
+        trainer.sum_shared_grads_ = shared_sum
+        dist.destroy_process_group()
+    return results, fault
+
+
+def tp_two_ranks(torch, dev):
+    """(c), first part: rank 1 in a process of its own (this script with
+    ``--tp-rank 1``), rank 0 here, one gloo group on the one card (NCCL
+    takes one rank a GPU); the single-device reference runs while rank 1
+    starts. Losses, parameters and the sample against one device; the
+    ranks' samples bit for bit; the planted fault's parameters must exceed
+    `TP_PARAM_ABS_TOL`."""
+    for path in (TP_STORE, TP_RANK1_SAMPLE):
+        if os.path.exists(path):
+            os.remove(path)
+    os.makedirs(os.path.dirname(TP_STORE), exist_ok=True)
+    with open(TP_RANK1_LOG, 'w') as log_file:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), '--tp-rank', '1'],
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        ref_losses, ref_params, ref_sample = tp_train_and_sample(torch, dev)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (losses, params, sample), (_, fault_params, _) = tp_rank(torch, dev, 0)
+        tp_s = time.perf_counter() - t0
+        code = proc.wait(timeout=TP_RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(TP_RANK1_LOG) as f:
+        rank1_log = f.read()
+    if code != 0:
+        raise AssertionError(f'tensor_parallel rank 1 exited with {code}:\n{rank1_log[-3000:]}')
+    rank1_sample = torch.load(TP_RANK1_SAMPLE, weights_only=True)
+    os.remove(TP_RANK1_SAMPLE)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    param_rel = float((params - ref_params).norm() / ref_params.norm())
+    param_abs = float((params - ref_params).abs().max())
+    fault_rel = float((fault_params - ref_params).norm() / ref_params.norm())
+    fault_abs = float((fault_params - ref_params).abs().max())
+    sample_rel = float((sample - ref_sample).norm() / ref_sample.norm())
+    ranks_equal = torch.equal(sample, rank1_sample)
+    finite = bool(torch.isfinite(sample).all())
+    log(f'tensor_parallel trainer (gloo, 2 ranks on one card, mesh (1, 2)) vs one device: '
+        f'flagship depth 2 f32 dropout 0.1 B=8 x <=512 ragged, with text then text dropped: '
+        f'losses={losses} single={ref_losses} loss_rel={loss_rel:.3e} (<= {TP_LOSS_TOL:g}) '
+        f'after two steps: param_rel_l2={param_rel:.3e} (<= {TP_PARAM_TOL:g}) '
+        f'param_max_abs={param_abs:.3e} (<= {TP_PARAM_ABS_TOL:g}) over {ref_params.numel()} '
+        f'(norm {float(ref_params.norm()):.3f}); planted unsummed shared grads: param_rel_l2='
+        f'{fault_rel:.3e} param_max_abs={fault_abs:.3e} (must exceed {TP_PARAM_ABS_TOL:g}); '
+        f'sample ({TP_SAMPLE_STEPS} midpoint steps, {TP_SAMPLE_FRAMES} frames) rel_l2='
+        f'{sample_rel:.3e} (<= {TP_SAMPLE_TOL:g}) finite={finite} ranks bit-equal='
+        f'{ranks_equal}; seconds: one device {ref_s:.1f}, TP rank 0 {tp_s:.1f} (rendezvous '
+        f'and the fault included)')
+    if not (loss_rel <= TP_LOSS_TOL and param_rel <= TP_PARAM_TOL
+            and param_abs <= TP_PARAM_ABS_TOL and sample_rel <= TP_SAMPLE_TOL
+            and ranks_equal and finite):
+        raise AssertionError('the TP trainer disagrees with the single device, or its ranks '
+                             'with each other')
+    if fault_abs <= TP_PARAM_ABS_TOL:
+        raise AssertionError('the planted unsummed shared grads passed the TP trainer check')
+
+
+def step_profile(torch, run):
+    """One call of ``run`` (already warm) under the profiler: its wall ms,
+    the device's busy ms, and ``{operator: (calls, self host ms)}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    on_device = [e for e in averages if e.device_type == DeviceType.CUDA
+                 and not getattr(e, 'is_user_annotation', False)]
+    host = {e.key: (e.count, e.self_cpu_time_total / 1e3) for e in averages
+            if e.device_type != DeviceType.CUDA}
+    return wall * 1e3, sum(e.self_device_time_total for e in on_device) / 1e3, host
+
+
+def tp_world1_steps(torch, dev, smi):
+    """(c), second part: one NCCL rank: the flagship at its full depth, bf16,
+    dropout 0.1, B = 16 x 1024 with text; one device, DDP (the 1-D data
+    mesh), the TP trainer (a model sharded over mesh (1, 1)) and the same
+    with its layers' collectives taken out (`local_axis`: at one rank the
+    same numbers) built side by side, then `TP_COST_ROUNDS` rounds in turns
+    of `TP_TRAIN_STEPS_TIMED` steps a side: ms a step (and the host's, to
+    the last step's return), the memory each side holds and its peak over
+    that, the launch counts of every block against the model's structure;
+    then a step a side with the synchronizing CUDA calls counted
+    (`torch.cuda.set_sync_debug_mode`), and one profiled step a side, with
+    the host operators that take more time under DDP than on one device,
+    and under TP than under DDP. Returns the TP steps' counts of one
+    block."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.parallel import tp
+    from e2_tts_tpu_torch.parallel.mesh import make_mesh
+    from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    store = os.path.abspath(TP_STORE)
+    if os.path.exists(store):
+        os.remove(store)
+    if not maybe_initialize_distributed(init_method=f'file://{store}', world_size=1, rank=0,
+                                        timeout=120):
+        raise AssertionError('no process group')
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'backend {dist.get_backend()}, not NCCL')
+        mesh_tp = tp.make_2d_mesh(1, 1)
+        meshes = {'one device': None, 'ddp': make_mesh(), 'tp': mesh_tp, 'tp local': mesh_tp}
+        where = {'one device': 'no mesh', 'ddp': 'data mesh (1,)', 'tp': 'mesh (1, 1)',
+                 'tp local': 'mesh (1, 1), no model-axis collectives'}
+        rng = np.random.default_rng(6)
+        words = TEXT.split()
+        train_set = ArrayDataset([rng.standard_normal((100, FRAMES)).astype(np.float32)
+                                  for _ in range(TRAIN_BATCH)],
+                                 [' '.join(rng.choice(words, size=12))
+                                  for _ in range(TRAIN_BATCH)])
+        sides, held = {}, {}
+        built = build_e2tts(torch, dev, torch.bfloat16, dropout=0.1)
+        for name, mesh in meshes.items():
+            before = torch.cuda.memory_allocated()
+            model = copy.deepcopy(built)
+            if name.startswith('tp'):
+                tp.shard_module_tp(model, mesh)
+            if name == 'tp local':
+                axis = local_axis(tp, 1, 0, mesh)
+                for sub in model.modules():
+                    if getattr(sub, 'tp', None) is not None:
+                        sub.place_tp(axis)
+            trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0,
+                                total_steps=10_000, seed=0,
+                                **(dict(mesh=mesh) if mesh is not None else {}))
+            batch = trainer.prepare_batch(next(iter_batches(train_set, TRAIN_BATCH, seed=1)))
+            trainer.train_step(*batch, drop_text_cond=False)      # warm-up: optimizer state
+            torch.cuda.synchronize()
+            held[name] = (torch.cuda.memory_allocated() - before) / 2 ** 30
+            expected = {k: TP_TRAIN_STEPS_TIMED * n
+                        for k, n in expected_train_launches(model, True).items()}
+            sides[name] = (trainer, batch, {k: expected.get(k, 0) for k in _cuda.KERNELS})
+        del built
+        ms = {name: [] for name in sides}
+        host_ms = {name: [] for name in sides}
+        peak = dict.fromkeys(sides, 0.0)
+        block_counts = {}
+        for _ in range(TP_COST_ROUNDS):
+            for name, (trainer, batch, expected) in sides.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                losses = [trainer.train_step(*batch, drop_text_cond=False)[0]
+                          for _ in range(TP_TRAIN_STEPS_TIMED)]
+                host_ms[name].append((time.perf_counter() - t0) * 1e3 / TP_TRAIN_STEPS_TIMED)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3 / TP_TRAIN_STEPS_TIMED)
+                counts = dict(_cuda.launch_counts)
+                peak[name] = max(peak[name], (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+                if counts != expected or not bool(torch.isfinite(torch.stack(losses)).all()):
+                    raise AssertionError(f'{name} train steps: launch counts {counts} != '
+                                         f'{expected}, or a loss not finite')
+                block_counts[name] = counts
+        syncs = {}
+        for name, (trainer, batch, _) in sides.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    trainer.train_step(*batch, drop_text_cond=False)
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+            syncs[name] = sum('synchroniz' in str(w.message) for w in caught)
+        ratio = lambda a, b: [x / y for x, y in zip(ms[a], ms[b])]
+        for name in sides:
+            log(f'tensor_parallel train steps {name} (NCCL world 1, {where[name]}) flagship depth '
+                f'{FLAGSHIP["depth"]} bf16 B={TRAIN_BATCH} frames={FRAMES} dropout 0.1 with '
+                f'text, {TP_COST_ROUNDS} rounds in turns of {TP_TRAIN_STEPS_TIMED} steps: '
+                f'ms_per_step={json.dumps([round(t, 3) for t in ms[name]])} median='
+                f'{statistics.median(ms[name]):.3f} host_ms_per_step='
+                f'{json.dumps([round(t, 3) for t in host_ms[name]])} synchronizing_calls_a_step='
+                f'{syncs[name]} held_gib={held[name]:.3f} '
+                f'step_peak_over_held_gib={peak[name]:.3f} '
+                f'launches_a_block={json.dumps(block_counts[name], sort_keys=True)} [{smi}]')
+        for a, b in (('tp', 'one device'), ('ddp', 'one device'), ('tp', 'ddp'),
+                     ('tp local', 'ddp'), ('tp', 'tp local')):
+            log(f'tensor_parallel world-1 step cost: {a.replace(" ", "_")}/{b.replace(" ", "_")} '
+                f'by round={json.dumps([round(r, 4) for r in ratio(a, b)])} '
+                f'median={statistics.median(ratio(a, b)):.4f} [{smi}]')
+        profiles = {name: step_profile(torch, lambda t=trainer, b=batch: t.train_step(
+            *b, drop_text_cond=False)) for name, (trainer, batch, _) in sides.items()}
+        for name, (wall, busy, host) in profiles.items():
+            log(f'tensor_parallel profiled step {name}: wall_ms={wall:.3f} device_busy_ms='
+                f'{busy:.3f} host operators={sum(c for c, _ in host.values())} host_self_ms='
+                f'{sum(t for _, t in host.values()):.3f}')
+        for a, b in (('one device', 'ddp'), ('ddp', 'tp'), ('tp local', 'tp')):
+            was, now = profiles[a][2], profiles[b][2]
+            more = sorted(((now[k][1] - was.get(k, (0, 0.0))[1], k) for k in now), reverse=True)
+            for extra, key in more[:10]:
+                log(f'  {b} over {a}: host +{extra:.3f} ms {key[:64]:64s} calls '
+                    f'{was.get(key, (0, 0))[0]} -> {now[key][0]}')
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return block_counts['tp']
+
+
+def phase_tensor_parallel(torch, dev, smi):
+    """(a) `dropout_offset_check`; (b) `sharded_layer_check`; (c)
+    `tp_two_ranks` and `tp_world1_steps`. Returns the TP steps' launch
+    counts."""
+    dropout_offset_check(torch, dev)
+    sharded_layer_check(torch, dev)
+    tp_two_ranks(torch, dev)
+    return tp_world1_steps(torch, dev, smi)
+
+
+def tp_rank_main() -> int:
+    """``chip_smoke.py --tp-rank 1``: rank 1 of `tp_two_ranks`, started by
+    rank 0; prints no result."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp_rank(torch, torch.device('cuda', 0), int(sys.argv[2]))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3344,6 +3862,8 @@ def main() -> int:
     phase_done('options')
     phase_distributed(torch, dev, smi)
     phase_done('distributed')
+    phase_tensor_parallel(torch, dev, smi)
+    phase_done('tensor_parallel')
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
@@ -3369,4 +3889,4 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(tp_rank_main() if sys.argv[1:2] == ['--tp-rank'] else main())

@@ -17,7 +17,9 @@ forward and backward with the backward's delta pre-pass, the two
 hyper-connection width connections (and their save-state variants) and
 GEGLU, each forward and backward, and the fused log-mel frontend. Data
 parallelism (`parallel/`: DDP or FSDP2 over torch.distributed, a step of
-the global batch) is ported; sequence and tensor parallelism are not.
+the global batch) and tensor parallelism (`parallel/tp.py`: heads and
+GEGLU columns over a `model` axis) are ported; sequence parallelism is
+not.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from e2_tts_tpu_torch.parallel.fsdp import is_sharded
+from e2_tts_tpu_torch.parallel.tp import tp_axis
 from e2_tts_tpu_torch.utils.helpers import exists
 
 
@@ -104,7 +105,7 @@ def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None
     persistent buffers in place (strict). Load before sharding: a model
     that FSDP already sharded (`parallel.fsdp.shard_module_fsdp`, as an
     `E2Trainer` with ``param_sharding='fsdp'`` does) raises."""
-    if is_sharded(model):
+    if is_sharded(model) or exists(tp_axis(model)):
         raise ValueError('load_jax_params takes an unsharded model: load the JAX weights '
                          'first, then shard it (build the trainer after the load)')
     targets = model.state_dict(keep_vars=True)

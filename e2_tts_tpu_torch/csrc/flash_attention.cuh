@@ -60,7 +60,9 @@ struct Strides {
 // frequency attention's batch, b * (n + registers) sequences of f tokens,
 // passes 65535 at N = 4096 frames with B = 16. b0 is a memory offset only:
 // the dropout hash takes the row's place in the global batch, hash_b0 + bi
-// (hash_b0 the caller's: a data-parallel rank's first row), never b0 alone.
+// (hash_b0 the caller's: a data-parallel rank's first row), never b0 alone,
+// and the head's among a row's hash_heads, hash_h0 + h (a tensor-parallel
+// rank's first head).
 constexpr int kMaxGridZ = 65535;
 
 __device__ __forceinline__ long long offset(const Strides& s, int bi, int h) {
@@ -101,8 +103,10 @@ struct FwdParams {
   unsigned seed, threshold;
   int dropping;
   int b0 = 0;                 // the launch chunk's first batch row
-  int hash_b0 = 0;            // the first row's place in the global batch: the
-                              // dropout hash reads head (hash_b0 + bi) * heads + h
+  int hash_b0 = 0;            // the first row's place in the global batch, the
+  int hash_h0 = 0;            // first head's place among the hash_heads heads of a
+  int hash_heads = 0;         // row: the dropout hash reads global head
+                              // (hash_b0 + bi) * hash_heads + hash_h0 + h
 };
 
 template <typename T, int DHP, int SPLIT = 1>
@@ -232,7 +236,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
   float m_i = NEG_INF, l_i = 0.f;
 
   const unsigned hseed =
-      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.heads + h) * 0x27D4EB2Fu), 2);
+      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
+                           * 0x27D4EB2Fu), 2);
   float* sFw = sF + warp * 16 * L::LDF;
   T* sPw = sP + warp * 16 * L::LDP;
   float* srow = sFw + (lane >> 1) * L::LDS;
@@ -363,8 +368,10 @@ struct BwdParams {
   unsigned seed, threshold;
   int dropping;
   int b0 = 0;                 // the launch chunk's first batch row
-  int hash_b0 = 0;            // the first row's place in the global batch: the
-                              // dropout hash reads head (hash_b0 + bi) * heads + h
+  int hash_b0 = 0;            // the first row's place in the global batch, the
+  int hash_h0 = 0;            // first head's place among the hash_heads heads of a
+  int hash_heads = 0;         // row: the dropout hash reads global head
+                              // (hash_b0 + bi) * hash_heads + hash_h0 + h
 };
 
 template <typename T, int DHP>
@@ -512,7 +519,8 @@ __device__ __forceinline__ void store_rows(WarpAcc<T, DHP>& acc, float* stage, T
 //   s  = scale * q k^T;  th = tanh(s / c);  s = c * th  (softclamp c, jac = 1 - th^2)
 //   p  = exp(s + bias[key] - lse[row])
 //   dp = do v^T  (a gated layer's do arrives gated: K10 writes it)
-//   ks = keep(seed, (hash_b0 + b)*heads + h, row, key) / (1 - rate)  (the forward's bits)
+//   ks = keep(seed, (hash_b0 + b)*hash_heads + hash_h0 + h, row, key) / (1 - rate)
+//        (the forward's bits)
 //   ds = p * (ks * dp - delta[row]) * jac * scale,  p_drop = p * ks
 //   dv += p_drop^T do,  dk += ds^T q,  dq += ds k
 // p_drop and ds are rounded to T before the three products, as the TPU
@@ -563,7 +571,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
   dv_acc.zero();
 
   const unsigned hseed =
-      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * H + h) * 0x27D4EB2Fu), 2);
+      e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
+                           * 0x27D4EB2Fu), 2);
   const T* sKw = sK + warp * 16 * L::LDT;
   const T* sVw = sV + warp * 16 * L::LDT;
   float* sFw = sF + warp * L::FW;

@@ -4,7 +4,8 @@
 // K8 replaces the TPU kernel e2_tts_tpu/ops/flash_attention.py::_fwd_kernel
 // (driven by _flash_forward): s = c tanh(scale q k^T / c) + bias(key mask),
 // online softmax over key tiles, post-softmax counter-hash dropout (keep
-// bits identical to _keep_tile for the global head (hash_b0 + b) * heads + h),
+// bits identical to _keep_tile for the global head (hash_b0 + b) * hash_heads +
+// hash_h0 + h),
 // o = (p v) / max(l, 1e-30), lse = m + log(l). No gate.
 // K9 replaces the TPU kernels _bwd_merged_kernel / _dq_kernel / _dkv_kernel
 // (driven by _flash_backward) with one design: dq, dk, dv from q, k, v, the
@@ -114,13 +115,13 @@ Strides strides(const long long* s) { return {s[0], s[1], s[2]}; }
 
 // K8. Strides are (batch, head, row) triples in elements; o may be any
 // (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32;
-// hash_b0 as in e2_flash_fwd.
+// hash_b0, hash_h0 and hash_heads as in e2_flash_fwd.
 extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, const long long* qs,
                                  const long long* ks, const long long* vs, const void* mask,
                                  void* o, const long long* os, void* lse, int b, int n,
                                  int heads, int dh, float scale, float softclamp, float inv_keep,
                                  unsigned seed, unsigned threshold, int dropping, int hash_b0,
-                                 int dtype, void* stream) {
+                                 int hash_h0, int hash_heads, int dtype, void* stream) {
   if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
@@ -131,7 +132,8 @@ extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, co
   p.lse = static_cast<float*>(lse);
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
-  p.seed = seed; p.threshold = threshold; p.dropping = dropping; p.hash_b0 = hash_b0;
+  p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
   if (dtype == e2::kBFloat16) return (int)dispatch_sm90_fwd(p, s);
@@ -148,8 +150,8 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
                                  const long long* dqs, void* dk, const long long* dks, void* dv,
                                  const long long* dvs, int b, int n, int heads, int dh,
                                  float scale, float softclamp, float inv_keep, unsigned seed,
-                                 unsigned threshold, int dropping, int hash_b0, int dtype,
-                                 void* stream) {
+                                 unsigned threshold, int dropping, int hash_b0, int hash_h0,
+                                 int hash_heads, int dtype, void* stream) {
   if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -163,7 +165,8 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   p.dqs = strides(dqs); p.dks = strides(dks); p.dvs = strides(dvs);
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
-  p.seed = seed; p.threshold = threshold; p.dropping = dropping; p.hash_b0 = hash_b0;
+  p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
   if (dtype == e2::kBFloat16) return (int)dispatch_sm90_bwd(p, s);

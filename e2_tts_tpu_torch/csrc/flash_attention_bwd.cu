@@ -7,7 +7,8 @@
 //   s  = scale * q k^T;  th = tanh(s / c);  s = c * th  (softclamp c, jac = 1 - th^2)
 //   p  = exp(s + bias[key] - lse[row])                   (lse from K1)
 //   dp = do_g v^T,  do_g = do * sigmoid(gate[b, row, h]) (rounded to the compute dtype)
-//   ks = keep(seed, (hash_b0 + b)*heads + h, row, key) / (1 - rate)  (K1's bits)
+//   ks = keep(seed, (hash_b0 + b)*hash_heads + hash_h0 + h, row, key) / (1 - rate)
+//        (K1's bits)
 //   ds = p * (ks * dp - delta[b, row, h]) * jac * scale,  p_drop = p * ks
 //   dv += p_drop^T do_g,  dk += ds^T q,  dq += ds k
 // with delta = rowsum(do * o) per head. Both delta and do_g come from K10
@@ -144,13 +145,15 @@ extern "C" int e2_flash_delta(const void* o, const void* dout, const void* gate,
 
 // q, k, v: (b, n, heads * dh) with batch / row strides; dout (K10's do_g
 // for a gated layer), dk, dv contiguous (b, n, heads * dh), dq a zeroed f32
-// buffer likewise; delta (b, n, heads); hash_b0 as e2_flash_fwd's
+// buffer likewise; delta (b, n, heads); hash_b0, hash_h0 and hash_heads as
+// e2_flash_fwd's
 extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                             long long v_rs, const void* dout, const void* mask, const void* lse,
                             const void* delta, void* dq, void* dk, void* dv, int b, int n,
                             int heads, int dh, float scale, float softclamp, float inv_keep,
                             unsigned seed, unsigned threshold, int dropping, int hash_b0,
+                            int hash_h0, int hash_heads,
                             int dtype, void* stream) {
   if (dtype != e2::kBFloat16 && dtype != e2::kFloat32) return (int)cudaErrorInvalidValue;
   BwdParams p;
@@ -169,6 +172,7 @@ extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long lo
   p.dk = dk; p.dv = dv;
   p.b = b; p.n = n; p.heads = heads; p.dh = dh;
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
-  p.seed = seed; p.threshold = threshold; p.dropping = dropping; p.hash_b0 = hash_b0;
+  p.seed = seed; p.threshold = threshold; p.dropping = dropping;
+  p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
   return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

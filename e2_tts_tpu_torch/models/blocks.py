@@ -15,6 +15,11 @@ Conventions, as in the JAX package:
   global batch (a data-parallel rank's offset), so a rank draws the bits a
   single device draws for its rows: the attention kernels take it as
   ``hash_b0``, and the GEGLU folds it into its seed (`fold_batch_offset`).
+- `Attention` and `FeedForward` run tensor-parallel after `place_tp`
+  (parallel/tp.py cuts their weights): a rank computes its heads or GEGLU
+  columns, its dropout bits those heads' and columns' of the whole layer
+  (``hash_h0``; `fold_column_offset`), and the output projection's partial
+  sums are summed over the model axis.
 - `load_jax_params` (convert.py) maps a JAX model's parameters onto these
   modules one to one; the names below mirror the JAX attribute paths.
 """
@@ -28,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.ops.attention import attention_packed
-from e2_tts_tpu_torch.ops.dropout import fold_batch_offset
+from e2_tts_tpu_torch.ops.dropout import fold_batch_offset, fold_column_offset
 from e2_tts_tpu_torch.ops.geglu_kernel import geglu_dropout
 from e2_tts_tpu_torch.ops.rotary import apply_rotary_packed
 from e2_tts_tpu_torch.utils.helpers import (
@@ -78,10 +83,22 @@ class Linear(nn.Module):
             assert init == 'zeros'
             nn.init.zeros_(self.weight)
 
-    def forward(self, x):
+    def forward(self, x, reduce=None):
+        """``reduce``: a row-parallel layer's sum of the ranks' partial
+        products (`ModelAxis.exit`), taken before the bias is added."""
         ct = self.dtype if exists(self.dtype) else torch.promote_types(x.dtype, self.weight.dtype)
         bias = cast(self.bias, ct) if exists(self.bias) else None
-        return F.linear(cast(x, ct), cast(self.weight, ct), bias)
+        if not exists(reduce):
+            return F.linear(cast(x, ct), cast(self.weight, ct), bias)
+        out = reduce(F.linear(cast(x, ct), cast(self.weight, ct)))
+        return out if bias is None else out + bias
+
+    def rows(self, x, start: int, stop: int):
+        """Output features ``[start, stop)`` of this layer on ``x``."""
+        ct = self.dtype if exists(self.dtype) else torch.promote_types(x.dtype, self.weight.dtype)
+        weight, bias = (cast(t[start:stop], ct) if exists(t) else None
+                        for t in (self.weight, self.bias))
+        return F.linear(cast(x, ct), weight, bias)
 
 
 class Identity(nn.Module):
@@ -311,16 +328,32 @@ class FeedForward(nn.Module):
         self.proj_in = Linear(dim, inner * 2, dtype=dtype, generator=generator)
         self.proj_out = Linear(inner, dim, dtype=dtype, generator=generator)
         self.dropout_rate = dropout
+        self.inner = inner
+        self.tp = None          # the model axis (place_tp)
+        self.col0 = 0           # this rank's first GEGLU column
+
+    def place_tp(self, axis):
+        """Run on ``axis.rank``'s GEGLU columns of the model axis ``axis``
+        (parallel/tp.py has cut the weights)."""
+        self.tp = axis
+        self.col0 = axis.rank * (self.inner // axis.size)
 
     def forward(self, x, dropout_seed: int | None = None, batch_offset: int = 0):
         """``batch_offset``: ``x``'s first row in the global batch; K6 hashes
-        (row, frame, column), so the offset folds into the seed."""
+        (row, frame, column), so the offset (and a tensor-parallel rank's
+        first column) folds into the seed."""
+        tp = self.tp
+        if exists(tp):
+            x = tp.enter(x)
         h = self.proj_in(x)
         rate = self.dropout_rate if self.training else 0.0
         if rate > 0.0 and dropout_seed is None:
             raise ValueError('dropout in training mode needs a dropout_seed')
-        seed = fold_batch_offset(dropout_seed, batch_offset) if rate > 0.0 else 0
-        return self.proj_out(geglu_dropout(h, seed, rate))
+        seed = 0
+        if rate > 0.0:
+            seed = fold_column_offset(fold_batch_offset(dropout_seed, batch_offset), self.col0)
+        return self.proj_out(geglu_dropout(h, seed, rate),
+                             reduce=tp.exit if exists(tp) else None)
 
 
 # attention ------------------------------------------------------------------
@@ -352,6 +385,9 @@ class Attention(nn.Module):
         self.laser_softclamp_value = laser_softclamp_value
         inner = heads * dim_head
         self.inner = inner
+        self.tp = None          # the model axis (place_tp)
+        self.head0 = 0          # this rank's first head, and its head count
+        self.local_heads = heads
 
         # q/k/v as one (3*inner, dim) weight: rows [0, inner) are q, then k, v
         # (the JAX package's (dim, 3, inner) kernel, transposed)
@@ -368,18 +404,38 @@ class Attention(nn.Module):
             Linear(dim, heads, dtype=dtype, generator=generator)
             if learned_value_residual_mix else None)
 
+    def place_tp(self, axis):
+        """Run on ``axis.rank``'s heads of the model axis ``axis``
+        (parallel/tp.py has cut the weights)."""
+        self.tp = axis
+        self.local_heads = self.heads // axis.size
+        self.head0 = axis.rank * self.local_heads
+
+    def _head_rows(self, linear, x):
+        """A dim -> heads layer's rows of this rank's heads."""
+        if not exists(self.tp):
+            return linear(x)
+        return linear.rows(x, self.head0, self.head0 + self.local_heads)
+
     def forward(self, x, rotary_pos_emb=None, mask=None, value_residual=None,
                 dropout_seed: int | None = None, batch_offset: int = 0):
-        b, n, _ = x.shape
-        h, inner = self.heads, self.inner
+        """Tensor-parallel after `place_tp`: q, k, v, the returned values and
+        ``value_residual`` are this rank's heads', and ``out`` is summed over
+        the model axis."""
+        tp = self.tp
+        if exists(tp):
+            x = tp.enter(x)
+        h = self.local_heads
+        inner = h * self.dim_head
 
         fused = self.to_qkv(x)                                   # (b, n, 3*inner)
         q, k, v = fused[..., :inner], fused[..., inner:2 * inner], fused[..., 2 * inner:]
         orig_values = v
 
-        gate_logits = self.to_v_head_gate(x) if exists(self.to_v_head_gate) else None
+        gate_logits = (self._head_rows(self.to_v_head_gate, x)
+                       if exists(self.to_v_head_gate) else None)
         if exists(self.to_value_residual_mix) and exists(value_residual):
-            mix = torch.sigmoid(self.to_value_residual_mix(x))[..., None]   # (b, n, h, 1)
+            mix = torch.sigmoid(self._head_rows(self.to_value_residual_mix, x))[..., None]
             v4 = v.unflatten(-1, (h, self.dim_head))
             vr4 = value_residual.to(v.dtype).unflatten(-1, (h, self.dim_head))
             v = (v4 * mix + vr4 * (1.0 - mix)).flatten(-2)
@@ -396,5 +452,6 @@ class Attention(nn.Module):
             laser=self.laser, laser_softclamp_value=self.laser_softclamp_value,
             dropout_rate=self.dropout_rate if training else 0.0,
             dropout_seed=dropout_seed if training else None,
-            gate_logits=gate_logits, hash_b0=batch_offset)
-        return self.to_out(out), orig_values
+            gate_logits=gate_logits, hash_b0=batch_offset, hash_h0=self.head0,
+            hash_heads=self.heads)
+        return self.to_out(out, reduce=tp.exit if exists(tp) else None), orig_values

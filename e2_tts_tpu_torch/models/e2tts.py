@@ -57,6 +57,7 @@ from e2_tts_tpu_torch.models.duration import DurationPredictor
 from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.mel import MelSpec, as_mel, db_to_amplitude
 from e2_tts_tpu_torch.ops.ode import odeint
+from e2_tts_tpu_torch.parallel.tp import tp_axis
 from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer, tokenize_batch
 from e2_tts_tpu_torch.utils.audio_io import save_wav
 from e2_tts_tpu_torch.utils.helpers import default, exists, resolve_device, round_up_to_multiple
@@ -81,11 +82,12 @@ def masked_mse(pred, target, span_mask, span_count=None):
     return err.sum() / denom
 
 
-def global_span_count(span_mask: torch.Tensor) -> torch.Tensor:
-    """The span's frame count summed over the ranks of the default process
-    group (the data mesh spans it), without grad: the global batch's."""
+def global_span_count(span_mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The span's frame count summed over the ranks of the data axis'
+    ``group`` (None: the default process group, which a 1-D data mesh
+    spans), without grad: the global batch's."""
     count = span_mask.float().sum().detach()
-    dist.all_reduce(count)
+    dist.all_reduce(count, group=group)
     return count
 
 
@@ -293,7 +295,8 @@ class E2TTS(nn.Module):
             w, cond, times, text=text, mask=mask, drop_text_cond=drop_text_cond,
             return_drop_text_cond=True, generator=generator, batch_offset=batch_offset)
 
-        span_count = global_span_count(rand_span_mask) if total > batch else None
+        span_count = (global_span_count(rand_span_mask, self._data_group())
+                      if total > batch else None)
         velocity_loss = torch.zeros((), dtype=torch.float32, device=device)
         if need_velocity_loss:
             t_delta = t + velocity_consistency_delta
@@ -307,6 +310,12 @@ class E2TTS(nn.Module):
         loss = masked_mse(pred, flow, rand_span_mask, span_count)
         total = loss + velocity_loss * self.velocity_consistency_weight
         return E2TTSReturn(total, cond, pred, x0 + pred, LossBreakdown(loss, velocity_loss))
+
+    def _data_group(self):
+        """The data axis' group of a tensor-parallel model's mesh (its model
+        groups compute the same rows), else None: the default group."""
+        axis = tp_axis(self)
+        return axis.data_group if exists(axis) else None
 
     def _tokenize(self, text, batch):
         return tokenize_batch(self.tokenizer, text, batch, self.device)

@@ -10,7 +10,9 @@ else through K8 / K9 on strided ``(b, h, n, dh)`` views of the projection
 the heads its lane-packed kernels reject. Both take the tanh logit
 softclamp, the key-padding mask, counter-hash attention dropout (its bits
 drawn for global batch rows from ``hash_b0``, the first row's place in the
-global batch: a data-parallel rank passes its offset) and LASER:
+global batch: a data-parallel rank passes its offset; and for global heads
+from ``hash_h0`` of ``hash_heads``: a tensor-parallel rank passes its first
+head and the layer's head count) and LASER:
 exp-space values ``exp(softclamp(v, 15))`` cast to q's dtype before the
 kernel and ``log(max(out, 1e-20))`` after it, with the gate after the log.
 The JAX package sent small batches to XLA on the TPU; the port has no such
@@ -43,7 +45,7 @@ def _laser_log(out):
 def attention(q, k, v, mask=None, *, scale=None, softclamp_value: float | None = 50.0,
               laser: bool = False, laser_softclamp_value: float = 15.0,
               dropout_rate: float = 0.0, dropout_seed: int | None = None,
-              hash_b0: int = 0):
+              hash_b0: int = 0, hash_h0: int = 0, hash_heads: int | None = None):
     """``q, k, v (b, h, n, dh)`` -> ``(b, h, n, dh)`` through K8 (K9 in the
     backward). Dropout is drawn only when both ``dropout_rate > 0`` and a
     ``dropout_seed`` are given."""
@@ -54,7 +56,8 @@ def attention(q, k, v, mask=None, *, scale=None, softclamp_value: float | None =
     out = flash_attention(q, k, v.to(q.dtype), mask, scale=scale,
                           softclamp_value=softclamp_value,
                           dropout_rate=dropout_rate if dropping else 0.0,
-                          dropout_seed=dropout_seed if dropping else 0, hash_b0=hash_b0)
+                          dropout_seed=dropout_seed if dropping else 0, hash_b0=hash_b0,
+                          hash_h0=hash_h0, hash_heads=hash_heads)
     if laser:
         out = _laser_log(out)
     return out.to(q.dtype)
@@ -64,7 +67,8 @@ def attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                      softclamp_value: float | None = 50.0, laser: bool = False,
                      laser_softclamp_value: float = 15.0,
                      dropout_rate: float = 0.0, dropout_seed: int | None = None,
-                     gate_logits=None, hash_b0: int = 0, sp_mesh=None):
+                     gate_logits=None, hash_b0: int = 0, hash_h0: int = 0,
+                     hash_heads: int | None = None, sp_mesh=None):
     """``q, k, v (b, n, h*dh)`` -> ``(b, n, h*dh)``; ``gate_logits (b, n,
     h)`` the optional per-head sigmoid output gate. Dropout is drawn only
     when both ``dropout_rate > 0`` and a ``dropout_seed`` are given."""
@@ -84,12 +88,14 @@ def attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
             q, k, v.to(q.dtype), mask, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate if dropping else 0.0,
             dropout_seed=dropout_seed if dropping else 0,
-            gate_logits=gate_logits if fold_gate else None, hash_b0=hash_b0)
+            gate_logits=gate_logits if fold_gate else None, hash_b0=hash_b0, hash_h0=hash_h0,
+            hash_heads=hash_heads)
     else:
         to_bhnd = lambda t: t.unflatten(-1, (heads, dh)).transpose(1, 2)
         out = attention(to_bhnd(q), to_bhnd(k), to_bhnd(v), mask, scale=scale,
                         softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-                        dropout_seed=dropout_seed, hash_b0=hash_b0)
+                        dropout_seed=dropout_seed, hash_b0=hash_b0, hash_h0=hash_h0,
+                        hash_heads=hash_heads)
         out = out.transpose(1, 2).reshape(b, n, D)
 
     if laser:

@@ -62,3 +62,12 @@ def fold_batch_offset(seed: int, b0: int) -> int:
     PRIMES[0]`` (mod 2**32). A data-parallel rank holding rows from ``b0``
     draws the global batch's bits this way, with no kernel change."""
     return (int(seed) + int(b0) * PRIMES[0]) & _M32
+
+
+def fold_column_offset(seed: int, c0: int) -> int:
+    """The seed whose `hash_keep` over columns ``[0, c)`` of axis 2 draws the
+    bits of columns ``[c0, c0 + c)`` under ``seed``: ``seed + c0 *
+    PRIMES[2]`` (mod 2**32), as `fold_batch_offset` folds a row offset. A
+    tensor-parallel rank holding the GEGLU columns from ``c0`` draws the
+    whole layer's bits this way, with no kernel change."""
+    return (int(seed) + int(c0) * PRIMES[2]) & _M32

@@ -26,10 +26,13 @@ The C entry points choose the design from the dtype and dim_head.
 
 Semantics: tanh softclamp of the scaled logits, key-padding bias 0 / -1e30,
 softmax, post-softmax counter-hash dropout (bits identical to the JAX
-package's ``_keep_tile`` for the global head ``(hash_b0 + b) * heads + h``:
-``hash_b0``, default 0, is the first row's place in the global batch, so a
-data-parallel rank holding rows ``[b0, b0 + B/P)`` passes ``b0`` and draws
-the bits a single device draws for those rows; it moves no memory); K1 also the
+package's ``_keep_tile`` for the global head ``(hash_b0 + b) * hash_heads +
+hash_h0 + h``: ``hash_b0``, default 0, is the first row's place in the global
+batch, so a data-parallel rank holding rows ``[b0, b0 + B/P)`` passes ``b0``
+and draws the bits a single device draws for those rows; ``hash_h0``, default
+0, is the first head's place among the ``hash_heads`` heads of a row
+(default: the launch's own), so a tensor-parallel rank holding heads ``[h0,
+h0 + H/T)`` passes ``h0`` and ``H``; they move no memory); K1 also the
 optional per-head sigmoid output gate. The forward also returns the
 per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
 ``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
@@ -65,12 +68,15 @@ MAX_DIM_HEAD_PROBE = 128                # the probe: multiples of 8 up to this
 
 
 def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float, device=None, *,
-                      hash_b0: int = 0, heads: int = 1) -> torch.Tensor:
+                      hash_b0: int = 0, heads: int = 1, hash_h0: int = 0,
+                      hash_heads: int | None = None) -> torch.Tensor:
     """Full (bh, n, n) keep mask: the bits the kernel draws for global head
-    ``(hash_b0 + batch) * heads + head`` (``bh = batch * heads + head``),
-    absolute query row and key column."""
-    bhs = (torch.arange(bh_total, dtype=torch.int64, device=device)
-           + int(hash_b0) * heads)[:, None, None]
+    ``(hash_b0 + batch) * hash_heads + hash_h0 + head`` (``bh = batch * heads
+    + head``; ``hash_heads`` defaults to ``heads``), absolute query row and key
+    column."""
+    hash_heads = default(hash_heads, heads)
+    bh = torch.arange(bh_total, dtype=torch.int64, device=device)
+    bhs = ((bh // heads + int(hash_b0)) * hash_heads + int(hash_h0) + bh % heads)[:, None, None]
     rows = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
     cols = torch.arange(n, dtype=torch.int64, device=device)[None, None, :]
     h = fmix32((int(seed) & _M32) ^ mul32(bhs, 0x27D4EB2F))
@@ -80,7 +86,7 @@ def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float, device=None
 
 
 def _forward_core_plain(qf, kf, vf, mask, scale, softclamp_value, dropout_rate,
-                        dropout_seed, hash_b0=0):
+                        dropout_seed, hash_kw):
     """f32 ``(b, h, n, dh)`` q, k, v -> f32 ``o (b, h, n, dh)`` and ``lse
     (b*h, n)``: the arithmetic K1 and K8 share."""
     b, h, n, _ = qf.shape
@@ -97,7 +103,7 @@ def _forward_core_plain(qf, kf, vf, mask, scale, softclamp_value, dropout_rate,
     p = p / l
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate, device=qf.device,
-                                 hash_b0=hash_b0, heads=h).view(b, h, n, n)
+                                 heads=h, **hash_kw).view(b, h, n, n)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return p @ vf, lse
 
@@ -115,22 +121,26 @@ def _merge_heads(t):
 
 def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
                                  softclamp_value=None, dropout_rate=0.0,
-                                 dropout_seed=0, gate_logits=None, hash_b0=0):
+                                 dropout_seed=0, gate_logits=None, hash_b0=0, hash_h0=0,
+                                 hash_heads=None):
     """Plain PyTorch version of K1 (f32 math): returns (out, lse)."""
     o, lse = _forward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads), mask,
-        scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
+        scale, softclamp_value, dropout_rate, dropout_seed,
+        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
     if exists(gate_logits):
         o = o * torch.sigmoid(gate_logits.float()).permute(0, 2, 1)[..., None]
     return _merge_heads(o).to(q.dtype), lse
 
 
 def flash_attention_plain(q, k, v, mask=None, *, scale, softclamp_value=None,
-                          dropout_rate=0.0, dropout_seed=0, hash_b0=0):
+                          dropout_rate=0.0, dropout_seed=0, hash_b0=0, hash_h0=0,
+                          hash_heads=None):
     """Plain PyTorch version of K8 (f32 math) on ``(b, h, n, dh)``: returns
     (out, lse)."""
     o, lse = _forward_core_plain(q.float(), k.float(), v.float(), mask, scale,
-                                 softclamp_value, dropout_rate, dropout_seed, hash_b0)
+                                 softclamp_value, dropout_rate, dropout_seed,
+                                 dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
     return o.to(q.dtype), lse
 
 
@@ -185,7 +195,7 @@ def flash_delta(out, dout, *, heads: int, gate_logits=None):
 
 
 def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp_value,
-                         dropout_rate, dropout_seed, hash_b0=0):
+                         dropout_rate, dropout_seed, hash_kw):
     """f32 ``(b, h, n, dh)`` q, k, v, do and ``delta (b, h, n)`` -> f32 dq,
     dk, dv: the arithmetic K2 and K9 share, with the compute dtype ``dt``'s
     rounding where the TPU kernels round."""
@@ -203,7 +213,7 @@ def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp
     dp = dof @ vf.transpose(-1, -2)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(dropout_seed, b * h, n, dropout_rate, device=qf.device,
-                                 hash_b0=hash_b0, heads=h).view(b, h, n, n)
+                                 heads=h, **hash_kw).view(b, h, n, n)
         keep_scaled = keep.float() * (1.0 / (1.0 - dropout_rate))
         ds = p * (keep_scaled * dp - delta_col)
         p = p * keep_scaled
@@ -219,7 +229,8 @@ def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp
 
 def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
                                           softclamp_value=None, dropout_rate=0.0,
-                                          dropout_seed=0, gate_logits=None, hash_b0=0):
+                                          dropout_seed=0, gate_logits=None, hash_b0=0,
+                                          hash_h0=0, hash_heads=None):
     """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
     where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
     the last None without a gate."""
@@ -228,7 +239,8 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
     grads = _backward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
         _split_heads(do, heads), delta.permute(0, 2, 1), mask, lse, dt, scale,
-        softclamp_value, dropout_rate, dropout_seed, hash_b0)
+        softclamp_value, dropout_rate, dropout_seed,
+        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
     dq, dk, dv = (_merge_heads(g).to(dt) for g in grads)
     return dq, dk, dv, _gate_grad(delta, gate_logits)
 
@@ -243,13 +255,13 @@ def _gate_grad(delta, gate_logits):
 
 def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, *, scale,
                                    softclamp_value=None, dropout_rate=0.0, dropout_seed=0,
-                                   hash_b0=0):
+                                   hash_b0=0, hash_h0=0, hash_heads=None):
     """Plain PyTorch version of K9 on ``(b, h, n, dh)``, with K9's delta =
     rowsum(dout * out) (f32): returns ``(dq, dk, dv)``."""
     delta = (dout.float() * out.float()).sum(-1)                      # (b, h, n)
     grads = _backward_core_plain(q.float(), k.float(), v.float(), dout.float(), delta,
                                  mask, lse, q.dtype, scale, softclamp_value, dropout_rate,
-                                 dropout_seed, hash_b0)
+                                 dropout_seed, dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
     return tuple(g.to(q.dtype) for g in grads)
 
 
@@ -289,8 +301,20 @@ def _check_inputs(q, k, v, mask, gate_logits, heads):
     return b, n, D, dh
 
 
+# the dropout hash's place of a launch that is the whole batch and every head
+_NO_OFFSET = dict(hash_b0=0, hash_h0=0, hash_heads=None)
+
+
+def _hash_ints(hash_kw, heads):
+    """``hash_kw`` (`_check_hash`'s) as the three ints the C entry points
+    take: ``hash_b0``, ``hash_h0``, ``hash_heads`` (None: the launch's
+    ``heads``)."""
+    return (int(hash_kw['hash_b0']), int(hash_kw['hash_h0']),
+            int(default(hash_kw['hash_heads'], heads)))
+
+
 def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
-                dropout_seed, gate_logits, hash_b0=0):
+                dropout_seed, gate_logits, hash_kw=_NO_OFFSET):
     b, n, D, dh = _check_inputs(q, k, v, mask, gate_logits, heads)
     device, dtype = q.device, q.dtype
     out = torch.empty((b, n, D), dtype=dtype, device=device)
@@ -304,15 +328,15 @@ def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
         out.data_ptr(), lse.data_ptr(), b, n, heads, dh, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
-        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        *_hash_ints(hash_kw, heads), _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd')
     _cuda.count_launch('flash_fwd')
     return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value,
-                    dropout_rate, dropout_seed, gate_logits, hash_b0=0):
+                    dropout_rate, dropout_seed, gate_logits, hash_kw=_NO_OFFSET):
     b, n, D, dh = _check_inputs(q, k, v, mask, gate_logits, heads)
     device, dtype = q.device, q.dtype
     for t, name in ((out, 'out'), (dout, 'dout')):
@@ -338,8 +362,8 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
         b, n, heads, dh, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
-        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        *_hash_ints(hash_kw, heads), _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_bwd')
     _cuda.count_launch('flash_bwd')
     return dq.to(dtype), dk, dv, _gate_grad(delta, gate_logits)
@@ -358,35 +382,49 @@ def _check_hash_b0(hash_b0):
     return int(hash_b0)
 
 
+def _check_hash(hash_b0, hash_h0, hash_heads, heads):
+    """``(hash_b0, hash_h0, hash_heads)`` checked: a launch's ``heads`` heads
+    from ``hash_h0`` must lie among a row's ``hash_heads`` (default
+    ``heads``); returned as the keyword arguments the plain versions take."""
+    hash_b0 = _check_hash_b0(hash_b0)
+    hash_heads = default(hash_heads, heads)
+    if int(hash_h0) != hash_h0 or int(hash_heads) != hash_heads \
+            or not 0 <= hash_h0 <= hash_heads - heads:
+        raise ValueError(f'heads [hash_h0, hash_h0 + heads) = [{hash_h0}, {hash_h0 + heads}) '
+                         f'must lie in [0, hash_heads = {hash_heads})')
+    return dict(hash_b0=hash_b0, hash_h0=int(hash_h0), hash_heads=int(hash_heads))
+
+
 def flash_attention_packed_backward(q, k, v, mask, out, lse, dout, *, heads: int,
                                     scale=None, softclamp_value=None,
                                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                                    gate_logits=None, hash_b0: int = 0):
+                                    gate_logits=None, hash_b0: int = 0, hash_h0: int = 0,
+                                    hash_heads: int | None = None):
     """K2 alone (the counterpart of ``_flash_packed_backward`` with the gate
     grad of ``_flash_packed_gated_bwd``): from the forward's inputs, its
     output ``out``, its ``lse`` and the output grad ``dout``, returns
     ``(dq, dk, dv, d_gate_logits)`` (the last None without a gate)."""
     scale = default(scale, (q.shape[-1] // heads) ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
-    hash_b0 = _check_hash_b0(hash_b0)
+    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, heads)
     if q.device.type == 'cpu':
         return flash_attention_packed_backward_plain(
             q, k, v, mask, out, lse, dout, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
+            dropout_seed=dropout_seed, gate_logits=gate_logits, **hash_kw)
     return _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value,
-                           dropout_rate, dropout_seed, gate_logits, hash_b0)
+                           dropout_rate, dropout_seed, gate_logits, hash_kw)
 
 
 def _flash_forward(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
-                   dropout_seed, gate_logits, hash_b0):
+                   dropout_seed, gate_logits, hash_kw):
     if q.device.type == 'cpu':
         return flash_attention_packed_plain(
             q, k, v, mask, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
+            dropout_seed=dropout_seed, gate_logits=gate_logits, **hash_kw)
     return _flash_cuda(q, k, v, mask, heads, scale, softclamp_value,
-                       dropout_rate, dropout_seed, gate_logits, hash_b0)
+                       dropout_rate, dropout_seed, gate_logits, hash_kw)
 
 
 class _FlashPacked(torch.autograd.Function):
@@ -396,42 +434,44 @@ class _FlashPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, gate_logits, heads, scale, softclamp_value,
-                dropout_rate, dropout_seed, hash_b0):
+                dropout_rate, dropout_seed, hash_kw):
         out, lse = _flash_forward(q, k, v, mask, heads, scale, softclamp_value,
-                                  dropout_rate, dropout_seed, gate_logits, hash_b0)
+                                  dropout_rate, dropout_seed, gate_logits, hash_kw)
         ctx.save_for_backward(q, k, v, mask, gate_logits, out, lse)
-        ctx.config = (heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
+        ctx.config = (heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_kw)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, mask, gate_logits, out, lse = ctx.saved_tensors
-        heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_b0 = ctx.config
+        heads, scale, softclamp_value, dropout_rate, dropout_seed, hash_kw = ctx.config
         dq, dk, dv, dgate = flash_attention_packed_backward(
             q, k, v, mask, out, lse, dout, heads=heads, scale=scale,
             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, gate_logits=gate_logits, hash_b0=hash_b0)
+            dropout_seed=dropout_seed, gate_logits=gate_logits, **hash_kw)
         return dq, dk, dv, None, dgate, None, None, None, None, None, None
 
 
 def flash_attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                            softclamp_value=None, dropout_rate: float = 0.0,
                            dropout_seed: int = 0, gate_logits=None,
-                           return_lse: bool = False, hash_b0: int = 0):
+                           return_lse: bool = False, hash_b0: int = 0, hash_h0: int = 0,
+                           hash_heads: int | None = None):
     """Attention on projection-layout ``q, k, v (b, n, h*dh)`` with a key
     padding ``mask (b, n)`` (True = attend) and optional per-head output
     gate logits ``(b, n, h)``. Returns ``out`` (and ``lse`` if asked);
-    differentiable in q, k, v and the gate logits (backward: K2).
-    ``hash_b0``: the first row's place in the global batch, for the
-    dropout bits."""
+    differentiable in q, k, v and the gate logits (backward: K2). For the
+    dropout bits: ``hash_b0`` the first row's place in the global batch,
+    ``hash_h0`` the first head's among a row's ``hash_heads`` (default
+    ``heads``)."""
     b, n, D = q.shape
     dh = D // heads
     scale = default(scale, dh ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _FlashPacked.apply(q, k, v, mask, gate_logits, heads, scale,
                                   softclamp_value, dropout_rate, dropout_seed,
-                                  _check_hash_b0(hash_b0))
+                                  _check_hash(hash_b0, hash_h0, hash_heads, heads))
     return (out, lse) if return_lse else out
 
 
@@ -492,13 +532,13 @@ def _bhnd_empty(b, h, n, dh, dtype, device):
 
 
 def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
-                     hash_b0=0):
+                     hash_kw=_NO_OFFSET):
     dh = q.shape[-1]
     _check_dim_head(dh)
     if dh % 8:              # K8 on zero-padded heads, the caller's scale; pad columns dropped
         dhp = _padded_dim_head(dh)
         out, lse = _flash_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask, scale,
-                                    softclamp_value, dropout_rate, dropout_seed, hash_b0)
+                                    softclamp_value, dropout_rate, dropout_seed, hash_kw)
         return out[..., :dh], lse
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
@@ -511,22 +551,22 @@ def _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value, dropout_rate, dropou
         mask.data_ptr() if exists(mask) else None, out.data_ptr(), st(out), lse.data_ptr(),
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
-        _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        *_hash_ints(hash_kw, h), _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
     _cuda.check(err, 'flash_fwd_bhnd')
     _cuda.count_launch('flash_fwd_bhnd')
     return out, lse
 
 
 def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
-                         dropout_rate, dropout_seed, hash_b0=0):
+                         dropout_rate, dropout_seed, hash_kw=_NO_OFFSET):
     dh = q.shape[-1]
     _check_dim_head(dh)
     if dh % 8:              # K9 on zero-padded heads (o, do too); pad columns dropped
         dhp = _padded_dim_head(dh)
         grads = _flash_bwd_bhnd_cuda(*(_pad_head(t, dhp) for t in (q, k, v)), mask,
                                      _pad_head(out, dhp), lse, _pad_head(dout, dhp), scale,
-                                     softclamp_value, dropout_rate, dropout_seed, hash_b0)
+                                     softclamp_value, dropout_rate, dropout_seed, hash_kw)
         return tuple(g[..., :dh] for g in grads)
     b, h, n, dh = _check_bhnd_inputs(q, k, v, mask)
     device, dtype = q.device, q.dtype
@@ -541,12 +581,12 @@ def _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
     dk = _bhnd_empty(b, h, n, dh, dtype, device)
     dv = _bhnd_empty(b, h, n, dh, dtype, device)
     launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
-                    dropout_rate, dropout_seed, hash_b0)
+                    dropout_rate, dropout_seed, hash_kw)
     return dq.to(dtype), dk, dv
 
 
 def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclamp_value,
-                    dropout_rate, dropout_seed, hash_b0=0):
+                    dropout_rate, dropout_seed, hash_kw=_NO_OFFSET):
     """K9's launch alone, on checked operands: ``delta (b, h, n)`` f32, ``dq``
     a zeroed f32 ``(b, h, n, dh)`` view, ``dk`` / ``dv`` written in place."""
     b, h, n, dh = q.shape
@@ -558,27 +598,28 @@ def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclam
         delta.data_ptr(), st(delta), dq.data_ptr(), st(dq), dk.data_ptr(), st(dk), dv.data_ptr(), st(dv),
         b, n, h, dh, float(scale), float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
-        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping), int(hash_b0),
-        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device))
+        int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
+        *_hash_ints(hash_kw, h), _cuda.DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device))
     _cuda.check(err, 'flash_bwd_bhnd')
     _cuda.count_launch('flash_bwd_bhnd')
 
 
 def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale=None,
                              softclamp_value=None, dropout_rate: float = 0.0,
-                             dropout_seed: int = 0, hash_b0: int = 0):
+                             dropout_seed: int = 0, hash_b0: int = 0, hash_h0: int = 0,
+                             hash_heads: int | None = None):
     """K9 alone (the counterpart of ``_flash_backward``): from the forward's
     ``(b, h, n, dh)`` inputs, its output ``out``, its ``lse`` and the output
     grad ``dout``, returns ``(dq, dk, dv)``."""
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
-    hash_b0 = _check_hash_b0(hash_b0)
+    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1])
     if q.device.type == 'cpu':
         return flash_attention_backward_plain(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, **hash_kw)
     return _flash_bwd_bhnd_cuda(q, k, v, mask, out, lse, dout, scale, softclamp_value,
-                                dropout_rate, dropout_seed, hash_b0)
+                                dropout_rate, dropout_seed, hash_kw)
 
 
 class _Flash(torch.autograd.Function):
@@ -588,35 +629,37 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
-                hash_b0):
+                hash_kw):
         if q.device.type == 'cpu':
             out, lse = flash_attention_plain(
                 q, k, v, mask, scale=scale, softclamp_value=softclamp_value,
-                dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed, **hash_kw)
         else:
             out, lse = _flash_bhnd_cuda(q, k, v, mask, scale, softclamp_value,
-                                        dropout_rate, dropout_seed, hash_b0)
+                                        dropout_rate, dropout_seed, hash_kw)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.config = (scale, softclamp_value, dropout_rate, dropout_seed, hash_b0)
+        ctx.config = (scale, softclamp_value, dropout_rate, dropout_seed, hash_kw)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        scale, softclamp_value, dropout_rate, dropout_seed, hash_b0 = ctx.config
+        scale, softclamp_value, dropout_rate, dropout_seed, hash_kw = ctx.config
         dq, dk, dv = flash_attention_backward(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed, hash_b0=hash_b0)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, **hash_kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                    return_lse: bool = False, hash_b0: int = 0):
+                    return_lse: bool = False, hash_b0: int = 0, hash_h0: int = 0,
+                    hash_heads: int | None = None):
     """Attention on ``q, k, v (b, h, n, dh)`` (strided views are read where
     they lie) with a key padding ``mask (b, n)`` (True = attend), dropout
-    bits for global batch rows from ``hash_b0``. Returns
+    bits for global batch rows from ``hash_b0`` and global heads from
+    ``hash_h0`` of ``hash_heads`` (default ``h``). Returns
     ``out (b, h, n, dh)`` (and ``lse (b*h, n)`` if asked); differentiable in
     q, k and v (forward K8, backward K9). On the card ``out`` is a view of a
     ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous (for
@@ -629,7 +672,7 @@ def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
-                            _check_hash_b0(hash_b0))
+                            _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1]))
     return (out, lse) if return_lse else out
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from e2_tts_tpu_torch.parallel.tp import local_state_dict, tp_layouts
 from e2_tts_tpu_torch.utils.helpers import exists
 
 
@@ -135,7 +136,11 @@ def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def load_full_state_dict(module: torch.nn.Module, state: dict) -> None:
     """``module.load_state_dict(state)`` (strict) for a state of full
-    tensors, into a sharded module too: each rank copies its part."""
+    tensors, into a sharded module too: each rank copies its part (of a
+    tensor-parallel module, its piece: `tp.local_state_dict`)."""
+    if tp_layouts(module):
+        module.load_state_dict(local_state_dict(module, state))
+        return
     if not is_sharded(module):
         module.load_state_dict(state)
         return

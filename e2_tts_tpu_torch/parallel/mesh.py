@@ -10,32 +10,40 @@ batch of B, the rows ``jax.device_put(..., P('data'))`` gives device r.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from e2_tts_tpu_torch.utils.helpers import exists
+from e2_tts_tpu_torch.utils.helpers import default
 
 DATA_AXIS = 'data'
 
 
-def make_mesh(n: int | None = None, device=None) -> DeviceMesh:
+def init_mesh(shape: tuple[int, ...], names: tuple[str, ...], caller: str) -> DeviceMesh:
+    """A DeviceMesh of ``shape`` named ``names`` spanning every rank of the
+    default process group, on the backend's device type: CUDA for NCCL,
+    the CPU for gloo (whose groups take CUDA tensors too). ``caller`` names
+    the public function in the errors."""
+    if not dist.is_initialized():
+        raise RuntimeError(f'{caller} needs a process group: call '
+                           f'multihost.maybe_initialize_distributed() first')
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f'a mesh of {" x ".join(map(str, shape))} does not span the world '
+                         f'({world} ranks)')
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_mesh(n: int | None = None) -> DeviceMesh:
     """The 1-D data mesh over every rank of the default process group
     (`multihost.maybe_initialize_distributed` starts it). ``n``, when
     given, must be the world size: a mesh over part of the world is not
-    supported. ``device`` defaults to the backend's: CUDA for NCCL, the CPU
-    for gloo."""
-    if not dist.is_initialized():
-        raise RuntimeError('make_mesh needs a process group: call '
-                           'multihost.maybe_initialize_distributed() first')
-    world = dist.get_world_size()
-    if exists(n) and n != world:
-        raise ValueError(f'the data mesh spans the world ({world} ranks), got n={n}')
-    if exists(device):
-        device_type = torch.device(device).type
-    else:
-        device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
-    return init_device_mesh(device_type, (world,), mesh_dim_names=(DATA_AXIS,))
+    supported."""
+    world = dist.get_world_size() if dist.is_initialized() else None
+    return init_mesh((default(n, world),), (DATA_AXIS,), 'make_mesh')
 
 
 def batch_rows(batch_size: int, mesh: DeviceMesh) -> tuple[int, int]:

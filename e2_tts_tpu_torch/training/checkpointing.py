@@ -28,6 +28,11 @@ other ranks wait at a barrier until it is in place. A load reads the file on
 every rank, and each rank copies its own part of each sharded tensor
 (`fsdp.load_full_state_dict`, `fsdp.copy_full_`), so a checkpoint moves
 between world sizes and between replicated and sharded runs unchanged.
+Under a (data, model) mesh the tensor-parallel pieces (parameters, the EMA's
+copy, ADOPT's moments, the accumulator's mean) are gathered over the model
+axis into the single-device layout (`tp.full_state_dict`, `tp.full_tensor`)
+and cut again at load (`tp.local_part`), so a checkpoint moves between a TP
+run and one device either way.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ import torch.distributed as dist
 
 from e2_tts_tpu_torch.parallel.fsdp import (
     gather_full, load_full_state_dict, shard_optimizer_state_,
+)
+from e2_tts_tpu_torch.parallel.tp import (
+    full_state_dict, full_tensor, local_part, param_layouts, tp_axis,
 )
 from e2_tts_tpu_torch.utils.helpers import exists
 
@@ -55,13 +63,49 @@ def _optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
     return state
 
 
-def _load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict, module) -> None:
     """`_optimizer_state`'s inverse: the callables come from the live
-    optimizer's groups."""
+    optimizer's groups; each rank keeps its part of a sharded state."""
     groups = [dict(saved, **{k: v for k, v in live.items() if callable(v)})
               for saved, live in zip(state['param_groups'], optimizer.param_groups)]
-    optimizer.load_state_dict(dict(state, param_groups=groups))
+    optimizer.load_state_dict(dict(_per_param(state, optimizer, module, cut=True),
+                                   param_groups=groups))
     shard_optimizer_state_(optimizer)
+
+
+def _per_param(state: dict, optimizer, module, cut: bool) -> dict:
+    """``state`` (an optimizer's state dict) with each per-parameter tensor
+    of a tensor-parallel parameter of ``module`` gathered to its full value
+    (a collective), or, with ``cut``, a full one cut to this rank's piece."""
+    layouts = param_layouts(module) if exists(module) else {}
+    if not layouts:
+        return state
+    axis = tp_axis(module)
+    params = [p for group in optimizer.param_groups for p in group['params']]
+
+    def place(value, p):
+        layout = layouts.get(p)
+        if layout is None or not torch.is_tensor(value) or value.ndim != p.ndim:
+            return value
+        if cut:
+            return local_part(value, layout, axis.size, axis.rank)
+        return full_tensor(value, layout, axis)
+
+    return dict(state, state={i: {k: place(v, params[i]) for k, v in s.items()}
+                              for i, s in state['state'].items()})
+
+
+def _accumulation(state: dict, module, cut: bool) -> dict:
+    """The accumulator's state (mean grads in ``module.parameters()``
+    order) with its tensor-parallel pieces gathered, or full ones cut."""
+    layouts = param_layouts(module)
+    if not layouts:
+        return state
+    axis = tp_axis(module)
+    place = ((lambda g, layout: local_part(g, layout, axis.size, axis.rank)) if cut
+             else (lambda g, layout: full_tensor(g, layout, axis)))
+    return dict(state, grads=[place(g, layouts[p]) if p in layouts else g
+                              for p, g in zip(module.parameters(), state['grads'])])
 
 
 def save_checkpoint(path: str, *, model, optimizer=None, ema=None, step: int = 0,
@@ -90,9 +134,21 @@ def save_checkpoint(path: str, *, model, optimizer=None, ema=None, step: int = 0
         _write(payload, path, target)
         return target
     payload = gather_full(payload)
-    if mesh.get_local_rank() == 0:
+    for module, opt, key, opt_key in ((model, optimizer, 'model', 'opt'),
+                                      (duration_predictor, dp_optimizer, 'duration_predictor',
+                                       'dp_opt')):
+        if key in payload:
+            payload[key] = full_state_dict(module, payload[key])
+        if opt_key in payload:
+            payload[opt_key] = _per_param(payload[opt_key], opt, module, cut=False)
+    if 'ema' in payload:
+        payload['ema'] = dict(payload['ema'],
+                              model=full_state_dict(ema.ema_model, payload['ema']['model']))
+    if 'accumulation' in payload:
+        payload['accumulation'] = _accumulation(payload['accumulation'], model, cut=False)
+    if dist.get_rank() == 0:
         _write(payload, path, target)
-    dist.barrier(group=mesh.get_group())
+    dist.barrier()
     return target
 
 
@@ -132,12 +188,14 @@ def load_checkpoint(path: str, *, model, optimizer=None, ema=None, duration_pred
     load_full_state_dict(model, payload['model'])
     if exists(duration_predictor) and 'duration_predictor' in payload:
         load_full_state_dict(duration_predictor, payload['duration_predictor'])
-    for obj, key in ((optimizer, 'opt'), (dp_optimizer, 'dp_opt')):
+    for obj, key, module in ((optimizer, 'opt', model),
+                             (dp_optimizer, 'dp_opt', duration_predictor)):
         if exists(obj) and key in payload:
-            _load_optimizer_state(obj, payload[key])
-    for obj, key in ((ema, 'ema'), (accumulator, 'accumulation')):
-        if exists(obj) and key in payload:
-            obj.load_state_dict(payload[key])
+            _load_optimizer_state(obj, payload[key], module)
+    if exists(ema) and 'ema' in payload:
+        ema.load_state_dict(payload['ema'])
+    if exists(accumulator) and 'accumulation' in payload:
+        accumulator.load_state_dict(_accumulation(payload['accumulation'], model, cut=True))
     generator_state = payload.get('generator')
     if exists(generator_state):
         generator_state = generator_state.cpu()

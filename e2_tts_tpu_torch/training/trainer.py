@@ -59,6 +59,22 @@ since every rank leaves out the same parameters. FSDP2 needs neither: a
 unit that takes no part in the step is not gathered or reduced, on any
 rank.
 
+Tensor parallelism (the JAX package's ``parallel.tp``): ``mesh`` may be the
+2-D ``(data, model)`` mesh (`parallel.tp.make_2d_mesh`) of a model that
+`parallel.tp.shard_module_tp` sharded over it. The trainer keeps that
+placement (the JAX trainer re-places every array and so undoes it): rows
+come from the ``data`` axis, DDP runs over the data axis' group, each rank's
+ADOPT, EMA (a copy of the sharded model) and accumulator act on its pieces,
+and the clip's norm sums the squared norms of the tensor-parallel grads over
+the ``model`` axis and counts every whole parameter once. The grads of the
+whole parameters of which each rank uses its heads' rows (the value-head
+gate, the value-residual mix) are summed over the model axis after the
+backward, in one all-reduce (`parallel.tp.sum_shared_grads_`). A checkpoint
+is written in the
+single-device layout. ``param_sharding='fsdp'`` on a 2-D mesh raises
+NotImplementedError (ROADMAP.md queue 1, FSDP over the data axis of a TP
+mesh), as the JAX trainer does not compose FSDP with TP either.
+
 Not ported: sequence parallelism (``sequence_parallel > 1`` raises
 NotImplementedError; ROADMAP.md queue 1 item 3).
 """
@@ -79,8 +95,12 @@ from torch.distributed.tensor import DTensor
 from e2_tts_tpu_torch.parallel.fsdp import (
     average_whole_grads_, copy_full_, local, shard_module_fsdp,
 )
-from e2_tts_tpu_torch.parallel.mesh import batch_rows, make_mesh, replicate_module, shard_batch
+from e2_tts_tpu_torch.parallel.mesh import (
+    DATA_AXIS, batch_rows, make_mesh, replicate_module, shard_batch,
+)
 from e2_tts_tpu_torch.parallel.multihost import is_main_process, world_size
+from e2_tts_tpu_torch.parallel.tp import (
+    MODEL_AXIS, param_layouts, shared_params, sum_shared_grads_, tp_axis)
 from e2_tts_tpu_torch.training import checkpointing
 from e2_tts_tpu_torch.training.adopt import Adopt
 from e2_tts_tpu_torch.training.data import iter_batches, prefetch
@@ -114,23 +134,32 @@ def linear_warmup_decay_schedule(peak_lr: float, num_warmup_steps: int,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, tp_sharded=None,
+                         tp_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: each grad becomes ``g / norm *
     max_norm`` when the global norm reaches ``max_norm`` (no epsilon, unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the norm; no host sync.
-    FSDP-sharded grads (DTensors) enter with their local shards' squared
-    norms summed over their mesh in one all-reduce: the norm is the whole
-    gradient's, and each rank scales its own shards."""
+    Sharded grads enter with their local pieces' squared norms summed over
+    the ranks that hold the other pieces, in one all-reduce: FSDP's
+    (DTensors) over each mesh dimension they are sharded on, and the grads
+    flagged in ``tp_sharded`` (tensor-parallel pieces) over ``tp_group``;
+    every other grad counts once. The norm is the whole gradient's, and each
+    rank scales its own pieces."""
     norms = torch.stack([torch.linalg.vector_norm(local(g).float()) for g in grads])
-    sharded = [isinstance(g, DTensor) for g in grads]
+    sharded = [isinstance(g, DTensor) or (exists(tp_sharded) and bool(tp_sharded[i]))
+               for i, g in enumerate(grads)]
     if not any(sharded):
         norm = torch.linalg.vector_norm(norms)
     else:
+        dtensor = next((g for g in grads if isinstance(g, DTensor)), None)
+        groups = ([dtensor.device_mesh.get_group(dim) for dim, placement
+                   in enumerate(dtensor.placements) if placement.is_shard()]
+                  if exists(dtensor) else [tp_group])
         sharded = torch.tensor(sharded, device=norms.device)
         squares = norms * norms
         total = torch.where(sharded, squares, 0.0).sum()
-        mesh = next(g.device_mesh for g in grads if isinstance(g, DTensor))
-        dist.all_reduce(total, group=mesh.get_group())
+        for group in groups:
+            dist.all_reduce(total, group=group)
         norm = torch.sqrt(total + torch.where(sharded, 0.0, squares).sum())
     keep = norm < max_norm
     for g in map(local, grads):
@@ -225,10 +254,13 @@ class E2Trainer:
         in ``[profile_steps[0], profile_steps[1])`` is written there (on
         rank 0). The trainer runs on the model's device.
 
-        ``mesh``: a 1-D data mesh (`parallel.mesh.make_mesh`); None means
-        one over the world when a process group of more than one rank is
-        up, else a single device. Under a mesh, ``param_sharding`` is
-        ``'replicated'`` (DDP) or ``'fsdp'`` (FSDP2); every rank starts from
+        ``mesh``: a 1-D data mesh (`parallel.mesh.make_mesh`), or the 2-D
+        (data, model) mesh (`parallel.tp.make_2d_mesh`) that
+        `parallel.tp.shard_module_tp` sharded the model over; None means a
+        1-D mesh over the world when a process group of more than one rank
+        is up, else a single device. Under a mesh, ``param_sharding`` is
+        ``'replicated'`` (DDP over the data axis) or, on a 1-D mesh,
+        ``'fsdp'`` (FSDP2); every rank of the data axis starts from its
         rank 0's weights. Build the trainer after loading weights: FSDP
         replaces the model's parameters, so a ready ``optimizer`` cannot be
         taken with ``'fsdp'``."""
@@ -240,9 +272,23 @@ class E2Trainer:
                              f'got {param_sharding!r}')
         if mesh is None and world_size() > 1:
             mesh = make_mesh()
-        if exists(mesh) and not (isinstance(mesh, DeviceMesh) and mesh.ndim == 1):
-            raise TypeError(f'mesh must be a 1-D DeviceMesh (parallel.mesh.make_mesh), '
-                            f'got {mesh!r}')
+        if exists(mesh) and not (isinstance(mesh, DeviceMesh) and (
+                mesh.ndim == 1 or mesh.mesh_dim_names == (DATA_AXIS, MODEL_AXIS))):
+            raise TypeError(f'mesh must be a 1-D DeviceMesh (parallel.mesh.make_mesh) or a '
+                            f'(data, model) one (parallel.tp.make_2d_mesh), got {mesh!r}')
+        tp_meshes = {getattr(tp_axis(m), 'mesh', None)
+                     for m in filter(exists, (model, duration_predictor))} - {None}
+        if exists(mesh) and mesh.ndim == 2:
+            if param_sharding == 'fsdp':
+                raise NotImplementedError(
+                    "param_sharding='fsdp' on a (data, model) mesh is not ported: ROADMAP.md "
+                    'queue 1, FSDP over the data axis of a TP mesh')
+            if tp_meshes != {mesh} or not exists(tp_axis(model)):
+                raise ValueError('a (data, model) mesh takes a model (and predictor) that '
+                                 'parallel.tp.shard_module_tp sharded over it')
+        elif tp_meshes:
+            raise ValueError('a tensor-parallel model trains on the (data, model) mesh it was '
+                             'sharded over: pass it as mesh=')
         if exists(mesh) and param_sharding == 'fsdp' and exists(optimizer):
             raise ValueError("param_sharding='fsdp' replaces the model's parameters: let the "
                              'trainer build its optimizer')
@@ -264,10 +310,13 @@ class E2Trainer:
         self.train_duration_predictor = train_duration_predictor and exists(duration_predictor)
         self.need_velocity_consistent_loss = model.velocity_consistency_weight > 0.0
         self.mesh = mesh
+        # the 1-D mesh of the data axis: the rows, DDP and the loss's sum
+        self.data_mesh = mesh[DATA_AXIS] if exists(mesh) and mesh.ndim == 2 else mesh
+        self._tp = {}            # module -> its model axis, which params are pieces, shared
         self.param_sharding = param_sharding
         if exists(mesh):
             for module in filter(exists, (model, duration_predictor)):
-                replicate_module(module, mesh)
+                replicate_module(module, self.data_mesh)
         self.ema = EMA(model, **ema_kwargs)
         self._model_fn = self._place(model)
         self._dp_fn = (self._place(duration_predictor) if self.train_duration_predictor
@@ -316,11 +365,12 @@ class E2Trainer:
         from torch.nn.parallel import DistributedDataParallel
         device_ids = [self.device.index] if self.device.type == 'cuda' else None
         return DistributedDataParallel(module, device_ids=device_ids,
-                                       process_group=self.mesh.get_group(),
+                                       process_group=self.data_mesh.get_group(),
                                        broadcast_buffers=False, find_unused_parameters=True)
 
     def _shards(self) -> int:
-        return self.mesh.size() if exists(self.mesh) else 1
+        """The number of ranks on the data axis."""
+        return self.data_mesh.size() if exists(self.mesh) else 1
 
     def _rows(self, *arrays):
         """This rank's rows of the global batch's ``arrays`` (None passes)
@@ -329,25 +379,50 @@ class E2Trainer:
         if not exists(self.mesh):
             return arrays, {}
         batch = len(arrays[0])
-        start, _ = batch_rows(batch, self.mesh)
-        return shard_batch(arrays, self.mesh), dict(batch_offset=start, global_batch=batch)
+        start, _ = batch_rows(batch, self.data_mesh)
+        return shard_batch(arrays, self.data_mesh), dict(batch_offset=start, global_batch=batch)
 
-    def _reduced_grads(self, params: list[torch.Tensor]) -> list[torch.Tensor]:
+    def _tp_placement(self, module, params: list[torch.Tensor]):
+        """``module``'s model axis (None: not tensor-parallel), which of
+        ``params`` are tensor-parallel pieces, and its `shared_params`; the
+        placement is fixed, so the module is walked once."""
+        if module not in self._tp:
+            axis = tp_axis(module)
+            layouts = param_layouts(module) if exists(axis) else {}
+            self._tp[module] = (axis, [p in layouts for p in params],
+                                shared_params(module) if exists(axis) else [])
+        return self._tp[module]
+
+    def _reduced_grads(self, module, params: list[torch.Tensor]) -> list[torch.Tensor]:
         """`_grads`, then under FSDP the grads of the parameters it left
-        whole averaged over the ranks (DDP and FSDP reduce the rest)."""
+        whole averaged over the ranks (DDP and FSDP reduce the rest), and
+        under TP the shared parameters' grads summed over the model axis."""
         grads = _grads(params)
         if exists(self.mesh) and self.param_sharding == 'fsdp':
             average_whole_grads_(params, self.mesh)
+        axis, _, shared = self._tp_placement(module, params)
+        if exists(axis):
+            sum_shared_grads_(shared, axis)
         return grads
 
     def _global_loss(self, term: torch.Tensor) -> torch.Tensor:
         """The global loss from this rank's term of it (the sum over the
-        ranks), detached."""
+        data axis' ranks), detached."""
         term = term.detach()
         if exists(self.mesh):
             term = term.clone()
-            dist.all_reduce(term, group=self.mesh.get_group())
+            dist.all_reduce(term, group=self.data_mesh.get_group())
         return term
+
+    def _clip(self, module, params: list[torch.Tensor]) -> torch.Tensor:
+        """`clip_by_global_norm_` of ``params``' grads, the tensor-parallel
+        ones' norms summed over the model axis."""
+        grads = [p.grad for p in params]
+        axis, sharded, _ = self._tp_placement(module, params)
+        if not exists(axis):
+            return clip_by_global_norm_(grads, self.max_grad_norm)
+        return clip_by_global_norm_(grads, self.max_grad_norm, tp_sharded=sharded,
+                                    tp_group=axis.group)
 
     def _build_optimizer(self, total_steps: int):
         self.schedule = linear_warmup_decay_schedule(
@@ -413,13 +488,13 @@ class E2Trainer:
             # the backward; the teacher has none, so free them here
             teacher.reshard()
         params = list(model.parameters())
-        grads = self._reduced_grads(params)
+        grads = self._reduced_grads(model, params)
         acc = self.accumulator
         if acc is None or acc.add(grads):
             if exists(acc):             # the optimizer acts on the mean
                 for p, mean in zip(params, acc.grads):
                     p.grad = mean
-            clip_by_global_norm_([p.grad for p in params], self.max_grad_norm)
+            self._clip(model, params)
             self.optimizer.step()
             if exists(acc):
                 self.optimizer.zero_grad(set_to_none=True)
@@ -451,7 +526,9 @@ class E2Trainer:
         loss = self._dp_fn(mel, lens=lens, return_loss=True, rand_frac=rand_frac,
                            generator=self.generator, **place)
         (loss * self._shards()).backward()
-        clip_by_global_norm_(self._reduced_grads(list(dp.parameters())), self.max_grad_norm)
+        params = list(dp.parameters())
+        self._reduced_grads(dp, params)
+        self._clip(dp, params)
         self.dp_optimizer.step()
         return self._global_loss(loss)
 

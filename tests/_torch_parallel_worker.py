@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_parallel*.py).
+"""One rank of the port's data- and tensor-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_tp*.py).
 
     python tests/_torch_parallel_worker.py RANK WORLD STORE JOB
 
@@ -10,6 +11,13 @@ counts from every rank). Imports torch and the port only, never JAX: the
 test process holds the results against JAX or against the port's single
 device. The helpers that build a model and run a trainer's steps are shared
 with the tests, so both sides make them the same way.
+
+A task with ``tp = [data, model]`` shards its model over that
+(`parallel.tp.make_2d_mesh`, `shard_module_tp`) and trains it on the mesh;
+its kinds beyond the trainer's steps: ``grads`` (one loss and backward on
+the global batch of its first step, no trainer), ``sample`` and ``paths``
+(the sharded set of a model with a duration predictor and frequency
+tokens), ``fsdp`` (the error a trainer with FSDP on the mesh raises).
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from e2_tts_tpu_torch.models import blocks as blocks_module        # noqa: E402
 from e2_tts_tpu_torch.models import e2tts as e2tts_module          # noqa: E402
 from e2_tts_tpu_torch.models.duration import DurationPredictor     # noqa: E402
 from e2_tts_tpu_torch.models.e2tts import E2TTS                    # noqa: E402
+from e2_tts_tpu_torch.parallel import tp as tp_module               # noqa: E402
 from e2_tts_tpu_torch.parallel.fsdp import gather_full, local      # noqa: E402
 from e2_tts_tpu_torch.training import trainer as trainer_module    # noqa: E402
 from e2_tts_tpu_torch.training.trainer import E2Trainer            # noqa: E402
@@ -37,12 +47,12 @@ EMA_KW = dict(update_after_step=0, update_every=1)
 
 
 def build_model(config: dict, *, seed: int = 0, velocity_weight: float = 0.0,
-                jax_state: str | None = None) -> E2TTS:
-    """The CPU E2TTS of ``config``: the JAX start state from the .npz
-    ``jax_state`` when given, else seeded weights, each perturbed by
-    0.02 N(0, 1) (no zero-initialised branch stays dead)."""
+                jax_state: str | None = None, **model_kw) -> E2TTS:
+    """The CPU E2TTS of ``config`` (and ``model_kw``): the JAX start state
+    from the .npz ``jax_state`` when given, else seeded weights, each
+    perturbed by 0.02 N(0, 1) (no zero-initialised branch stays dead)."""
     model = E2TTS(transformer=dict(config), velocity_consistency_weight=velocity_weight,
-                  generator=torch.Generator().manual_seed(seed), device='cpu')
+                  generator=torch.Generator().manual_seed(seed), device='cpu', **model_kw)
     if jax_state is None:
         return _perturbed(model, seed)
     from e2_tts_tpu_torch.convert import load_jax_params
@@ -72,27 +82,38 @@ def make_trainer(model, **kw) -> E2Trainer:
     return E2Trainer(model, **kw)
 
 
+def tp_full(module):
+    """A function of (tensor, parameter of ``module``) giving the tensor's
+    full value when ``module`` is tensor-parallel and the parameter one of
+    its pieces (a collective), else the tensor."""
+    layouts, axis = tp_module.param_layouts(module), tp_module.tp_axis(module)
+    return lambda t, p: (tp_module.full_tensor(t, layouts[p], axis) if p in layouts
+                         else t.detach())
+
+
 def full_state(trainer: E2Trainer) -> dict:
     """Parameters, EMA weights, ADOPT's moments and the accumulator's mean
     grads as name -> full f32 numpy array, with the EMA's and the
-    accumulator's counters (a collective under FSDP: every rank calls
+    accumulator's counters (a collective under FSDP and TP: every rank calls
     it)."""
     out = {}
     params = dict(trainer.model.named_parameters())
     ema = dict(trainer.ema.ema_model.named_parameters())
+    full, ema_full = tp_full(trainer.model), tp_full(trainer.ema.ema_model)
     for name, p in params.items():
-        out[f'param.{name}'] = p
-        out[f'ema.{name}'] = ema[name]
+        out[f'param.{name}'] = full(p, p)
+        out[f'ema.{name}'] = ema_full(ema[name], ema[name])
         state = trainer.optimizer.state.get(p, {})
         for key in ('m', 'v'):
             if key in state:
-                out[f'{key}.{name}'] = state[key]
+                out[f'{key}.{name}'] = full(state[key], p)
     if trainer.train_duration_predictor:
         out.update({f'dp_param.{name}': p
                     for name, p in trainer.duration_predictor.named_parameters()})
     acc = trainer.accumulator
     if acc is not None:
-        out.update({f'acc.{i}': g for i, g in enumerate(acc.grads)})
+        out.update({f'acc.{i}': full(g, p)
+                    for i, (g, p) in enumerate(zip(acc.grads, params.values()))})
     full = gather_full({k: v.detach() for k, v in out.items()})
     full = {k: v.float().numpy().copy() for k, v in full.items()}   # not views of live tensors
     full.update(ema_step=np.asarray(trainer.ema.step), ema_initted=np.asarray(trainer.ema.initted))
@@ -154,6 +175,16 @@ def _steps(path: str) -> list[dict]:
                 for i in range(n)]
 
 
+def wait_for(path: str, timeout: float = 120.0):
+    """Until ``path`` exists (a file the test process writes whole while the
+    ranks run: a checkpoint, the JAX weights)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f'{path} did not appear within {timeout:.0f} s')
+        time.sleep(0.1)
+
+
 def run_task(task: dict, rank: int, world: int):
     """Build, run and record one task (see the module docstring)."""
     out = task['out']
@@ -165,7 +196,19 @@ def run_task(task: dict, rank: int, world: int):
         kw['checkpoint_path'] = task['save_to']
     fault = task.get('fault')
     restore = []
-    if fault == 'offset0':         # every rank claims the batch's first rows
+    patch = lambda obj, name, value: (restore.append(
+        lambda old=getattr(obj, name): setattr(obj, name, old)), setattr(obj, name, value))
+    if fault == 'hash_h0_zero':    # every model rank draws the attention bits of heads [0, H/T)
+        attention = blocks_module.attention_packed
+        patch(blocks_module, 'attention_packed',
+              lambda *a, **o: attention(*a, **dict(o, hash_h0=0)))
+    elif fault == 'proj_in_rows':  # proj_in cut as one block of rows: value or gate rows a rank
+        patch(tp_module, '_RULES', tuple(
+            (cls, names, param, (0, 1) if param.startswith('proj_in') else layout)
+            for cls, names, param, layout in tp_module._RULES))
+    elif fault == 'gate_grad':     # the value-head gate's grads left as each rank's own rows'
+        patch(trainer_module, 'sum_shared_grads_', lambda params, axis: None)
+    elif fault == 'offset0':       # every rank claims the batch's first rows
         orig = E2Trainer._rows
 
         def rows(self, *arrays):
@@ -175,18 +218,18 @@ def run_task(task: dict, rank: int, world: int):
         restore.append(lambda: setattr(E2Trainer, '_rows', orig))
     elif fault == 'rank_mean':     # each rank's loss is its own span's mean
         orig_count = e2tts_module.global_span_count
-        e2tts_module.global_span_count = lambda span: span.float().sum() * world
+        e2tts_module.global_span_count = lambda span, group=None: span.float().sum() * world
         restore.append(lambda: setattr(e2tts_module, 'global_span_count', orig_count))
 
     counts, norms = [], []
     count_fn, clip_fn = e2tts_module.global_span_count, trainer_module.clip_by_global_norm_
 
-    def counting(span):
+    def counting(span, group=None):
         counts.append(float(span.float().sum()))
-        return count_fn(span)
+        return count_fn(span, group)
 
-    def clipping(grads, max_norm):
-        norm = clip_fn(grads, max_norm)
+    def clipping(grads, max_norm, **kw):
+        norm = clip_fn(grads, max_norm, **kw)
         norms.append(float(norm))
         return norm
     e2tts_module.global_span_count = counting
@@ -194,15 +237,22 @@ def run_task(task: dict, rank: int, world: int):
     restore.append(lambda: setattr(e2tts_module, 'global_span_count', count_fn))
     restore.append(lambda: setattr(trainer_module, 'clip_by_global_norm_', clip_fn))
     try:
+        if task['kind'] in ('grads', 'sample', 'paths', 'fsdp'):
+            run_tp_task(task, rank, steps)
+            return
         model = build_model(task['config'], seed=task.get('seed', 0),
                             velocity_weight=task.get('velocity_weight', 0.0),
-                            jax_state=task.get('jax_state'))
+                            jax_state=task.get('jax_state'), **task.get('model_kw', {}))
         if task.get('dp_config'):
             kw.update(duration_predictor=build_predictor(task['dp_config'], seed=2),
                       train_duration_predictor=True)
+        if task.get('tp'):
+            kw['mesh'] = tp_module.make_2d_mesh(*task['tp'])
+            tp_module.shard_module_tp(model, kw['mesh'])
         trainer = make_trainer(model, param_sharding=task['sharding'], **kw)
         record = {}
         if task.get('resume_from'):
+            wait_for(os.path.join(task['resume_from'], 'checkpoint.pt'))
             record['resumed_step'] = trainer.resume()
             record.update({f'resumed.{k}': v for k, v in full_state(trainer).items()})
         if task['kind'] == 'train':
@@ -226,6 +276,86 @@ def run_task(task: dict, rank: int, world: int):
     finally:
         for undo in reversed(restore):
             undo()
+
+
+SAMPLE_STEPS = 4
+
+
+def sample_model(config: dict, dp_config: dict):
+    """The E2TTS of ``config`` with a duration predictor of ``dp_config``
+    (seeded, perturbed) for the sampler's checks."""
+    model = E2TTS(transformer=dict(config), duration_predictor=dict(transformer=dict(dp_config)),
+                  generator=torch.Generator().manual_seed(3), device='cpu')
+    return _perturbed(model, 3).eval()
+
+
+def sample_run(model, prompt: np.ndarray, text: list[str], duration: int) -> dict:
+    """A midpoint sample of ``SAMPLE_STEPS`` steps from a seeded generator,
+    and the duration predictor's estimate for the prompt."""
+    cond = torch.from_numpy(prompt)
+    out = model.sample(cond, text=text, duration=duration, steps=SAMPLE_STEPS,
+                       generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        dur = model.duration_predictor(cond, text=text, return_loss=False)
+    return dict(sample=out.float().numpy(), duration=dur.float().numpy())
+
+
+def run_tp_task(task: dict, rank: int, steps: list[dict]):
+    """A tensor-parallel task without a trainer: ``grads`` (the global
+    loss of the first step and every full grad, summed over the data axis),
+    ``sample`` (every rank's sample and duration estimate), ``paths`` (the
+    sharded set) or ``fsdp`` (what a trainer with FSDP on the mesh
+    raises)."""
+    out = task['out']
+    mesh = tp_module.make_2d_mesh(*task['tp'])
+    if task['kind'] == 'fsdp':
+        model = tp_module.shard_module_tp(build_model(task['config']), mesh)
+        try:
+            make_trainer(model, mesh=mesh, param_sharding='fsdp')
+            error = 'none'
+        except Exception as e:        # recorded for the test to read
+            error = f'{type(e).__name__}: {e}'
+        if rank == 0:
+            np.savez(os.path.join(out, 'result.npz'), error=np.asarray(error))
+        return
+    if task['kind'] == 'paths':
+        model = E2TTS(transformer=dict(task['config']), num_freq_tokens=2,
+                      duration_predictor=dict(transformer=dict(task['dp_config'])),
+                      device='cpu')
+        tp_module.shard_module_tp(model, mesh)
+        if rank == 0:
+            np.savez(os.path.join(out, 'result.npz'), paths=np.asarray(model._tp_sharded_paths))
+        return
+    if task['kind'] == 'sample':
+        model = tp_module.shard_module_tp(sample_model(task['config'], task['dp_config']), mesh)
+        np.savez(os.path.join(out, f'rank{rank}.npz'),
+                 **sample_run(model, np.asarray(task['prompt'], np.float32), task['text'],
+                              task['duration']))
+        return
+    wait_for(task['jax_state'])
+    model = tp_module.shard_module_tp(build_model(task['config'], jax_state=task['jax_state']),
+                                      mesh)
+    step = steps[0]
+    data = mesh[tp_module.DATA_AXIS]
+    batch = len(step['mel'])
+    start, stop = trainer_module.batch_rows(batch, data)
+    rows = {k: torch.as_tensor(v[start:stop]) for k, v in step.items() if k != 'drop'}
+    out_ = model(rows['mel'], text=rows['text'].long(), lens=rows['lens'].long(),
+                 times=rows['times'], noise=rows['noise'], rand_span_mask=rows['rand_span_mask'],
+                 drop_text_cond=bool(step['drop']), batch_offset=start, global_batch=batch)
+    out_.loss.backward()
+    tp_module.sum_shared_grads_(tp_module.shared_params(model), tp_module.tp_axis(model))
+    import torch.distributed as dist
+    loss = out_.loss.detach().clone()
+    dist.all_reduce(loss, group=data.get_group())
+    full = tp_full(model)
+    grads = {}
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        dist.all_reduce(g, group=data.get_group())
+        grads[f'grad.{name}'] = full(g, p).numpy()
+    if rank == 0:
+        np.savez(os.path.join(out, 'result.npz'), loss=loss.numpy(), **grads)
 
 
 def write_steps(path: str, steps: list[dict]) -> str:

@@ -1120,3 +1120,97 @@ def test_flash_hash_b0(dev, layout, dtype):
                                     heads=heads).view(b, heads, n, n)
         o3 = fwd(zeros, zeros, eye, hash_b0=b)[0]
         assert torch.equal(o3 > 0, keep[..., :dh])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['packed', 'bhnd'])
+def test_flash_hash_h0(dev, layout, dtype):
+    """``hash_h0`` of ``hash_heads``: K1 / K2 (packed, gated, heads of 64) and
+    K8 / K9 (heads of 72) launched on heads [h0, h0 + H/T), T = 2 and 4,
+    with ``hash_h0 = h0``, ``hash_heads = H`` and ``hash_b0 = 2`` give those
+    heads of one launch over all H: out, lse, dk and dv bit for bit, dq
+    within the f32 atomics' order, the gate grad bit for bit; the keep bits
+    are `dropout_keep_mask`'s at the offsets (q = k = 0, v the identity); at
+    ``hash_h0 = 0`` they are not."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, n, heads, rate, seed, b0 = 2, 128, 8, 0.1, 99, 2
+    dh = 64 if layout == 'packed' else 72
+    shape = (b, n, heads * dh) if layout == 'packed' else (b, heads, n, dh)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    mask[1, 100:] = False
+    kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed, hash_b0=b0)
+    if layout == 'packed':
+        gate = (2 * torch.randn(b, n, heads, generator=g, device=dev)).to(dtype)
+        fwd = lambda q, k, v, gt, hl, **o: fa.flash_attention_packed(
+            q, k, v, mask, heads=hl, gate_logits=gt, return_lse=True, **kw, **o)
+        bwd = lambda q, k, v, gt, out, lse, do, hl, **o: fa.flash_attention_packed_backward(
+            q, k, v, mask, out, lse, do, heads=hl, gate_logits=gt, **kw, **o)
+        part = lambda t, h0, hl: t[..., h0 * dh:(h0 + hl) * dh]
+    else:
+        gate = None
+        fwd = lambda q, k, v, gt, hl, **o: fa.flash_attention(q, k, v, mask, return_lse=True,
+                                                              **kw, **o)
+        bwd = lambda q, k, v, gt, out, lse, do, hl, **o: fa.flash_attention_backward(
+            q, k, v, mask, out, lse, do, **kw, **o)
+        part = lambda t, h0, hl: t[:, h0:h0 + hl]
+    out, lse = fwd(q, k, v, gate, heads)
+    grads = bwd(q, k, v, gate, out, lse, do, heads)
+    for T in (2, 4):
+        hl = heads // T
+        for h0 in range(0, heads, hl):
+            gate_r = gate[..., h0:h0 + hl].contiguous() if gate is not None else None
+            args = [part(t, h0, hl) for t in (q, k, v)]
+            o2, l2 = fwd(*args, gate_r, hl, hash_h0=h0, hash_heads=heads)
+            g2 = bwd(*args, gate_r, o2, l2, part(do, h0, hl), hl, hash_h0=h0, hash_heads=heads)
+            assert torch.equal(o2, part(out, h0, hl))
+            assert torch.equal(l2, lse.view(b, heads, n)[:, h0:h0 + hl].reshape(b * hl, n))
+            assert torch.equal(g2[1], part(grads[1], h0, hl))
+            assert torch.equal(g2[2], part(grads[2], h0, hl))
+            ref_dq = part(grads[0], h0, hl).float()
+            torch.testing.assert_close(g2[0].float(), ref_dq, rtol=TOL[dtype]['rtol'],
+                                       atol=1e-4 * float(grads[0].abs().max()))
+            if gate is not None:
+                assert torch.equal(g2[3], grads[3][..., h0:h0 + hl])
+            if h0:
+                assert not torch.equal(fwd(*args, gate_r, hl, hash_heads=heads)[0],
+                                       part(out, h0, hl))
+    if layout == 'bhnd':
+        h0, hl = heads // 2, heads // 2
+        zeros = torch.zeros(b, hl, n, dh, device=dev, dtype=dtype)
+        eye = torch.eye(n, dh, device=dev, dtype=dtype).expand(b, hl, n, dh).contiguous()
+        keep = fa.dropout_keep_mask(seed, b * hl, n, rate, device=dev, hash_b0=b0, heads=hl,
+                                    hash_h0=h0, hash_heads=heads).view(b, hl, n, n)
+        o3 = fwd(zeros, zeros, eye, None, hl, hash_h0=h0, hash_heads=heads)[0]
+        assert torch.equal(o3 > 0, keep[..., :dh])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('inner', [1408, 2752, 3072])
+def test_geglu_column_fold(dev, dtype, inner):
+    """K6 / K7 on a tensor-parallel rank's value and gate columns [c0, c0 +
+    I/T) (T = 2 and 4) under ``fold_column_offset(seed, c0)`` (rows from
+    b0 = 3 folded too) give those columns of one launch over all I, bit for
+    bit; unfolded they do not."""
+    from e2_tts_tpu_torch.ops.dropout import fold_batch_offset, fold_column_offset
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, n, rate, seed = 4, 96, 0.1, 1234
+    h2 = torch.randn(b, n, 2 * inner, generator=g, device=dev).to(dtype)
+    gout = torch.randn(b, n, inner, generator=g, device=dev).to(dtype)
+    act = gk.geglu_dropout(h2[3:], fold_batch_offset(seed, 3), rate)
+    grad = gk.geglu_dropout_backward(h2[3:], gout[3:], fold_batch_offset(seed, 3), rate)
+    whole_act = gk.geglu_dropout(h2, seed, rate)[3:]
+    assert torch.equal(act, whole_act)
+    for T in (2, 4):
+        c = inner // T
+        for c0 in range(0, inner, c):
+            cols = lambda t: torch.cat((t[..., c0:c0 + c], t[..., inner + c0:inner + c0 + c]),
+                                       -1).contiguous()
+            folded = fold_column_offset(fold_batch_offset(seed, 3), c0)
+            assert torch.equal(gk.geglu_dropout(cols(h2[3:]), folded, rate),
+                               act[..., c0:c0 + c])
+            assert torch.equal(gk.geglu_dropout_backward(
+                cols(h2[3:]), gout[3:, :, c0:c0 + c].contiguous(), folded, rate), cols(grad))
+            if c0:
+                assert not torch.equal(gk.geglu_dropout(cols(h2[3:]), fold_batch_offset(seed, 3),
+                                                        rate), act[..., c0:c0 + c])
