@@ -40,7 +40,7 @@ Hopper design); its K10 may predate do_g (its K1 / K2 then ran the wmma
 design, K2 gating do itself and K10 writing delta alone); its K1 / K2 / K8 /
 K9 may predate the dropout hash's batch offset `hash_b0` (this one gets 0)
 and its head offset `hash_h0` of `hash_heads` (this one gets 0 of the
-launch's heads).
+launch's heads), and the row / column offset `hash_rc` (this one gets 0).
 Prints one line
 per kernel with the card's name and power limit.
 """
@@ -114,6 +114,9 @@ def main():
                    for tag, root in roots}
     # ... and hash_h0, hash_heads after it
     has_hash_h0 = {tag: 'int hash_h0' in csrc_text(root, 'flash_attention.cu')
+                   for tag, root in roots}
+    # ... and the ring block's row / column offset hash_rc after those
+    has_hash_rc = {tag: 'unsigned hash_rc' in csrc_text(root, 'flash_attention.cu')
                    for tag, root in roots}
     # K10 gating do into do_g for K2 (K1 / K2 on the Hopper design)
     packed_sm90 = {tag: 'void* dout_g' in csrc_text(root, 'flash_attention_bwd.cu')
@@ -288,7 +291,7 @@ def main():
         return q, k, v
 
     def hash_h0_args(tag, heads):
-        return [I(0), I(heads)] if has_hash_h0[tag] else []
+        return ([I(0), I(heads)] if has_hash_h0[tag] else []) + [U(0)] * has_hash_rc[tag]
 
     def flash_common(tag, q, rate):
         b, h, n, dh = q.shape

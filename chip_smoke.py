@@ -227,6 +227,25 @@ exit code and no result line:
    trainer at mesh (1, 1) and the same without its model-axis collectives,
    `TP_COST_ROUNDS` rounds in turns: ms a step, host ms, synchronizing
    calls, memory, the launch counters checked, and a profiled step a side.
+15. sequence_parallel — sequence parallelism (e2_tts_tpu_torch/parallel/sp.py):
+   (a) the ring in one process (`sp.Loopback`, the distributed ring's block
+   code) at the flagship's training attention (B = 16, 1056 rows, 8 x 64,
+   gated: K1 / K2 a block) and DiT's (16 x 72: K8 / K9), bf16, dropout 0.1,
+   softclamp 50, a ragged mask with a row whose last shard is wholly masked,
+   P = 2 and 4, against one launch over the whole sequence: out and the
+   grads at the kernels' limits; the keep bits of every block launched at
+   its hash_r0 / hash_c0 bit for bit the whole launch's on every key;
+   three planted faults (offsets 0, the combine without its rescale, dk /
+   dv kept by the rank that computed them) must fail; (b)
+   `E2Trainer(sequence_parallel=2)` on two gloo ranks of the one card (rank
+   1 is this script with ``--sp-rank 1``, started with the phase), the
+   flagship at depth 2 in f32, dropout 0.1, two steps against one device
+   (`SP_LOSS_TOL`, `SP_PARAM_ABS_TOL`), and a planted conv without its halo
+   must exceed them; (c) the ring's cost, forward and backward,
+   against one launch at the flagship's training shape, P = 2 and 4: the
+   device ms of one call queued behind a sleep, its kernels back to back
+   (all P shards, and one rank's share, / P), and the host-inclusive ms a
+   call (recorded, no limit).
 
 The line before the last is the `nvidia-smi` name/power-limit line; before
 it, one JSON object with a record per kernel. The last line is the result.
@@ -1919,6 +1938,99 @@ def phase_serve(torch, dev, smi):
     return counts
 
 
+class ProfileAverage:
+    """One record of `profile_averages`: the fields of a
+    ``prof.key_averages()`` entry that this script reads (times in us)."""
+
+    def __init__(self, key, device_type, is_user_annotation):
+        self.key, self.device_type = key, device_type
+        self.is_user_annotation = is_user_annotation
+        self.count = 0
+        self.cpu_time_total = self.self_cpu_time_total = self.self_device_time_total = 0.0
+
+
+def profile_averages(prof) -> list:
+    """``prof.key_averages()`` summed straight from the profiler's raw
+    events: the same records (grouped by name, device type and user
+    annotation; a device activity's self time its duration, an operator's
+    inclusive time and its self time less its nested operators', async
+    events none) without an event object per raw event, whose building took
+    seconds a profiled train step."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    events = []
+    for e in result.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, 'is_hidden_event', lambda: False)():
+            continue
+        start, end = (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3
+        events.append((name, e.device_type(), e.is_user_annotation(),
+                       e.is_async() or e.start_thread_id() != e.end_thread_id(),
+                       e.start_thread_id(), start, end, e.correlation_id(),
+                       e.linked_correlation_id()))
+    # a runtime call linked to an operator (cudaLaunchKernel) nests on that
+    # operator's thread
+    op_thread = {ev[7]: ev[4] for ev in events
+                 if ev[8] == 0 and ev[1] == DeviceType.CPU and not ev[3]}
+    by_thread = {}
+    for i, ev in enumerate(events):
+        if ev[1] == DeviceType.CPU and not ev[3]:
+            thread = op_thread.get(ev[8], ev[4]) if ev[8] > 0 else ev[4]
+            by_thread.setdefault(thread, []).append(i)
+    order = lambda i: (events[i][5], -events[i][6])
+    parent, kids = {}, {}
+    for idx in by_thread.values():
+        idx.sort(key=order)
+        stack = []
+        for i in idx:
+            kids[i] = []
+            while stack:
+                up = stack[-1]
+                if events[i][5] >= events[up][6] or events[i][6] > events[up][6]:
+                    stack.pop()
+                else:
+                    kids[up].append(i)
+                    parent[i] = up
+                    break
+            stack.append(i)
+    # an operator that is its same-named parent's only child folds into it
+    dropped, nodes = set(), sorted(kids, key=order)
+    while True:
+        fold = set()
+        for i in nodes:
+            up = parent.get(i)
+            if up is not None and events[up][0] == events[i][0] and len(kids[up]) == 1:
+                kids[up] = kids[i]
+                for child in kids[i]:
+                    parent[child] = up
+                fold.add(i)
+        if not fold:
+            break
+        dropped |= fold
+        nodes = [i for i in nodes if i not in fold]
+    averages = {}
+    for i, (name, device, annotation, is_async, _, start, end, _, _) in enumerate(events):
+        if i in dropped:
+            continue
+        if name.startswith('ProfilerStep#'):
+            name = 'ProfilerStep*'
+        rec = averages.get((name, device, annotation))
+        if rec is None:
+            rec = averages[name, device, annotation] = ProfileAverage(name, device, annotation)
+        rec.count += 1
+        if device == DeviceType.CPU:
+            rec.cpu_time_total += end - start
+            if not is_async:
+                rec.self_cpu_time_total += end - start - sum(
+                    events[c][6] - events[c][5] for c in kids[i])
+        elif not is_async:
+            rec.self_device_time_total += end - start
+    return list(averages.values())
+
+
 def profile_run(torch, run, trace_name):
     """Trace one call of ``run``; print the device-busy share, device time
     by kernel and host time by operator (inclusive). Returns the
@@ -1934,7 +2046,7 @@ def profile_run(torch, run, trace_name):
         wall = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
-    averages = prof.key_averages()
+    averages = profile_averages(prof)
     # device activity (kernels, copies, sets) only: an operator's own entry
     # repeats the device time of the kernels it launched, and a user range
     # (the optimizer's step) spans its kernels and the gaps between them
@@ -3616,7 +3728,7 @@ def step_profile(torch, run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    averages = prof.key_averages()
+    averages = profile_averages(prof)
     on_device = [e for e in averages if e.device_type == DeviceType.CUDA
                  and not getattr(e, 'is_user_annotation', False)]
     host = {e.key: (e.count, e.self_cpu_time_total / 1e3) for e in averages
@@ -3770,6 +3882,317 @@ def phase_tensor_parallel(torch, dev, smi):
     return tp_world1_steps(torch, dev, smi)
 
 
+# -- sequence_parallel -----------------------------------------------------------------
+
+# (a) the ring (one process, `sp.Loopback`) against one launch over the whole
+# sequence at these attention shapes: (label, heads, dim_head), B = 16 x
+# 1056 rows, bf16, dropout 0.1, softclamp 50, gated; at P = 2 and 4. out at
+# K1's forward limit (K8's: the kernels' bf16 limit), the grads at the
+# backward limit (scaled). The ring rounds each block's output and dk / dv
+# to bf16 before it sums them in f32, one launch sums in f32 first: a bf16
+# ulp or two apart. The planted faults must exceed the limits
+SP_RING_CASES = (('flagship K1 / K2', 8, 64), ('DiT K8 / K9', 16, 72))
+SP_SPLITS = (2, 4)
+SP_BATCH = 16
+# (b) the SP trainer on two gloo ranks of the card against one device: the
+# TP check's limits (tests/test_torch_sp.py holds the CPU to the same)
+SP_LOSS_TOL = TP_LOSS_TOL
+SP_PARAM_ABS_TOL = TP_PARAM_ABS_TOL
+SP_STORE = os.path.join('build', 'sp_store')
+SP_RANK1_LOG = os.path.join('build', 'sp_rank1.log')
+# (c) the ring's cost: calls timed a side after a warm-up (host-inclusive);
+# the device's time with each call queued behind a sleep of this many cycles
+# (~0.1 s, past the host's ~13 ms to queue a P = 4 call), the median of
+# these tries
+SP_COST_CALLS = 5
+SP_SLEEP_CYCLES = 200_000_000
+SP_DEVICE_TRIES = 3
+
+
+def sp_ring_inputs(torch, dev, heads, dh, dtype=None):
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, n = SP_BATCH, FRAMES + 32
+    dtype = dtype or torch.bfloat16
+    q, k, v, do = (torch.randn(b, n, heads * dh, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    gate = (2 * torch.randn(b, n, heads, generator=g, device=dev)).to(dtype)
+    lens = torch.randint(n // 2, n + 1, (b,), generator=g, device=dev)
+    lens[1] = 500                  # row 1's last shard wholly masked at P = 2 and 4
+    mask = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    return q, k, v, do, gate, mask
+
+
+def sp_ring_run(torch, q, k, v, do, gate, mask, heads, mesh=None):
+    """Attention (`attention_packed`: dropout 0.1, softclamp 50, the gate)
+    forward and backward, routed over ``mesh`` when given: out and the
+    grads of q, k, v and the gate logits."""
+    from e2_tts_tpu_torch.ops.attention import attention_packed
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, gate)]
+    out = attention_packed(*leaves[:3], mask, heads=heads, softclamp_value=50.0,
+                           dropout_rate=0.1, dropout_seed=2024, gate_logits=leaves[3],
+                           hash_b0=0, sp_mesh=mesh)
+    out.backward(do)
+    return (out.detach(),), tuple(t.grad for t in leaves)
+
+
+def sp_keep_bits(torch, q, mask, heads, dh, P):
+    """Every ring block's keep bits against the whole launch's, on every key
+    column: q = k = 0 and v a shifted identity (head columns [0, w) hold keys
+    [c, c + w), a window of at most dh keys inside one key block), so a
+    positive output column is a kept key; the whole sequence launched once
+    per window, and each block at its hash_r0 / hash_c0 (`fa.block_forward`,
+    the ring's launch), the windows stepping through every block's keys.
+    True when all P * P blocks agree bit for bit on the keys the mask lets
+    through (a masked key's bit shows in neither: one launch gives it no
+    weight, and a block whose keys are all masked spreads its weight over
+    them)."""
+    from e2_tts_tpu_torch.ops import flash_attention as fa
+    b, n, D = q.shape
+    nl = n // P
+    zeros = torch.zeros_like(q)
+    kw = dict(heads=heads, scale=dh ** -0.5, softclamp_value=50.0, dropout_rate=0.1,
+              dropout_seed=2024)
+    hash0 = fa._check_hash(0, 0, None, heads)
+    eye = torch.eye(dh, device=q.device, dtype=q.dtype)
+    equal = True
+    for o in range(P):
+        c0 = o * nl
+        for c in range(c0, c0 + nl, dh):
+            w = min(dh, c0 + nl - c)
+            v = torch.zeros(b, n, heads, dh, device=q.device, dtype=q.dtype)
+            v[:, c:c + w] = eye[:w, None, :]
+            v = v.flatten(-2)
+            whole = fa.block_forward(zeros, zeros, v, mask, hash_kw=hash0, **kw)[0] > 0
+            visible = torch.zeros(b, heads, dh, device=q.device, dtype=torch.bool)
+            visible[:, :, :w] = mask[:, None, c:c + w]
+            visible = visible.reshape(b, 1, D)
+            for s in range(P):
+                rows, cols = slice(s * nl, (s + 1) * nl), slice(c0, c0 + nl)
+                block = fa.block_forward(zeros[:, rows], zeros[:, cols],
+                                         v[:, cols].contiguous(), mask[:, cols].contiguous(),
+                                         hash_kw=dict(hash0, hash_r0=s * nl, hash_c0=c0),
+                                         **kw)[0] > 0
+                equal &= torch.equal(block & visible, whole[:, rows] & visible)
+    return equal
+
+
+def sp_ring_check(torch, dev, smi):
+    """(a) and (c) of the sequence_parallel phase."""
+    from e2_tts_tpu_torch.parallel import sp
+    bf16 = torch.bfloat16
+    fwd_lim = {'flagship K1 / K2': (1e-3, 1e-2), 'DiT K8 / K9': (1e-2, 1e-2)}
+    bwd_lim = (1e-2, 1e-2)
+    faults = {
+        'offsets 0': [(sp, name, (lambda block: lambda *a, hash_kw, **o: block(
+            *a, hash_kw=dict(hash_kw, hash_r0=0, hash_c0=0), **o))(getattr(sp, name)))
+            for name in ('block_forward', 'block_backward')],
+        'combine without rescale': [(sp, '_merge', lambda acc, lse, out, lse_b: (
+            (out, lse_b) if acc is None else (acc + out, torch.logaddexp(lse, lse_b))))],
+        'dk / dv kept by the visitor': [(sp, '_move_grads',
+                                         lambda comm, travel: sp._Pending(travel))],
+    }
+    for label, heads, dh in SP_RING_CASES:
+        q, k, v, do, gate, mask = sp_ring_inputs(torch, dev, heads, dh)
+        ref_out, ref_grads = sp_ring_run(torch, q, k, v, do, gate, mask, heads)
+        for P in SP_SPLITS:
+            loop = sp.Loopback(P)
+            out, grads = sp_ring_run(torch, q, k, v, do, gate, mask, heads, loop)
+            f_err, f_worst = compare(out, ref_out, *fwd_lim[label])
+            b_err, b_worst = compare(grads, ref_grads, *bwd_lim, scaled=True)
+            bits = sp_keep_bits(torch, q, mask, heads, dh, P)
+            planted = {}
+            for fault, patches in faults.items():
+                saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+                try:
+                    for mod, name, fn in patches:
+                        setattr(mod, name, fn)
+                    f_out, f_grads = sp_ring_run(torch, q, k, v, do, gate, mask, heads, loop)
+                finally:
+                    for mod, name, fn in saved:
+                        setattr(mod, name, fn)
+                planted[fault] = max(compare(f_out, ref_out, *fwd_lim[label])[1],
+                                     compare(f_grads, ref_grads, *bwd_lim, scaled=True)[1])
+            torch.cuda.synchronize()
+            fault_text = '; '.join(f'{f} worst/limit={w:.3f}' for f, w in planted.items())
+            log(f'sequence_parallel ring {label} ({SP_BATCH} x {q.shape[1]} rows, {heads} x '
+                f'{dh}, bf16, dropout 0.1, softclamp 50, gate, ragged mask with a wholly '
+                f'masked last shard) P={P} vs one launch: out max_abs_err={f_err:.3e} '
+                f'worst/limit={f_worst:.3f}; dq/dk/dv/gate grad max_abs_err={b_err:.3e} '
+                f'worst/limit={b_worst:.3f}; every block\'s keep bits on every key '
+                f'bit-equal={bits}; '
+                f'planted: {fault_text} (must exceed 1) [{smi}]')
+            if not (f_worst <= 1.0 and b_worst <= 1.0 and bits):
+                raise AssertionError(f'{label} P={P}: the ring differs from one launch')
+            if any(w <= 1.0 for w in planted.values()):
+                raise AssertionError(f'{label} P={P}: a planted ring fault passed')
+        del q, k, v, do, gate, mask, ref_out, ref_grads
+        torch.cuda.empty_cache()
+
+    # (c) the ring's cost at the flagship's training attention
+    label, heads, dh = SP_RING_CASES[0]
+    q, k, v, do, gate, mask = sp_ring_inputs(torch, dev, heads, dh)
+
+    def device_ms(run):
+        """The device ms of one call with the host ahead of the card: the
+        call queued behind `SP_SLEEP_CYCLES` of `torch.cuda._sleep`, so its
+        kernels run back to back (the median of `SP_DEVICE_TRIES`); None and
+        why when the card woke before the call was queued (the host was slow
+        or waited on the card)."""
+        times = []
+        for _ in range(SP_DEVICE_TRIES):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SP_SLEEP_CYCLES)
+            start.record()
+            run()
+            stop.record()
+            ahead = not start.query()
+            torch.cuda.synchronize()
+            if ahead:
+                times.append(start.elapsed_time(stop))
+        if not times:
+            return None, (f'not measured: the card woke before the call was queued in all '
+                          f'{SP_DEVICE_TRIES} tries')
+        return sorted(times)[len(times) // 2], None
+
+    def timed(mesh):
+        """(device ms of one call or None, why not, host-inclusive ms a call)"""
+        run = lambda: sp_ring_run(torch, q, k, v, do, gate, mask, heads, mesh)
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SP_COST_CALLS):
+            run()
+        stop.record()
+        torch.cuda.synchronize()
+        return (*device_ms(run), start.elapsed_time(stop) / SP_COST_CALLS)
+    one, one_why, one_host = timed(None)
+    for P in SP_SPLITS:
+        ring, ring_why, ring_host = timed(sp.Loopback(P))
+        device = (f'one launch {one:.3f} ring P={P} (all {P * P} blocks in one process) '
+                  f'{ring:.3f} ratio {ring / one:.3f}, one rank\'s share (/ P) {ring / P:.3f} '
+                  f'ratio {ring / P / one:.3f}' if one and ring else
+                  f'one launch {one_why or one} ring P={P} {ring_why or ring}')
+        log(f'sequence_parallel ring cost {label} ({SP_BATCH} x {q.shape[1]} rows, {heads} x '
+            f'{dh}, bf16, dropout 0.1, gate, mask), forward + backward: device ms (one call queued '
+            f'behind a sleep, its kernels back to back, median of {SP_DEVICE_TRIES}) {device}; '
+            f'host-inclusive ms a call (CUDA events over {SP_COST_CALLS} calls) one launch '
+            f'{one_host:.3f} ring P={P} {ring_host:.3f} [{smi}]')
+
+
+def sp_train(torch, dev, mesh=None):
+    """(b)'s run: the flagship at depth 2, f32, dropout 0.1 under `E2Trainer`
+    (with ``mesh``, `sequence_parallel=2` on it): two steps on
+    `tp_check_batch`. Returns the losses and every parameter as one f32 CPU
+    vector."""
+    from e2_tts_tpu_torch import E2Trainer
+
+    model = build_e2tts(torch, dev, None, depth=2, dropout=0.1)
+    kw = dict(mesh=mesh, sequence_parallel=2) if mesh is not None else {}
+    trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                        seed=0, **kw)
+    batch = trainer.prepare_batch(tp_check_batch())
+    losses = [float(trainer.train_step(*batch, drop_text_cond=drop)[0]) for drop in (False, True)]
+    return losses, torch.cat([p.detach().float().cpu().flatten() for p in model.parameters()])
+
+
+def sp_rank(torch, dev, rank: int):
+    """Rank ``rank`` of the two gloo ranks on the one card: the SP run on the
+    (1, 2) mesh, then the planted fault's (each shard's conv zero-padded
+    where its halo belongs). Returns both runs' results and leaves the group
+    stopped."""
+    import torch.distributed as dist
+
+    from e2_tts_tpu_torch.parallel import sp
+    from e2_tts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+
+    store = os.path.abspath(SP_STORE)
+    if not maybe_initialize_distributed(init_method=f'file://{store}', world_size=2, rank=rank,
+                                        device='cpu', timeout=TP_RANK_TIMEOUT_S):
+        raise AssertionError('no process group')
+    halo = sp.halo_pad
+    try:
+        mesh = sp.make_seq_mesh(2)
+        results = sp_train(torch, dev, mesh)
+        sp.halo_pad = lambda x, seq, width: torch.nn.functional.pad(x, (0, 0, width, width))
+        fault = sp_train(torch, dev, mesh)
+        dist.barrier()
+    finally:
+        sp.halo_pad = halo
+        dist.destroy_process_group()
+    return results, fault
+
+
+def sp_start_rank1():
+    """Rank 1 of (b) in a process of its own (this script with ``--sp-rank
+    1``), started at the phase's start: it imports torch and waits at the
+    rendezvous while (a) and (c) run."""
+    if os.path.exists(SP_STORE):
+        os.remove(SP_STORE)
+    os.makedirs(os.path.dirname(SP_STORE), exist_ok=True)
+    with open(SP_RANK1_LOG, 'w') as log_file:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), '--sp-rank', '1'],
+                                stdout=log_file, stderr=subprocess.STDOUT)
+
+
+def sp_two_ranks(torch, dev, smi, proc):
+    """(b): rank 0 here and rank 1 in ``proc``, one gloo group on the one
+    card, against the single device."""
+    t0 = time.perf_counter()
+    ref_losses, ref_params = sp_train(torch, dev)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (losses, params), (fault_losses, fault_params) = sp_rank(torch, dev, 0)
+    sp_s = time.perf_counter() - t0
+    code = proc.wait(timeout=TP_RANK_TIMEOUT_S)
+    if code != 0:
+        with open(SP_RANK1_LOG) as f:
+            raise AssertionError(f'sequence_parallel rank 1 exited with {code}:\n'
+                                 f'{f.read()[-3000:]}')
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    loss_rel, fault_loss_rel = rel(losses, ref_losses), rel(fault_losses, ref_losses)
+    param_abs = float((params - ref_params).abs().max())
+    fault_abs = float((fault_params - ref_params).abs().max())
+    log(f'sequence_parallel trainer (E2Trainer(sequence_parallel=2), gloo, 2 ranks on one card, '
+        f'mesh (1, 2); gloo\'s point-to-point calls take CUDA tensors through host memory) vs '
+        f'one device: flagship depth 2 f32 dropout 0.1 B=8 x <=512 ragged, with text then text '
+        f'dropped: losses={losses} single={ref_losses} loss_rel={loss_rel:.3e} (<= '
+        f'{SP_LOSS_TOL:g}) param_max_abs={param_abs:.3e} (<= {SP_PARAM_ABS_TOL:g}) over '
+        f'{ref_params.numel()}; planted conv without its halo: loss_rel={fault_loss_rel:.3e} '
+        f'param_max_abs={fault_abs:.3e} (must exceed the limits); seconds: one device {ref_s:.1f}, SP rank 0 {sp_s:.1f} (rendezvous and the '
+        f'fault included) [{smi}]')
+    if not (loss_rel <= SP_LOSS_TOL and param_abs <= SP_PARAM_ABS_TOL):
+        raise AssertionError('the SP trainer disagrees with the single device')
+    if fault_loss_rel <= SP_LOSS_TOL and fault_abs <= SP_PARAM_ABS_TOL:
+        raise AssertionError('the planted conv without its halo passed the SP trainer check')
+
+
+def phase_sequence_parallel(torch, dev, smi):
+    """(a) and (c) `sp_ring_check` while (b)'s rank 1 starts; (b)
+    `sp_two_ranks`."""
+    proc = sp_start_rank1()
+    try:
+        sp_ring_check(torch, dev, smi)
+        sp_two_ranks(torch, dev, smi, proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def sp_rank_main() -> int:
+    """``chip_smoke.py --sp-rank 1``: rank 1 of `sp_two_ranks`, started by
+    rank 0; prints no result."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp_rank(torch, torch.device('cuda', 0), int(sys.argv[2]))
+    return 0
+
+
 def tp_rank_main() -> int:
     """``chip_smoke.py --tp-rank 1``: rank 1 of `tp_two_ranks`, started by
     rank 0; prints no result."""
@@ -3864,6 +4287,8 @@ def main() -> int:
     phase_done('distributed')
     phase_tensor_parallel(torch, dev, smi)
     phase_done('tensor_parallel')
+    phase_sequence_parallel(torch, dev, smi)
+    phase_done('sequence_parallel')
 
     kernels = []
     for kid, info in KERNEL_INFO.items():
@@ -3889,4 +4314,5 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(tp_rank_main() if sys.argv[1:2] == ['--tp-rank'] else main())
+    sys.exit(tp_rank_main() if sys.argv[1:2] == ['--tp-rank'] else
+             sp_rank_main() if sys.argv[1:2] == ['--sp-rank'] else main())

@@ -47,14 +47,16 @@ cudaError_t dispatch_dh(const FwdParams& p, bool bf16, cudaStream_t stream) {
 // q, k, v: (b, n, heads * dh) with batch / row strides; o contiguous; gate
 // (b, n, heads) logits of q's dtype or null; for the dropout hash, hash_b0 the
 // first row's place in the global batch, hash_h0 the first head's among a
-// row's hash_heads heads
+// row's hash_heads heads, hash_rc the first query row's and key column's
+// places in the global sequence as row0 * 0x9E3779B1 + col0 * 0x85EBCA77
+// (mod 2^32; 0 for a launch over the whole sequence)
 extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                             long long v_rs, const void* mask, const void* gate, void* o,
                             void* lse, int b, int n, int heads, int dh, float scale,
                             float softclamp, float inv_keep, unsigned seed, unsigned threshold,
-                            int dropping, int hash_b0, int hash_h0, int hash_heads, int dtype,
-                            void* stream) {
+                            int dropping, int hash_b0, int hash_h0, int hash_heads,
+                            unsigned hash_rc, int dtype, void* stream) {
   if (dtype != e2::kBFloat16 && dtype != e2::kFloat32) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
@@ -71,5 +73,6 @@ extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long lo
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
+  p.hash_rc = hash_rc;
   return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

@@ -107,6 +107,10 @@ struct FwdParams {
   int hash_h0 = 0;            // first head's place among the hash_heads heads of a
   int hash_heads = 0;         // row: the dropout hash reads global head
                               // (hash_b0 + bi) * hash_heads + hash_h0 + h
+  unsigned hash_rc = 0;       // row0 * 0x9E3779B1 + col0 * 0x85EBCA77 (mod 2^32): the
+                              // launch's first query row and key column in the
+                              // global sequence (a ring block's), added to the
+                              // per-head seed: the row / column hash is linear
 };
 
 template <typename T, int DHP, int SPLIT = 1>
@@ -237,7 +241,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdParams p) {
 
   const unsigned hseed =
       e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
-                           * 0x27D4EB2Fu), 2);
+                           * 0x27D4EB2Fu), 2) + p.hash_rc;
   float* sFw = sF + warp * 16 * L::LDF;
   T* sPw = sP + warp * 16 * L::LDP;
   float* srow = sFw + (lane >> 1) * L::LDS;
@@ -372,6 +376,10 @@ struct BwdParams {
   int hash_h0 = 0;            // first head's place among the hash_heads heads of a
   int hash_heads = 0;         // row: the dropout hash reads global head
                               // (hash_b0 + bi) * hash_heads + hash_h0 + h
+  unsigned hash_rc = 0;       // row0 * 0x9E3779B1 + col0 * 0x85EBCA77 (mod 2^32): the
+                              // launch's first query row and key column in the
+                              // global sequence (a ring block's), added to the
+                              // per-head seed: the row / column hash is linear
 };
 
 template <typename T, int DHP>
@@ -572,7 +580,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdParams p) {
 
   const unsigned hseed =
       e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
-                           * 0x27D4EB2Fu), 2);
+                           * 0x27D4EB2Fu), 2) + p.hash_rc;
   const T* sKw = sK + warp * 16 * L::LDT;
   const T* sVw = sV + warp * 16 * L::LDT;
   float* sFw = sF + warp * L::FW;

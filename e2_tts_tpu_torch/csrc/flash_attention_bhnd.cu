@@ -115,13 +115,14 @@ Strides strides(const long long* s) { return {s[0], s[1], s[2]}; }
 
 // K8. Strides are (batch, head, row) triples in elements; o may be any
 // (b, h, n, dh) layout with unit column stride; lse is (b*heads, n) f32;
-// hash_b0, hash_h0 and hash_heads as in e2_flash_fwd.
+// hash_b0, hash_h0, hash_heads and hash_rc as in e2_flash_fwd.
 extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, const long long* qs,
                                  const long long* ks, const long long* vs, const void* mask,
                                  void* o, const long long* os, void* lse, int b, int n,
                                  int heads, int dh, float scale, float softclamp, float inv_keep,
                                  unsigned seed, unsigned threshold, int dropping, int hash_b0,
-                                 int hash_h0, int hash_heads, int dtype, void* stream) {
+                                 int hash_h0, int hash_heads, unsigned hash_rc, int dtype,
+                                 void* stream) {
   if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.q = q; p.k = k; p.v = v;
@@ -134,6 +135,7 @@ extern "C" int e2_flash_fwd_bhnd(const void* q, const void* k, const void* v, co
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
+  p.hash_rc = hash_rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 0, dtype, stream);
   if (dtype == e2::kBFloat16) return (int)dispatch_sm90_fwd(p, s);
@@ -151,7 +153,7 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
                                  const long long* dvs, int b, int n, int heads, int dh,
                                  float scale, float softclamp, float inv_keep, unsigned seed,
                                  unsigned threshold, int dropping, int hash_b0, int hash_h0,
-                                 int hash_heads, int dtype, void* stream) {
+                                 int hash_heads, unsigned hash_rc, int dtype, void* stream) {
   if (!valid_dh(dh)) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -167,6 +169,7 @@ extern "C" int e2_flash_bwd_bhnd(const void* q, const void* k, const void* v, co
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
+  p.hash_rc = hash_rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh > 128) return e2_flash_bhnd_wide(&p, 1, dtype, stream);
   if (dtype == e2::kBFloat16) return (int)dispatch_sm90_bwd(p, s);

@@ -145,16 +145,16 @@ extern "C" int e2_flash_delta(const void* o, const void* dout, const void* gate,
 
 // q, k, v: (b, n, heads * dh) with batch / row strides; dout (K10's do_g
 // for a gated layer), dk, dv contiguous (b, n, heads * dh), dq a zeroed f32
-// buffer likewise; delta (b, n, heads); hash_b0, hash_h0 and hash_heads as
-// e2_flash_fwd's
+// buffer likewise; delta (b, n, heads); hash_b0, hash_h0, hash_heads and
+// hash_rc as e2_flash_fwd's
 extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs, long long v_bs,
                             long long v_rs, const void* dout, const void* mask, const void* lse,
                             const void* delta, void* dq, void* dk, void* dv, int b, int n,
                             int heads, int dh, float scale, float softclamp, float inv_keep,
                             unsigned seed, unsigned threshold, int dropping, int hash_b0,
-                            int hash_h0, int hash_heads,
-                            int dtype, void* stream) {
+                            int hash_h0, int hash_heads, unsigned hash_rc, int dtype,
+                            void* stream) {
   if (dtype != e2::kBFloat16 && dtype != e2::kFloat32) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
@@ -174,5 +174,6 @@ extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long lo
   p.scale = scale; p.softclamp = softclamp; p.inv_keep = inv_keep;
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
+  p.hash_rc = hash_rc;
   return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(THREADS * NWG, FwdLayout<DHP, NWG>::kBlocksPer
   const float c2 = clamp ? p.softclamp * LOG2E : 1.f;
   const unsigned hseed =
       e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
-                           * 0x27D4EB2Fu), 2);
+                           * 0x27D4EB2Fu), 2) + p.hash_rc;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
   const unsigned rhash[2] = {hseed + (unsigned)row0 * 0x9E3779B1u,
                              hseed + (unsigned)(row0 + 8) * 0x9E3779B1u};
@@ -585,7 +585,7 @@ __global__ void __launch_bounds__(THREADS, BwdLayout<DHP>::kBlocksPerSM)
   const float c2 = clamp ? p.softclamp * LOG2E : 1.f;
   const unsigned hseed =
       e2::fmix32(p.seed ^ (((unsigned)(p.hash_b0 + bi) * p.hash_heads + p.hash_h0 + h)
-                           * 0x27D4EB2Fu), 2);
+                           * 0x27D4EB2Fu), 2) + p.hash_rc;
   const int krow0 = warp * 16 + g;  // this thread's keys in the block: krow0 and krow0 + 8
   const int key0 = k0 + krow0;
   const unsigned khash[2] = {hseed + (unsigned)key0 * 0x85EBCA77u,

@@ -20,6 +20,11 @@ Conventions, as in the JAX package:
   columns, its dropout bits those heads' and columns' of the whole layer
   (``hash_h0``; `fold_column_offset`), and the output projection's partial
   sums are summed over the model axis.
+- Under sequence parallelism (parallel/sp.py) `Attention` runs as a ring
+  once ``sp_mesh`` is set (`enable_sequence_parallel`), `DepthwiseConv`
+  takes its halo from the neighbouring ranks (``seq=``), and `FeedForward`
+  folds its rows' first place in the sequence into the GEGLU seed
+  (``seq_offset``, `fold_seq_offset`).
 - `load_jax_params` (convert.py) maps a JAX model's parameters onto these
   modules one to one; the names below mirror the JAX attribute paths.
 """
@@ -33,9 +38,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.ops.attention import attention_packed
-from e2_tts_tpu_torch.ops.dropout import fold_batch_offset, fold_column_offset
+from e2_tts_tpu_torch.ops.dropout import fold_batch_offset, fold_column_offset, fold_seq_offset
 from e2_tts_tpu_torch.ops.geglu_kernel import geglu_dropout
 from e2_tts_tpu_torch.ops.rotary import apply_rotary_packed
+from e2_tts_tpu_torch.parallel import sp
 from e2_tts_tpu_torch.utils.helpers import (
     default, divisible_by, exists, round_up_to_multiple,
 )
@@ -288,11 +294,17 @@ class _DepthwiseConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         lecun_normal_(self.weight, kernel_size, generator)
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
+        """``seq``: the seq axis of a sequence-parallel rank, whose ``x`` is its
+        rows of the sequence: the padding is the neighbours' frames
+        (`parallel.sp.halo_pad`)."""
         ct = self.dtype if exists(self.dtype) else torch.promote_types(x.dtype, self.weight.dtype)
         k = self.weight.shape[-1]
-        out = F.conv1d(cast(x, ct).transpose(1, 2), cast(self.weight, ct),
-                       cast(self.bias, ct), padding=k // 2, groups=self.weight.shape[0])
+        x, pad = cast(x, ct), k // 2
+        if exists(seq):
+            x, pad = sp.halo_pad(x, seq, k // 2), 0
+        out = F.conv1d(x.transpose(1, 2), cast(self.weight, ct),
+                       cast(self.bias, ct), padding=pad, groups=self.weight.shape[0])
         return out.transpose(1, 2)
 
 
@@ -304,10 +316,10 @@ class DepthwiseConv(nn.Module):
         assert not divisible_by(kernel_size, 2)
         self.conv = _DepthwiseConv1d(dim, kernel_size, dtype=dtype, generator=generator)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, seq=None):
         if exists(mask):
             x = x.masked_fill(~mask[..., None], 0.0)
-        out = F.silu(self.conv(x))
+        out = F.silu(self.conv(x, seq=seq))
         if exists(mask):
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
@@ -338,10 +350,13 @@ class FeedForward(nn.Module):
         self.tp = axis
         self.col0 = axis.rank * (self.inner // axis.size)
 
-    def forward(self, x, dropout_seed: int | None = None, batch_offset: int = 0):
-        """``batch_offset``: ``x``'s first row in the global batch; K6 hashes
-        (row, frame, column), so the offset (and a tensor-parallel rank's
-        first column) folds into the seed."""
+    def forward(self, x, dropout_seed: int | None = None, batch_offset: int = 0,
+                seq_offset: int = 0):
+        """``batch_offset``: ``x``'s first row in the global batch,
+        ``seq_offset`` its first frame's place in the sequence (a
+        sequence-parallel rank's); K6 hashes (row, frame, column), so the
+        offsets (and a tensor-parallel rank's first column) fold into the
+        seed."""
         tp = self.tp
         if exists(tp):
             x = tp.enter(x)
@@ -351,7 +366,8 @@ class FeedForward(nn.Module):
             raise ValueError('dropout in training mode needs a dropout_seed')
         seed = 0
         if rate > 0.0:
-            seed = fold_column_offset(fold_batch_offset(dropout_seed, batch_offset), self.col0)
+            seed = fold_column_offset(fold_seq_offset(fold_batch_offset(
+                dropout_seed, batch_offset), seq_offset), self.col0)
         return self.proj_out(geglu_dropout(h, seed, rate),
                              reduce=tp.exit if exists(tp) else None)
 
@@ -364,7 +380,10 @@ class Attention(nn.Module):
     (folded into kernel K1 where it runs), the learned value-residual mix
     with the first layer's raw values, attention dropout, key-padding mask,
     RoPE, and LASER (exp-space values). dim_head 32, 64 or 128 runs on K1,
-    any other dim_head up to 256 on K8 (ops/attention.py).
+    any other dim_head up to 256 on K8 (ops/attention.py). With ``sp_mesh``
+    set (`parallel.sp.enable_sequence_parallel`) the inputs are this rank's
+    rows of the sequence and the core runs as ring attention over the
+    mesh's ``sp_axis``.
 
     Returns ``(out, values)``: ``values`` are this layer's raw (pre-mix)
     value heads, fed forward as the value residual. Everything stays in the
@@ -388,6 +407,8 @@ class Attention(nn.Module):
         self.tp = None          # the model axis (place_tp)
         self.head0 = 0          # this rank's first head, and its head count
         self.local_heads = heads
+        self.sp_mesh = None     # sequence parallelism: the mesh and its seq axis
+        self.sp_axis = 'seq'
 
         # q/k/v as one (3*inner, dim) weight: rows [0, inner) are q, then k, v
         # (the JAX package's (dim, 3, inner) kernel, transposed)
@@ -453,5 +474,5 @@ class Attention(nn.Module):
             dropout_rate=self.dropout_rate if training else 0.0,
             dropout_seed=dropout_seed if training else None,
             gate_logits=gate_logits, hash_b0=batch_offset, hash_h0=self.head0,
-            hash_heads=self.heads)
+            hash_heads=self.heads, sp_mesh=self.sp_mesh, sp_axis=self.sp_axis)
         return self.to_out(out, reduce=tp.exit if exists(tp) else None), orig_values

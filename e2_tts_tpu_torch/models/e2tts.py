@@ -11,7 +11,11 @@ t + delta. The draws come from a ``torch.Generator`` or are passed in
 dropout seeds. A data-parallel rank trains on rows ``[batch_offset,
 batch_offset + b)`` of a global batch of ``global_batch``: it draws the
 global batch's tensors and keeps its rows, draws the dropout bits of those
-rows, and its loss is its term of the global loss (`forward`).
+rows, and its loss is its term of the global loss (`forward`). Under
+sequence parallelism (parallel/sp.py) the draws and the text embedding stay
+those of the whole sequence; the transformer returns this rank's frames,
+and the loss is their error over the span count of the whole sequence,
+summed over the seq axis. `sample` runs the attentions dense.
 
 Inference integrates the learned velocity field from noise over a fixed
 time grid (ops/ode.py) with classifier-free guidance, APG parallel-component
@@ -57,6 +61,7 @@ from e2_tts_tpu_torch.models.duration import DurationPredictor
 from e2_tts_tpu_torch.models.transformer import Transformer
 from e2_tts_tpu_torch.ops.mel import MelSpec, as_mel, db_to_amplitude
 from e2_tts_tpu_torch.ops.ode import odeint
+from e2_tts_tpu_torch.parallel.sp import seq_sum, sp_paused
 from e2_tts_tpu_torch.parallel.tp import tp_axis
 from e2_tts_tpu_torch.text.tokenizer import resolve_tokenizer, tokenize_batch
 from e2_tts_tpu_torch.utils.audio_io import save_wav
@@ -239,7 +244,14 @@ class E2TTS(nn.Module):
         this rank's terms of the global ones: the error sums over the span
         count of the whole batch (`global_span_count`, a collective over the
         default process group), so the terms sum over the ranks to the
-        global loss, and their grads to its grad."""
+        global loss, and their grads to its grad.
+
+        With the attentions routed over a seq axis (`parallel.sp`), every
+        rank of a seq group takes the same rows and draws; the transformer
+        returns this rank's frames (``pred_flow`` and ``pred_data`` are
+        those frames), their error sums over the span count of the whole
+        sequence, and the loss is that term summed over the seq axis (its
+        grad each rank's term's: the parameter grads sum over data x seq)."""
         need_velocity_loss = (exists(velocity_consistency_model)
                               and self.velocity_consistency_weight > 0.0)
         device = self.device
@@ -297,6 +309,11 @@ class E2TTS(nn.Module):
 
         span_count = (global_span_count(rand_span_mask, self._data_group())
                       if total > batch else None)
+        seq, frames = self.transformer.seq_axis(), slice(None)
+        if exists(seq):       # this rank's frames; the count of the whole sequence
+            span_count = default(span_count, rand_span_mask.float().sum())
+            frames = self.transformer.frame_slice(seq_len)
+            flow, rand_span_mask = flow[:, frames], rand_span_mask[:, frames]
         velocity_loss = torch.zeros((), dtype=torch.float32, device=device)
         if need_velocity_loss:
             t_delta = t + velocity_consistency_delta
@@ -308,13 +325,17 @@ class E2TTS(nn.Module):
             velocity_loss = masked_mse(pred, ema_pred, rand_span_mask, span_count)
 
         loss = masked_mse(pred, flow, rand_span_mask, span_count)
+        if exists(seq):
+            loss, velocity_loss = seq_sum(loss, seq), seq_sum(velocity_loss, seq)
         total = loss + velocity_loss * self.velocity_consistency_weight
-        return E2TTSReturn(total, cond, pred, x0 + pred, LossBreakdown(loss, velocity_loss))
+        return E2TTSReturn(total, cond, pred, x0[:, frames] + pred,
+                           LossBreakdown(loss, velocity_loss))
 
     def _data_group(self):
-        """The data axis' group of a tensor-parallel model's mesh (its model
-        groups compute the same rows), else None: the default group."""
-        axis = tp_axis(self)
+        """The data axis' group of a tensor- or sequence-parallel model's
+        mesh (its model or seq groups compute the same rows), else None: the
+        default group."""
+        axis = default(tp_axis(self), self.transformer.seq_axis())
         return axis.data_group if exists(axis) else None
 
     def _tokenize(self, text, batch):
@@ -413,12 +434,14 @@ class E2TTS(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            out = self._sample(cond, text=text, lens=lens, duration=duration, steps=steps,
-                               cfg_strength=cfg_strength, cfg_null_model=cfg_null_model,
-                               max_duration=max_duration, vocoder=vocoder,
-                               return_raw_output=return_raw_output, noise=noise,
-                               generator=generator, duration_bucket=duration_bucket,
-                               batched_cfg=batched_cfg)
+            # sampling lengths rarely divide a seq axis: the attentions run dense
+            with sp_paused(self, cfg_null_model):
+                out = self._sample(cond, text=text, lens=lens, duration=duration, steps=steps,
+                                   cfg_strength=cfg_strength, cfg_null_model=cfg_null_model,
+                                   max_duration=max_duration, vocoder=vocoder,
+                                   return_raw_output=return_raw_output, noise=noise,
+                                   generator=generator, duration_bucket=duration_bucket,
+                                   batched_cfg=batched_cfg)
         finally:
             self.train(was_training)
         if exists(save_to_filename) and not return_raw_output:

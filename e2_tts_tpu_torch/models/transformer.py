@@ -43,6 +43,19 @@ joins the layer's depth-fused chain (one K5 launch, then one K3 launch for
 each later connection). ``attn_fourier_embed_input`` maps the speech
 attention's normed input through `LinearFourierEmbed`.
 
+Sequence parallelism (parallel/sp.py): once `enable_sequence_parallel` has
+routed its attentions over a seq axis of ``P`` ranks, the forward runs on
+this rank's rows of the packed sequence: after the absolute positions are
+added and the registers prepended (so rank 0 holds the registers), rank
+``s`` keeps rows ``[s N/P, (s + 1) N/P)`` of the ``N`` packed rows of both
+streams, with those rows of the rotary tables and the key mask; the
+attentions run as rings, the convs take their halos from the neighbours,
+and the GEGLU folds the rows' first place into its seed. Hyper-connections,
+norms, skips, value residuals and feedforwards are per token. It returns
+this rank's frames (`frame_slice`): the registers are dropped where they
+are. The frequency axis is cut on the frames; the frequency attention
+stays local.
+
 ``scan_layers`` is an XLA compile-time mode of the JAX package and raises
 here.
 """
@@ -66,6 +79,7 @@ from e2_tts_tpu_torch.models.hyper_connections import (
     HyperConnection, expand_stream, materialize, reduce_stream,
 )
 from e2_tts_tpu_torch.ops.rotary import rotary_tables
+from e2_tts_tpu_torch.parallel.sp import check_divisible, seq_comm
 from e2_tts_tpu_torch.utils.helpers import default, divisible_by, exists, resolve_device
 
 
@@ -142,20 +156,22 @@ class SpeechLayer(nn.Module):
             self.freq_attn_adaln_zero = gate()
 
     def forward(self, x, hcs, *, skip, mask, rotary, freq_rotary, cond, freq_cond,
-                value_residual, freq_value_residual, seeds, orig_batch, batch_offset):
+                value_residual, freq_value_residual, seeds, orig_batch, batch_offset,
+                seq=None, seq_offset=0):
         """The speech half of a layer on ``x ((b f), n, dim)``: the UNet skip,
         then the conv, attention, (frequency attention) and feedforward
         branches behind the hyper-connections ``hcs``. ``seeds``: the
         attention's and the feedforward's dropout seeds, or empty.
-        ``batch_offset``: ``x``'s first row in the global (folded) batch.
-        Returns ``(x, values, freq_values)``."""
+        ``batch_offset``: ``x``'s first row in the global (folded) batch;
+        ``seq``: the seq axis of a sequence-parallel rank, whose ``x`` holds
+        the rows from ``seq_offset``. Returns ``(x, values, freq_values)``."""
         attn_seed, ff_seed = seeds or (None, None)
         if exists(skip):
             x = self.skip_proj(torch.cat((x, skip), dim=-1))
 
         conv_hc, attn_hc, ff_hc = hcs[:3]
         b_in, add_residual = conv_hc(x)
-        x = add_residual(self.conv(b_in, mask=mask))
+        x = add_residual(self.conv(b_in, mask=mask, seq=seq))
 
         b_in, add_residual = attn_hc(x)
         h = self.attn_input_fourier_embed(self.attn_norm(b_in, condition=cond))
@@ -180,7 +196,7 @@ class SpeechLayer(nn.Module):
 
         b_in, add_residual = ff_hc(x)
         ff_out = self.ff(self.ff_norm(b_in, condition=cond), dropout_seed=ff_seed,
-                         batch_offset=batch_offset)
+                         batch_offset=batch_offset, seq_offset=seq_offset)
         x = add_residual(self.ff_adaln_zero(ff_out, condition=cond))
         return materialize(x), values, freq_values
 
@@ -206,7 +222,7 @@ class TextLayer(nn.Module):
             dim, dim_text, cond_audio_to_text=not is_last_text_layer, dtype=dtype)
 
     def forward(self, text_embed, x, hcs, *, mask, rotary, value_residual, gate, seeds,
-                batch_offset):
+                batch_offset, seq=None, seq_offset=0):
         """The text half of a layer (conv, attention and feedforward behind
         the hyper-connections ``hcs``), then the cross-condition with the
         speech stream ``x``. ``seeds``: the attention's and the feedforward's
@@ -214,7 +230,7 @@ class TextLayer(nn.Module):
         attn_seed, ff_seed = seeds or (None, None)
         conv_hc, attn_hc, ff_hc = hcs
         t_in, add_residual = conv_hc(text_embed)
-        text_embed = add_residual(self.conv(t_in, mask=mask))
+        text_embed = add_residual(self.conv(t_in, mask=mask, seq=seq))
 
         t_in, add_residual = attn_hc(text_embed)
         t_out, values = self.attn(self.attn_norm(t_in), rotary_pos_emb=rotary, mask=mask,
@@ -224,7 +240,7 @@ class TextLayer(nn.Module):
 
         t_in, add_residual = ff_hc(text_embed)
         text_embed = add_residual(self.ff(self.ff_norm(t_in), dropout_seed=ff_seed,
-                                          batch_offset=batch_offset))
+                                          batch_offset=batch_offset, seq_offset=seq_offset))
         x, text_embed = self.cross_condition(materialize(x), materialize(text_embed), gate=gate)
         return x, text_embed, values
 
@@ -355,9 +371,31 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(dim)
         self.to(device)
 
+    def seq_axis(self):
+        """The seq axis the attentions are routed over
+        (`parallel.sp.enable_sequence_parallel`), None when they run dense."""
+        attn = self.speech_layers[0].attn
+        return seq_comm(attn.sp_mesh, attn.sp_axis) if exists(attn.sp_mesh) else None
+
+    def seq_rows(self, frames: int) -> slice:
+        """This rank's rows of the packed sequence (registers, then
+        ``frames`` frames); all of them when the attentions run dense."""
+        seq, packed = self.seq_axis(), frames + self.num_registers
+        if not exists(seq):
+            return slice(0, packed)
+        check_divisible(packed, seq.size)
+        rows = packed // seq.size
+        return slice(seq.rank * rows, (seq.rank + 1) * rows)
+
+    def frame_slice(self, frames: int) -> slice:
+        """The frames of a sequence of ``frames`` the forward returns: this
+        rank's rows without the registers (all frames when dense)."""
+        rows, r = self.seq_rows(frames), self.num_registers
+        return slice(max(rows.start - r, 0), max(rows.stop - r, 0))
+
     def _layer(self, ind, x, text_embed, skip, mask, rotary, text_rotary, freq_rotary, cond,
                freq_cond, attn_v, text_v, freq_v, text_gate, *, push_skip, seeds, orig_batch,
-               batch_offset):
+               batch_offset, seq=None, seq_offset=0):
         """One layer: the text half and cross-condition (`TextLayer`), then
         the speech half (`SpeechLayer`). ``seeds`` are its dropout seeds in
         the order the branches run (text attention, text feedforward,
@@ -370,7 +408,7 @@ class Transformer(nn.Module):
             x, text_embed, t_values = self.text_layers[ind](
                 text_embed, x, self.text_hcs[ind], mask=mask, rotary=text_rotary,
                 value_residual=text_v, gate=text_gate, seeds=text_seeds,
-                batch_offset=batch_offset)
+                batch_offset=batch_offset, seq=seq, seq_offset=seq_offset)
             text_v = default(text_v, t_values)
 
         # UNet skips on the speech stream
@@ -380,7 +418,7 @@ class Transformer(nn.Module):
             x, self.speech_hcs[ind], skip=skip, mask=mask, rotary=rotary,
             freq_rotary=freq_rotary, cond=cond, freq_cond=freq_cond, value_residual=attn_v,
             freq_value_residual=freq_v, seeds=seeds, orig_batch=orig_batch,
-            batch_offset=batch_offset)
+            batch_offset=batch_offset, seq=seq, seq_offset=seq_offset)
         attn_v = default(attn_v, values)
         freq_v = default(freq_v, f_values)
         return x, text_embed, skip_out, attn_v, text_v, freq_v
@@ -394,7 +432,9 @@ class Transformer(nn.Module):
         text-free pass). ``generator`` draws the dropout seeds in training
         mode; ``batch_offset`` is ``x``'s first row in the global batch (a
         data-parallel rank's), for which the dropout bits are drawn. Returns
-        the input's shape with ``dim`` features."""
+        the input's shape with ``dim`` features; with the attentions routed
+        over a seq axis (`parallel.sp`), this rank's frames of it
+        (`frame_slice`)."""
         if (x.ndim == 4) != self.has_freq_axis:
             raise ValueError('`has_freq_axis` must be set iff passing a 4-dim (b f n d) tensor')
         if exists(self.dtype):
@@ -425,6 +465,13 @@ class Transformer(nn.Module):
         if exists(mask):
             mask = F.pad(mask, (r, 0), value=True)
         packed_len = x.shape[1]
+        # sequence parallelism: this rank's rows of the packed sequence
+        seq, rows = self.seq_axis(), self.seq_rows(seq_len)
+        cut = (lambda t: t[:, rows]) if exists(seq) else (lambda t: t)
+        x = cut(x)
+        if exists(mask):
+            mask = cut(mask).contiguous()
+        local_len = x.shape[1]
 
         cond = freq_cond = None
         if exists(times):
@@ -432,16 +479,18 @@ class Transformer(nn.Module):
                 times = times.expand(orig_batch)
             cond = cast(F.silu(self.time_mlp(self.time_fourier(times))), x.dtype)
             if self.has_freq_axis:
-                freq_cond = cond.repeat_interleave(packed_len, dim=0)     # (b n), d
+                freq_cond = cond.repeat_interleave(local_len, dim=0)      # (b n), d
                 cond = cond.repeat_interleave(freq_len, dim=0)            # (b f), d
 
-        rotary = rotary_tables(packed_len, self.dim_head, device=x.device)
+        tables = lambda dh: tuple(t[rows] for t in rotary_tables(packed_len, dh,
+                                                                 device=x.device))
+        rotary = tables(self.dim_head)
         text_rotary = freq_rotary = None
         if exists(text_embed):
-            text_rotary = rotary_tables(packed_len, self.text_dim_head, device=x.device)
+            text_rotary = tables(self.text_dim_head)
             text_registers = cast(self.text_registers, text_embed.dtype)[None]
-            text_embed = torch.cat(
-                (text_registers.expand(batch, r, self.dim_text), text_embed), dim=1)
+            text_embed = cut(torch.cat(
+                (text_registers.expand(batch, r, self.dim_text), text_embed), dim=1))
         if self.has_freq_axis:
             freq_rotary = rotary_tables(freq_len, self.freq_dim_head, device=x.device)
 
@@ -464,7 +513,8 @@ class Transformer(nn.Module):
             branches = 4 if exists(text_embed) and ind < self.text_depth else 2
             seeds = tuple(draw_seed(generator) for _ in range(branches)) if dropping else ()
             layer = partial(self._layer, ind, push_skip=is_first_half, seeds=seeds,
-                            orig_batch=orig_batch, batch_offset=batch_offset * freq_len)
+                            orig_batch=orig_batch, batch_offset=batch_offset * freq_len,
+                            seq=seq, seq_offset=rows.start)
             args = (x, text_embed, skip_in, mask, rotary, text_rotary, freq_rotary, cond,
                     freq_cond, attn_v, text_v, freq_v, text_gate)
             # nothing in a layer reads torch's global generators: no RNG state to keep
@@ -474,7 +524,7 @@ class Transformer(nn.Module):
                 skips.append(skip_out)
         assert len(skips) == 0
 
-        x = reduce_stream(x[:, :, r:, :])
+        x = reduce_stream(x[:, :, min(max(r - rows.start, 0), local_len):, :])
         if self.has_freq_axis:
             x = x.reshape(orig_batch, freq_len, *x.shape[1:])
         return self.final_norm(x)

@@ -116,12 +116,13 @@ _P, _I, _LL, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 _SIGNATURES = {
     'e2_flash_fwd': [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _I, _P],
+                     _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _U, _I, _P],
     'e2_hc_width': [_P] * 12 + [_I, _LL, _I, _I, _P],
     'e2_hc_width_fused': [_P] * 14 + [_I, _LL, _I, _I, _P],
     'e2_geglu_fwd': [_P, _P, _I, _I, _I, _F, _U, _U, _I, _I, _P],
     'e2_flash_bwd': [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P,
-                     _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _I, _P],
+                     _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _U, _I,
+                     _P],
     'e2_hc_width_bwd': [_P] * 13 + [_I, _I, _I, _LL, _I, _I, _P],
     'e2_hc_width_fused_bwd': [_P] * 17 + [_I, _I, _I, _LL, _I, _I, _P],
     'e2_hc_width_bwd_save': [_P] * 15 + [_I, _I, _I, _LL, _I, _I, _P],
@@ -130,9 +131,9 @@ _SIGNATURES = {
     'e2_mel_fwd': [_P, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I, _F, _P],
     'e2_flash_delta': [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     'e2_flash_fwd_bhnd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _F, _F, _U, _U, _I, _I, _I, _I, _I, _P],
-    'e2_flash_bwd_bhnd': [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _I,
-                                      _P],
+                          _F, _F, _F, _U, _U, _I, _I, _I, _I, _U, _I, _P],
+    'e2_flash_bwd_bhnd': [_P] * 18 + [_I, _I, _I, _I, _F, _F, _F, _U, _U, _I, _I, _I, _I, _U,
+                                      _I, _P],
     'e2_flash_probe': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -15,6 +15,11 @@ from ``hash_h0`` of ``hash_heads``: a tensor-parallel rank passes its first
 head and the layer's head count) and LASER:
 exp-space values ``exp(softclamp(v, 15))`` cast to q's dtype before the
 kernel and ``log(max(out, 1e-20))`` after it, with the gate after the log.
+With ``sp_mesh`` (sequence parallelism, parallel/sp.py) q, k, v are this
+rank's rows of the sequence and the core runs as ring attention over the
+mesh's ``sp_axis``, block by block on K1 / K2 or K8 / K9 (the same
+softclamp, mask and dropout bits); LASER and the gate apply around the
+ring, as in the JAX package.
 The JAX package sent small batches to XLA on the TPU; the port has no such
 routing by batch.
 """
@@ -26,6 +31,7 @@ import torch
 from e2_tts_tpu_torch.ops.flash_attention import (
     SUPPORTED_DIM_HEAD, flash_attention, flash_attention_packed,
 )
+from e2_tts_tpu_torch.parallel.sp import ring_attention
 from e2_tts_tpu_torch.utils.helpers import default, exists
 
 
@@ -68,18 +74,31 @@ def attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                      laser_softclamp_value: float = 15.0,
                      dropout_rate: float = 0.0, dropout_seed: int | None = None,
                      gate_logits=None, hash_b0: int = 0, hash_h0: int = 0,
-                     hash_heads: int | None = None, sp_mesh=None):
+                     hash_heads: int | None = None, sp_mesh=None, sp_axis: str = 'seq'):
     """``q, k, v (b, n, h*dh)`` -> ``(b, n, h*dh)``; ``gate_logits (b, n,
     h)`` the optional per-head sigmoid output gate. Dropout is drawn only
-    when both ``dropout_rate > 0`` and a ``dropout_seed`` are given."""
-    if exists(sp_mesh):
-        raise NotImplementedError('sequence-parallel (ring) attention is not ported yet '
-                                  '(ROADMAP.md queue 1 item 3, SP)')
+    when both ``dropout_rate > 0`` and a ``dropout_seed`` are given. With
+    ``sp_mesh``, this rank's rows of a sequence sharded on its ``sp_axis``
+    (`parallel.sp.ring_attention`)."""
     b, n, D = q.shape
     dh = D // heads
     scale = default(scale, dh ** -0.5)
     if laser:
         v = _laser_values(v, laser_softclamp_value)
+
+    if exists(sp_mesh):
+        # the combined output stays f32 through LASER's log and the gate
+        # (one launch folds the gate into K1 in f32): one rounding, at the end
+        out = ring_attention(q, k, v.to(q.dtype), mask, mesh=sp_mesh, heads=heads, scale=scale,
+                             softclamp_value=softclamp_value, dropout_rate=dropout_rate,
+                             dropout_seed=dropout_seed, axis_name=sp_axis, hash_b0=hash_b0,
+                             hash_h0=hash_h0, hash_heads=hash_heads)
+        if laser:
+            out = _laser_log(out)
+        if exists(gate_logits):
+            gate = torch.sigmoid(gate_logits.float())
+            out = (out.unflatten(-1, (heads, dh)) * gate[..., None]).flatten(-2)
+        return out.to(q.dtype)
 
     fold_gate = exists(gate_logits) and dh in SUPPORTED_DIM_HEAD and not laser
     if dh in SUPPORTED_DIM_HEAD:

@@ -71,3 +71,12 @@ def fold_column_offset(seed: int, c0: int) -> int:
     tensor-parallel rank holding the GEGLU columns from ``c0`` draws the
     whole layer's bits this way, with no kernel change."""
     return (int(seed) + int(c0) * PRIMES[2]) & _M32
+
+
+def fold_seq_offset(seed: int, t0: int) -> int:
+    """The seed whose `hash_keep` over frames ``[0, n)`` of axis 1 draws the
+    bits of frames ``[t0, t0 + n)`` under ``seed``: ``seed + t0 *
+    PRIMES[1]`` (mod 2**32), as `fold_batch_offset` folds a row offset. A
+    sequence-parallel rank holding the rows from ``t0`` of the sequence draws
+    the whole sequence's GEGLU bits this way, with no kernel change."""
+    return (int(seed) + int(t0) * PRIMES[1]) & _M32

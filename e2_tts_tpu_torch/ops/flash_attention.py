@@ -32,7 +32,12 @@ batch, so a data-parallel rank holding rows ``[b0, b0 + B/P)`` passes ``b0``
 and draws the bits a single device draws for those rows; ``hash_h0``, default
 0, is the first head's place among the ``hash_heads`` heads of a row
 (default: the launch's own), so a tensor-parallel rank holding heads ``[h0,
-h0 + H/T)`` passes ``h0`` and ``H``; they move no memory); K1 also the
+h0 + H/T)`` passes ``h0`` and ``H``; ``hash_r0`` / ``hash_c0``, default 0,
+are the first query row's and key column's places in the global sequence,
+so a ring block of sequence-parallel attention (parallel/sp.py) draws the
+bits one launch over the whole sequence draws for those rows and columns:
+the row and column enter the hash linearly, so the kernels take them as
+one uint32 added to each head's seed; they move no memory); K1 also the
 optional per-head sigmoid output gate. The forward also returns the
 per-row log-sum-exp ``(b*h, n)`` the backward uses. K2 takes
 ``delta = rowsum(do * o)`` per head from K10, launched just before K2 on the
@@ -69,16 +74,17 @@ MAX_DIM_HEAD_PROBE = 128                # the probe: multiples of 8 up to this
 
 def dropout_keep_mask(seed: int, bh_total: int, n: int, rate: float, device=None, *,
                       hash_b0: int = 0, heads: int = 1, hash_h0: int = 0,
-                      hash_heads: int | None = None) -> torch.Tensor:
+                      hash_heads: int | None = None, hash_r0: int = 0,
+                      hash_c0: int = 0) -> torch.Tensor:
     """Full (bh, n, n) keep mask: the bits the kernel draws for global head
     ``(hash_b0 + batch) * hash_heads + hash_h0 + head`` (``bh = batch * heads
-    + head``; ``hash_heads`` defaults to ``heads``), absolute query row and key
-    column."""
+    + head``; ``hash_heads`` defaults to ``heads``), global query row
+    ``hash_r0 + row`` and key column ``hash_c0 + column``."""
     hash_heads = default(hash_heads, heads)
     bh = torch.arange(bh_total, dtype=torch.int64, device=device)
     bhs = ((bh // heads + int(hash_b0)) * hash_heads + int(hash_h0) + bh % heads)[:, None, None]
-    rows = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
-    cols = torch.arange(n, dtype=torch.int64, device=device)[None, None, :]
+    rows = torch.arange(n, dtype=torch.int64, device=device)[None, :, None] + int(hash_r0)
+    cols = torch.arange(n, dtype=torch.int64, device=device)[None, None, :] + int(hash_c0)
     h = fmix32((int(seed) & _M32) ^ mul32(bhs, 0x27D4EB2F))
     u = fmix32((h + mul32(rows, 0x9E3779B1) + mul32(cols, 0x85EBCA77)) & _M32,
                rounds=1)
@@ -122,12 +128,13 @@ def _merge_heads(t):
 def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
                                  softclamp_value=None, dropout_rate=0.0,
                                  dropout_seed=0, gate_logits=None, hash_b0=0, hash_h0=0,
-                                 hash_heads=None):
+                                 hash_heads=None, hash_r0=0, hash_c0=0):
     """Plain PyTorch version of K1 (f32 math): returns (out, lse)."""
     o, lse = _forward_core_plain(
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads), mask,
         scale, softclamp_value, dropout_rate, dropout_seed,
-        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
+        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads, hash_r0=hash_r0,
+             hash_c0=hash_c0))
     if exists(gate_logits):
         o = o * torch.sigmoid(gate_logits.float()).permute(0, 2, 1)[..., None]
     return _merge_heads(o).to(q.dtype), lse
@@ -135,12 +142,13 @@ def flash_attention_packed_plain(q, k, v, mask=None, *, heads, scale,
 
 def flash_attention_plain(q, k, v, mask=None, *, scale, softclamp_value=None,
                           dropout_rate=0.0, dropout_seed=0, hash_b0=0, hash_h0=0,
-                          hash_heads=None):
+                          hash_heads=None, hash_r0=0, hash_c0=0):
     """Plain PyTorch version of K8 (f32 math) on ``(b, h, n, dh)``: returns
     (out, lse)."""
     o, lse = _forward_core_plain(q.float(), k.float(), v.float(), mask, scale,
                                  softclamp_value, dropout_rate, dropout_seed,
-                                 dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
+                                 dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads,
+                                      hash_r0=hash_r0, hash_c0=hash_c0))
     return o.to(q.dtype), lse
 
 
@@ -230,7 +238,7 @@ def _backward_core_plain(qf, kf, vf, dof, delta, mask, lse, dt, scale, softclamp
 def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, heads, scale,
                                           softclamp_value=None, dropout_rate=0.0,
                                           dropout_seed=0, gate_logits=None, hash_b0=0,
-                                          hash_h0=0, hash_heads=None):
+                                          hash_h0=0, hash_heads=None, hash_r0=0, hash_c0=0):
     """Plain PyTorch version of K2 (f32 math, the compute dtype's rounding
     where the TPU kernel rounds): returns ``(dq, dk, dv, d_gate_logits)``,
     the last None without a gate."""
@@ -240,7 +248,8 @@ def flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout, *, head
         _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
         _split_heads(do, heads), delta.permute(0, 2, 1), mask, lse, dt, scale,
         softclamp_value, dropout_rate, dropout_seed,
-        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
+        dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads, hash_r0=hash_r0,
+             hash_c0=hash_c0))
     dq, dk, dv = (_merge_heads(g).to(dt) for g in grads)
     return dq, dk, dv, _gate_grad(delta, gate_logits)
 
@@ -255,13 +264,16 @@ def _gate_grad(delta, gate_logits):
 
 def flash_attention_backward_plain(q, k, v, mask, out, lse, dout, *, scale,
                                    softclamp_value=None, dropout_rate=0.0, dropout_seed=0,
-                                   hash_b0=0, hash_h0=0, hash_heads=None):
+                                   hash_b0=0, hash_h0=0, hash_heads=None, hash_r0=0,
+                                   hash_c0=0):
     """Plain PyTorch version of K9 on ``(b, h, n, dh)``, with K9's delta =
     rowsum(dout * out) (f32): returns ``(dq, dk, dv)``."""
     delta = (dout.float() * out.float()).sum(-1)                      # (b, h, n)
     grads = _backward_core_plain(q.float(), k.float(), v.float(), dout.float(), delta,
                                  mask, lse, q.dtype, scale, softclamp_value, dropout_rate,
-                                 dropout_seed, dict(hash_b0=hash_b0, hash_h0=hash_h0, hash_heads=hash_heads))
+                                 dropout_seed, dict(hash_b0=hash_b0, hash_h0=hash_h0,
+                                                    hash_heads=hash_heads, hash_r0=hash_r0,
+                                                    hash_c0=hash_c0))
     return tuple(g.to(q.dtype) for g in grads)
 
 
@@ -301,16 +313,26 @@ def _check_inputs(q, k, v, mask, gate_logits, heads):
     return b, n, D, dh
 
 
-# the dropout hash's place of a launch that is the whole batch and every head
-_NO_OFFSET = dict(hash_b0=0, hash_h0=0, hash_heads=None)
+# the dropout hash's place of a launch that is the whole batch, every head and
+# the whole sequence
+_NO_OFFSET = dict(hash_b0=0, hash_h0=0, hash_heads=None, hash_r0=0, hash_c0=0)
+
+
+def hash_rc(hash_r0: int, hash_c0: int) -> int:
+    """The uint32 the kernels add to each head's seed for a launch whose
+    first query row and key column are ``hash_r0`` and ``hash_c0`` of the
+    global sequence: the hash reads ``seed + row * 0x9E3779B1 + col *
+    0x85EBCA77`` (mod 2**32), linear in both."""
+    return (int(hash_r0) * 0x9E3779B1 + int(hash_c0) * 0x85EBCA77) & _M32
 
 
 def _hash_ints(hash_kw, heads):
-    """``hash_kw`` (`_check_hash`'s) as the three ints the C entry points
+    """``hash_kw`` (`_check_hash`'s) as the four values the C entry points
     take: ``hash_b0``, ``hash_h0``, ``hash_heads`` (None: the launch's
-    ``heads``)."""
+    ``heads``) and `hash_rc`."""
     return (int(hash_kw['hash_b0']), int(hash_kw['hash_h0']),
-            int(default(hash_kw['hash_heads'], heads)))
+            int(default(hash_kw['hash_heads'], heads)),
+            hash_rc(hash_kw['hash_r0'], hash_kw['hash_c0']))
 
 
 def _flash_cuda(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
@@ -353,20 +375,32 @@ def _flash_bwd_cuda(q, k, v, mask, out, lse, dout, heads, scale, softclamp_value
     dq = torch.zeros((b, n, D), dtype=torch.float32, device=device)
     dk = torch.empty((b, n, D), dtype=dtype, device=device)
     dv = torch.empty((b, n, D), dtype=dtype, device=device)
+    launch_bwd(q, k, v, dout, mask, lse, delta, dq, dk, dv, heads, scale, softclamp_value,
+               dropout_rate, dropout_seed, hash_kw)
+    return dq.to(dtype), dk, dv, _gate_grad(delta, gate_logits)
+
+
+def launch_bwd(q, k, v, dout, mask, lse, delta, dq, dk, dv, heads, scale, softclamp_value,
+               dropout_rate, dropout_seed, hash_kw=_NO_OFFSET):
+    """K2's launch alone, on checked operands: ``dout`` contiguous (K10's
+    do_g for a gated layer), ``delta (b, n, heads)`` f32, ``dq`` a
+    contiguous f32 ``(b, n, h*dh)`` buffer K2 adds to (atomically: zeroed
+    for one launch, a running sum over a ring's blocks), ``dk`` / ``dv``
+    contiguous, written."""
+    b, n, D = q.shape
     dropping = dropout_rate > 0.0
     err = _cuda.lib().e2_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         dout.data_ptr(), mask.data_ptr() if exists(mask) else None,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, n, heads, dh, float(scale),
+        b, n, heads, D // heads, float(scale),
         float(softclamp_value) if exists(softclamp_value) else 0.0,
         1.0 / (1.0 - dropout_rate) if dropping else 1.0,
         int(dropout_seed) & _M32, keep_threshold(dropout_rate), int(dropping),
-        *_hash_ints(hash_kw, heads), _cuda.DTYPE_CODES[dtype], _cuda.stream_ptr(device))
+        *_hash_ints(hash_kw, heads), _cuda.DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device))
     _cuda.check(err, 'flash_bwd')
     _cuda.count_launch('flash_bwd')
-    return dq.to(dtype), dk, dv, _gate_grad(delta, gate_logits)
 
 
 def _check_rate(dropout_rate):
@@ -376,37 +410,40 @@ def _check_rate(dropout_rate):
     return dropout_rate
 
 
-def _check_hash_b0(hash_b0):
-    if int(hash_b0) != hash_b0 or not 0 <= hash_b0 < 2 ** 31:
-        raise ValueError(f'hash_b0 must be an int in [0, 2**31), got {hash_b0}')
-    return int(hash_b0)
+def _check_offset(value, name):
+    if int(value) != value or not 0 <= value < 2 ** 31:
+        raise ValueError(f'{name} must be an int in [0, 2**31), got {value}')
+    return int(value)
 
 
-def _check_hash(hash_b0, hash_h0, hash_heads, heads):
-    """``(hash_b0, hash_h0, hash_heads)`` checked: a launch's ``heads`` heads
-    from ``hash_h0`` must lie among a row's ``hash_heads`` (default
-    ``heads``); returned as the keyword arguments the plain versions take."""
-    hash_b0 = _check_hash_b0(hash_b0)
+def _check_hash(hash_b0, hash_h0, hash_heads, heads, hash_r0=0, hash_c0=0):
+    """``(hash_b0, hash_h0, hash_heads, hash_r0, hash_c0)`` checked: a
+    launch's ``heads`` heads from ``hash_h0`` must lie among a row's
+    ``hash_heads`` (default ``heads``), the offsets ints in [0, 2**31);
+    returned as the keyword arguments the plain versions take."""
     hash_heads = default(hash_heads, heads)
     if int(hash_h0) != hash_h0 or int(hash_heads) != hash_heads \
             or not 0 <= hash_h0 <= hash_heads - heads:
         raise ValueError(f'heads [hash_h0, hash_h0 + heads) = [{hash_h0}, {hash_h0 + heads}) '
                          f'must lie in [0, hash_heads = {hash_heads})')
-    return dict(hash_b0=hash_b0, hash_h0=int(hash_h0), hash_heads=int(hash_heads))
+    return dict(hash_b0=_check_offset(hash_b0, 'hash_b0'), hash_h0=int(hash_h0),
+                hash_heads=int(hash_heads), hash_r0=_check_offset(hash_r0, 'hash_r0'),
+                hash_c0=_check_offset(hash_c0, 'hash_c0'))
 
 
 def flash_attention_packed_backward(q, k, v, mask, out, lse, dout, *, heads: int,
                                     scale=None, softclamp_value=None,
                                     dropout_rate: float = 0.0, dropout_seed: int = 0,
                                     gate_logits=None, hash_b0: int = 0, hash_h0: int = 0,
-                                    hash_heads: int | None = None):
+                                    hash_heads: int | None = None, hash_r0: int = 0,
+                                    hash_c0: int = 0):
     """K2 alone (the counterpart of ``_flash_packed_backward`` with the gate
     grad of ``_flash_packed_gated_bwd``): from the forward's inputs, its
     output ``out``, its ``lse`` and the output grad ``dout``, returns
     ``(dq, dk, dv, d_gate_logits)`` (the last None without a gate)."""
     scale = default(scale, (q.shape[-1] // heads) ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
-    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, heads)
+    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, heads, hash_r0, hash_c0)
     if q.device.type == 'cpu':
         return flash_attention_packed_backward_plain(
             q, k, v, mask, out, lse, dout, heads=heads, scale=scale,
@@ -457,21 +494,24 @@ def flash_attention_packed(q, k, v, mask=None, *, heads: int, scale=None,
                            softclamp_value=None, dropout_rate: float = 0.0,
                            dropout_seed: int = 0, gate_logits=None,
                            return_lse: bool = False, hash_b0: int = 0, hash_h0: int = 0,
-                           hash_heads: int | None = None):
+                           hash_heads: int | None = None, hash_r0: int = 0,
+                           hash_c0: int = 0):
     """Attention on projection-layout ``q, k, v (b, n, h*dh)`` with a key
     padding ``mask (b, n)`` (True = attend) and optional per-head output
     gate logits ``(b, n, h)``. Returns ``out`` (and ``lse`` if asked);
     differentiable in q, k, v and the gate logits (backward: K2). For the
     dropout bits: ``hash_b0`` the first row's place in the global batch,
     ``hash_h0`` the first head's among a row's ``hash_heads`` (default
-    ``heads``)."""
+    ``heads``), ``hash_r0`` / ``hash_c0`` the first query row's and key
+    column's in the global sequence."""
     b, n, D = q.shape
     dh = D // heads
     scale = default(scale, dh ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _FlashPacked.apply(q, k, v, mask, gate_logits, heads, scale,
                                   softclamp_value, dropout_rate, dropout_seed,
-                                  _check_hash(hash_b0, hash_h0, hash_heads, heads))
+                                  _check_hash(hash_b0, hash_h0, hash_heads, heads, hash_r0,
+                                              hash_c0))
     return (out, lse) if return_lse else out
 
 
@@ -607,13 +647,14 @@ def launch_bwd_bhnd(q, k, v, dout, mask, lse, delta, dq, dk, dv, scale, softclam
 def flash_attention_backward(q, k, v, mask, out, lse, dout, *, scale=None,
                              softclamp_value=None, dropout_rate: float = 0.0,
                              dropout_seed: int = 0, hash_b0: int = 0, hash_h0: int = 0,
-                             hash_heads: int | None = None):
+                             hash_heads: int | None = None, hash_r0: int = 0,
+                             hash_c0: int = 0):
     """K9 alone (the counterpart of ``_flash_backward``): from the forward's
     ``(b, h, n, dh)`` inputs, its output ``out``, its ``lse`` and the output
     grad ``dout``, returns ``(dq, dk, dv)``."""
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
-    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1])
+    hash_kw = _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1], hash_r0, hash_c0)
     if q.device.type == 'cpu':
         return flash_attention_backward_plain(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=softclamp_value,
@@ -655,11 +696,12 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
                     return_lse: bool = False, hash_b0: int = 0, hash_h0: int = 0,
-                    hash_heads: int | None = None):
+                    hash_heads: int | None = None, hash_r0: int = 0, hash_c0: int = 0):
     """Attention on ``q, k, v (b, h, n, dh)`` (strided views are read where
     they lie) with a key padding ``mask (b, n)`` (True = attend), dropout
-    bits for global batch rows from ``hash_b0`` and global heads from
-    ``hash_h0`` of ``hash_heads`` (default ``h``). Returns
+    bits for global batch rows from ``hash_b0``, global heads from
+    ``hash_h0`` of ``hash_heads`` (default ``h``) and global query rows and
+    key columns from ``hash_r0`` and ``hash_c0``. Returns
     ``out (b, h, n, dh)`` (and ``lse (b*h, n)`` if asked); differentiable in
     q, k and v (forward K8, backward K9). On the card ``out`` is a view of a
     ``(b, n, h, dh)`` buffer, so ``out.transpose(1, 2)`` is contiguous (for
@@ -672,8 +714,82 @@ def flash_attention(q, k, v, mask=None, *, scale=None, softclamp_value=None,
     scale = default(scale, q.shape[-1] ** -0.5)
     dropout_rate = _check_rate(dropout_rate)
     out, lse = _Flash.apply(q, k, v, mask, scale, softclamp_value, dropout_rate, dropout_seed,
-                            _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1]))
+                            _check_hash(hash_b0, hash_h0, hash_heads, q.shape[1], hash_r0,
+                                        hash_c0))
     return (out, lse) if return_lse else out
+
+
+# -- ring blocks: one query block against one key block (parallel/sp.py) -------------
+
+def _to_bhnd(t, heads):
+    return t.unflatten(-1, (heads, t.shape[-1] // heads)).transpose(1, 2)
+
+
+def block_forward(q, k, v, mask, *, heads, scale, softclamp_value, dropout_rate, dropout_seed,
+                  hash_kw):
+    """One block of ring attention without autograd: packed ``q (b, n, h*dh)``
+    against the key block ``k, v`` with its key mask, the dropout bits those
+    of the block's place (``hash_kw``: `_check_hash`'s, with ``hash_r0`` /
+    ``hash_c0`` the block's first query row and key column). K1 for dim_head
+    32, 64 or 128, else K8 on ``(b, h, n, dh)`` views (dim_head a multiple
+    of 8 on the card: the ring zero-pads). Returns ``(out, lse)``, ``out``
+    packed in q's dtype, ``lse (b*h, n)`` f32."""
+    b, n, D = q.shape
+    if D // heads in SUPPORTED_DIM_HEAD:
+        return _flash_forward(q, k, v, mask, heads, scale, softclamp_value, dropout_rate,
+                              dropout_seed, None, hash_kw)
+    args = [_to_bhnd(t, heads) for t in (q, k, v)]
+    if q.device.type == 'cpu':
+        out, lse = flash_attention_plain(*args, mask, scale=scale,
+                                         softclamp_value=softclamp_value,
+                                         dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                                         **hash_kw)
+    else:
+        out, lse = _flash_bhnd_cuda(*args, mask, scale, softclamp_value, dropout_rate,
+                                    dropout_seed, hash_kw)
+    return out.transpose(1, 2).reshape(b, n, D), lse
+
+
+def block_delta(out, dout, *, heads):
+    """``rowsum(dout * out)`` per head, f32 ``(b, n, heads)``, of the ring's
+    combined output: K10 for dim_head 32, 64 or 128 (the heads K1 / K2
+    take), else a plain PyTorch sum, as K9's wrapper takes it."""
+    b, n, D = out.shape
+    if D // heads in SUPPORTED_DIM_HEAD:
+        return flash_delta(out, dout, heads=heads)[0]
+    return (dout.float() * out.float()).view(b, n, heads, D // heads).sum(-1)
+
+
+def block_backward(q, k, v, mask, lse, delta, dout, dq, *, heads, scale, softclamp_value,
+                   dropout_rate, dropout_seed, hash_kw):
+    """`block_forward`'s backward against the GLOBAL ``lse (b*h, n)`` and
+    ``delta (b, n, h)`` of the query rows (the ring's combined statistics):
+    K2 for dim_head 32, 64 or 128, else K9. Adds the block's dq to ``dq``, a
+    contiguous f32 ``(b, n, h*dh)`` buffer (on the card the kernels' own
+    atomic adds), and returns the key block's ``(dk, dv)``, packed in q's
+    dtype."""
+    b, n, D = q.shape
+    dh, dt = D // heads, q.dtype
+    dout = dout.contiguous()
+    if q.device.type == 'cpu':
+        split = lambda t: _split_heads(t, heads)
+        grads = _backward_core_plain(split(q), split(k), split(v), split(dout),
+                                     delta.permute(0, 2, 1), mask, lse, dt, scale,
+                                     softclamp_value, dropout_rate, dropout_seed, hash_kw)
+        dq += _merge_heads(grads[0])
+        return tuple(_merge_heads(g).to(dt) for g in grads[1:])
+    if dh in SUPPORTED_DIM_HEAD:
+        _check_inputs(q, k, v, mask, None, heads)
+        dk, dv = (torch.empty((b, n, D), dtype=dt, device=q.device) for _ in range(2))
+        launch_bwd(q, k, v, dout, mask, lse, delta, dq, dk, dv, heads, scale,
+                   softclamp_value, dropout_rate, dropout_seed, hash_kw)
+        return dk, dv
+    args = [_to_bhnd(t, heads) for t in (q, k, v, dout)]
+    _check_bhnd_inputs(*args[:3], mask)
+    dk, dv = (_bhnd_empty(b, heads, n, dh, dt, q.device) for _ in range(2))
+    launch_bwd_bhnd(*args[:3], args[3], mask, lse, delta.permute(0, 2, 1), _to_bhnd(dq, heads),
+                    dk, dv, scale, softclamp_value, dropout_rate, dropout_seed, hash_kw)
+    return tuple(t.transpose(1, 2).reshape(b, n, D) for t in (dk, dv))
 
 
 # -- the cost-floor probe -------------------------------------------------------------

@@ -40,7 +40,8 @@ from e2_tts_tpu_torch.utils.helpers import exists
 def shard_module_fsdp(module: torch.nn.Module, mesh) -> torch.nn.Module:
     """``fully_shard`` each speech and text layer of ``module.transformer``
     (an `E2TTS` or a `DurationPredictor`), then ``module`` itself, over the
-    1-D data ``mesh``, in place. An `E2TTS`'s ``transformer_with_pred_head``
+    1-D data ``mesh`` (or a 2-D one: replicated over its first axis,
+    sharded over its second), in place. An `E2TTS`'s ``transformer_with_pred_head``
     (the velocity teacher's pass) is registered as a forward, so calling it
     gathers the root's parameters as a call of the module does. Build the
     optimizer after this: FSDP2 replaces the parameters."""
@@ -57,14 +58,15 @@ def shard_module_fsdp(module: torch.nn.Module, mesh) -> torch.nn.Module:
 
 @torch.no_grad()
 def average_whole_grads_(params, mesh) -> None:
-    """Average over the ``mesh``'s ranks, in place and in one all-reduce,
-    the grads of the parameters in ``params`` that FSDP2 left whole (not
-    DTensors); FSDP2 reduces the others itself."""
+    """Average over the ``mesh``'s ranks (a 2-D mesh's: the default
+    group's), in place and in one all-reduce, the grads of the parameters in
+    ``params`` that FSDP2 left whole (not DTensors); FSDP2 reduces the
+    others itself."""
     grads = [p.grad for p in params if not isinstance(p, DTensor) and p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat, group=mesh.get_group())
+    dist.all_reduce(flat, group=mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD)
     flat /= mesh.size()
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))

@@ -83,8 +83,9 @@ def shard_batch(batch, mesh: DeviceMesh):
 @torch.no_grad()
 def replicate_module(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
     """Broadcast every parameter and buffer from the mesh's rank 0, in
-    place, so that every rank starts from the same state."""
-    group = mesh.get_group()
+    place, so that every rank starts from the same state (a 2-D mesh spans
+    the default group)."""
+    group = mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
     src = dist.get_global_rank(group, 0)
     for t in (*module.parameters(), *module.buffers()):
         dist.broadcast(t.data, src=src, group=group)

@@ -71,12 +71,26 @@ whole parameters of which each rank uses its heads' rows (the value-head
 gate, the value-residual mix) are summed over the model axis after the
 backward, in one all-reduce (`parallel.tp.sum_shared_grads_`). A checkpoint
 is written in the
-single-device layout. ``param_sharding='fsdp'`` on a 2-D mesh raises
-NotImplementedError (ROADMAP.md queue 1, FSDP over the data axis of a TP
-mesh), as the JAX trainer does not compose FSDP with TP either.
+single-device layout. ``param_sharding='fsdp'`` on a (data, model) mesh
+raises NotImplementedError (ROADMAP.md queue 3: the JAX trainer does not
+compose FSDP with TP either, its placement undoes TP).
 
-Not ported: sequence parallelism (``sequence_parallel > 1`` raises
-NotImplementedError; ROADMAP.md queue 1 item 3).
+Sequence parallelism (the JAX trainer's ``sequence_parallel``):
+``sequence_parallel=P`` builds the (data, seq) mesh of ``world / P`` x ``P``
+ranks (`parallel.sp.make_seq_mesh`), or ``mesh`` is one; the trainer routes
+the model's and the EMA copy's attentions (the velocity teacher's) over its
+``seq`` axis (`parallel.sp.enable_sequence_parallel`). Rows come from the
+``data`` axis: every rank of a seq group takes the same rows and draws, and
+computes its rows of the sequence. Each rank's loss term is its frames'
+error over the whole span count, so its parameter grads are partial sums,
+and one reduction over data x seq (DDP over the whole mesh, the term times
+its size) gives the global grad; the clip's norm is the single device's.
+``param_sharding='fsdp'`` shards over ``data`` and replicates over ``seq``
+(FSDP2 on the (seq, data) view of the mesh). A batch whose frames plus
+registers ``P`` does not divide raises ValueError, as in the JAX trainer.
+The duration predictor runs dense on every rank of a seq group, its grads
+reduced over ``data``. A checkpoint is written by rank 0 in the
+single-device layout.
 """
 
 from __future__ import annotations
@@ -99,6 +113,7 @@ from e2_tts_tpu_torch.parallel.mesh import (
     DATA_AXIS, batch_rows, make_mesh, replicate_module, shard_batch,
 )
 from e2_tts_tpu_torch.parallel.multihost import is_main_process, world_size
+from e2_tts_tpu_torch.parallel.sp import SEQ_AXIS, enable_sequence_parallel, make_seq_mesh
 from e2_tts_tpu_torch.parallel.tp import (
     MODEL_AXIS, param_layouts, shared_params, sum_shared_grads_, tp_axis)
 from e2_tts_tpu_torch.training import checkpointing
@@ -254,35 +269,54 @@ class E2Trainer:
         in ``[profile_steps[0], profile_steps[1])`` is written there (on
         rank 0). The trainer runs on the model's device.
 
-        ``mesh``: a 1-D data mesh (`parallel.mesh.make_mesh`), or the 2-D
+        ``mesh``: a 1-D data mesh (`parallel.mesh.make_mesh`), the 2-D
         (data, model) mesh (`parallel.tp.make_2d_mesh`) that
-        `parallel.tp.shard_module_tp` sharded the model over; None means a
-        1-D mesh over the world when a process group of more than one rank
-        is up, else a single device. Under a mesh, ``param_sharding`` is
-        ``'replicated'`` (DDP over the data axis) or, on a 1-D mesh,
-        ``'fsdp'`` (FSDP2); every rank of the data axis starts from its
-        rank 0's weights. Build the trainer after loading weights: FSDP
-        replaces the model's parameters, so a ready ``optimizer`` cannot be
-        taken with ``'fsdp'``."""
-        if sequence_parallel > 1:
-            raise NotImplementedError('sequence parallelism is not ported to e2_tts_tpu_torch '
-                                      'yet (ROADMAP.md queue 1 item 3, SP)')
+        `parallel.tp.shard_module_tp` sharded the model over, or a (data,
+        seq) mesh (`parallel.sp.make_seq_mesh`); None means, with
+        ``sequence_parallel=P > 1``, the (data, seq) mesh of ``world / P`` x
+        ``P`` ranks, else a 1-D mesh over the world when a process group of
+        more than one rank is up, else a single device. Under a mesh,
+        ``param_sharding`` is ``'replicated'`` (DDP) or, on a 1-D or a
+        (data, seq) mesh, ``'fsdp'`` (FSDP2 over ``data``); every rank
+        starts from rank 0's weights. Build the trainer after loading
+        weights: FSDP replaces the model's parameters, so a ready
+        ``optimizer`` cannot be taken with ``'fsdp'``."""
         if param_sharding not in ('replicated', 'fsdp'):
             raise ValueError(f"param_sharding must be 'replicated' or 'fsdp', "
                              f'got {param_sharding!r}')
+        if sequence_parallel < 1:
+            raise ValueError(f'sequence_parallel must be >= 1, got {sequence_parallel}')
+        if mesh is None and sequence_parallel > 1:
+            if world_size() % sequence_parallel:
+                raise ValueError(f'sequence_parallel={sequence_parallel} must divide the '
+                                 f'number of ranks ({world_size()})')
+            mesh = make_seq_mesh(sequence_parallel, world_size() // sequence_parallel)
         if mesh is None and world_size() > 1:
             mesh = make_mesh()
         if exists(mesh) and not (isinstance(mesh, DeviceMesh) and (
-                mesh.ndim == 1 or mesh.mesh_dim_names == (DATA_AXIS, MODEL_AXIS))):
-            raise TypeError(f'mesh must be a 1-D DeviceMesh (parallel.mesh.make_mesh) or a '
-                            f'(data, model) one (parallel.tp.make_2d_mesh), got {mesh!r}')
+                mesh.ndim == 1 or mesh.mesh_dim_names in ((DATA_AXIS, MODEL_AXIS),
+                                                          (DATA_AXIS, SEQ_AXIS)))):
+            raise TypeError(f'mesh must be a 1-D DeviceMesh (parallel.mesh.make_mesh), a '
+                            f'(data, model) one (parallel.tp.make_2d_mesh) or a (data, seq) '
+                            f'one (parallel.sp.make_seq_mesh), got {mesh!r}')
+        seq_mesh = exists(mesh) and mesh.mesh_dim_names == (DATA_AXIS, SEQ_AXIS)
+        if sequence_parallel > 1 and not (seq_mesh
+                                          and mesh[SEQ_AXIS].size() == sequence_parallel):
+            raise ValueError(f'sequence_parallel={sequence_parallel} needs a mesh with a `seq` '
+                             f'axis of that size (parallel.sp.make_seq_mesh)')
+        if seq_mesh and mesh.size() != world_size():
+            # the model's DDP, its replication and the whole grads' sums run
+            # over every rank
+            raise ValueError(f'a (data, seq) mesh must span every rank: {mesh.size()} of '
+                             f'{world_size()}')
         tp_meshes = {getattr(tp_axis(m), 'mesh', None)
                      for m in filter(exists, (model, duration_predictor))} - {None}
-        if exists(mesh) and mesh.ndim == 2:
+        if exists(mesh) and mesh.ndim == 2 and not seq_mesh:
             if param_sharding == 'fsdp':
                 raise NotImplementedError(
-                    "param_sharding='fsdp' on a (data, model) mesh is not ported: ROADMAP.md "
-                    'queue 1, FSDP over the data axis of a TP mesh')
+                    "param_sharding='fsdp' on a (data, model) mesh is not ported: the JAX "
+                    'trainer does not compose FSDP with tensor parallelism either (ROADMAP.md '
+                    'queue 3)')
             if tp_meshes != {mesh} or not exists(tp_axis(model)):
                 raise ValueError('a (data, model) mesh takes a model (and predictor) that '
                                  'parallel.tp.shard_module_tp sharded over it')
@@ -312,17 +346,27 @@ class E2Trainer:
         self.mesh = mesh
         # the 1-D mesh of the data axis: the rows, DDP and the loss's sum
         self.data_mesh = mesh[DATA_AXIS] if exists(mesh) and mesh.ndim == 2 else mesh
+        self.seq_mesh = mesh if seq_mesh else None
         self._tp = {}            # module -> its model axis, which params are pieces, shared
         self.param_sharding = param_sharding
         if exists(mesh):
             for module in filter(exists, (model, duration_predictor)):
-                replicate_module(module, self.data_mesh)
+                replicate_module(module, mesh if seq_mesh else self.data_mesh)
+        if seq_mesh:
+            enable_sequence_parallel(model, mesh)
         self.ema = EMA(model, **ema_kwargs)
-        self._model_fn = self._place(model)
+        if seq_mesh:            # the velocity teacher rides the ring too
+            enable_sequence_parallel(self.ema.ema_model, mesh)
+        # FSDP2 shards over the data axis and, on a (data, seq) mesh,
+        # replicates over seq: its (seq, data) view
+        self._fsdp_mesh = (DeviceMesh(mesh.device_type, mesh.mesh.t().contiguous(),
+                                      mesh_dim_names=(SEQ_AXIS, DATA_AXIS))
+                           if seq_mesh and param_sharding == 'fsdp' else mesh)
+        self._model_fn = self._place(model, whole_mesh=True)
         self._dp_fn = (self._place(duration_predictor) if self.train_duration_predictor
                        else duration_predictor)
         if exists(mesh) and param_sharding == 'fsdp':
-            shard_module_fsdp(self.ema.ema_model, mesh)
+            shard_module_fsdp(self.ema.ema_model, self._fsdp_mesh)
         self.use_switch_ema = use_switch_ema
         self.num_warmup_steps = num_warmup_steps
         self.max_grad_norm = max_grad_norm
@@ -354,23 +398,44 @@ class E2Trainer:
             except ImportError:
                 logger.warning('tensorboard unavailable; scalar logging disabled')
 
-    def _place(self, module):
+    def _place(self, module, whole_mesh: bool = False):
         """The callable a step runs ``module`` through: the module itself on
-        one device or after FSDP2's in-place sharding, else its DDP
-        wrapper."""
+        one device or after FSDP2's in-place sharding, else its DDP wrapper,
+        over the data axis or, with ``whole_mesh`` on a (data, seq) mesh (the
+        model, whose grads are partial sums over seq), over every rank."""
         if not exists(self.mesh):
             return module
         if self.param_sharding == 'fsdp':
-            return shard_module_fsdp(module, self.mesh)
+            return shard_module_fsdp(module, self._fsdp_mesh)
         from torch.nn.parallel import DistributedDataParallel
         device_ids = [self.device.index] if self.device.type == 'cuda' else None
-        return DistributedDataParallel(module, device_ids=device_ids,
-                                       process_group=self.data_mesh.get_group(),
+        group = (dist.group.WORLD if whole_mesh and exists(self.seq_mesh)
+                 else self.data_mesh.get_group())
+        return DistributedDataParallel(module, device_ids=device_ids, process_group=group,
                                        broadcast_buffers=False, find_unused_parameters=True)
 
-    def _shards(self) -> int:
-        """The number of ranks on the data axis."""
-        return self.data_mesh.size() if exists(self.mesh) else 1
+    def _check_seq_batch(self, frames: int):
+        """The JAX trainer's check of a batch under sequence parallelism,
+        with its words: the ring needs frames + registers divisible by the
+        seq axis."""
+        size, registers = self.seq_mesh[SEQ_AXIS].size(), self.model.transformer.num_registers
+        attended = frames + registers
+        if attended % size:
+            raise ValueError(
+                f'sequence_parallel={size} needs (frames + num_registers) divisible by the '
+                f'seq axis; this batch has {frames} frames + {registers} registers = '
+                f'{attended}. Pick `frame_bucket` so that (bucketed frames + num_registers) % '
+                f'{size} == 0.')
+
+    def _shards(self, whole_mesh: bool = False) -> int:
+        """The number of ranks whose loss terms DDP and FSDP average a grad
+        over: the data axis', or with ``whole_mesh`` on a (data, seq) mesh
+        (the model, whose grads are partial sums over seq) every rank's. The
+        duration predictor's grads are equal on a seq group's ranks, so its
+        terms count once a data rank."""
+        if not exists(self.mesh):
+            return 1
+        return self.mesh.size() if whole_mesh and exists(self.seq_mesh) else self.data_mesh.size()
 
     def _rows(self, *arrays):
         """This rank's rows of the global batch's ``arrays`` (None passes)
@@ -399,7 +464,7 @@ class E2Trainer:
         under TP the shared parameters' grads summed over the model axis."""
         grads = _grads(params)
         if exists(self.mesh) and self.param_sharding == 'fsdp':
-            average_whole_grads_(params, self.mesh)
+            average_whole_grads_(params, self._fsdp_mesh)
         axis, _, shared = self._tp_placement(module, params)
         if exists(axis):
             sum_shared_grads_(shared, axis)
@@ -468,6 +533,8 @@ class E2Trainer:
         if not exists(self.optimizer):
             raise RuntimeError('the optimizer is built at train() or from total_steps=')
         model = self.model
+        if exists(self.seq_mesh):
+            self._check_seq_batch(np.shape(mel)[1])
         model.train()
         teacher = (self.ema.ema_model
                    if self.need_velocity_consistent_loss and self.ema.initted else None)
@@ -482,7 +549,7 @@ class E2Trainer:
                              generator=self.generator, **place)
         # DDP and FSDP average the grads over the ranks: the loss term times
         # their number makes that average the global loss's grad
-        (out.loss * self._shards()).backward()
+        (out.loss * self._shards(whole_mesh=True)).backward()
         if exists(teacher) and self.param_sharding == 'fsdp' and exists(self.mesh):
             # FSDP2 keeps a root's parameters gathered after its forward for
             # the backward; the teacher has none, so free them here

@@ -1,5 +1,5 @@
 """One rank of the port's data- and tensor-parallel tests
-(tests/test_torch_parallel*.py, tests/test_torch_tp*.py).
+(tests/test_torch_parallel*.py, tests/test_torch_tp*.py, tests/test_torch_sp.py).
 
     python tests/_torch_parallel_worker.py RANK WORLD STORE JOB
 
@@ -18,6 +18,13 @@ its kinds beyond the trainer's steps: ``grads`` (one loss and backward on
 the global batch of its first step, no trainer), ``sample`` and ``paths``
 (the sharded set of a model with a duration predictor and frequency
 tokens), ``fsdp`` (the error a trainer with FSDP on the mesh raises).
+
+A task with ``sp = [data, seq]`` trains on the (data, seq) mesh
+(`parallel.sp.make_seq_mesh`; with ``trainer_builds_mesh`` the trainer
+builds it from ``sequence_parallel``); its kinds beyond the steps:
+``sp_grads`` (one loss and backward of the routed model on its rows, the
+grads summed over every rank, no trainer) and ``sp_errors`` (the errors of
+an indivisible batch and of a shard shorter than the conv's halo).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from e2_tts_tpu_torch.models import blocks as blocks_module        # noqa: E402
 from e2_tts_tpu_torch.models import e2tts as e2tts_module          # noqa: E402
 from e2_tts_tpu_torch.models.duration import DurationPredictor     # noqa: E402
 from e2_tts_tpu_torch.models.e2tts import E2TTS                    # noqa: E402
+from e2_tts_tpu_torch.models import transformer as transformer_module  # noqa: E402
+from e2_tts_tpu_torch.parallel import sp as sp_module               # noqa: E402
 from e2_tts_tpu_torch.parallel import tp as tp_module               # noqa: E402
 from e2_tts_tpu_torch.parallel.fsdp import gather_full, local      # noqa: E402
 from e2_tts_tpu_torch.training import trainer as trainer_module    # noqa: E402
@@ -216,6 +225,22 @@ def run_task(task: dict, rank: int, world: int):
             return shard, dict(place, batch_offset=0)
         E2Trainer._rows = rows
         restore.append(lambda: setattr(E2Trainer, '_rows', orig))
+    elif fault == 'offsets0':      # every ring block draws the bits of rows and columns from 0
+        for name in ('block_forward', 'block_backward'):
+            block = getattr(sp_module, name)
+            patch(sp_module, name, lambda *a, _block=block, hash_kw, **o: _block(
+                *a, hash_kw=dict(hash_kw, hash_r0=0, hash_c0=0), **o))
+    elif fault == 'no_halo':       # each shard's conv zero-padded, as a sequence of its own
+        patch(sp_module, 'halo_pad', lambda x, seq, width: torch.nn.functional.pad(
+            x, (0, 0, width, width)))
+    elif fault == 'local_rotary':  # every shard's rotary tables from position 0
+        tables, size = transformer_module.rotary_tables, task['sp'][1]
+        patch(transformer_module, 'rotary_tables', lambda n, dh, device=None: tuple(
+            t[:n // size].repeat(size, 1) for t in tables(n, dh, device=device)))
+    elif fault == 'local_span':    # each shard's error over its own span count
+        mse = e2tts_module.masked_mse
+        patch(e2tts_module, 'masked_mse', lambda pred, target, span, count=None: mse(
+            pred, target, span))
     elif fault == 'rank_mean':     # each rank's loss is its own span's mean
         orig_count = e2tts_module.global_span_count
         e2tts_module.global_span_count = lambda span, group=None: span.float().sum() * world
@@ -240,6 +265,9 @@ def run_task(task: dict, rank: int, world: int):
         if task['kind'] in ('grads', 'sample', 'paths', 'fsdp'):
             run_tp_task(task, rank, steps)
             return
+        if task['kind'] in ('sp_grads', 'sp_errors'):
+            run_sp_task(task, rank, steps)
+            return
         model = build_model(task['config'], seed=task.get('seed', 0),
                             velocity_weight=task.get('velocity_weight', 0.0),
                             jax_state=task.get('jax_state'), **task.get('model_kw', {}))
@@ -249,6 +277,11 @@ def run_task(task: dict, rank: int, world: int):
         if task.get('tp'):
             kw['mesh'] = tp_module.make_2d_mesh(*task['tp'])
             tp_module.shard_module_tp(model, kw['mesh'])
+        if task.get('sp'):
+            data, seq = task['sp']
+            kw['sequence_parallel'] = seq
+            if not task.get('trainer_builds_mesh'):
+                kw['mesh'] = sp_module.make_seq_mesh(seq, data)
         trainer = make_trainer(model, param_sharding=task['sharding'], **kw)
         record = {}
         if task.get('resume_from'):
@@ -356,6 +389,69 @@ def run_tp_task(task: dict, rank: int, steps: list[dict]):
         grads[f'grad.{name}'] = full(g, p).numpy()
     if rank == 0:
         np.savez(os.path.join(out, 'result.npz'), loss=loss.numpy(), **grads)
+
+
+def forward_grads(model, step: dict, mesh=None) -> dict:
+    """One loss and backward of ``model`` on the global batch ``step``
+    (``mel``, ``lens``, ``text``, ``drop`` and the draws ``times`` /
+    ``noise`` / ``rand_span_mask`` when given; dropout seeds from a
+    generator seeded 9): on one device without ``mesh``, else routed over
+    the (data, seq) ``mesh`` on this rank's rows, the grads summed over
+    every rank (a collective). Returns the loss and every grad as numpy."""
+    import torch.distributed as dist
+    model.train()
+    place, rows = {}, slice(None)
+    if mesh is not None:
+        sp_module.enable_sequence_parallel(model, mesh)
+        start, stop = trainer_module.batch_rows(len(step['mel']), mesh[sp_module.DATA_AXIS])
+        place, rows = dict(batch_offset=start, global_batch=len(step['mel'])), slice(start, stop)
+    draws = {k: torch.tensor(step[k][rows]) for k in ('times', 'noise', 'rand_span_mask')
+             if k in step}
+    out = model(torch.as_tensor(step['mel'][rows]), text=torch.as_tensor(step['text'][rows]).long(),
+                lens=torch.as_tensor(step['lens'][rows]).long(), drop_text_cond=bool(step['drop']),
+                generator=torch.Generator().manual_seed(9), **draws, **place)
+    out.loss.backward()
+    loss = out.loss.detach().clone()
+    grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone()
+             for name, p in model.named_parameters()}
+    if mesh is not None:
+        dist.all_reduce(loss, group=mesh[sp_module.DATA_AXIS].get_group())
+        for g in grads.values():
+            dist.all_reduce(g)
+    return dict(loss=loss.numpy(), **{f'grad.{k}': g.numpy() for k, g in grads.items()})
+
+
+def run_sp_task(task: dict, rank: int, steps: list[dict]):
+    """A sequence-parallel task without a trainer's steps: ``sp_grads``
+    (`forward_grads` of the routed model, from the JAX weights when the
+    task names them) or ``sp_errors`` (the messages of an indivisible
+    batch through the trainer and of a shard shorter than the halo)."""
+    out = task['out']
+    data, seq = task['sp']
+    mesh = sp_module.make_seq_mesh(seq, data)
+    if task['kind'] == 'sp_grads':
+        if task.get('jax_state'):
+            wait_for(task['jax_state'])
+        model = build_model(task['config'], jax_state=task.get('jax_state'),
+                            **task.get('model_kw', {}))
+        result = forward_grads(model, steps[0], mesh)
+        if rank == 0:
+            np.savez(os.path.join(out, 'result.npz'), **result)
+        return
+    errors = {}
+    trainer = make_trainer(build_model(task['config']), mesh=mesh)
+    step = steps[0]
+    try:
+        run_steps(trainer, [dict(step, mel=step['mel'][:, 1:])])    # frames + registers odd
+    except ValueError as e:
+        errors['batch'] = str(e)
+    model = build_model(dict(task['config'], kernel_size=31))
+    try:                                                           # 12 rows a shard, halo 15
+        forward_grads(model, step, mesh)
+    except ValueError as e:
+        errors['halo'] = str(e)
+    if rank == 0:
+        np.savez(os.path.join(out, 'result.npz'), **{k: np.asarray(v) for k, v in errors.items()})
 
 
 def write_steps(path: str, steps: list[dict]) -> str:

@@ -1186,6 +1186,87 @@ def test_flash_hash_h0(dev, layout, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('layout', ['packed', 'bhnd'])
+def test_flash_hash_row_col_offsets(dev, layout, dtype):
+    """``hash_r0`` / ``hash_c0``: K1 / K2 (packed, heads of 64) and K8 / K9
+    (heads of 72) launched on one block of a ring, rows [r0, r0 + 64) against
+    keys [c0, c0 + 64), draw `dropout_keep_mask`'s bits at those offsets (q =
+    k = 0, v the identity: a kept key's column is positive), and K2's dv of
+    that block is the keep mask's column sums; at offsets 0 they differ. At
+    the default offsets a launch is the one of before (the keep bits of
+    rows and columns from 0)."""
+    b, heads, nl, rate, seed, b0 = 2, 2, 64, 0.1, 321, 3
+    dh = 64 if layout == 'packed' else 72
+    zeros = torch.zeros(b, heads, nl, dh, device=dev, dtype=dtype)
+    eye = torch.eye(nl, dh, device=dev, dtype=dtype).expand(b, heads, nl, dh).contiguous()
+    to_packed = lambda t: t.transpose(1, 2).reshape(b, nl, heads * dh).contiguous()
+    kw = dict(softclamp_value=50.0, dropout_rate=rate, dropout_seed=seed, hash_b0=b0)
+
+    def launch(**o):
+        if layout == 'packed':
+            out = fa.flash_attention_packed(to_packed(zeros), to_packed(zeros), to_packed(eye),
+                                            heads=heads, **kw, **o)
+            return out.view(b, nl, heads, dh).transpose(1, 2)
+        return fa.flash_attention(zeros, zeros, eye, **kw, **o)
+    for r0, c0 in ((0, 0), (128, 64), (64, 192), (192, 0)):
+        keep = fa.dropout_keep_mask(seed, b * heads, nl, rate, device=dev, hash_b0=b0,
+                                    heads=heads, hash_r0=r0, hash_c0=c0).view(b, heads, nl, nl)
+        got = launch(hash_r0=r0, hash_c0=c0)
+        assert torch.equal(got > 0, keep[..., :dh] if dh <= nl else
+                           torch.nn.functional.pad(keep, (0, dh - nl)))
+        if r0 or c0:
+            assert not torch.equal(launch() > 0, got > 0)
+    # K2 / K9 at the block's offsets: with p uniform, dv = keep^T do / (1 - rate) / nl
+    r0, c0 = 64, 128
+    keep = fa.dropout_keep_mask(seed, b * heads, nl, rate, device=dev, hash_b0=b0, heads=heads,
+                                hash_r0=r0, hash_c0=c0).view(b, heads, nl, nl)
+    ones = torch.ones(b, heads, nl, dh, device=dev, dtype=dtype)
+    lse = torch.full((b * heads, nl), math.log(nl), device=dev)
+    if layout == 'packed':
+        out = to_packed(torch.zeros_like(ones))
+        dv = fa.flash_attention_packed_backward(
+            to_packed(zeros), to_packed(zeros), to_packed(eye), None, out, lse, to_packed(ones),
+            heads=heads, hash_r0=r0, hash_c0=c0, **kw)[2].view(b, nl, heads, dh).transpose(1, 2)
+    else:
+        dv = fa.flash_attention_backward(zeros, zeros, eye, None, torch.zeros_like(ones), lse,
+                                         ones, hash_r0=r0, hash_c0=c0, **kw)[2]
+    want = keep.float().sum(2)[..., None].expand(b, heads, nl, dh) / (1 - rate) / nl
+    torch.testing.assert_close(dv.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dh', [64, 72])
+@pytest.mark.parametrize('P', [2, 4])
+def test_ring_matches_one_launch(dev, P, dh, dtype):
+    """`parallel.sp.ring_attention` on a `Loopback` of P shards (K1 / K2 or
+    K8 / K9 a block, K10 or a sum for delta) against one launch over the
+    whole sequence: a ragged mask with wholly masked shards, softclamp 50,
+    dropout 0.1; out and the grads within the kernels' limits."""
+    from e2_tts_tpu_torch.parallel import sp
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, heads, n = 2, 4, 256
+    D = heads * dh
+    q, k, v, do = (torch.randn(b, n, D, generator=g, device=dev).to(dtype) for _ in range(4))
+    mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    mask[1, 50:] = False
+    kw = dict(heads=heads, softclamp_value=50.0, dropout_rate=0.1, dropout_seed=77, hash_b0=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sp.ring_attention(*leaves, mask, mesh=sp.Loopback(P), **kw)
+    if dh in fa.SUPPORTED_DIM_HEAD:
+        ref = fa.flash_attention_packed(*refs, mask, **kw)
+    else:
+        to = lambda t: t.unflatten(-1, (heads, dh)).transpose(1, 2)
+        ref = fa.flash_attention(*(to(t) for t in refs), mask,
+                                 **{x: y for x, y in kw.items() if x != 'heads'})
+        ref = ref.transpose(1, 2).reshape(b, n, D)
+    _close(out, ref, dtype)
+    out.backward(do)
+    ref.backward(do)
+    _close_grads([t.grad for t in leaves], [t.grad for t in refs], dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('inner', [1408, 2752, 3072])
 def test_geglu_column_fold(dev, dtype, inner):
     """K6 / K7 on a tensor-parallel rank's value and gate columns [c0, c0 +

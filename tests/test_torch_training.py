@@ -284,17 +284,15 @@ def test_trainer_train_on_cpu(tmp_path):
 
 
 def test_trainer_unported_paths_raise():
-    """Sequence parallelism is the trainer's only path not ported (it names
-    its queue item); every other option of the JAX trainer is accepted (held
-    against JAX in tests/test_torch_trainer_stack.py,
-    tests/test_torch_trainer_options.py and, for meshes and FSDP,
-    tests/test_torch_parallel.py). A mesh that is not a 1-D DeviceMesh and
-    an unknown sharding raise; without a mesh ``param_sharding='fsdp'`` is
-    a single device, as the JAX trainer on one device."""
+    """Every option of the JAX trainer is accepted (held against JAX in
+    tests/test_torch_trainer_stack.py, tests/test_torch_trainer_options.py
+    and, for meshes, FSDP, TP and SP, tests/test_torch_parallel.py,
+    tests/test_torch_tp.py and tests/test_torch_sp.py). A mesh that is not a
+    DeviceMesh and an unknown sharding raise; without a mesh
+    ``param_sharding='fsdp'`` is a single device, as the JAX trainer on one
+    device."""
     p = E2TTS(transformer=dict(SMALL_TF), device='cpu')
-    for kw, error, match in ((dict(sequence_parallel=2), NotImplementedError,
-                              'sequence parallelism.*queue 1 item 3'),
-                             (dict(mesh=object()), TypeError, 'DeviceMesh'),
+    for kw, error, match in ((dict(mesh=object()), TypeError, 'DeviceMesh'),
                              (dict(param_sharding='zero2'), ValueError, 'param_sharding')):
         with pytest.raises(error, match=match):
             E2Trainer(p, **kw)
