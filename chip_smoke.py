@@ -2224,25 +2224,28 @@ def expected_train_launches(model, with_text: bool, save_state: bool = False) ->
     layer of a stream that runs, K5 / K5b once, K3 / K4 twice, K1 / K2 / K10
     (or K8 / K9 for heads K1 does not take) and K6 / K7 once. Without text
     the text stream does not run. With per-layer remat every forward kernel
-    runs again in the backward's recompute. With ``save_state`` the
+    runs again in the backward's recompute, and with ``scan_layers`` those
+    of every layer in a scan group of the plan. With ``save_state`` the
     hyper-connection kernels are their save-state variants (K5s, K3s, K5bs,
     K4s; remat's first forward runs with grad on, so it saves too)."""
     tf = model.transformer
     layers = tf.depth + (tf.text_depth if with_text else 0)
-    recompute = 2 if tf.remat else 1
-    fwd = layers * recompute
+    # forward runs of each layer: two under remat and in a scan_layers group
+    runs = [2 if tf.remat or ind in tf.scanned else 1 for ind in range(tf.depth)]
+    speech_fwd = sum(runs)
+    fwd = speech_fwd + (sum(runs[:tf.text_depth]) if with_text else 0)
     counts = dict(hc_width=fwd, hc_width_fused=2 * fwd, geglu_fwd=fwd, hc_width_bwd=layers,
                   hc_width_fused_bwd=2 * layers, geglu_bwd=layers)
     # the attention of every layer that runs; with the frequency axis, the
     # frequency attention of every speech layer and its chained connection
-    attentions = [(tf.dim_head, layers)]
+    attentions = [(tf.dim_head, layers, fwd)]
     if tf.has_freq_axis:
-        attentions.append((tf.freq_dim_head, tf.depth))
-        counts['hc_width_fused'] += tf.depth * recompute
+        attentions.append((tf.freq_dim_head, tf.depth, speech_fwd))
+        counts['hc_width_fused'] += speech_fwd
         counts['hc_width_fused_bwd'] += tf.depth
-    for dim_head, n in attentions:
+    for dim_head, n, n_fwd in attentions:
         fwd_key, bwd_key = attention_kernels(dim_head)
-        counts[fwd_key] = counts.get(fwd_key, 0) + n * recompute
+        counts[fwd_key] = counts.get(fwd_key, 0) + n_fwd
         counts[bwd_key] = counts.get(bwd_key, 0) + n
         if fwd_key == 'flash_fwd':
             counts['flash_delta'] = counts.get('flash_delta', 0) + n
@@ -4183,6 +4186,144 @@ def phase_sequence_parallel(torch, dev, smi):
             proc.wait()
 
 
+# -- phase 16: scan_layers ----------------------------------------------------------
+
+# a scan model's step against the unrolled model's on the card, f32, the same
+# weights, draws and dropout seeds: the same kernels on the same inputs, so the
+# loss is equal; the grads differ only where K2 sums dq by atomics in a
+# run-dependent order (PERF.md section 2's remat limit)
+SCAN_GRAD_TOL = 1e-5
+SCAN_TRAIN_STEPS_TIMED = 3
+
+
+def scan_twin(torch, model, dtype):
+    """``model`` (a flagship E2TTS) built again with ``scan_layers`` and
+    loaded from its state dict: the names are the unrolled model's."""
+    from e2_tts_tpu_torch import E2TTS
+    tf = model.transformer
+    twin = E2TTS(transformer=dict(FLAGSHIP, dropout=tf.dropout, scan_layers=True), dtype=dtype,
+                 device='cpu')
+    twin.load_state_dict(model.state_dict())
+    return twin.to(model.device).train(model.training)
+
+
+def phase_scan_layers(torch, dev, smi):
+    """``scan_layers=True`` at the flagship (512 x 8, 8 x 64; the plan's scan
+    groups are layers 1-3 and 4-6), from the unrolled model's state dict:
+    (a) one sequential-CFG evaluation in bf16 at 1024 frames, bit for bit the
+    unrolled model's; (b) one f32 step at B=2 x 512, dropout 0.1, its loss the
+    unrolled step's exactly and its grads within SCAN_GRAD_TOL (relative L2),
+    and a planted fault (the dropout seeds of layer 1, the first scanned,
+    shifted by one) that must exceed that ten times; (c) three with-text
+    bf16 `E2Trainer` steps at B=16 x 1024 each way: ms a step, peak memory,
+    launch counts against `expected_train_launches` (the scanned layers'
+    forward kernels run twice)."""
+    import numpy as np
+
+    from e2_tts_tpu_torch import E2Trainer
+    from e2_tts_tpu_torch.models import transformer as transformer_module
+    from e2_tts_tpu_torch.ops import _cuda
+    from e2_tts_tpu_torch.training.data import ArrayDataset, iter_batches
+
+    model = build_e2tts(torch, dev, torch.bfloat16).eval()
+    scan = scan_twin(torch, model, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, FRAMES, 100, generator=g).to(dev, torch.bfloat16)
+    cond = torch.zeros(1, FRAMES, 100)
+    cond[:, :PROMPT_FRAMES] = torch.randn(1, PROMPT_FRAMES, 100, generator=g)
+    kw = dict(text=torch.as_tensor(model.tokenizer([TEXT]), dtype=torch.long, device=dev),
+              mask=torch.ones(1, FRAMES, dtype=torch.bool, device=dev), cfg_strength=1.0,
+              batched_cfg=False)
+    with torch.no_grad():
+        outs = [m.cfg_transformer_with_pred_head(x, cond.to(dev, torch.bfloat16),
+                                                 torch.tensor([0.5], device=dev), **kw)
+                for m in (model, scan)]
+    equal = torch.equal(*outs)
+    log(f'scan_layers (a) cfg eval bf16 B=1 frames={FRAMES} plan={scan.transformer.scan_plan}: '
+        f'bit_equal_to_unrolled={equal} finite={bool(torch.isfinite(outs[1]).all())}')
+    if not (equal and torch.isfinite(outs[1]).all()):
+        raise AssertionError('scan_layers: the CFG evaluation is not the unrolled model\'s')
+    del model, scan, outs
+
+    model = build_e2tts(torch, dev, None, dropout=0.1).train()
+    scan = scan_twin(torch, model, None)
+    batch = train_check_batch(torch, model)
+    seeded = lambda: torch.Generator().manual_seed(7)
+    loss_u, grad_u = step_loss_and_grads(torch, model, batch, generator=seeded())
+    _cuda.reset_launch_counts()
+    loss_s, grad_s = step_loss_and_grads(torch, scan, batch, generator=seeded())
+    fwd_s = _cuda.launch_counts['flash_fwd']
+    draw, calls = transformer_module.draw_seed, [0]
+
+    def shifted(generator):          # layer 1's four seeds (text attn, text ff, attn, ff) + 1
+        calls[0] += 1
+        return draw(generator) + int(4 < calls[0] <= 8)
+    transformer_module.draw_seed = shifted
+    try:
+        loss_f, grad_f = step_loss_and_grads(torch, scan, batch, generator=seeded())
+    finally:
+        transformer_module.draw_seed = draw
+    rel = float((grad_s - grad_u).norm() / grad_u.norm())
+    rel_f = float((grad_f - grad_u).norm() / grad_u.norm())
+    want_fwd = expected_train_launches(scan, True)['flash_fwd']
+    log(f'scan_layers (b) f32 step B=2 frames=512 dropout 0.1 vs unrolled, same weights, draws '
+        f'and seeds: loss={loss_s:.7f} unrolled_loss={loss_u:.7f} loss_equal={loss_s == loss_u} '
+        f'grad_rel_l2={rel:.3e} (<= {SCAN_GRAD_TOL:g}) flash_fwd launches={fwd_s} '
+        f'(expected {want_fwd}); planted fault, layer 1\'s seeds + 1: loss={loss_f:.7f} '
+        f'grad_rel_l2={rel_f:.3e} (must be >= {10 * SCAN_GRAD_TOL:g})')
+    if not (loss_s == loss_u and rel <= SCAN_GRAD_TOL and fwd_s == want_fwd):
+        raise AssertionError('scan_layers: the f32 step is not the unrolled model\'s')
+    if not rel_f >= 10 * SCAN_GRAD_TOL:
+        raise AssertionError('scan_layers: the planted seed fault passed the check')
+    del model, scan, grad_u, grad_s, grad_f
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    words = TEXT.split()
+    dataset = ArrayDataset(
+        [rng.standard_normal((100, FRAMES)).astype(np.float32) for _ in range(TRAIN_BATCH)],
+        [' '.join(rng.choice(words, size=12)) for _ in range(TRAIN_BATCH)])
+    results = {}
+    for label in ('unrolled', 'scan'):
+        model = build_e2tts(torch, dev, torch.bfloat16, dropout=0.1)
+        if label == 'scan':
+            model = scan_twin(torch, model, torch.bfloat16)
+        trainer = E2Trainer(model, learning_rate=7.5e-5, num_warmup_steps=0, total_steps=10_000,
+                            seed=0)
+        step_batch = trainer.prepare_batch(next(iter_batches(dataset, TRAIN_BATCH, seed=1)))
+        trainer.train_step(*step_batch, drop_text_cond=False)    # warm-up: optimizer state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(*step_batch, drop_text_cond=False)[0]
+                  for _ in range(SCAN_TRAIN_STEPS_TIMED)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SCAN_TRAIN_STEPS_TIMED
+        counts = dict(_cuda.launch_counts)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        results[label] = (ms, peak_gib)
+        log(f'scan_layers (c) train steps {label} depth {FLAGSHIP["depth"]} B={TRAIN_BATCH} '
+            f'frames={FRAMES} dropout 0.1 bf16 with text, {SCAN_TRAIN_STEPS_TIMED} steps: '
+            f'ms_per_step={ms:.3f} max_memory_allocated_gib={peak_gib:.3f} '
+            f'loss_finite={finite} last_loss={float(losses[-1]):.5f} '
+            f'launches={json.dumps(counts, sort_keys=True)} [{smi}]')
+        expected = {k: SCAN_TRAIN_STEPS_TIMED * n
+                    for k, n in expected_train_launches(model, True).items()}
+        expected = {k: expected.get(k, 0) for k in _cuda.KERNELS}
+        if counts != expected:
+            raise AssertionError(f'scan_layers {label} train launch counts {counts} != '
+                                 f'expected {expected}')
+        if not finite:
+            raise AssertionError(f'scan_layers {label} train loss is not finite')
+        del model, trainer, step_batch
+        torch.cuda.empty_cache()
+    (ms_u, peak_u), (ms_s, peak_s) = results['unrolled'], results['scan']
+    log(f'scan_layers (c) scan / unrolled: ms_ratio={ms_s / ms_u:.4f} '
+        f'peak_memory_ratio={peak_s / peak_u:.4f} [{smi}]')
+
+
 def sp_rank_main() -> int:
     """``chip_smoke.py --sp-rank 1``: rank 1 of `sp_two_ranks`, started by
     rank 0; prints no result."""
@@ -4289,6 +4430,9 @@ def main() -> int:
     phase_done('tensor_parallel')
     phase_sequence_parallel(torch, dev, smi)
     phase_done('sequence_parallel')
+    phase_scan_layers(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_done('scan_layers')
 
     kernels = []
     for kid, info in KERNEL_INFO.items():

@@ -37,8 +37,26 @@ Layout rules:
   is ``head.istft.window`` and a LayerNorm ``scale`` is its ``weight`` (the
   published torch checkpoint's names).
 
+Before those rules, two older or other layouts of the JAX tree are brought
+to the unrolled one:
+- a tree from before the fused attention parameter (sibling ``to_q`` /
+  ``to_k`` / ``to_v`` subtrees) is merged into ``to_qkv``
+  (`migrate_qkv_layout`, the JAX package's checkpoint migration);
+- a backbone built with ``scan_layers=True`` stores its layers as
+  ``layer_first`` (layer 0), ``scan_mid.<g>`` (segment ``g`` of the plan,
+  `models.transformer.scan_plan`: a ``'scan'`` segment's leaves carry a
+  leading axis of its layers, a ``'single'`` one's do not) and
+  ``layer_last`` (layer ``depth - 1``), each with ``speech``, ``text``,
+  ``speech_hcs.<j>`` and ``text_hcs.<j>``. These become ``speech_layers.<i>``,
+  ``text_layers.<i>``, ``speech_hcs.<i>.<j>`` and ``text_hcs.<i>.<j>``
+  (`unstack_scan_layers`). The plans come from the port model's own
+  backbones (`scan_plans`), whose names are the unrolled ones.
+
 The bridge is strict: a JAX array the port does not use, a port tensor the
-JAX tree does not set, or a shape that does not match raises. RNG state
+JAX tree does not set, or a shape that does not match raises; so does a
+scan-layout tree for a port backbone built without ``scan_layers``, an
+unrolled tree for one built with it, and a stacked group whose leading
+axis is not the plan's layer count. RNG state
 (any path through ``rngs``) is ignored, and so are the port's
 non-persistent buffers (tables built from the configuration, such as the
 mel frontend's, which the JAX state does not hold).
@@ -76,11 +94,101 @@ def _port_name_and_value(key: str, value: np.ndarray):
     raise ValueError(f'no layout rule for JAX kernel {key} of shape {value.shape}')
 
 
-def map_jax_tree(flat: dict[str, np.ndarray], targets: dict[str, tuple]) -> dict[str, np.ndarray]:
+def migrate_qkv_layout(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """A flat tree from before the fused attention parameter: wherever
+    ``<p>.to_q.<leaf>``, ``<p>.to_k.<leaf>`` and ``<p>.to_v.<leaf>`` stand
+    (and no ``<p>.to_qkv``), they merge into ``<p>.to_qkv.<leaf>`` stacked
+    on a new axis -2, the ``(dim, 3, inner)`` layout of the fused kernel
+    (optimizer moments and stacked scan groups alike). Other paths, and
+    trees in the fused layout, pass through."""
+    names = ('to_q', 'to_k', 'to_v')
+    out, groups, fused = {}, {}, set()
+    for key, value in flat.items():
+        parts = key.split('.')
+        at = next((i for i, p in enumerate(parts) if p in names + ('to_qkv',)), None)
+        if at is None or parts[at] == 'to_qkv':
+            if at is not None:
+                fused.add('.'.join(parts[:at]))
+            out[key] = value
+            continue
+        groups.setdefault(('.'.join(parts[:at]), '.'.join(parts[at + 1:])), {})[parts[at]] = value
+    for (prefix, leaf), group in groups.items():
+        head = prefix + '.' if prefix else ''
+        if set(group) == set(names) and prefix not in fused:
+            out[f'{head}to_qkv.{leaf}'] = np.stack([np.asarray(group[n]) for n in names],
+                                                   axis=-2)
+        else:
+            out.update({f'{head}{n}.{leaf}': v for n, v in group.items()})
+    return out
+
+
+_SCAN_GROUPS = ('layer_first', 'scan_mid', 'layer_last')
+_SCAN_PARTS = {'speech': 'speech_layers', 'text': 'text_layers',
+               'speech_hcs': 'speech_hcs', 'text_hcs': 'text_hcs'}
+
+
+def scan_plans(module: torch.nn.Module) -> dict[str, tuple[int, list]]:
+    """``{prefix: (depth, plan)}`` of every backbone in ``module`` built
+    with ``scan_layers=True`` (``prefix`` its name in the state dict with a
+    trailing dot, ``''`` for ``module`` itself)."""
+    return {(name + '.' if name else ''): (m.depth, m.scan_plan)
+            for name, m in module.named_modules() if getattr(m, 'scan_plan', None)}
+
+
+def unstack_scan_layers(flat: dict[str, np.ndarray],
+                        plans: dict[str, tuple[int, list]]) -> dict[str, np.ndarray]:
+    """``flat`` with every ``scan_layers`` group of the backbones in
+    ``plans`` (`scan_plans`) split into the unrolled per-layer paths (see
+    the module docstring); strict both ways about the layout."""
+    out = {}
+    for key, value in flat.items():
+        parts = key.split('.')
+        at = next((i for i, p in enumerate(parts) if p in _SCAN_GROUPS), None)
+        prefix = '.'.join(parts[:at]) + '.' if at else ''
+        if at is None or _is_rng_path(key):
+            for plan_prefix in plans:
+                if key.startswith(plan_prefix + 'speech_layers.'):
+                    raise ValueError(f'{key}: the JAX tree is unrolled, but the port\'s '
+                                     f'backbone {plan_prefix!r} is built with scan_layers=True')
+            out[key] = value
+            continue
+        if prefix not in plans:
+            raise ValueError(f'{key}: the JAX tree is in the scan_layers layout; build the '
+                             f'port\'s backbone {prefix!r} with scan_layers=True')
+        depth, plan = plans[prefix]
+        group, rest = parts[at], parts[at + 1:]
+        stacked = False
+        if group == 'layer_first':
+            layers = [0]
+        elif group == 'layer_last':
+            layers = [depth - 1]
+        else:
+            g, rest = int(rest[0]), rest[1:]
+            if g >= len(plan):
+                raise ValueError(f'{key}: the port\'s plan has {len(plan)} segments')
+            kind, start, count, _ = plan[g]
+            layers, stacked = list(range(start, start + count)), kind == 'scan'
+        if rest[0] not in _SCAN_PARTS:
+            raise ValueError(f'{key}: no unrolled counterpart for {rest[0]!r}')
+        value = np.asarray(value)
+        if stacked and (value.ndim == 0 or value.shape[0] != len(layers)):
+            raise ValueError(f'{key}: a stacked group of shape {value.shape}, but the port\'s '
+                             f'plan puts {len(layers)} layers (from {layers[0]}) in it')
+        for i, ind in enumerate(layers):
+            name = prefix + '.'.join([_SCAN_PARTS[rest[0]], str(ind)] + rest[1:])
+            out[name] = value[i] if stacked else value
+    return out
+
+
+def map_jax_tree(flat: dict[str, np.ndarray], targets: dict[str, tuple],
+                 plans: dict[str, tuple[int, list]] | None = None) -> dict[str, np.ndarray]:
     """A flat JAX tree with the parameters' paths -> ``{port name: array in
     the port's layout}``, strict against ``targets`` (port name -> shape):
     every non-RNG JAX path must map to a target of the same shape, and
-    every target must be set."""
+    every target must be set. ``plans`` (`scan_plans` of the port model)
+    names the backbones built with ``scan_layers``; a tree from before the
+    fused q/k/v parameter is migrated first."""
+    flat = unstack_scan_layers(migrate_qkv_layout(flat), plans or {})
     out, unused = {}, []
     for key, value in flat.items():
         if _is_rng_path(key):
@@ -109,7 +217,8 @@ def load_jax_params(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None
         raise ValueError('load_jax_params takes an unsharded model: load the JAX weights '
                          'first, then shard it (build the trainer after the load)')
     targets = model.state_dict(keep_vars=True)
-    mapped = map_jax_tree(flat, {name: t.shape for name, t in targets.items()})
+    mapped = map_jax_tree(flat, {name: t.shape for name, t in targets.items()},
+                          scan_plans(model))
     with torch.no_grad():
         for name, arr in mapped.items():
             dst = targets[name]
@@ -158,14 +267,15 @@ def _adopt_from_jax(optimizer, module, flat: dict, accumulator=None) -> None:
 
     params = dict(module.named_parameters())
     targets = {name: tuple(p.shape) for name, p in params.items()}
-    m = map_jax_tree(take(inner + '1.0.m.'), targets)
-    v = map_jax_tree(take(inner + '1.0.v.'), targets)
+    plans = scan_plans(module)
+    m = map_jax_tree(take(inner + '1.0.m.'), targets, plans)
+    v = map_jax_tree(take(inner + '1.0.v.'), targets, plans)
     count, schedule_count = scalar(inner + '1.0.count'), scalar(inner + '1.1.count')
     if count != schedule_count:
         raise ValueError(f'ADOPT counted {count} updates and its schedule {schedule_count}: '
                          'the port keeps one count for both')
     if exists(accumulator):
-        acc = map_jax_tree(take('opt_state.acc_grads.'), targets)
+        acc = map_jax_tree(take('opt_state.acc_grads.'), targets, plans)
         mini_step, gradient_step = scalar('opt_state.mini_step'), scalar('opt_state.gradient_step')
         if gradient_step != count or not 0 <= mini_step < accumulator.every_k:
             raise ValueError(f'MultiSteps state (mini_step {mini_step}, gradient_step '

@@ -38,7 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from e2_tts_tpu_torch.ops.attention import attention_packed
-from e2_tts_tpu_torch.ops.dropout import fold_batch_offset, fold_column_offset, fold_seq_offset
+from e2_tts_tpu_torch.ops.dropout import (
+    fold_batch_offset, fold_column_offset, fold_seq_offset, hash_dropout,
+)
 from e2_tts_tpu_torch.ops.geglu_kernel import geglu_dropout
 from e2_tts_tpu_torch.ops.rotary import apply_rotary_packed
 from e2_tts_tpu_torch.parallel import sp
@@ -331,13 +333,18 @@ class FeedForward(nn.Module):
     """GLU feedforward: projection, GEGLU + dropout (kernel K6), down
     projection. The inner dim is 2/3 * mult * dim rounded up to a multiple
     of 64 (1408 for dim 512, 704 for the text stream's 256), as in the JAX
-    package, so its weights load unchanged."""
+    package, so its weights load unchanged. ``glu=False`` is the plain MLP
+    (inner ``mult * dim`` rounded up to 64, exact GELU, the counter-hash
+    dropout of `ops.dropout.hash_dropout`), plain PyTorch as the JAX
+    package runs it on XLA."""
 
-    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0, *,
+    def __init__(self, dim: int, mult: float = 4.0, dropout: float = 0.0, glu: bool = True, *,
                  dtype=None, generator=None):
         super().__init__()
-        inner = round_up_to_multiple(int(dim * mult * 2 / 3), 64)
-        self.proj_in = Linear(dim, inner * 2, dtype=dtype, generator=generator)
+        self.glu = glu
+        inner = round_up_to_multiple(int(dim * mult * 2 / 3) if glu else int(dim * mult), 64)
+        self.proj_in = Linear(dim, inner * 2 if glu else inner, dtype=dtype,
+                              generator=generator)
         self.proj_out = Linear(inner, dim, dtype=dtype, generator=generator)
         self.dropout_rate = dropout
         self.inner = inner
@@ -368,8 +375,8 @@ class FeedForward(nn.Module):
         if rate > 0.0:
             seed = fold_column_offset(fold_seq_offset(fold_batch_offset(
                 dropout_seed, batch_offset), seq_offset), self.col0)
-        return self.proj_out(geglu_dropout(h, seed, rate),
-                             reduce=tp.exit if exists(tp) else None)
+        h = geglu_dropout(h, seed, rate) if self.glu else hash_dropout(F.gelu(h), rate, seed)
+        return self.proj_out(h, reduce=tp.exit if exists(tp) else None)
 
 
 # attention ------------------------------------------------------------------

@@ -34,6 +34,7 @@ class DurationPredictor(nn.Module):
         transformer: dict | Transformer,
         num_channels: int | None = None,
         mel_spec_kwargs: dict = dict(),
+        char_embed_kwargs: dict = dict(),
         text_num_embeds: int | None = None,
         num_freq_tokens: int = 1,
         hl_gauss_loss: dict | None = None,
@@ -44,7 +45,8 @@ class DurationPredictor(nn.Module):
         device=None,
     ):
         """``generator`` draws the initial weights and stays the default
-        source of the random prefix of `forward`."""
+        source of the random prefix of `forward`. ``char_embed_kwargs`` go to
+        the `CharacterEmbed`, as in the JAX package."""
         super().__init__()
         if num_freq_tokens < 1:
             raise ValueError(f'num_freq_tokens must be positive, got {num_freq_tokens}')
@@ -71,7 +73,7 @@ class DurationPredictor(nn.Module):
                               generator=generator)
         self.tokenizer, text_num_embeds = resolve_tokenizer(tokenizer, text_num_embeds)
         self.embed_text = CharacterEmbed(transformer.dim_text, num_embeds=text_num_embeds,
-                                         dtype=dtype, generator=generator)
+                                         dtype=dtype, generator=generator, **char_embed_kwargs)
         self.hl_gauss_layer = HLGaussLayer(dim, hl_gauss_loss=hl_gauss_loss,
                                            use_regression=use_regression, dtype=dtype,
                                            generator=generator)

@@ -28,8 +28,14 @@ Inputs and prompts are mels ``(b, n, num_channels)`` or raw waves ``(b,
 nw)``, which the mel frontend (``mel_spec_kwargs``; ``mode='pallas'`` runs
 kernel K11) turns into mels. Without a ``duration``, `sample` asks the
 duration predictor. ``use_vocos=True`` decodes the sampled mels to
-waveforms with the port's own `Vocos` (the JAX package's
-``vocos_backend='jax'``), which stays out of this module's parameters.
+waveforms: with ``vocos_backend='jax'`` (the port's default) through the
+port's own `Vocos` on the mels' device, which stays out of this module's
+parameters (``vocos_weights``, the published checkpoint's state dict or a
+path to it, loads into it); with ``'torch'`` through the external torch
+``vocos`` package (``Vocos.from_pretrained(pretrained_vocos_path)``,
+loaded at the first decode), one sample at a time on the host, as the JAX
+package's default. ``use_vocos=None`` turns the vocoder on iff the
+``vocos`` package is installed, as in the JAX package.
 
 ``save_to_filename`` writes each decoded waveform as a 16-bit mono WAV
 ``{i + 1}.{name}`` beside the path, as the JAX package does.
@@ -41,12 +47,12 @@ the condition to the input before one projection (no ``cond_proj_in``);
 ``interpolated_text`` resamples the text embeddings to each sample's
 length (`InterpolatedCharacterEmbed`). The sampler takes
 ``odeint_kwargs``' method, ``atol`` and ``rtol`` (ops/ode.py: fixed-grid or
-adaptive). The external torch ``vocos`` package (``vocos_backend='torch'``)
-is not ported and raises.
+adaptive).
 """
 
 from __future__ import annotations
 
+import importlib.util
 from collections import namedtuple
 from pathlib import Path
 
@@ -115,14 +121,17 @@ class E2TTS(nn.Module):
         num_channels: int | None = None,
         mel_spec_module: MelSpec | None = None,
         num_freq_tokens: int = 1,
+        char_embed_kwargs: dict = dict(),
         mel_spec_kwargs: dict = dict(),
         frac_lengths_mask: tuple[float, float] = (0.7, 1.0),
         concat_cond: bool = False,
         interpolated_text: bool = False,
         text_num_embeds: int | None = None,
         tokenizer='char_utf8',
-        use_vocos: bool = False,
+        use_vocos: bool | None = None,
+        pretrained_vocos_path: str = 'charactr/vocos-mel-24khz',
         vocos_backend: str = 'jax',
+        vocos_weights=None,
         sampling_rate: int | None = None,
         velocity_consistency_weight: float = 0.0,
         dtype=None,
@@ -131,14 +140,12 @@ class E2TTS(nn.Module):
     ):
         """``generator`` draws the initial weights and stays the default
         source of `forward`'s draws (as the JAX model's ``rngs``).
-        ``use_vocos`` builds the port's `Vocos` (random weights from a
-        seed: load a checkpoint into ``model.vocos``); ``vocos_backend`` is
-        the JAX package's option, of which the port has only ``'jax'``, its
-        own on-device Vocos."""
+        ``use_vocos`` with ``vocos_backend='jax'`` builds the port's `Vocos`
+        (random weights from a seed unless ``vocos_weights`` gives the
+        published checkpoint's state dict or its path); with ``'torch'``
+        the torch ``vocos`` package loads ``pretrained_vocos_path`` at the
+        first decode (ImportError without the package)."""
         super().__init__()
-        if use_vocos and vocos_backend == 'torch':
-            raise NotImplementedError("the torch `vocos` package (vocos_backend='torch') is "
-                                      'not ported to e2_tts_tpu_torch')
         if num_freq_tokens < 1:
             raise ValueError(f'num_freq_tokens must be positive, got {num_freq_tokens}')
         if vocos_backend not in ('jax', 'torch'):
@@ -181,13 +188,23 @@ class E2TTS(nn.Module):
         self.cond_drop_prob = cond_drop_prob
         embed_cls = InterpolatedCharacterEmbed if interpolated_text else CharacterEmbed
         self.embed_text = embed_cls(self.dim_text, num_embeds=text_num_embeds, dtype=dtype,
-                                    generator=generator)
+                                    generator=generator, **char_embed_kwargs)
         self.frac_lengths_mask = tuple(frac_lengths_mask)
         self.velocity_consistency_weight = velocity_consistency_weight
         self.generator = generator
+        if use_vocos is None:
+            use_vocos = importlib.util.find_spec('vocos') is not None
         self.use_vocos = use_vocos
-        self._vocos = _StaticBox(Vocos(input_channels=num_channels, device=device)) \
-            if use_vocos else None
+        self.pretrained_vocos_path = pretrained_vocos_path
+        self.vocos_backend = vocos_backend
+        self._vocos = None
+        if use_vocos and vocos_backend == 'jax':
+            vocos = Vocos(input_channels=num_channels, device=device)
+            if exists(vocos_weights):
+                if isinstance(vocos_weights, (str, bytes, Path)):
+                    vocos_weights = torch.load(vocos_weights, map_location='cpu')
+                vocos.load_torch_state_dict(vocos_weights)
+            self._vocos = _StaticBox(vocos)
         self.to(device)
 
     @property
@@ -195,8 +212,15 @@ class E2TTS(nn.Module):
         return self.proj_in.weight.device
 
     @property
-    def vocos(self) -> Vocos | None:
-        return self._vocos.value if exists(self._vocos) else None
+    def vocos(self):
+        """The port's `Vocos` (``vocos_backend='jax'``), the torch
+        package's, loaded on first use (``'torch'``), or None."""
+        if not self.use_vocos:
+            return None
+        if not exists(self._vocos):
+            from vocos import Vocos as TorchVocos    # the external package, host decode
+            self._vocos = _StaticBox(TorchVocos.from_pretrained(self.pretrained_vocos_path))
+        return self._vocos.value
 
     def _as_mel(self, inp: torch.Tensor) -> torch.Tensor:
         return as_mel(self.mel_spec, inp, self.num_channels)
@@ -533,7 +557,15 @@ class E2TTS(nn.Module):
         would otherwise reach shorter samples' tails through the
         convolutions and the overlap-add), then each waveform trimmed to
         ``(len - 1) * hop``. The amplitude keeps the reference's
-        ``DB_to_amplitude(mel, 1, 0.5)`` (it treats the ln-mel as dB)."""
+        ``DB_to_amplitude(mel, 1, 0.5)`` (it treats the ln-mel as dB). The
+        torch package's Vocos decodes each sample's frames alone on the
+        host instead."""
+        if self.vocos_backend == 'torch':
+            audio = []
+            for mel, m in zip(mels.float().cpu(), mask.cpu()):
+                amp = db_to_amplitude(mel[m], 1.0, 0.5)
+                audio.append(self.vocos.decode(amp.T[None].contiguous())[0].to(mels.device))
+            return audio
         vocos = self.vocos.to(mels.device)
         amp = db_to_amplitude(mels.float(), 1.0, 0.5)
         amp = torch.where(mask[..., None], amp, 0.0)

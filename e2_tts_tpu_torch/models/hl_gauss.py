@@ -55,15 +55,18 @@ class HLGaussLoss(nn.Module):
 
 
 class HLGaussLayer(nn.Module):
-    """Regression (``to_pred``: Linear(dim, 1, no bias) -> softplus, MSE)
-    unless ``hl_gauss_loss`` is given and ``use_regression`` is False, then
+    """Regression (``to_pred``: Linear(dim, 1, no bias) ->
+    ``regress_activation``, softplus by default, MSE) unless
+    ``hl_gauss_loss`` is given and ``use_regression`` is False, then
     classification (``to_logits``: Linear(dim, num_bins))."""
 
     def __init__(self, dim: int, hl_gauss_loss: dict | None = None,
-                 use_regression: bool = True, *, dtype=None, generator=None):
+                 use_regression: bool = True, regress_activation=F.softplus, *, dtype=None,
+                 generator=None):
         super().__init__()
         self.use_regression = not (exists(hl_gauss_loss) and not use_regression)
         if self.use_regression:
+            self.activation = regress_activation
             self.to_pred = Linear(dim, 1, bias=False, dtype=dtype, generator=generator)
         else:
             self.hl_gauss = HLGaussLoss(**hl_gauss_loss)
@@ -72,7 +75,7 @@ class HLGaussLayer(nn.Module):
 
     def forward(self, embed: torch.Tensor, target: torch.Tensor | None = None):
         if self.use_regression:
-            pred = F.softplus(self.to_pred(embed)[..., 0].float())
+            pred = self.activation(self.to_pred(embed)[..., 0].float())
             if not exists(target):
                 return pred
             return torch.mean((pred - target.float()) ** 2)

@@ -56,8 +56,17 @@ this rank's frames (`frame_slice`): the registers are dropped where they
 are. The frequency axis is cut on the frames; the frequency attention
 stays local.
 
-``scan_layers`` is an XLA compile-time mode of the JAX package and raises
-here.
+``scan_layers=True`` is the JAX package's stacked mode (``depth >= 4``).
+There it stores the homogeneous middle layers stacked (``layer_first``,
+``scan_mid.<g>``, ``layer_last``) and runs them under ``nnx.scan``; eager
+PyTorch traces nothing, so here the layers stay the unrolled model's
+modules and ``state_dict()`` has the unrolled names: `convert` unstacks a
+JAX scan-layout tree by `scan_plan`. What the mode keeps is its memory
+behaviour: under autograd every layer of a ``'scan'`` group of the plan
+is recomputed in the backward (full checkpoint) whatever ``remat`` says,
+while the first and last layers and the ``'single'`` segments follow
+``remat``. Without grad the forward is the unrolled one. The dropout
+seeds are drawn in the unrolled order.
 """
 
 from __future__ import annotations
@@ -245,6 +254,21 @@ class TextLayer(nn.Module):
         return x, text_embed, values
 
 
+def scan_plan(depth: int, text_depth: int) -> list[tuple[str, int, int, bool]]:
+    """The JAX package's ``scan_layers`` plan of the middle layers ``[1,
+    depth - 1)``: ``(kind, first layer, count, pushes a skip)`` per segment,
+    ``'scan'`` for a run of two or more homogeneous layers, ``'single'``
+    for one. Segments break where a layer flag changes: the half boundary
+    (skip push or pop), the text / speech-only boundary and the last text
+    layer."""
+    if depth < 4:
+        raise ValueError('scan_layers needs depth >= 4')
+    t = text_depth
+    bks = sorted({1, depth // 2, depth - 1} | ({t - 1, t} & set(range(2, depth - 1))))
+    return [('single' if b - a == 1 else 'scan', a, b - a, b <= depth // 2)
+            for a, b in zip(bks[:-1], bks[1:])]
+
+
 class Transformer(nn.Module):
 
     def __init__(
@@ -269,6 +293,7 @@ class Transformer(nn.Module):
         kernel_size: int = 31,
         dropout: float = 0.1,
         num_registers: int = 32,
+        scale_residual: bool = False,
         attn_laser: bool = False,
         attn_laser_softclamp_value: float = 15.0,
         attn_fourier_embed_input: bool = False,
@@ -283,10 +308,9 @@ class Transformer(nn.Module):
         generator: torch.Generator | None = None,
         device=None,
     ):
+        """``scale_residual`` is accepted and unused, as in the JAX package
+        (and the reference it follows)."""
         super().__init__()
-        if scan_layers:
-            raise NotImplementedError('scan_layers is an XLA compile-time mode of the JAX '
-                                      'package; e2_tts_tpu_torch unrolls the layers')
         self.checkpoint_policy = checkpoint_policy(remat) if isinstance(remat, str) else None
         if not divisible_by(depth, 2):
             raise ValueError('depth needs to be even')
@@ -311,6 +335,9 @@ class Transformer(nn.Module):
         if not 1 <= text_depth <= depth:
             raise ValueError('text_depth must be in [1, depth]')
         self.text_depth = text_depth
+        self.scan_plan = scan_plan(depth, text_depth) if scan_layers else None
+        self.scanned = frozenset(ind for kind, start, count, _ in self.scan_plan or ()
+                                 if kind == 'scan' for ind in range(start, start + count))
         self.dim_head = dim_head
         self.text_dim_head = text_dim_head
         freq_heads = default(freq_heads, heads)
@@ -518,8 +545,13 @@ class Transformer(nn.Module):
             args = (x, text_embed, skip_in, mask, rotary, text_rotary, freq_rotary, cond,
                     freq_cond, attn_v, text_v, freq_v, text_gate)
             # nothing in a layer reads torch's global generators: no RNG state to keep
-            x, text_embed, skip_out, attn_v, text_v, freq_v = (
-                checkpoint(layer, *args, **checkpoint_kw) if remat else layer(*args))
+            if ind in self.scanned and torch.is_grad_enabled():
+                out = checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+            elif remat:
+                out = checkpoint(layer, *args, **checkpoint_kw)
+            else:
+                out = layer(*args)
+            x, text_embed, skip_out, attn_v, text_v, freq_v = out
             if is_first_half:
                 skips.append(skip_out)
         assert len(skips) == 0

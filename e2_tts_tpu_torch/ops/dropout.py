@@ -55,6 +55,18 @@ def hash_keep(shape, seed: int, rate: float, device=None) -> torch.Tensor:
     return fmix32(ctr) >= keep_threshold(rate)
 
 
+def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Dropout with keep probability 1 - rate and 1 / (1 - rate) scaling, the
+    mask `hash_keep` over ``x``'s shape (ops/dropout.py:hash_dropout in the
+    JAX package, whose key reaches the same uint32 ``seed``)."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        raise ValueError(f'dropout rate must be below 1, got {rate}')
+    keep = hash_keep(x.shape, seed, rate, device=x.device)
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
+
+
 def fold_batch_offset(seed: int, b0: int) -> int:
     """The seed whose `hash_keep` over rows ``[0, b)`` of axis 0 draws the
     bits of rows ``[b0, b0 + b)`` under ``seed``: the counter is linear in

@@ -144,14 +144,22 @@ class _Exit(torch.autograd.Function):
         return grad, None
 
 
+def _plain_mlp_layout(layer, param: str, layout):
+    """A feedforward without GLU (``glu=False``) has no value and gate
+    halves: its ``proj_in`` is one segment."""
+    if isinstance(layer, FeedForward) and not layer.glu and param.startswith('proj_in'):
+        return layout[0], 1
+    return layout
+
+
 def _targets(module: nn.Module):
     """``(path, layer, [(parameter name, layout)])`` of each layer the rules
     match, in ``named_modules`` order."""
     found = []
     for path, sub in module.named_modules():
         name = path.rsplit('.', 1)[-1]
-        rules = [(param, layout) for cls, names, param, layout in _RULES
-                 if isinstance(sub, cls) and name in names]
+        rules = [(param, _plain_mlp_layout(sub, param, layout))
+                 for cls, names, param, layout in _RULES if isinstance(sub, cls) and name in names]
         if rules:
             found.append((path, sub, rules))
     return found
@@ -261,7 +269,7 @@ def tp_axis(module: nn.Module) -> ModelAxis | None:
 def tp_layouts(module: nn.Module) -> dict:
     """``{name: layout}`` of ``module``'s tensor-parallel parameters, by
     their names in ``module`` (an `E2TTS`, its duration predictor, a copy)."""
-    return {f'{path}.{param}' if path else param: layout
+    return {f'{path}.{param}' if path else param: _plain_mlp_layout(sub, param, layout)
             for path, sub in _placed(module)
             for cls, _, param, layout in _RULES if isinstance(sub, cls)}
 

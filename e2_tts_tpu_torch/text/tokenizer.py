@@ -32,6 +32,32 @@ def list_str_to_ids(texts: list[str], padding_value: int = -1,
     return pad_id_lists(id_lists, padding_value, length)
 
 
+def get_g2p_en_encode():
+    """The 'phoneme_en' tokenizer: g2p_en phonemes, then 17 extended
+    punctuation ids after the phoneme vocabulary, as in the JAX package.
+    Returns ``(encode, vocab size)``; raises ImportError without the
+    optional g2p_en package."""
+    try:
+        from g2p_en import G2p
+    except ImportError as e:
+        raise ImportError("the 'phoneme_en' tokenizer requires the optional g2p_en package") \
+            from e
+
+    g2p = G2p()
+    phoneme_to_index = g2p.p2idx
+    num_phonemes = len(phoneme_to_index)
+    extended_chars = [' ', ',', '.', '-', '!', '?', "'", '"', '...', '..', '. .', '. . .',
+                      '. . . .', '. . . . .', '. ...', '... .', '.. ..']
+    vocab = {**phoneme_to_index,
+             **{p: num_phonemes + i for i, p in enumerate(extended_chars)}}
+
+    def encode(texts: list[str], padding_value: int = -1) -> np.ndarray:
+        id_lists = [np.array([vocab[p] for p in g2p(t)], dtype=np.int32) for t in texts]
+        return pad_id_lists(id_lists, padding_value)
+
+    return encode, num_phonemes + len(extended_chars)
+
+
 def resolve_tokenizer(tokenizer, text_num_embeds=None):
     """Resolve a tokenizer spec ('char_utf8' | 'phoneme_en' | callable) into
     (encode_fn, vocab_size)."""
@@ -42,8 +68,7 @@ def resolve_tokenizer(tokenizer, text_num_embeds=None):
     if tokenizer == 'char_utf8':
         return list_str_to_ids, 256
     if tokenizer == 'phoneme_en':
-        raise NotImplementedError(
-            "the 'phoneme_en' tokenizer is not ported to e2_tts_tpu_torch yet")
+        return get_g2p_en_encode()
     raise ValueError(f'unknown tokenizer string {tokenizer}')
 
 

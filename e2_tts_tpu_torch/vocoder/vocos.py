@@ -15,9 +15,9 @@ The submodules carry the published torch package's names, so
 ``Vocos().state_dict()`` has the checkpoint's keys and shapes (pinned in
 tests/fixtures/vocos_mel24khz_schema.json, less the ``feature_extractor.*``
 mel buffers, which `ops.mel.MelSpec` replaces): a published state dict loads
-with ``load_state_dict(..., strict=False)``, which reports exactly those
-keys as unexpected. The JAX package's parameters load through
-`convert.load_jax_vocos`.
+with `Vocos.load_torch_state_dict`, or with ``load_state_dict(...,
+strict=False)``, which reports exactly those keys as unexpected. The JAX
+package's parameters load through `convert.load_jax_vocos`.
 
 The inverse STFT is two products against inverse-rFFT bases and n_fft / hop
 shifted adds, as in the JAX package, which computes it outside any Pallas
@@ -165,3 +165,23 @@ class Vocos(nn.Module):
         return self.head(self.backbone(mel.float()))
 
     decode = forward
+
+    def load_torch_state_dict(self, sd) -> 'Vocos':
+        """Load the published torch Vocos checkpoint's state dict (its
+        ``pytorch_model.bin``; torch tensors or numpy arrays), as the JAX
+        package's `Vocos.load_torch_state_dict`: ``feature_extractor.*``
+        and other keys the model does not hold are ignored, ``head.istft.
+        window`` is optional, a missing key raises KeyError and a tensor of
+        another shape ValueError."""
+        with torch.no_grad():
+            for name, dst in self.state_dict(keep_vars=True).items():
+                if name == 'head.istft.window' and name not in sd:
+                    continue
+                value = sd[name]
+                value = value.detach() if torch.is_tensor(value) else torch.from_numpy(
+                    np.array(value, copy=True))
+                if tuple(value.shape) != tuple(dst.shape):
+                    raise ValueError(f'{name}: checkpoint tensor of shape {tuple(value.shape)}, '
+                                     f'model parameter is {tuple(dst.shape)}')
+                dst.copy_(value.to(dst.dtype))
+        return self

@@ -8,6 +8,9 @@ and feeds both sides the same numpy inputs.
 
 from __future__ import annotations
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,8 +71,31 @@ def flat_values(state) -> dict:
 def assert_params_close(jax_flat: dict, module, label: str, atol: float = 1e-6):
     """Every parameter of the port's ``module`` within ``atol`` of the JAX
     tree ``jax_flat`` (mapped by `convert.map_jax_tree`)."""
-    from e2_tts_tpu_torch.convert import map_jax_tree
-    mapped = map_jax_tree(jax_flat, {n: tuple(p.shape) for n, p in module.named_parameters()})
+    from e2_tts_tpu_torch.convert import map_jax_tree, scan_plans
+    mapped = map_jax_tree(jax_flat, {n: tuple(p.shape) for n, p in module.named_parameters()},
+                          scan_plans(module))
     for name, t in module.named_parameters():
         np.testing.assert_allclose(t.detach().numpy(), mapped[name], rtol=0, atol=atol,
                                    err_msg=f'{label} {name}')
+
+
+_STUB_PHONES = ('AA0', 'AE1', 'B', 'CH', 'D', 'EH1', 'F', 'G', 'HH', 'IY0', 'K', 'L', 'M', 'N',
+                'OW1', 'P', 'R', 'S', 'T', 'UW1', 'V', 'W', 'Y', 'Z')
+
+
+def stub_g2p_en(monkeypatch):
+    """Put a stand-in ``g2p_en`` module in ``sys.modules`` (monkeypatched,
+    so the test ends with the real state): its ``G2p`` has a small
+    ``p2idx`` and maps each letter to a phoneme and keeps spaces and
+    punctuation, so both packages' 'phoneme_en' tokenizers run without
+    the optional package."""
+    class G2p:
+        p2idx = {p: i for i, p in enumerate(('<pad>', '<unk>', '<s>', '</s>') + _STUB_PHONES)}
+
+        def __call__(self, text: str) -> list[str]:
+            return [_STUB_PHONES[ord(c) % len(_STUB_PHONES)] if c.isalpha() else c
+                    for c in text.lower()]
+
+    module = types.ModuleType('g2p_en')
+    module.G2p = G2p
+    monkeypatch.setitem(sys.modules, 'g2p_en', module)

@@ -761,6 +761,47 @@ def test_remat_matches_no_remat(dev):
     _close_grads(grads_on, grads_off, torch.float32)
 
 
+def test_scan_layers_matches_unrolled(dev):
+    """``scan_layers`` on the card (depth 6, heads 8 x 64: K1 / K2, f32,
+    dropout 0.1), from the unrolled model's state dict: a CFG evaluation
+    bit for bit; one train step's loss exactly and its grads within the
+    f32 tolerance (K2's dq sums key tiles by atomics in a run-dependent
+    order), with every layer of the plan's two scan groups (1-2, 3-4; both
+    streams) run forward twice."""
+    cfg = dict(dim=512, depth=6, heads=8, dim_head=64, num_registers=4, kernel_size=7,
+               dropout=0.1)
+    unrolled = E2TTS(transformer=cfg, generator=torch.Generator().manual_seed(1), device=dev)
+    scan = E2TTS(transformer=dict(cfg, scan_layers=True), device=dev)
+    scan.load_state_dict(unrolled.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 120, 100, generator=gen).to(dev)
+    lens = torch.tensor([120, 90])
+    ids = torch.as_tensor(unrolled.tokenizer(['hello there', 'a b c']), dtype=torch.long,
+                          device=dev)
+    with torch.no_grad():
+        outs = [m.eval().cfg_transformer_with_pred_head(
+            x, 0.5 * x, torch.tensor([0.3, 0.6], device=dev), text=ids,
+            mask=torch.arange(120, device=dev)[None] < lens.to(dev)[:, None], cfg_strength=1.0)
+            for m in (unrolled, scan)]
+    assert torch.equal(*outs)
+    results = []
+    for model in (unrolled, scan):
+        model.train()
+        before = dict(_cuda.launch_counts)
+        out = model(x, text=['hello there', 'a b c'], lens=lens, drop_text_cond=False,
+                    generator=torch.Generator().manual_seed(2), times=torch.tensor([0.3, 0.6]),
+                    noise=torch.randn(2, 120, 100, generator=torch.Generator().manual_seed(3)),
+                    rand_span_mask=torch.ones(2, 120, dtype=torch.bool))
+        out.loss.backward()
+        torch.cuda.synchronize()
+        fwd = _cuda.launch_counts['flash_fwd'] - before['flash_fwd']
+        assert fwd == (12 if model is unrolled else 12 + 2 * 4)
+        results.append((float(out.loss.detach()), [p.grad.float() for p in model.parameters()]))
+    (loss_u, grads_u), (loss_s, grads_s) = results
+    assert loss_s == loss_u
+    _close_grads(grads_s, grads_u, torch.float32)
+
+
 # -- K8 / K9 on the Hopper design (flash_attention_sm90.cuh) ----------------------------
 
 SM90_HEADS = (8, 12, 16, 32, 48, 64, 72, 80, 96, 112, 128)

@@ -28,7 +28,7 @@ from e2_tts_tpu.models.e2tts import E2TTS as JaxE2TTS
 from e2_tts_tpu.models.transformer import Transformer as JaxTransformer
 from e2_tts_tpu.ops.rotary import rotary_freqs
 
-from _torch_port_helpers import SMALL_TF, flat_state, perturb
+from _torch_port_helpers import SMALL_TF, flat_state, perturb, stub_g2p_en
 from e2_tts_tpu_torch.convert import load_jax_params
 from e2_tts_tpu_torch.models import blocks, hyper_connections as hc
 from e2_tts_tpu_torch.models.duration import DurationPredictor
@@ -290,7 +290,7 @@ def test_sample_generator_is_deterministic(e2tts_pair):
     torch.testing.assert_close(a, b)
 
 
-def test_unported_paths_raise(e2tts_pair):
+def test_unported_paths_raise(e2tts_pair, monkeypatch):
     _, p = e2tts_pair
     with pytest.raises(ValueError, match='save_to_filename'):      # audio files need a vocoder
         p.sample(torch.zeros(1, 8, 100), text=['hi'], duration=16, save_to_filename='a.wav')
@@ -298,11 +298,22 @@ def test_unported_paths_raise(e2tts_pair):
         p.sample(torch.zeros(1, 8, 100), text=['hi'])                 # no duration, no predictor
     with pytest.raises(ValueError, match='more than 512'):
         p(torch.zeros(1, 512), text=['hi'])                           # wave too short to centre
-    for kw in (dict(use_vocos=True, vocos_backend='torch'), dict(tokenizer='phoneme_en')):
-        with pytest.raises(NotImplementedError):
-            E2TTS(transformer=dict(SMALL_TF), device='cpu', **kw)
-    with pytest.raises(NotImplementedError):
+    # once raised as not ported; their parity: tests/test_torch_vocos_options.py,
+    # tests/test_torch_ctor_options.py and tests/test_torch_scan_*.py
+    monkeypatch.setitem(sys.modules, 'vocos', None)               # the package absent
+    torch_vocos = E2TTS(transformer=dict(SMALL_TF), device='cpu', use_vocos=True,
+                        vocos_backend='torch')
+    assert torch_vocos.use_vocos and torch_vocos.vocos_backend == 'torch'
+    with pytest.raises(ImportError):                              # loads at the first decode
+        torch_vocos.vocos
+    stub_g2p_en(monkeypatch)
+    phonemes = E2TTS(transformer=dict(SMALL_TF), device='cpu', tokenizer='phoneme_en')
+    assert phonemes.embed_text.embed.weight.shape[0] == 28 + 17 + 1
+    assert phonemes.tokenizer(['ab, c']).tolist() == [[5, 6, 28 + 1, 28 + 0, 7]]
+    with pytest.raises(ValueError, match='depth >= 4'):
         Transformer(**SMALL_TF, device='cpu', scan_layers=True)
+    assert Transformer(**dict(SMALL_TF, depth=6), device='cpu', scan_layers=True) \
+        .scan_plan == [('scan', 1, 2, True), ('scan', 3, 2, False)]
     # the options ported since build (their parity: tests/test_torch_options*.py)
     dim = SMALL_TF['dim']
     assert E2TTS(transformer=dict(SMALL_TF), device='cpu', concat_cond=True) \

@@ -2,6 +2,8 @@
 APG projection, rotary tables and the fixed-grid ODE steppers (f32; the
 ODE tolerance 1e-5 covers f32 rounding of a few dozen steps)."""
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,13 +23,15 @@ from e2_tts_tpu_torch.utils import masking
 from e2_tts_tpu_torch.utils.tensor import project
 
 
-def test_char_tokenizer_matches_jax():
+def test_char_tokenizer_matches_jax(monkeypatch):
     texts = ['hello', 'héllo wörld', '', '日本']
     np.testing.assert_array_equal(tok.list_str_to_ids(texts), jtok.list_str_to_ids(texts))
     fn, vocab = tok.resolve_tokenizer('char_utf8')
     assert vocab == 256 and fn is tok.list_str_to_ids
-    with pytest.raises(NotImplementedError):
-        tok.resolve_tokenizer('phoneme_en')
+    monkeypatch.setitem(sys.modules, 'g2p_en', None)          # the optional package absent
+    for resolve in (tok.resolve_tokenizer, jtok.resolve_tokenizer):
+        with pytest.raises(ImportError, match='g2p_en'):
+            resolve('phoneme_en')
     with pytest.raises(ValueError):
         tok.resolve_tokenizer('bogus')
 
