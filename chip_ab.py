@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Hold this checkout's kernels against another checkout's on one card.
 
-    python3 chip_ab.py OTHER_CHECKOUT      # from this checkout's root; one CUDA card
+    python3 chip_ab.py OTHER_CHECKOUT [LABEL_PREFIX ...]   # this checkout's root; one card
 
 Builds K11 (csrc/mel.cu), K5 / K3 (the hyper-connection forwards,
 hyper_conn.cu with hyper_conn_save.cu), K5b / K4 (the adjoints), K8 / K9
@@ -29,7 +29,12 @@ training shape, its launch alone and with the wrapper's PyTorch work
 1056, 8 x 64) and at the paper's heads (16, 1056, 16 x 64) with dropout
 0.1, and K2 with its wrapper's work (K10, the dq fill and cast, the gate
 grad) at the flagship's and the paper's training shapes (16, 1056, 8 x 64
-and 16 x 64), gated, dropout 0.1, softclamp 50; K6 and K7 (bf16, through
+and 16 x 64), gated, dropout 0.1, softclamp 50; K1 / K2 as the frequency
+attention runs them (8 x 64, no gate, softclamp or dropout): K1 at f = 2
+over the training batch's 16,896 sequences and the sampler's 1,056 and
+2,112, K2 there with its wrapper's work and alone, and both at n = 4, 8,
+16, 32 and 64 tokens over 16,896 sequences (where the few-token design
+and the tiled one cross); K6 and K7 (bf16, through
 their C entry points) at the sampler's (1, 1056, 2 x 1408 / 2 x 704), the
 flagship's training (16, 1056, 2 x 1408 / 2 x 704), the paper's speech
 (16, 1056, 2 x 2752) and DiT's (16, 1056, 2 x 3072 / 2 x 1536) shapes,
@@ -90,9 +95,11 @@ def graph_ms(fn, iters=100):
 
 
 def main():
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
-        print('usage: python3 chip_ab.py OTHER_CHECKOUT (needs a CUDA card)', file=sys.stderr)
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
+        print('usage: python3 chip_ab.py OTHER_CHECKOUT [LABEL_PREFIX ...] (needs a CUDA card)',
+              file=sys.stderr)
         return 1
+    prefixes = tuple(sys.argv[2:])
     sys.path.insert(0, os.getcwd())
     from e2_tts_tpu_torch.ops.mel import MelSpec, frame_signal
     dev = torch.device('cuda', 0)
@@ -345,30 +352,40 @@ def main():
         return call
 
     # K1 / K2 on q, k, v as views of one packed (b, n, 3 h dh) projection, gated
-    def packed_inputs(b, h, n=1056, dh=64):
+    def packed_inputs(b, h, n=1056, dh=64, gated=True):
         qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=dev).to(bf)
-        gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(bf)
+        gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(bf) if gated else None
         return (*qkv.split(h * dh, dim=-1), gate, h)
 
-    def packed_common(tag, q, h, rate):
+    # the frequency attention: b sequences of a few tokens, 8 heads of 64, no
+    # gate, softclamp or dropout (softclamp 0 in the C call)
+    freq_inputs = {}
+
+    def freq(b, n):
+        if (b, n) not in freq_inputs:
+            freq_inputs[(b, n)] = packed_inputs(b, 8, n, gated=False)
+        return freq_inputs[(b, n)]
+
+    def packed_common(tag, q, h, rate, softclamp=50.0):
         b, n, D = q.shape
         dh = D // h
-        return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(50.0),
+        return [I(b), I(n), I(h), I(dh), F(dh ** -0.5), F(softclamp),
                 F(1.0 / (1.0 - rate) if rate else 1.0), U(1234), U(keep_threshold(rate)),
                 I(int(rate > 0))] + [I(0)] * has_hash_b0[tag] + hash_h0_args(tag, h) + [I(1)]
 
     def qkv_strides(q, k, v):
         return [LL(t.stride(i)) for t in (q, k, v) for i in (0, 1)]
 
-    def k1(tag, q, k, v, gate, h, rate):
+    def k1(tag, q, k, v, gate, h, rate, softclamp=50.0):
         fn = libs[tag][3].e2_flash_fwd
         fn.restype = ctypes.c_int
         b, n, D = q.shape
         o = torch.empty((b, n, D), dtype=bf, device=dev)
         lse = torch.empty((b * h, n), device=dev)
         args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v)
-                + [P(None), P(gate.data_ptr()), P(o.data_ptr()), P(lse.data_ptr())]
-                + packed_common(tag, q, h, rate))
+                + [P(None), P(None if gate is None else gate.data_ptr()), P(o.data_ptr()),
+                   P(lse.data_ptr())]
+                + packed_common(tag, q, h, rate, softclamp))
 
         def call():
             err = fn(*args, P(stream()))
@@ -377,23 +394,29 @@ def main():
         call.tensors = (q, k, v, gate, o, lse)
         return call
 
-    def k2(tag, q, k, v, gate, h, rate):
+    def k2(tag, q, k, v, gate, h, rate, softclamp=50.0, wrapper=True):
         """K2 with its wrapper's work: K10 (and, gated on the Hopper design,
-        its do_g), the dq fill, K2, the dq cast and the gate grad."""
+        its do_g), the dq fill, K2, the dq cast and the gate grad; without
+        ``wrapper`` K2's launch alone (adding to dq)."""
         lib = libs[tag][3]
         delta_fn, fn = lib.e2_flash_delta, lib.e2_flash_bwd
         delta_fn.restype = fn.restype = ctypes.c_int
         b, n, D = q.shape
         dh = D // h
         out, lse = fa.flash_attention_packed_plain(q, k, v, heads=h, scale=dh ** -0.5,
-                                                   softclamp_value=50.0, dropout_rate=rate,
-                                                   dropout_seed=1234, gate_logits=gate)
+                                                   softclamp_value=softclamp or None,
+                                                   dropout_rate=rate, dropout_seed=1234,
+                                                   gate_logits=gate)
         dout = torch.randn(b, n, D, generator=g, device=dev).to(bf)
         delta = torch.empty((b, n, h), device=dev)
         do_g = torch.empty_like(dout)
         dq = torch.zeros((b, n, D), device=dev)
         dk, dv = torch.empty_like(dout), torch.empty_like(dout)
-        if packed_sm90[tag]:        # K10 gates do; K2 reads do_g and no gate
+        if gate is None:            # K10 writes delta; K2 reads do
+            delta_args = [P(out.data_ptr()), P(dout.data_ptr()), P(None), P(None),
+                          P(delta.data_ptr())]
+            bwd_args = [P(dout.data_ptr()), P(None)]
+        elif packed_sm90[tag]:      # K10 gates do; K2 reads do_g and no gate
             delta_args = [P(out.data_ptr()), P(dout.data_ptr()), P(gate.data_ptr()),
                           P(do_g.data_ptr()), P(delta.data_ptr())]
             bwd_args = [P(do_g.data_ptr()), P(None)]
@@ -403,7 +426,17 @@ def main():
         delta_args += [LL(b * n), I(h), I(dh), I(1)]
         args = ([P(t.data_ptr()) for t in (q, k, v)] + qkv_strides(q, k, v) + bwd_args
                 + [P(lse.data_ptr()), P(delta.data_ptr()), P(dq.data_ptr()), P(dk.data_ptr()),
-                   P(dv.data_ptr())] + packed_common(tag, q, h, rate))
+                   P(dv.data_ptr())] + packed_common(tag, q, h, rate, softclamp))
+
+        def launch():
+            err = fn(*args, P(stream()))
+            if err:
+                raise RuntimeError(f'e2_flash_bwd failed to launch: cudaError {err}')
+
+        if not wrapper:
+            delta_fn(*delta_args, P(stream()))
+            launch.tensors = (q, k, v, out, lse, dout, delta, do_g, dq, dk, dv)
+            return launch
 
         def call():
             err = delta_fn(*delta_args, P(stream()))
@@ -414,7 +447,8 @@ def main():
             if err:
                 raise RuntimeError(f'e2_flash_bwd failed to launch: cudaError {err}')
             dq.to(bf)
-            (delta * (1.0 - torch.sigmoid(gate.float()))).to(bf)
+            if gate is not None:
+                (delta * (1.0 - torch.sigmoid(gate.float()))).to(bf)
         call.tensors = (q, k, v, gate, out, lse, dout, delta, do_g, dq, dk, dv)
         return call
 
@@ -509,6 +543,21 @@ def main():
                         ('K2 with its wrapper\'s K10, dq fill and cast, gate grad (16,1056,16x64) '
                          'bf16 gated softclamp 50 dropout 0.1',
                          lambda tag: k2(tag, *paper_train, 0.1)),
+                        # the frequency attention at f = 2: the training batch (16 x 1056
+                        # sequences), the sampler's (1 x 1056, 2 x 1056 with batched CFG)
+                        *((f'K1 freq ({fb},2,8x64) bf16',
+                           lambda tag, fb=fb: k1(tag, *freq(fb, 2), 0.0, 0.0))
+                          for fb in (16896, 1056, 2112)),
+                        ('K2 with its wrapper\'s K10, dq fill and cast freq (16896,2,8x64) bf16',
+                         lambda tag: k2(tag, *freq(16896, 2), 0.0, 0.0)),
+                        ('K2 launch freq (16896,2,8x64) bf16',
+                         lambda tag: k2(tag, *freq(16896, 2), 0.0, 0.0, wrapper=False)),
+                        # the crossover between the two designs: n tokens at the
+                        # frequency attention's training batch
+                        *((f'{kind} crossover (16896,{n},8x64) bf16',
+                           lambda tag, kind=kind, n=n: (k1 if kind == 'K1' else k2)(
+                               tag, *freq(16896, n), 0.0, 0.0))
+                          for n in (4, 8, 16, 32, 64) for kind in ('K1', 'K2 with its wrapper')),
                         *((f'{k} ({b},1056,2x{inner}) bf16' + (' dropout 0.1' if rate else ''),
                            lambda tag, k=k, b=b, inner=inner, rate=rate: geglu(tag, k, b, inner,
                                                                                rate))
@@ -517,6 +566,8 @@ def main():
                                                  (16, 3072, 0.1), (16, 1536, 0.1),
                                                  (16, 1408, 0.0))
                           for k in ('K6', 'K7'))):
+        if prefixes and not label.startswith(prefixes):
+            continue
         times = {tag: [] for tag in ('other', 'this')}
         for tag in ('other', 'this', 'this', 'other'):
             times[tag].append(graph_ms(make(tag), 20 if label[:2] in ('K9', 'K2') else 100))

@@ -456,13 +456,16 @@ def sfu_rate(torch, dev) -> float:
 def compare(out, ref, atol, rtol, scaled=False):
     """(max abs error, worst |err| / (atol + rtol |ref|)) over a tuple; with
     ``scaled`` the absolute term is ``atol`` times each tensor's max |ref|
-    (grads are sums over many rows, far from unit scale)."""
+    (grads are sums over many rows, far from unit scale); ``scaled='joint'``:
+    times the largest max |ref| of the tuple (a grad that is rounding alone,
+    as dq and dk of a softmax over one key)."""
     import torch
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     if len(outs) != len(refs):
         raise AssertionError(f'{len(outs)} outputs against {len(refs)} references')
     max_err, worst = 0.0, 0.0
+    joint = max(float(r.float().abs().max()) for r in refs)
     for o, r in zip(outs, refs):
         o, r = o.float(), r.float()
         if o.shape != r.shape:
@@ -470,7 +473,7 @@ def compare(out, ref, atol, rtol, scaled=False):
         if not torch.isfinite(o).all():
             raise AssertionError('kernel output is not finite')
         err = (o - r).abs()
-        a = atol * float(r.abs().max()) if scaled else atol
+        a = atol * (joint if scaled == 'joint' else float(r.abs().max())) if scaled else atol
         max_err = max(max_err, float(err.max()))
         worst = max(worst, float((err / (a + rtol * r.abs() + 1e-30)).max()))
     return max_err, worst
@@ -565,12 +568,13 @@ def kernel_cases(torch, dev, mel_one_tf32):
     cases = []
     drop_none = lambda outs: tuple(t for t in outs if t is not None)
 
-    def attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale):
+    def attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale, misaligned=False):
         D = heads * dh
-        # q/k/v as strided views of one (b, n, 3D) projection, as the model has them
-        qkv = torch.randn(b, n, 3 * D, generator=g, device=dev)
-        qkv[..., :2 * D] *= qk_scale
-        qkv = qkv.to(dtype)
+        # q/k/v as strided views of one (b, n, 3D) projection, as the model has
+        # them (misaligned: of a (b, n, 3D + 1) one, one element in)
+        qkv = torch.randn(b, n, 3 * D + misaligned, generator=g, device=dev)
+        qkv[..., :2 * D + misaligned] *= qk_scale
+        qkv = qkv.to(dtype)[..., int(misaligned):]
         q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
         mask = None
         if lens is not None:
@@ -584,30 +588,54 @@ def kernel_cases(torch, dev, mel_one_tf32):
         return [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in ts]
 
     # across a few (frequency) tokens the outputs are means of a few value
-    # rows of order 1, not ~0.03 as over 1056 keys: bf16 K1 / K8 round each
+    # rows of order 1, not ~0.03 as over 1056 keys: bf16 K8 rounds each
     # probability before the product (2**-9 max |v|) and the output after it
     # (half a bf16 ulp, up to 2**-8 |o|). At max |v| <= 6 that is at most
-    # 0.56 of this limit (0.012 at |o| = 0); a plain version with its softmax
-    # scale 5% off must fail it (`scale_fault`)
+    # 0.56 of this limit (0.012 at |o| = 0); so does K1's tiled design from
+    # N_SHORT + 1 to 63 tokens. Up to N_SHORT tokens K1 runs the few-token
+    # design (f32 probabilities, the output rounded once) and keeps
+    # `attn_tol`. A plain version with its softmax scale 5% off must fail
+    # either limit (`scale_fault`)
     few_tokens_tol = {bf16: (2e-2, 1e-2), f32: (1e-4, 1e-4)}
     scale_fault = 'with its softmax scale 5% off'
 
+    def any_view(fn):
+        """``fn`` with the wrappers' 16-byte operand check stood aside: the
+        tiled designs read 16-byte chunks, so the wrappers refuse other
+        views; the few-token design reads any view (element loads)."""
+        def call():
+            check = fa._check_operand
+            fa._check_operand = lambda t, name, shape, device, dtype, vec: \
+                _cuda.check_cuda_tensor(t, name, device, dtype)
+            try:
+                return fn()
+            finally:
+                fa._check_operand = check
+        return call
+
     def attn_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                  softclamp=50.0, qk_scale=1.0, train=False, timed=False, library=False):
+                  softclamp=50.0, qk_scale=1.0, train=False, timed=False, library=False,
+                  hash_kw=None, misaligned=False):
         """``library``: time PyTorch's scaled_dot_product_attention beside it
         (the same function only without mask, softclamp, gate and dropout).
-        Fewer than 8 tokens take `few_tokens_tol`."""
-        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
+        ``hash_kw``: the dropout hash's offsets; ``misaligned``: q, k, v one
+        element into their projection (through `any_view`)."""
+        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale,
+                                          misaligned)
         D, es = heads * dh, esize(dtype)
-        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=1234, gate_logits=gate)
+        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=1234, gate_logits=gate,
+                  **(hash_kw or {}))
         scale = dh ** -0.5
+        run = lambda: fa.flash_attention_packed(q, k, v, mask, return_lse=True,
+                                                softclamp_value=softclamp, **kw)
         case = dict(
             kernel='K1', label=label, train=train, timed=timed,
-            run=lambda: fa.flash_attention_packed(q, k, v, mask, return_lse=True,
-                                                  softclamp_value=softclamp, **kw),
+            run=any_view(run) if misaligned else run,
             plain=lambda: fa.flash_attention_packed_plain(q, k, v, mask, scale=scale,
                                                           softclamp_value=softclamp, **kw),
-            tol=(few_tokens_tol if n < 8 else attn_tol)[dtype],
+            # the tiled bf16 design rounds each probability before p v: below
+            # one 64-key tile its outputs are means of a few rows (as K8's)
+            tol=(few_tokens_tol if n_short() < n < 64 else attn_tol)[dtype],
             # q, k, v read, o written, lse (+ gate, mask)
             nbytes=4 * b * n * D * es + b * n * heads * ((es if gated else 0) + 4)
             + (b * n if lens else 0),
@@ -617,7 +645,7 @@ def kernel_cases(torch, dev, mel_one_tf32):
         if softclamp is not None and (qk_scale != 1.0 or softclamp != 50.0):
             case['against'] = ('without softclamp', lambda: fa.flash_attention_packed_plain(
                 q, k, v, mask, scale=scale, softclamp_value=None, **kw)[0])
-        elif n < 8:
+        elif 1 < n < 8:     # (a softmax over one key does not see its scale)
             case['against'] = (scale_fault, lambda: fa.flash_attention_packed_plain(
                 q, k, v, mask, scale=1.05 * scale, softclamp_value=softclamp, **kw)[0])
         if library:
@@ -644,20 +672,29 @@ def kernel_cases(torch, dev, mel_one_tf32):
             return None
 
     def attn_bwd_case(label, b, n, heads, dh, dtype, lens=None, rate=0.0, gated=True,
-                      softclamp=50.0, qk_scale=1.0, timed=False, library=False):
-        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale)
+                      softclamp=50.0, qk_scale=1.0, timed=False, library=False, hash_kw=None,
+                      misaligned=False):
+        """As `attn_case`; timed, also K2's launch alone (`kernel_only`). At
+        n = 1 every grad takes the largest |ref| of them all for its absolute
+        term: dq and dk are rounding alone (a softmax over one key has no
+        logit gradient)."""
+        q, k, v, mask, gate = attn_inputs(b, n, heads, dh, dtype, lens, gated, qk_scale,
+                                          misaligned)
         D, es = heads * dh, esize(dtype)
-        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=4321, gate_logits=gate)
+        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=4321, gate_logits=gate,
+                  **(hash_kw or {}))
         scale = dh ** -0.5
-        out, lse = fa.flash_attention_packed(q, k, v, mask, return_lse=True,
-                                             softclamp_value=softclamp, **kw)
+        fwd = lambda: fa.flash_attention_packed(q, k, v, mask, return_lse=True,
+                                                softclamp_value=softclamp, **kw)
+        out, lse = any_view(fwd)() if misaligned else fwd()
         dout = randn(b, n, D, dtype=dtype)
         bwd = lambda sc: drop_none(fa.flash_attention_packed_backward_plain(
             q, k, v, mask, out, lse, dout, scale=scale, softclamp_value=sc, **kw))
+        run = lambda: drop_none(fa.flash_attention_packed_backward(
+            q, k, v, mask, out, lse, dout, softclamp_value=softclamp, **kw))
         case = dict(
-            kernel='K2', label=label, scaled=True, timed=timed,
-            run=lambda: drop_none(fa.flash_attention_packed_backward(
-                q, k, v, mask, out, lse, dout, softclamp_value=softclamp, **kw)),
+            kernel='K2', label=label, scaled='joint' if n == 1 else True, timed=timed,
+            run=any_view(run) if misaligned else run,
             plain=lambda: bwd(softclamp),
             tol=tol[dtype],
             # reads q, k, v, do, o, lse (+ gate, mask); writes dq, dk, dv (+ d gate)
@@ -673,6 +710,13 @@ def kernel_cases(torch, dev, mel_one_tf32):
             call = sdpa_backward(heads, dh, q, k, v, dout, scale)
             if call is not None:
                 case['library'] = call
+        if timed:
+            # K2's launch alone: the wrapper's K10, dq fill and cast left out
+            delta, do_g = fa.flash_delta(out, dout, heads=heads, gate_logits=gate)
+            dq = torch.zeros((b, n, D), dtype=torch.float32, device=dev)
+            dk, dv = torch.empty_like(dout), torch.empty_like(dout)
+            case['kernel_only'] = lambda: fa.launch_bwd(
+                q, k, v, do_g, mask, lse, delta, dq, dk, dv, heads, scale, softclamp, rate, 4321)
         cases.append(case)
 
     def hc_params(s, d):
@@ -1069,6 +1113,61 @@ def kernel_cases(torch, dev, mel_one_tf32):
                 lambda o, do: torch.einsum('bnhd,bnhd->bnh', split(o), split(do)))
         cases.append(case)
 
+    def keep_bits_case(label, b, n, heads, dh, dtype, hash_kw):
+        """K1 / K2's keep bits against `dropout_keep_mask` at ``hash_kw``, bit
+        for bit: q = k = 0 makes every probability 1 / n, each head's v
+        (forward) and do (backward) the first n columns of the identity, so
+        o and dv are positive exactly where a key is kept (gated: sigmoid(0)
+        = 1/2). The outputs are also held to the plain version."""
+        rate, seed = 0.25, 1234
+        zeros = torch.zeros(b, n, heads * dh, device=dev, dtype=dtype)
+        eye = torch.eye(n, dh, device=dev, dtype=dtype).repeat(b, 1, heads).contiguous()
+        gate = torch.zeros(b, n, heads, device=dev, dtype=dtype)
+        kw = dict(heads=heads, dropout_rate=rate, dropout_seed=seed, gate_logits=gate, **hash_kw)
+        keep = fa.dropout_keep_mask(seed, b * heads, n, rate, device=dev, heads=heads,
+                                    **hash_kw).view(b, heads, n, n)
+        heads_of = lambda t: t.view(b, n, heads, dh).transpose(1, 2)[..., :n]
+
+        def extra():
+            out, lse = fa.flash_attention_packed(zeros, zeros, eye, return_lse=True, **kw)
+            dv = fa.flash_attention_packed_backward(zeros, zeros, eye, None, out, lse, eye,
+                                                    **kw)[2]
+            ok = (torch.equal(heads_of(out) > 0, keep)
+                  and torch.equal(heads_of(dv) > 0, keep.transpose(-1, -2)))
+            return f'; keep bits of o and dv equal to dropout_keep_mask: {ok}', ok
+        cases.append(dict(
+            kernel='K1', label=label,
+            run=lambda: fa.flash_attention_packed(zeros, zeros, eye, return_lse=True, **kw),
+            plain=lambda: fa.flash_attention_packed_plain(zeros, zeros, eye, scale=dh ** -0.5,
+                                                          **kw),
+            tol=attn_tol[dtype], extra=extra))
+
+    def ring_few_case(label, b, n, heads, dh, dtype, P):
+        """The ring (`sp.Loopback`, P shards) over n tokens, K1 / K2 blocks of
+        n / P tokens at their hash_r0 / hash_c0, against one launch over the
+        n: a wholly masked shard, softclamp 50, dropout 0.1, hash_b0 1. K1:
+        the outputs, at `tol` (the ring combines its blocks' bf16 outputs,
+        each rounded once, of order 1 over a few keys, and a block's can
+        exceed the whole's); K2: the q, k, v grads."""
+        from e2_tts_tpu_torch.parallel import sp
+        q, k, v, do = (randn(b, n, heads * dh, dtype=dtype) for _ in range(4))
+        mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+        mask[1, n // P:] = False
+        kw = dict(heads=heads, softclamp_value=50.0, dropout_rate=0.1, dropout_seed=77,
+                  hash_b0=1)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            return out.detach(), tuple(t.grad for t in leaves)
+        ring = lambda: grads(lambda *l: sp.ring_attention(*l, mask, mesh=sp.Loopback(P), **kw))
+        one = lambda: grads(lambda *l: fa.flash_attention_packed(*l, mask, **kw))
+        cases.append(dict(kernel='K1', label=label, run=lambda: ring()[0],
+                          plain=lambda: one()[0], tol=tol[dtype]))
+        cases.append(dict(kernel='K2', label=label, scaled=True, run=lambda: ring()[1],
+                          plain=lambda: one()[1], tol=tol[dtype]))
+
     def bhnd_inputs(b, n, heads, dh, dtype, lens, qk_scale):
         # (b, h, n, dh) views of one (b, n, 3 h dh) projection, as the model hands them to K8
         q, k, v, mask, _ = attn_inputs(b, n, heads, dh, dtype, lens, False, qk_scale)
@@ -1402,7 +1501,8 @@ def kernel_cases(torch, dev, mel_one_tf32):
         probe_case(f'mode {mode} ({B},8,1056,64) bf16', B, 8, n, 64, mode, timed=True)
         probe_case(f'mode {mode} DiT train ({B},{H},1056,{DH}) bf16', B, H, n, DH, mode,
                    timed=True)
-    freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, n)
+    freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, keep_bits_case,
+               ring_few_case)
     return cases
 
 
@@ -1416,11 +1516,27 @@ FREQ_TRAIN_BATCH = TRAIN_BATCH * (FRAMES + 32)
 FREQ_BIG_BATCH = TRAIN_BATCH * (4096 + 32)
 
 
-def freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, n):
+def n_short() -> int:
+    """The largest n K1 / K2 run on their few-token design, read off
+    csrc/flash_attention_short.cuh (the tiled designs above it)."""
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), 'e2_tts_tpu_torch',
+                            'csrc', 'flash_attention_short.cuh')).read()
+    return int(re.search(r'constexpr int N_SHORT = (\d+);', src).group(1))
+
+
+# the dropout hash's place of a launch away from the origin on every axis
+FEW_HASH = dict(hash_b0=3, hash_h0=2, hash_heads=12, hash_r0=5, hash_c0=7)
+
+
+def freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, keep_bits_case,
+               ring_few_case):
     """K1 / K2 / K10 at f = 2 and 4 (bf16 and f32, ragged batches), timed at
-    the flagship's freq training shape beside PyTorch's flash attention
-    (the same function here), and K1 / K2 / K10 / K8 / K9 at 66,048
-    sequences, on both designs."""
+    the flagship's freq training shape and the sampler's (1,056 sequences,
+    2,112 with batched CFG) beside PyTorch's flash attention (the same
+    function here), and K1 / K2 / K10 / K8 / K9 at 66,048 sequences; K1 /
+    K2 at n = 1 ... N_SHORT + 1 with every feature (both designs, the
+    boundary), their keep bits, on misaligned views (the few-token design's
+    scalar path) and as ring blocks of a few tokens."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     fb = FREQ_TRAIN_BATCH
@@ -1430,12 +1546,38 @@ def freq_cases(attn_case, attn_bwd_case, delta_case, bhnd_case, bhnd_bwd_case, n
     attn_bwd_case(f'freq f=2 train ({fb},2,8x64) bf16', fb, 2, 8, 64, bf16, timed=True,
                   library=True, **free)
     delta_case(f'freq f=2 train ({fb},2,8x64) bf16', fb, 2, 8, 64, bf16, timed=True)
+    for sb, what in ((FRAMES + 32, 'sample'), (2 * (FRAMES + 32), 'sample batched CFG')):
+        attn_case(f'freq f=2 {what} ({sb},2,8x64) bf16', sb, 2, 8, 64, bf16, timed=True,
+                  library=True, **free)
     for f in (2, 4):
         for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
             attn_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt, **free)
             attn_bwd_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt,
                           **free)
             delta_case(f'freq f={f} ragged (1037,{f},8x64) {label}', 1037, f, 8, 64, dt)
+    # every feature at a few tokens: a ragged key mask (row 0 whole, row 1 one
+    # key), softclamp 50, the gate, dropout 0.1 at non-zero offsets
+    ns = n_short()
+    for f in sorted({1, 2, 3, 4, 8, 16, ns, ns + 1}):
+        lens = [f, 1] + [1 + (7 * i) % f for i in range(35)]
+        for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+            design = 'few-token' if f <= ns else 'tiled'
+            what = f'few tokens f={f} ({design}) (37,{f},4x64) {label} all features'
+            attn_case(what, 37, f, 4, 64, dt, lens=lens, rate=0.1, hash_kw=FEW_HASH)
+            attn_bwd_case(what, 37, f, 4, 64, dt, lens=lens, rate=0.1, hash_kw=FEW_HASH)
+    for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
+        for f in (2, 3, ns):
+            keep_bits_case(f'few tokens keep bits f={f} (5,{f},3x32) {label} dropout 0.25 '
+                           f'offsets', 5, f, 3, 32, dt, FEW_HASH)
+        for P in (2, 4):
+            ring_few_case(f'few tokens ring of {P} blocks (1037,8,8x64) {label}', 1037, 8, 8, 64,
+                          dt, P)
+        what = f'few tokens misaligned views (scalar path) (23,3,8x64) {label} all features'
+        lens = [3, 1] + [1 + i % 3 for i in range(21)]
+        attn_case(what, 23, 3, 8, 64, dt, lens=lens, rate=0.1, hash_kw=FEW_HASH,
+                  misaligned=True)
+        attn_bwd_case(what, 23, 3, 8, 64, dt, lens=lens, rate=0.1, hash_kw=FEW_HASH,
+                      misaligned=True)
     big = FREQ_BIG_BATCH
     for dt, label in ((bf16, 'bf16'), (f32, 'f32')):
         attn_case(f'batch past gridDim.z ({big},2,8x64) {label}', big, 2, 8, 64, dt, **free)

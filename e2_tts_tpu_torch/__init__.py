@@ -15,11 +15,16 @@ resampling, and background prefetch), the dual-stream `Transformer`, and
 the kernels on those paths: packed and (b, h, n, dh) flash attention
 forward and backward with the backward's delta pre-pass, the two
 hyper-connection width connections (and their save-state variants) and
-GEGLU, each forward and backward, and the fused log-mel frontend. Data
-parallelism (`parallel/`: DDP or FSDP2 over torch.distributed, a step of
-the global batch) and tensor parallelism (`parallel/tp.py`: heads and
-GEGLU columns over a `model` axis) are ported; sequence parallelism is
-not.
+GEGLU, each forward and backward, and the fused log-mel frontend. Every
+constructor option of the JAX package runs: the frequency axis
+(`num_freq_tokens`), `concat_cond`, `interpolated_text`, the FANformer
+input map, selective remat, the adaptive ODE solvers, `scan_layers` (the
+JAX package's stacked layer layout through the weight bridge), the Vocos,
+tokenizer and feedforward options. Data parallelism (`parallel/`: DDP or
+FSDP2 over torch.distributed, a step of the global batch), tensor
+parallelism (`parallel/tp.py`: heads and GEGLU columns over a `model` axis)
+and sequence parallelism (`parallel/sp.py`: ring attention over a `seq`
+axis, `E2Trainer(sequence_parallel=P)`) are ported.
 
 Entry points run on the GPU unless the caller passes `device='cpu'`; the
 CPU path uses each kernel's plain PyTorch version and exists for tests.

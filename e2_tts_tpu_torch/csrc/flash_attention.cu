@@ -9,7 +9,10 @@
 // q/k/v are read straight from the (b, n, h*dh) projection layout: a row
 // stride and a head offset, no transpose in or out.
 //
-// Two designs, chosen here by the dtype:
+// The design, chosen here: a sequence of at most N_SHORT tokens (the
+// frequency attention's) runs the few-token kernels of
+// flash_attention_short.cuh, bf16 or f32 (many (sequence, head) pairs a
+// block, f32 on the CUDA cores); a longer one, by the dtype:
 //   bf16: flash_fwd_kernel of flash_attention_sm90.cuh, K8's Hopper
 //     design (wgmma products on register-resident scores, a cp.async K/V
 //     ring; the gate folded into its epilogue);
@@ -25,6 +28,7 @@
 // 136 blocks of one warpgroup fill the 132 SMs in one wave.
 #include "flash_attention.cuh"
 #include "flash_attention_sm90.cuh"
+#include "flash_attention_short.cuh"
 
 namespace {
 
@@ -74,5 +78,9 @@ extern "C" int e2_flash_fwd(const void* q, const void* k, const void* v, long lo
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
   p.hash_rc = hash_rc;
+  // the design: the few-token kernels up to N_SHORT tokens, the tiled ones above
+  if (n <= short_seq::N_SHORT)
+    return (int)short_seq::launch_fwd(p, dtype == e2::kBFloat16,
+                                         static_cast<cudaStream_t>(stream));
   return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

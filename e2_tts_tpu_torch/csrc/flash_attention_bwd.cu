@@ -18,7 +18,10 @@
 // ds are rounded to the compute dtype before the three products, as the
 // TPU kernel rounds them.
 //
-// Two designs, chosen here by the dtype:
+// The design, chosen here: a sequence of at most N_SHORT tokens (the
+// frequency attention's) runs the few-token kernels of
+// flash_attention_short.cuh, bf16 or f32 (dq added by plain read-add-write:
+// one lane group owns each element); a longer one, by the dtype:
 //   bf16: flash_bwd_kernel of flash_attention_sm90.cuh, K9's Hopper
 //     design: one warpgroup a block owns 64 keys with dk and dv in
 //     registers, wgmma products on register-resident scores, q / do /
@@ -26,8 +29,9 @@
 //     (b, n, h*dh) buffer by red.global.add.v4.f32;
 //   f32: flash_bwd_kernel of flash_attention.cuh (FMA loops, dq by
 //     atomicAdd).
-// The summation order of dq over key tiles changes from run to run, so dq
-// agrees with a fixed-order sum to f32 rounding, not bit for bit.
+// In the tiled designs the summation order of dq over key tiles changes from
+// run to run, so dq agrees with a fixed-order sum to f32 rounding, not bit
+// for bit.
 //
 // What bounds it: at the training shape (16, 1056, 8 heads x 64) the five
 // n x n x dh products are ~36 GFLOP against ~70 MB of q, k, v, do, dq, dk,
@@ -36,6 +40,7 @@
 // less time than the products).
 #include "flash_attention.cuh"
 #include "flash_attention_sm90.cuh"
+#include "flash_attention_short.cuh"
 
 namespace {
 
@@ -175,5 +180,9 @@ extern "C" int e2_flash_bwd(const void* q, const void* k, const void* v, long lo
   p.seed = seed; p.threshold = threshold; p.dropping = dropping;
   p.hash_b0 = hash_b0; p.hash_h0 = hash_h0; p.hash_heads = hash_heads;
   p.hash_rc = hash_rc;
+  // the design: the few-token kernels up to N_SHORT tokens, the tiled ones above
+  if (n <= short_seq::N_SHORT)
+    return (int)short_seq::launch_bwd(p, dtype == e2::kBFloat16,
+                                         static_cast<cudaStream_t>(stream));
   return (int)dispatch_dh(p, dtype == e2::kBFloat16, static_cast<cudaStream_t>(stream));
 }

@@ -13,14 +13,22 @@ probe ``scripts/_kernel_floor.py::kern``. The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1), ``csrc/flash_attention_bwd.cu`` (K2, K10),
 ``csrc/flash_attention_bhnd.cu`` (K8, K9) and ``csrc/flash_probe.cu`` (the
 probe). The source notes say what bounds them on the H100 and how their
-designs answer. In short: tensor-core bound at the model's shapes. Two
-designs: bf16 K1/K2 and bf16 K8/K9 on heads up to 128 run the Hopper design
-of ``csrc/flash_attention_sm90.cuh`` (wgmma products on register-resident
+designs answer. In short: tensor-core bound over the model's long
+sequences, bytes across a few tokens. K1 / K2 have two designs and one rule
+between them, a comparison in their C entry points: a sequence of at most
+``N_SHORT`` tokens (``csrc/flash_attention_short.cuh``; the frequency
+attention's f tokens) runs the few-token design of that header, bf16 or
+f32 (a group of lanes a (sequence, head) pair, many pairs a block, every
+score, probability and product in f32 on the CUDA cores, any view of the
+projection); a longer one runs the tiled designs. Of those, bf16 K1/K2 and
+bf16 K8/K9 on heads up to 128 run the Hopper design of
+``csrc/flash_attention_sm90.cuh`` (wgmma products on register-resident
 scores, cp.async tile rings, dq by vector reductions), and the probe is
 that design's forward with its probe flag (K8 with the softmax's pieces
 compiled out); f32 and K8/K9 on heads wider than 128 run the wmma
 templates of ``csrc/flash_attention.cuh`` (score tiles in shared memory).
-The C entry points choose the design from the dtype and dim_head.
+The C entry points choose the design from the length, the dtype and
+dim_head; no argument or setting does.
 `_FlashPacked` (K1 + K2) and `_Flash` (K8 + K9) are the
 ``torch.autograd.Function`` s.
 

@@ -25,6 +25,7 @@ bit before the rounding).
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -122,12 +123,16 @@ def test_geglu_kernel(dev, dtype, inner, rate, offset):
     _close(got, gk.geglu_dropout_plain(h2, 99, rate), dtype)
 
 
-def _close_grads(out, ref, dtype):
+def _close_grads(out, ref, dtype, joint=False):
+    """Each grad within `TOL`'s relative term, its absolute term scaled by
+    its largest |ref| (``joint``: by the largest |ref| of all the grads)."""
     rtol = TOL[dtype]['rtol']
+    scale = max(float(r.float().abs().max()) for r in ref)
     for o, r in zip(out, ref):
         o, r = o.float(), r.float()
         assert torch.isfinite(o).all()
-        torch.testing.assert_close(o, r, rtol=rtol, atol=rtol * float(r.abs().max()) + 1e-12)
+        torch.testing.assert_close(o, r, rtol=rtol, atol=rtol * (
+            scale if joint else float(r.abs().max())) + 1e-12)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -1066,10 +1071,12 @@ def test_trainer_resume_round_trip(dev, tmp_path):
 
 
 def _close_few_tokens(out, ref, dtype):
-    """Attention over a few tokens: outputs are means of a few value rows of
-    order 1, and bf16 kernels round each probability before the product
-    (2**-9 max |v|) and the output after it (up to 2**-8 |o|): 2e-2 + 1e-2
-    |ref| in bf16, `TOL` in f32."""
+    """K8 / K9, and K1's tiled design past N_SHORT, over a few tokens:
+    outputs are means of a few value rows of order 1, and the bf16 tiled
+    kernels round each probability before the product (2**-9 max |v|) and
+    the output after it (up to 2**-8 |o|): 2e-2 + 1e-2 |ref| in bf16, `TOL`
+    in f32. (K1 / K2 up to N_SHORT tokens run the few-token design, f32
+    probabilities: `TOL`.)"""
     tol = dict(atol=2e-2, rtol=1e-2) if dtype == torch.bfloat16 else TOL[dtype]
     for o, r in zip(out, ref):
         torch.testing.assert_close(o.float(), r.float(), **tol)
@@ -1088,11 +1095,11 @@ def test_flash_kernels_across_frequency_tokens(dev, dtype, b, f):
     kw = dict(heads=h, softclamp_value=None)
     before = dict(_cuda.launch_counts)
     out, lse = fa.flash_attention_packed(q, k, v, return_lse=True, **kw)
-    _close_few_tokens((out, lse), fa.flash_attention_packed_plain(q, k, v, scale=dh ** -0.5,
-                                                                  **kw), dtype)
+    # the few-token design keeps its probabilities in f32: the usual limits
+    _close((out, lse), fa.flash_attention_packed_plain(q, k, v, scale=dh ** -0.5, **kw), dtype)
     with pytest.raises(AssertionError):             # the limit sees a 5% scale fault
-        _close_few_tokens((out,), fa.flash_attention_packed_plain(
-            q, k, v, scale=1.05 * dh ** -0.5, **kw), dtype)
+        _close(out, fa.flash_attention_packed_plain(q, k, v, scale=1.05 * dh ** -0.5, **kw)[0],
+               dtype)
     dout = torch.randn(b, f, h * dh, generator=g, device=dev).to(dtype)
     got = fa.flash_attention_packed_backward(q, k, v, None, out, lse, dout, **kw)[:3]
     ref = fa.flash_attention_packed_backward_plain(q, k, v, None, out, lse, dout,
@@ -1100,6 +1107,144 @@ def test_flash_kernels_across_frequency_tokens(dev, dtype, b, f):
     _close_grads(got, ref, dtype)
     for name in ('flash_fwd', 'flash_bwd', 'flash_delta'):
         assert _cuda.launch_counts[name] == before[name] + 1
+
+
+def _n_short():
+    """The largest n the few-token K1 / K2 take
+    (csrc/flash_attention_short.cuh; the tiled designs above it)."""
+    src = (_cuda.CSRC / 'flash_attention_short.cuh').read_text()
+    return int(re.search(r'constexpr int N_SHORT = (\d+);', src).group(1))
+
+
+N_SHORT = _n_short()
+# the dropout hash's place of a launch away from the origin on every axis
+FEW_HASH = dict(hash_b0=3, hash_h0=2, hash_heads=12, hash_r0=5, hash_c0=7)
+
+
+def _few_inputs(dev, dtype, b, n, h, dh, seed):
+    """q, k, v views of one (b, n, 3 h dh) projection, a ragged key mask
+    (row 0 whole, row 1 a single key), gate logits and an output grad."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = h * dh
+    q, k, v = torch.randn(b, n, 3 * D, generator=g, device=dev).to(dtype).split(D, dim=-1)
+    lens = torch.randint(1, n + 1, (b,), generator=g, device=dev)
+    lens[0], lens[1] = n, 1
+    mask = torch.arange(n, device=dev)[None] < lens[:, None]
+    gate = (2 * torch.randn(b, n, h, generator=g, device=dev)).to(dtype)
+    dout = torch.randn(b, n, D, generator=g, device=dev).to(dtype)
+    return q, k, v, mask, gate, dout
+
+
+def _check_few(q, k, v, mask, gate, dout, heads, fault=True, **kw):
+    """K1, then K2 with K10, against the plain versions at `TOL` (past
+    N_SHORT, K1 at `_close_few_tokens`; a softmax over one key has no logit
+    gradient: at n = 1 dq and dk are rounding alone, held to the grads'
+    joint scale); with ``fault`` a plain version with its softmax scale 5%
+    off must fail K1's limit."""
+    n, dh = q.shape[1], q.shape[-1] // heads
+    kw = dict(heads=heads, gate_logits=gate, **kw)
+    before = dict(_cuda.launch_counts)
+    out, lse = fa.flash_attention_packed(q, k, v, mask, return_lse=True, **kw)
+    # past N_SHORT the tiled bf16 design rounds each probability (`_close_few_tokens`)
+    close = _close if n <= N_SHORT else _close_few_tokens
+    close((out, lse), fa.flash_attention_packed_plain(q, k, v, mask, scale=dh ** -0.5, **kw),
+          q.dtype)
+    if fault:
+        with pytest.raises(AssertionError):
+            close((out,), fa.flash_attention_packed_plain(q, k, v, mask, scale=1.05 * dh ** -0.5,
+                                                          **kw)[:1], q.dtype)
+    got = fa.flash_attention_packed_backward(q, k, v, mask, out, lse, dout, **kw)
+    ref = fa.flash_attention_packed_backward_plain(q, k, v, mask, out, lse, dout,
+                                                   scale=dh ** -0.5, **kw)
+    _close_grads(_drop_none(got), _drop_none(ref), q.dtype, joint=n == 1)
+    for name in ('flash_fwd', 'flash_bwd', 'flash_delta'):
+        assert _cuda.launch_counts[name] == before[name] + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 8, 16, N_SHORT, N_SHORT + 1])
+def test_flash_few_tokens(dev, dtype, n):
+    """K1 / K2 at a few tokens, up to N_SHORT on the few-token design and
+    past it on the tiled one: a ragged key mask, softclamp 50, the gate,
+    dropout 0.1 at non-zero hash offsets on every axis, at the usual limits
+    (the few-token design keeps its probabilities in f32)."""
+    _check_few(*_few_inputs(dev, dtype, 37, n, 4, 64, seed=40 + n), heads=4, fault=n > 1,
+               softclamp_value=50.0, dropout_rate=0.1, dropout_seed=99, **FEW_HASH)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('dh', [32, 128])
+def test_flash_few_tokens_every_head(dev, dtype, dh):
+    """The few-token K1 / K2 at dim_head 32 and 128 (groups of 4 to 32
+    lanes), f = 3, every feature on."""
+    _check_few(*_few_inputs(dev, dtype, 29, 3, 2, dh, seed=dh), heads=2, softclamp_value=50.0,
+               dropout_rate=0.1, dropout_seed=5, **FEW_HASH)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n', [2, 3, 16])
+def test_flash_few_tokens_keep_bits(dev, dtype, n):
+    """The few-token K1 / K2 draw `dropout_keep_mask`'s bits at every hash
+    offset, bit for bit: q = k = 0 makes every probability 1 / n, each
+    head's v (forward) and do (backward) are the first n columns of the
+    identity, so o and dv are positive exactly where a key is kept (gated:
+    sigmoid(0) = 1/2)."""
+    b, h, dh, rate, seed = 5, 3, 32, 0.25, 1234
+    zeros = torch.zeros(b, n, h * dh, device=dev, dtype=dtype)
+    eye = torch.eye(n, dh, device=dev, dtype=dtype).repeat(b, 1, h).contiguous()
+    gate = torch.zeros(b, n, h, device=dev, dtype=dtype)
+    keep = fa.dropout_keep_mask(seed, b * h, n, rate, device=dev, heads=h,
+                                **FEW_HASH).view(b, h, n, n)
+    kw = dict(heads=h, dropout_rate=rate, dropout_seed=seed, gate_logits=gate, **FEW_HASH)
+    out, lse = fa.flash_attention_packed(zeros, zeros, eye, return_lse=True, **kw)
+    heads_of = lambda t: t.view(b, n, h, dh).transpose(1, 2)[..., :n]
+    assert torch.equal(heads_of(out) > 0, keep)
+    _, _, dv, _ = fa.flash_attention_packed_backward(zeros, zeros, eye, None, out, lse, eye,
+                                                     **kw)
+    assert torch.equal(heads_of(dv) > 0, keep.transpose(-1, -2))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_flash_few_tokens_misaligned_views(dev, dtype, monkeypatch):
+    """The few-token K1 / K2 read q, k, v through element loads where a
+    view's start or row stride is not in whole 16 bytes (the scalar path):
+    views of a (b, n, 3 h dh + 1) projection, one element in. The wrappers
+    refuse such views (the tiled designs take 16-byte chunks), so their
+    operand check is stood aside here and the entry points read them."""
+    monkeypatch.setattr(fa, '_check_operand', lambda t, name, shape, device, dt, vec:
+                        _cuda.check_cuda_tensor(t, name, device, dt))
+    b, n, h, dh = 23, 3, 8, 64
+    D = h * dh
+    q, k, v, mask, gate, dout = _few_inputs(dev, dtype, b, n, h, dh, seed=8)
+    qkv = torch.cat((torch.zeros(b, n, 1, device=dev, dtype=dtype), q, k, v), dim=-1)
+    q, k, v = qkv[..., 1:D + 1], qkv[..., D + 1:2 * D + 1], qkv[..., 2 * D + 1:]
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    _check_few(q, k, v, mask, gate, dout, heads=h, softclamp_value=50.0, dropout_rate=0.1,
+               dropout_seed=3, **FEW_HASH)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('P', [2, 4])
+def test_ring_few_tokens_matches_one_launch(dev, P, dtype):
+    """The ring (`sp.Loopback`, P shards) over 8 tokens runs few-token K1 /
+    K2 blocks of 8 / P tokens at their hash_r0 / hash_c0 against one
+    launch over the 8: a wholly masked shard, softclamp 50, dropout 0.1."""
+    from e2_tts_tpu_torch.parallel import sp
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, heads, n, dh = 41, 8, 8, 64
+    q, k, v, do = (torch.randn(b, n, heads * dh, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    mask[1, 3:] = False
+    kw = dict(heads=heads, softclamp_value=50.0, dropout_rate=0.1, dropout_seed=77, hash_b0=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sp.ring_attention(*leaves, mask, mesh=sp.Loopback(P), **kw)
+    ref = fa.flash_attention_packed(*refs, mask, **kw)
+    _close(out, ref, dtype)
+    out.backward(do)
+    ref.backward(do)
+    _close_grads([t.grad for t in leaves], [t.grad for t in refs], dtype)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])

@@ -166,3 +166,43 @@ def test_packed_wrappers_pass_the_gate_and_do_g(recorder, dtype, dh, gated):
         assert bargs[9] == do_g                                 # K2's do: K10's do_g
     else:
         assert do_g is None and bargs[9] == dout.data_ptr()
+
+
+def _n_short() -> int:
+    src = (_cuda.CSRC / 'flash_attention_short.cuh').read_text()
+    found = re.findall(r'constexpr int N_SHORT = (\d+);', src)
+    assert len(found) == 1
+    return int(found[0])
+
+
+@pytest.mark.parametrize('source,kind', [('flash_attention.cu', 'fwd'),
+                                         ('flash_attention_bwd.cu', 'bwd')])
+def test_packed_entry_points_branch_on_the_length(source, kind):
+    """K1 and K2's entry points take one rule between their two designs: a
+    sequence of at most N_SHORT tokens (8 to 64: the measured crossover)
+    launches the few-token kernels, bf16 or f32, before the dtype's tiled
+    dispatch; nothing else (an argument, an environment variable) picks a
+    design."""
+    entry = _entry_point(source, f'e2_flash_{kind}')
+    short = entry.index('if (n <= short_seq::N_SHORT)')
+    assert entry.index(f'return (int)short_seq::launch_{kind}(p, dtype == e2::kBFloat16,') > short
+    assert entry.index('return (int)dispatch_dh(p, dtype == e2::kBFloat16,') > short
+    assert entry.count('short_seq::N_SHORT') == 1 and 'getenv' not in entry
+    assert 8 <= _n_short() <= 64
+    src = (_cuda.CSRC / 'flash_attention_short.cuh').read_text()
+    assert 'getenv' not in src and '__nv_bfloat16' in src and 'launch_fwd_dh<float>' in src
+
+
+@pytest.mark.parametrize('n', [1, 2, 8, 65])
+def test_packed_wrappers_pass_any_length(recorder, n):
+    """The wrappers hand every length to the same entry points (the rule is
+    in C): no Python route depends on n."""
+    b, h, dh = 2, 3, 64
+    D = h * dh
+    q, k, v = torch.zeros(b, n, 3 * D, dtype=BF16).split(D, dim=-1)
+    out, lse = fa._flash_cuda(q, k, v, None, h, dh ** -0.5, None, 0.0, 0, None)
+    fa._flash_bwd_cuda(q, k, v, None, out, lse, torch.zeros(b, n, D, dtype=BF16), h,
+                       dh ** -0.5, None, 0.0, 0, None)
+    names = [name for name, _ in recorder.calls]
+    assert names == ['e2_flash_fwd', 'e2_flash_delta', 'e2_flash_bwd']
+    assert recorder.calls[0][1][14] == recorder.calls[2][1][17] == n     # the length
